@@ -1,0 +1,164 @@
+"""Build and bind the port's CUDA kernels (``kernels/csrc``).
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links them into one shared library with
+a plain C interface, which :mod:`ctypes` loads. No source includes
+PyTorch's headers, so a cold build takes seconds. The library lands in a
+directory keyed by a hash of the sources and flags (default
+``build/kernels`` at the repository root, which ``.gitignore`` lists); a
+later process with the same sources loads it without compiling.
+
+Nothing here runs at import: the first kernel launch calls
+:func:`library`, so the CPU-only tests import the package without a
+compiler.
+
+This module also keeps the launch counts: each wrapper calls
+:func:`count_launch` right where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, List, Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+DEFAULT_BUILD_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "..", "build", "kernels")
+)
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+LIB_NAME = "librepro_torch_kernels.so"
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t)
+_SIGNATURES = {
+    "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _P),
+    "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _P),
+    "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _P),
+    "rt_kalman_scan": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _F, _F, _P),
+}
+
+KERNELS = ("rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan")
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def sources() -> List[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(build_dir: str = DEFAULT_BUILD_DIR) -> str:
+    """Compile the kernels unless this source hash is built; returns the path."""
+    out_dir = os.path.join(build_dir, _digest())
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.isfile(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log: List[str] = []
+        failed = []
+        for src, _obj, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {os.path.basename(src)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(os.path.basename(src))
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write("\n".join(log))
+        if failed:
+            raise KernelBuildError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", tmp_lib, *(obj for _s, obj, _p in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)  # atomic: a concurrent builder sees all or nothing
+    return lib_path
+
+
+def build_log(build_dir: str = DEFAULT_BUILD_DIR) -> str:
+    """nvcc's output of the current build (ptxas register and spill counts)."""
+    path = os.path.join(build_dir, _digest(), "build.log")
+    if not os.path.isfile(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch was refused (the C entry returns cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -1,0 +1,24 @@
+// K1 rmsnorm: y = x * rsqrt(mean(x^2) + eps) * scale, f32 math, output in
+// x's dtype (float32 or bfloat16).
+//
+// Replaces the Pallas kernel repro/kernels/rmsnorm.py:rmsnorm (pallas_call
+// at :55). It reads each element once and writes it once, so the card's
+// memory rate bounds it; the narrow (B, 5) event batches of the stream
+// path are bound by launch latency instead. Design: one thread per row for
+// narrow rows (the row stays in registers), one block per row for model
+// widths; the input may be a strided view (row stride `stride`, inner
+// stride 1), so the stream path passes x[:, 1:6] without a copy.
+#include "common.cuh"
+
+extern "C" int rt_rmsnorm(const void* x, int64_t stride, const float* scale, void* y,
+                          int64_t rows, int d, float eps, int is_bf16, void* stream) {
+  const rt::Stages none = rt::make_stages(nullptr, nullptr, 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return rt::launch_rms_rows<__nv_bfloat16, false>(
+        static_cast<const __nv_bfloat16*>(x), stride, scale, static_cast<__nv_bfloat16*>(y),
+        rows, d, eps, none, s);
+  }
+  return rt::launch_rms_rows<float, false>(static_cast<const float*>(x), stride, scale,
+                                           static_cast<float*>(y), rows, d, eps, none, s);
+}

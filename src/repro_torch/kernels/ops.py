@@ -1,0 +1,63 @@
+"""Device-dispatching kernel entry points, the port's ``repro.kernels.ops``.
+
+Each entry point looks at the tensor it is given: on a CUDA tensor it
+launches the hand-written kernel (and raises if the build or the launch
+fails; there is no fallback), anywhere else it runs the plain PyTorch
+version from :mod:`repro_torch.kernels.ref`. The operators call these, so
+the CPU tests and the card run the same operator code.
+
+:func:`launch_counts` reports the CUDA launches per kernel since the last
+:func:`reset_launch_counts`, which is how a run proves that its main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from . import ref
+from .build import launch_counts, reset_launch_counts  # noqa: F401 — public surface
+
+Stages = Sequence[Tuple[float, float]]
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if x.is_cuda:
+        from .rmsnorm import rmsnorm as _cuda
+
+        return _cuda(x, scale, eps=eps)
+    return ref.rmsnorm_ref(x, scale, eps)
+
+
+def map_chain(x: torch.Tensor, *, stages: Stages) -> torch.Tensor:
+    """Sequential per-channel affine stages — the fused senml_parse chain."""
+    if x.is_cuda:
+        from .fused import map_chain as _cuda
+
+        return _cuda(x, stages)
+    return ref.map_chain_ref(x, stages)
+
+
+def affine_rmsnorm(
+    x: torch.Tensor, scale: torch.Tensor, *, stages: Stages, eps: float = 1e-6
+) -> torch.Tensor:
+    """Affine decode chain feeding an RMS-norm tail, one fused pass."""
+    if x.is_cuda:
+        from .fused import affine_rmsnorm as _cuda
+
+        return _cuda(x, scale, stages, eps=eps)
+    return ref.affine_rmsnorm_ref(x, scale, stages, eps)
+
+
+def kalman_scan(
+    z: torch.Tensor, xe: torch.Tensor, p: torch.Tensor, q: float, r: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-channel scalar Kalman filter over the rows of ``z`` (B, C)."""
+    if z.is_cuda:
+        from .kalman import kalman_scan as _cuda
+
+        return _cuda(z, xe, p, q, r)
+    if z.device.type == "meta":  # shape probe (runtime/segment.py): no row loop
+        return torch.empty(z.shape, dtype=torch.float32, device="meta"), xe, p
+    return ref.kalman_scan_ref(z, xe, p, q, r)

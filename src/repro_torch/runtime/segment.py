@@ -1,0 +1,224 @@
+"""Segments — partial DAGs stepped as one unit (the Storm-topology analogue).
+
+The port of ``repro.runtime.segment``. A segment owns a subset of a
+running DAG's tasks and steps their composition in topological order;
+structural changes launch new segments wired through the broker
+(incremental merge) or replace a chain of segments by one fused segment.
+
+Batched event semantics:
+  * every stream carries one ``(B_t, EVENT_WIDTH)`` batch per step;
+  * a task's input batch is the concatenation of its parents' outputs in
+    canonical order (sorted by Merkle ancestor signature — equivalent tasks
+    sort identically, so Default and Reuse runs process events in the same
+    order);
+  * interleave semantics ⇒ B_task = Σ B_parent; sources emit B₀.
+
+Pause (paper §4.3): each task has a host-side ``active`` flag. A paused
+task's operator is skipped and it emits zeros of its output shape, which a
+shape probe on the ``meta`` device finds when the segment is built. The
+flags are Python bools, so neither pausing nor stepping waits for the card.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
+
+import torch
+
+from repro_torch.core.graph import Dataflow
+from repro_torch.ops import EVENT_WIDTH, Operator, operator_for_task
+
+from .backend import SegmentSpec
+from .broker import topic_for
+
+PyTree = Any
+
+
+@dataclass
+class Segment:
+    spec: SegmentSpec
+    operators: Dict[str, Operator]
+    step_fn: Callable  # (states, active, inputs) -> (states, outputs)
+    states: Dict[str, PyTree]
+    active: Dict[str, bool]
+    boundary_topics: List[str]  # topics fetched from the broker each step
+    cost_of: Dict[str, float] = field(default_factory=dict)  # per-task cost_weight
+    # tail task -> the run (head .. tail) its multi-op kernel computes
+    fused_runs: Dict[str, List[str]] = field(default_factory=dict)
+
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    def pause(self, task_ids: Set[str]) -> None:
+        for tid in task_ids:
+            if tid in self.active:
+                self.active[tid] = False
+
+    def resume(self, task_ids: Set[str]) -> None:
+        for tid in task_ids:
+            if tid in self.active:
+                self.active[tid] = True
+
+
+def _peephole_fused_kernels(
+    spec: SegmentSpec,
+    dataflow: Dataflow,
+    operators: Dict[str, Operator],
+    parents: Dict[str, List[str]],
+    device: torch.device | str = "cpu",
+) -> Dict[str, List[str]]:
+    """Collapse straight-line elementwise runs onto the multi-op kernels.
+
+    Within a fused segment, a run ``elementwise → … → (rmsnorm|elementwise)``
+    where every link is a private single-parent/single-consumer edge
+    computes a pure composition — the tail's operator is swapped for one
+    fused kernel applied to the run head's input
+    (``repro_torch.ops.riot.make_fused_operator``), so the whole run is one
+    launch on the card. Interior operators keep computing: every task's
+    output stays published-switchable (a later merge may subscribe to any
+    topic).
+
+    Mutates ``operators`` and ``parents`` (the step closure's locals) only —
+    ``spec`` is untouched, so boundary wiring, state structure and per-task
+    cost accounting are unchanged. A copy of the reference's peephole that
+    also returns the runs it swapped, as ``{tail: [head, …, tail]}``.
+    """
+    runs: Dict[str, List[str]] = {}
+    if not spec.fused:
+        return runs
+    from repro_torch.ops.riot import FUSABLE_ELEMENTWISE, FUSED_TAILS, make_fused_operator
+
+    in_segment = set(spec.task_ids)
+    children: Dict[str, List[str]] = {}
+    for t in spec.task_ids:
+        for p in parents[t]:
+            if p in in_segment:
+                children.setdefault(p, []).append(t)
+    used: Set[str] = set()
+    for tid in reversed(spec.task_ids):  # tails first (task_ids is topo-sorted)
+        if tid in used or dataflow.tasks[tid].type not in FUSED_TAILS:
+            continue
+        run = [tid]
+        cur = tid
+        while True:
+            ps = parents[cur]
+            if len(ps) != 1:
+                break
+            p = ps[0]
+            if (
+                p not in in_segment
+                or children.get(p) != [cur]
+                or dataflow.tasks[p].type not in FUSABLE_ELEMENTWISE
+            ):
+                break
+            run.append(p)
+            cur = p
+        if len(run) < 2:
+            continue
+        run.reverse()  # head .. tail
+        fused_op = make_fused_operator(
+            [dataflow.tasks[t] for t in run], batch=spec.batch_of[tid], device=device
+        )
+        if fused_op is None:
+            continue
+        operators[tid] = fused_op
+        parents[tid] = list(parents[run[0]])
+        used.update(run[:-1])
+        runs[tid] = run
+    return runs
+
+
+def _output_shape(task, batch: int) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """Shape and dtype of a task's output batch, from a ``meta``-device run.
+
+    Operators may change the event width, so a paused task's zeros take the
+    operator's output shape, not its input's. Meta tensors carry shapes
+    only: the probe computes nothing and launches no kernel.
+    """
+    op = operator_for_task(task, batch=batch, device="meta")
+    x = torch.empty((batch, EVENT_WIDTH), dtype=torch.float32, device="meta")
+    _, y = op.apply(op.init_state(batch), x)
+    return tuple(y.shape), y.dtype
+
+
+def build_segment(
+    spec: SegmentSpec,
+    dataflow: Dataflow,
+    init_states: Optional[Dict[str, PyTree]] = None,
+    device: torch.device | str = "cpu",
+) -> Segment:
+    """Build a segment: its operators on ``device`` and one step function."""
+    device = torch.device(device)
+    operators: Dict[str, Operator] = {}
+    for tid in spec.task_ids:
+        operators[tid] = operator_for_task(
+            dataflow.tasks[tid], batch=spec.batch_of[tid], device=device
+        )
+
+    in_segment = set(spec.task_ids)
+    boundary_parents: List[str] = []
+    for tid in spec.task_ids:
+        for p in spec.parents[tid]:
+            if p not in in_segment and p not in boundary_parents:
+                boundary_parents.append(p)
+    boundary_topics = [topic_for(p) for p in boundary_parents]
+
+    states: Dict[str, PyTree] = {}
+    for tid in spec.task_ids:
+        if init_states and tid in init_states:
+            states[tid] = init_states[tid]
+        else:
+            states[tid] = operators[tid].init_state(spec.batch_of[tid])
+    active = {tid: True for tid in spec.task_ids}
+
+    task_ids = list(spec.task_ids)
+    parents = {t: list(spec.parents[t]) for t in task_ids}
+    batch_of = dict(spec.batch_of)
+    out_shape = {
+        tid: _output_shape(dataflow.tasks[tid], batch_of[tid])
+        for tid in task_ids
+        if not (operators[tid].is_source or operators[tid].is_sink)
+    }
+    fused_runs = _peephole_fused_kernels(spec, dataflow, operators, parents, device=device)
+
+    def step_fn(
+        states: Dict[str, PyTree],
+        active: Dict[str, bool],
+        inputs: Dict[str, torch.Tensor],
+    ):
+        outputs: Dict[str, torch.Tensor] = {}  # task id -> output batch
+        new_states: Dict[str, PyTree] = {}
+        for tid in task_ids:
+            op, st = operators[tid], states[tid]
+            y: Optional[torch.Tensor] = None
+            if not active[tid]:
+                st2 = st
+                if op.is_source:
+                    y = torch.zeros((batch_of[tid], EVENT_WIDTH), dtype=torch.float32, device=device)
+                elif not op.is_sink:
+                    shape, dtype = out_shape[tid]
+                    y = torch.zeros(shape, dtype=dtype, device=device)
+            elif op.is_source:
+                st2, y = op.apply(st)
+            else:
+                xs = [outputs[p] if p in outputs else inputs[topic_for(p)] for p in parents[tid]]
+                x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+                st2, y = op.apply(st, x)
+            new_states[tid] = st2
+            if y is not None:
+                outputs[tid] = y
+        # All task outputs come back; the backend publishes the forwarding
+        # subset to the broker (runtime-switchable, no rebuild).
+        return new_states, outputs
+
+    return Segment(
+        spec=spec,
+        operators=operators,
+        step_fn=step_fn,
+        states=states,
+        active=active,
+        boundary_topics=boundary_topics,
+        cost_of={tid: operators[tid].cost_weight for tid in spec.task_ids},
+        fused_runs=fused_runs,
+    )

@@ -1,0 +1,153 @@
+"""The port's kernels: plain versions against the reference, wrappers, dispatch.
+
+On the CPU the kernel entry points run the plain PyTorch versions, which
+are held here to ``repro.kernels.ref`` and to the Pallas kernels in
+interpret mode (as tests/test_kernels.py runs them), at the f32 precedent
+of that file (2e-5; 2e-2 for bf16). The CUDA kernels themselves run only
+on the card: tests/test_torch_gpu.py (marked ``gpu``) and ``chip_smoke.py``
+hold every kernel to its plain version there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.fused import affine_rmsnorm as pallas_affine_rmsnorm
+from repro.kernels.fused import map_chain as pallas_map_chain
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro_torch.kernels import build, fused, kalman, ops, ref, rmsnorm
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+STAGES = ((2.0, 0.5), (0.7, -0.1))
+
+
+def _tol(dtype):
+    return BF16_TOL if dtype == "bfloat16" else F32_TOL
+
+
+def _inputs(shape, dtype="float32", seed=0):
+    g = np.random.default_rng(seed)
+    x32 = g.standard_normal(shape).astype(np.float32) * 3.0
+    scale = (1.0 + 0.1 * g.standard_normal(shape[-1:])).astype(np.float32)
+    xj = jnp.asarray(x32).astype(jnp.dtype(dtype))
+    xt = torch.from_numpy(x32).to(getattr(torch, dtype))
+    return xj, xt, jnp.asarray(scale), torch.from_numpy(scale)
+
+
+def _np(t):
+    return np.asarray(t, dtype=np.float32) if not isinstance(t, torch.Tensor) else t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 5), (4, 128), (2, 7, 256), (1, 33, 512)])
+def test_rmsnorm_plain_matches_reference(shape, dtype):
+    xj, xt, sj, st = _inputs(shape, dtype)
+    got = ref.rmsnorm_ref(xt, st)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    np.testing.assert_allclose(_np(got), _np(jref.rmsnorm_ref(xj, sj)), **_tol(dtype))
+    pallas = pallas_rmsnorm(xj, sj, block_rows=8, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(17, 5), (33, 8)])
+def test_fused_plain_match_reference(shape):
+    xj, xt, sj, st = _inputs(shape, seed=3)
+    got_map = ref.map_chain_ref(xt, STAGES)
+    got_norm = ref.affine_rmsnorm_ref(xt, st, STAGES)
+    np.testing.assert_allclose(_np(got_map), _np(jref.map_chain_ref(xj, STAGES)), **F32_TOL)
+    np.testing.assert_allclose(
+        _np(got_norm), _np(jref.affine_rmsnorm_ref(xj, sj, STAGES)), **F32_TOL
+    )
+    pallas_map = pallas_map_chain(xj, stages=STAGES, block_rows=8, interpret=True)
+    pallas_norm = pallas_affine_rmsnorm(xj, sj, stages=STAGES, block_rows=8, interpret=True)
+    np.testing.assert_allclose(_np(got_map), _np(pallas_map), **F32_TOL)
+    np.testing.assert_allclose(_np(got_norm), _np(pallas_norm), **F32_TOL)
+
+
+def test_fused_plain_is_bitwise_the_op_sequence():
+    # the contract the CUDA kernels keep on the card, here for the CPU path
+    _, xt, _, st = _inputs((64, 8), seed=5)
+    view = xt[:, 1:6]  # the stream path's strided view
+    y = view
+    for s, o in STAGES:
+        y = y * s + o
+    assert torch.equal(ref.map_chain_ref(view, STAGES), y)
+    assert torch.equal(ref.affine_rmsnorm_ref(view, st[:5], STAGES), ref.rmsnorm_ref(y, st[:5]))
+
+
+def test_rmsnorm_plain_layout_independent():
+    _, xt, _, st = _inputs((40, 8), seed=6)
+    view = xt[:, 1:6]
+    assert torch.equal(ref.rmsnorm_ref(view, st[:5]), ref.rmsnorm_ref(view.contiguous(), st[:5]))
+
+
+def test_kalman_plain_matches_reference_scan():
+    from repro.core.graph import Task
+    from repro.ops import operator_for_task
+
+    g = np.random.default_rng(4)
+    x = (g.standard_normal((48, 8)) * 5.0).astype(np.float32)
+    op = operator_for_task(Task.make("k", "kalman", {"q": 0.3, "r": 1.5}), 48)
+    state, y = op.apply(op.init_state(48), jnp.asarray(x))
+    vals, xe, p = ref.kalman_scan_ref(
+        torch.from_numpy(x)[:, 1:6], torch.zeros(5), torch.ones(5), 0.3, 1.5
+    )
+    np.testing.assert_allclose(vals.numpy(), np.asarray(y)[:, 1:6], **F32_TOL)
+    np.testing.assert_allclose(xe.numpy(), np.asarray(state["x"]), **F32_TOL)
+    np.testing.assert_allclose(p.numpy(), np.asarray(state["p"]), **F32_TOL)
+
+
+def test_kalman_plain_empty_batch():
+    vals, xe, p = ref.kalman_scan_ref(torch.zeros((0, 5)), torch.zeros(5), torch.ones(5), 0.1, 1.0)
+    assert vals.shape == (0, 5) and torch.equal(p, torch.ones(5))
+
+
+# -- dispatch ---------------------------------------------------------------------
+
+
+def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
+    build.reset_launch_counts()
+    _, xt, _, st = _inputs((12, 5), seed=8)
+    assert torch.equal(ops.rmsnorm(xt, st), ref.rmsnorm_ref(xt, st))
+    assert torch.equal(ops.map_chain(xt, stages=STAGES), ref.map_chain_ref(xt, STAGES))
+    assert torch.equal(
+        ops.affine_rmsnorm(xt, st, stages=STAGES), ref.affine_rmsnorm_ref(xt, st, STAGES)
+    )
+    got = ops.kalman_scan(xt, torch.zeros(5), torch.ones(5), 0.1, 1.0)
+    for a, b in zip(got, ref.kalman_scan_ref(xt, torch.zeros(5), torch.ones(5), 0.1, 1.0)):
+        assert torch.equal(a, b)
+    assert ops.launch_counts() == {name: 0 for name in build.KERNELS}
+
+
+def test_meta_dispatch_gives_shapes_only():
+    z = torch.empty((16384, 5), device="meta")
+    vals, xe, p = ops.kalman_scan(z, torch.empty(5, device="meta"), torch.empty(5, device="meta"), 0.1, 1.0)
+    assert vals.shape == (16384, 5) and vals.device.type == "meta"
+    assert ops.rmsnorm(z, torch.empty(5, device="meta")).shape == (16384, 5)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, s: rmsnorm.rmsnorm(x, s),
+    lambda x, s: fused.map_chain(x, STAGES),
+    lambda x, s: fused.affine_rmsnorm(x, s, STAGES),
+    lambda x, s: kalman.kalman_scan(x, s, s, 0.1, 1.0),
+], ids=["rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan"])
+def test_cuda_wrappers_reject_cpu_tensors(call):
+    # a CUDA wrapper launches on CUDA tensors or raises; it has no CPU fallback
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(torch.zeros((4, 5)), torch.ones(5))
+
+
+def test_stage_count_is_bounded():
+    with pytest.raises(ValueError, match="at most"):
+        fused._stage_arrays([(1.0, 0.0)] * (fused.MAX_STAGES + 1))
+
+
+def test_build_is_lazy_and_keyed_by_source():
+    # importing the kernels built nothing; the build key covers every source
+    assert build._lib is None
+    names = [p.rsplit("/", 1)[-1] for p in build.sources()]
+    assert names == ["fused.cu", "kalman.cu", "rmsnorm.cu"]
+    assert len(build._digest()) == 16
