@@ -36,7 +36,7 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 MAIN_BATCH = 16384  # events per source per step (elasticity_bench's compute-bound batch)
 CPU_BATCH = 1024
@@ -171,7 +171,7 @@ def kernel_phase(dev):
     ))
     log(f"K1 rmsnorm (16384,5) f32 strided: max|err| {err:.3g} (tol {F32_TOL})")
 
-    # K1 at model widths (later slices' shapes), f32 and bf16
+    # K1 at model widths (LM-serving shapes), f32 and bf16
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         xw = torch.randn((4096, 8192), generator=gen).to(dev, dtype)
         gw = (1.0 + 0.1 * torch.randn((8192,), generator=gen)).to(dev)
@@ -249,7 +249,7 @@ def kernel_phase(dev):
 # -- phase 3: the main path ------------------------------------------------------------
 
 def run_script(base_batch, device, fuse):
-    """The slice's script; returns (digests, per-step wall ms, system)."""
+    """The stream path's script; returns (digests, per-step wall ms, system)."""
     from repro_torch.runtime.system import StreamSystem
     from repro_torch.workloads import kernel_flows, riot_workload
 

@@ -116,7 +116,7 @@ def test_every_registered_type_is_covered():
     covered = {t for t, _ in EXACT + CLOSE}
     assert set(port_ops.registered_types()) <= covered
     # the reference's registry also holds the LM-serving ops once
-    # repro.serve.model_ops is imported (a later slice of the port)
+    # repro.serve.model_ops is imported (not yet in the port)
     ref_riot = {t for t in ref_ops.registered_types() if not t.startswith("lm_")}
     assert set(port_ops.registered_types()) == ref_riot
 

@@ -1,4 +1,4 @@
-"""The slice end to end: the port's StreamSystem against the reference's.
+"""The stream path end to end: the port's StreamSystem against the reference's.
 
 Both packages run the same script — submit, run, fuse, remove, run — on
 the paper's Fig. 1 flows and on all 21 RIoT dataflows plus the flows that
