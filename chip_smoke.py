@@ -9,7 +9,8 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); build the kernels from
      ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
   2. every kernel against its plain PyTorch version on the card, at the
-     stream path's shapes (K1 also at model widths, f32 and bf16); K2/K3
+     stream path's shapes (K1 also at model widths, f32 and bf16; K4-K6 at
+     the serving path's, bf16 and f32); K2/K3
      must be bitwise equal to the eager op-by-op path; device time per
      launch (CUDA-graph replay between CUDA events) beside the bound, the
      plain version's and the one-call library time;
@@ -19,9 +20,17 @@ Phases, each fatal on failure:
      just before and read just after; sink counts exact; digests bitwise
      equal to an unfused run; counts equal to a CPU run at base_batch=1024
      and checksums within CPU_RTOL;
-  4. a ``{"kernels": [...]}`` line, the card line as nvidia-smi gives it,
-     and as the last line
-     ``{"ok": true, "device": {...}}``.
+  4. the serving path at full width: qwen3-4b (36 layers, bf16, random
+     weights drawn on the card from a seeded generator) through
+     ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
+     tokens, prompts of 128-2048 tokens; launch counts reset just before
+     and read just after (K1, K4, K5, K6 > 0); prefill ms per prompt
+     length, decode ms per token, tokens/s, peak memory; prefill/decode
+     consistency; the configuration cut to 2 layers in f32 on the card
+     against the CPU (logits within 1e-3, greedy tokens equal);
+  5. a ``{"kernels": [...]}`` line (launches summed over the counted runs
+     of phases 3 and 4), the card line as nvidia-smi gives it, and as the
+     last line ``{"ok": true, "device": {...}}``.
 
 ``--phase kernels`` stops after phase 2 (a first check of new kernels).
 """
@@ -38,12 +47,20 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # bf16 dense tensor-core peak
 MAIN_BATCH = 16384  # events per source per step (elasticity_bench's compute-bound batch)
 CPU_BATCH = 1024
 F32_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py precedent
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# K5/K6 outputs in bf16 are softmax-weighted means of many values, with a
+# spread of about 0.04 at the serving shapes, so atol 2e-2 would pass a
+# dropped split; two
+# roundings of one f32 value differ by at most one bf16 ulp (2**-7 relative),
+# which rtol covers at any size, so atol only has to cover values near zero.
+ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-3)
 CPU_RTOL = 1e-4  # card vs CPU checksums: reduction order, sin/log1p ulps
 REMOVED = ("urban_etl", "taxi_pred_lr", "FA")
+SERVE_PROMPT = 2048  # longest prompt of the serving phase
 
 
 def log(msg: str) -> None:
@@ -110,9 +127,9 @@ def device_ms(fn, per_graph: int = 20, reps: int = 21) -> float:
     return statistics.median(times)
 
 
-def bound_ms(bytes_moved: float, ops: float) -> tuple:
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -238,11 +255,106 @@ def kernel_phase(dev):
         call_ms=call_ms(lambda: kalman.kalman_scan(x, xe0, p0, 0.1, 1.0), iters=20),
     ))
     log(f"kalman_scan (16384,5): max|err| {err:.3g} vs plain (bitwise: {err == 0.0})")
+    out += model_kernel_phase(dev, gen)
     for k in out:
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us/launch on the device "
             f"({k['call_ms'] * 1e3:.2f} us per call from the host), plain {k['plain_ms'] * 1e3:.2f} us, "
             f"bound {k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}), library "
             + ("n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.2f} us"))
+    return out
+
+
+def model_kernel_phase(dev, gen):
+    """K4, K5 and K6 at the qwen3-4b serving path's shapes (bfloat16; the row
+    that goes into the kernels line) and in float32 at the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref, rmsnorm
+
+    eps = 1e-6
+    rows, d = SERVE_PROMPT, 2560
+    sq, h, kv, hd = SERVE_PROMPT, 32, 8, 128
+    s_cache, clen = 4096, SERVE_PROMPT
+    out = []
+    for dtype, tol, attn_tol in ((torch.float32, F32_TOL, F32_TOL),
+                                 (torch.bfloat16, BF16_TOL, ATTN_BF16_TOL)):
+        el = torch.finfo(dtype).bits // 8
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+
+        # K4 rmsnorm_residual at (1, 2048, 2560)
+        x = torch.randn((1, rows, d), generator=gen).to(dev, dtype)
+        r = torch.randn((1, rows, d), generator=gen).to(dev, dtype)
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+        got_y, got_h = rmsnorm.rmsnorm_residual(x, r, g, eps)
+        want_y, want_h = ref.rmsnorm_residual_ref(x, r, g, eps)
+        err = max(check_close(f"rmsnorm_residual {tag}", got_y, want_y, tol),
+                  check_close(f"rmsnorm_residual sum {tag}", got_h, want_h, tol))
+        b, by = bound_ms(4 * rows * d * el + d * 4, 5 * rows * d)
+        k4 = dict(
+            name="rmsnorm_residual", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:94", max_abs_err=err,
+            ms=device_ms(lambda: rmsnorm.rmsnorm_residual(x, r, g, eps)),
+            plain_ms=device_ms(lambda: ref.rmsnorm_residual_ref(x, r, g, eps)),
+            bound_ms=b, bound_by=by, library_ms=None,
+            call_ms=call_ms(lambda: rmsnorm.rmsnorm_residual(x, r, g, eps)),
+        )
+        log(f"K4 rmsnorm_residual (1,{rows},{d}) {tag}: max|err| {err:.3g} (tol {tol})")
+
+        # K5 flash_attention, causal prefill of one 2048-token prompt
+        q = torch.randn((1, sq, h, hd), generator=gen).to(dev, dtype)
+        k = torch.randn((1, sq, kv, hd), generator=gen).to(dev, dtype)
+        v = torch.randn((1, sq, kv, hd), generator=gen).to(dev, dtype)
+        got = flash_attention.flash_attention(q, k, v, causal=True)
+        err = check_close(f"flash_attention {tag}", got, ref.flash_attention_ref(q, k, v), attn_tol)
+        pairs = sq * (sq + 1) // 2  # visible (q, k) pairs per head
+        b, by = bound_ms((2 * sq * h + 2 * sq * kv) * hd * el, 4 * h * hd * pairs, ops_rate)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        k5 = dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:133", max_abs_err=err,
+            ms=device_ms(lambda: flash_attention.flash_attention(q, k, v), per_graph=5),
+            plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v), per_graph=2, reps=5),
+            bound_ms=b, bound_by=by,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), per_graph=5),
+            call_ms=call_ms(lambda: flash_attention.flash_attention(q, k, v), iters=20),
+        )
+        log(f"K5 flash_attention q (1,{sq},{h},{hd}) kv {kv} causal {tag}: max|err| {err:.3g} "
+            f"(tol {attn_tol})")
+
+        # K6 decode_attention: one token against a 4096-slot cache holding 2048
+        q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
+        kc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+        vc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+        got = decode_attention.decode_attention(q1, kc, vc, clen)
+        err = check_close(f"decode_attention {tag}", got,
+                          ref.decode_attention_ref(q1, kc, vc, clen), attn_tol)
+        b, by = bound_ms((2 * clen * kv + 2 * h) * hd * el, 4 * h * hd * clen, ops_rate)
+        q1t, kct, vct = q1.transpose(1, 2), kc[:, :clen].transpose(1, 2), vc[:, :clen].transpose(1, 2)
+        k6 = dict(
+            name="decode_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:111", max_abs_err=err,
+            ms=device_ms(lambda: decode_attention.decode_attention(q1, kc, vc, clen)),
+            plain_ms=device_ms(lambda: ref.decode_attention_ref(q1, kc, vc, clen)),
+            bound_ms=b, bound_by=by,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q1t, kct, vct, enable_gqa=True)),
+            call_ms=call_ms(lambda: decode_attention.decode_attention(q1, kc, vc, clen)),
+        )
+        log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {clen} {tag}: "
+            f"max|err| {err:.3g} (tol {attn_tol})")
+        for k_ in (k4, k5, k6):
+            log(f"  {k_['name']} {tag}: {k_['ms'] * 1e3:.2f} us/launch on the device "
+                f"({k_['call_ms'] * 1e3:.2f} us per call from the host), plain "
+                f"{k_['plain_ms'] * 1e3:.2f} us, bound {k_['bound_ms'] * 1e3:.3f} us "
+                f"({k_['bound_by']}), library "
+                + ("n/a" if k_["library_ms"] is None else f"{k_['library_ms'] * 1e3:.2f} us"))
+        del x, r, q, k, v, kc, vc
+    out += [k4, k5, k6]  # the bfloat16 rows: the serving path's type
     return out
 
 
@@ -326,6 +438,141 @@ def main_path_phase(dev):
     return {name: n for name, n in launches.items()}, steps
 
 
+# -- phase 4: the serving path at full width --------------------------------------
+
+SERVE_ARCH = "qwen3-4b"
+SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4096
+# prefill(prompt) vs prefill(prompt[:-1]) + decode_step(prompt[-1]) in bf16 over
+# 36 layers: the two paths round the last token's activations in different
+# matmul shapes (M = S against M = 1) and attention kernels (K5 against K6),
+# about one bf16 rounding (2**-9 relative) per op, compounding through the
+# residual stream; held to 5e-2 of the largest logit, cosine >= 0.999 and
+# the same greedy token.
+CONSISTENCY_REL, CONSISTENCY_COS = 5e-2, 0.999
+PARITY_TOL = dict(rtol=1e-3, atol=1e-3)  # card vs CPU in f32: 2560- and 151936-wide sums
+
+
+def serve_phase(dev):
+    """qwen3-4b at full width and depth in bf16 through ServeEngine; returns
+    the launch counts of the engine run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = configs.get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    n_params = sum(sizes)
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s ({cfg.param_dtype})")
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, SERVE_PROMPT + 1, size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    engine = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid, prompt, max_new=SERVE_NEW))
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if sorted(r.rid for r in results) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"served {sorted(r.rid for r in results)}")
+    for r in results:
+        if len(r.tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.rid}: tokens {r.tokens}")
+    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
+    log(f"served {len(results)} requests x {SERVE_NEW} tokens, prompts {sorted(lens.tolist())}, "
+        f"slots {SERVE_SLOTS}, max_len {SERVE_MAX_LEN}: {wall:.2f} s, "
+        f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} generated tokens/s; launches {launches}")
+    log(f"first tokens: {[r.tokens[:4] for r in sorted(results, key=lambda r: r.rid)]}")
+    del engine
+
+    # prefill ms per prompt length and decode ms per token at batch 1
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    for n in (128, 512, 1024, SERVE_PROMPT):
+        toks = torch.from_numpy(prompts[0][:1].repeat(n)).long()[None].to(dev)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, cfg, toks, cache)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"prefill {n} tokens: {statistics.median(times):.2f} ms (median of 3; {times})")
+    tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
+    times = []
+    for _ in range(SERVE_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step(params, cfg, tok, cache)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"decode at {SERVE_PROMPT}+ cached positions, batch 1: "
+        f"{statistics.median(times):.2f} ms/token (median of {len(times)})")
+
+    # prefill/decode consistency on one prompt
+    prompt = torch.from_numpy(prompts[0]).long()[None].to(dev)
+    full, _ = prefill(params, cfg, prompt, init_cache(cfg, 1, SERVE_MAX_LEN, device=dev))
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    prefill(params, cfg, prompt[:, :-1], cache)
+    step, _ = decode_step(params, cfg, prompt[:, -1:], cache)
+    a, b = full.float(), step.float()
+    rel = float((a - b).abs().max() / a.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    log(f"prefill/decode consistency ({prompt.shape[1]} tokens): max|diff|/max|logit| {rel:.3g} "
+        f"(limit {CONSISTENCY_REL}), cosine {cos:.6f} (limit {CONSISTENCY_COS}), "
+        f"argmax {int(a.argmax())} vs {int(b.argmax())}")
+    if rel > CONSISTENCY_REL or cos < CONSISTENCY_COS or int(a.argmax()) != int(b.argmax()):
+        raise AssertionError("prefill and decode_step disagree on the last token")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory (max_memory_allocated): {peak:.2f} GiB")
+    del params, cache
+
+    # card against CPU: the same configuration cut to 2 layers, float32
+    cut = cfg.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_params = init_params(cut, torch.Generator().manual_seed(0))
+    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    log(f"{cut.name} cut to 2 layers, float32: parameters drawn on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    worst = 0.0
+    for n in (64, 256):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=n)).long()[None]
+        caches = {d: init_cache(cut, 1, n + 8, device=d) for d in ("cpu", dev)}
+        ps = {"cpu": cpu_params, dev: dev_params}
+        logits = {d: prefill(ps[d], cut, toks.to(d), caches[d])[0] for d in caches}
+        for i in range(5):
+            got, want = logits[dev].cpu(), logits["cpu"]
+            worst = max(worst, check_close(f"card vs cpu, prompt {n}, step {i}", got, want,
+                                           PARITY_TOL))
+            nxt = {d: int(logits[d].argmax()) for d in logits}
+            if nxt[dev] != nxt["cpu"]:
+                raise AssertionError(f"prompt {n}, step {i}: greedy {nxt[dev]} on the card, "
+                                     f"{nxt['cpu']} on the cpu")
+            if i == 4:
+                break
+            tok = torch.tensor([[nxt["cpu"]]])
+            logits = {d: decode_step(ps[d], cut, tok.to(d), caches[d])[0] for d in caches}
+    log(f"card vs cpu (2 layers, f32, prompts 64 and 256, prefill + 4 decode steps): "
+        f"max|err| {worst:.3g} (tol {PARITY_TOL}), greedy tokens equal")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phase", choices=("all", "kernels"), default="all")
@@ -360,9 +607,11 @@ def main() -> int:
     kernels = kernel_phase(dev)
     if args.phase == "kernels":
         return 0
-    launches, _ = main_path_phase(dev)
+    stream_launches, _ = main_path_phase(dev)
+    serve_launches = serve_phase(dev)
+    log(f"launches: stream path {stream_launches}; serving path {serve_launches}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = stream_launches[k["name"]] + serve_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

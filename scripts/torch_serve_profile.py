@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's serving path spends its time, on the card.
+
+Builds qwen3-4b at full width and depth (bf16, random weights from a
+seeded generator on the card, with ``chip_smoke.py``'s serving
+architecture, longest prompt and cache length), warms up, then profiles
+with ``torch.profiler`` (CPU and CUDA activities):
+  * one prefill of a 2048-token prompt into a batch-1 cache of 4096;
+  * ``DECODE`` decode steps at batch 1 after it.
+
+Prints, and writes as JSON to ``--out``:
+  * wall ms (host clock around the call, which ends in a synchronize),
+    without and with the profiler;
+  * device busy ms (sum of kernel times; one stream, so kernels do not
+    overlap) and the idle share ``1 - busy / wall``, per prefill and per
+    decoded token;
+  * kernel launches per prefill and per token, the port's kernel launch
+    counts, and the top kernels by device time in each phase.
+
+Usage (on a machine with a CUDA device, from the repository root):
+    python3 scripts/torch_serve_profile.py [--out chiprun_out/torch_serve_profile.json]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import SERVE_ARCH, SERVE_MAX_LEN, SERVE_PROMPT  # noqa: E402
+
+DECODE = 8  # decode steps profiled after the prefill
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _phase(prof, calls: int, wall_ms: float, top_n: int = 12) -> dict:
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type is not None and "CUDA" in str(e.device_type)
+    ]
+    busy = sum(_dev_us(e) for e in kernels) / 1e3 / calls
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "kernel_launches": sum(e.count for e in kernels) / calls,
+        "top_kernels": [
+            {"name": e.key[:120], "device_ms": _dev_us(e) / 1e3 / calls,
+             "launches": e.count / calls}
+            for e in sorted(kernels, key=_dev_us, reverse=True)[:top_n]
+        ],
+    }
+
+
+def _timed(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default="chiprun_out/torch_serve_profile.json")
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    dev = torch.device("cuda", 0)
+    cfg = configs.get_config(SERVE_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT)).long()[None].to(dev)
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
+
+    def run_prefill():
+        cache["len"] = 0
+        prefill(params, cfg, prompt, cache)
+
+    def run_decode():
+        for _ in range(DECODE):
+            decode_step(params, cfg, tok, cache)
+
+    for _ in range(2):  # warm: cuBLAS handles, allocator, kernel build
+        run_prefill()
+        run_decode()
+    plain_prefill = [_timed(run_prefill) for _ in range(3)]
+    plain_decode = [_timed(run_decode) / DECODE for _ in range(3)]
+
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_p:
+        wall_p = _timed(run_prefill)
+    prefill_launches = launch_counts()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_d:
+        wall_d = _timed(run_decode) / DECODE
+    decode_launches = {k: v / DECODE for k, v in launch_counts().items()}
+
+    report = {
+        "card": card,
+        "arch": cfg.name,
+        "layers": cfg.n_layers,
+        "dtype": cfg.dtype,
+        "prompt_tokens": SERVE_PROMPT,
+        "decode_steps": DECODE,
+        "prefill_wall_ms_unprofiled": plain_prefill,
+        "decode_wall_ms_per_token_unprofiled": plain_decode,
+        "prefill": {**_phase(prof_p, 1, wall_p), "repro_torch_kernel_launches": prefill_launches},
+        "decode_per_token": {**_phase(prof_d, DECODE, wall_d),
+                             "repro_torch_kernel_launches": decode_launches},
+    }
+    print(f"card: {card}")
+    print(f"{cfg.name} ({cfg.n_layers} layers, {cfg.dtype}), prompt {SERVE_PROMPT}, "
+          f"{DECODE} decode steps")
+    print(f"prefill wall ms without the profiler {plain_prefill} "
+          f"(median {statistics.median(plain_prefill):.3f})")
+    print(f"decode wall ms/token without the profiler {plain_decode} "
+          f"(median {statistics.median(plain_decode):.3f})")
+    for name in ("prefill", "decode_per_token"):
+        ph = report[name]
+        print(f"{name}: wall {ph['wall_ms']:.3f} ms, device busy {ph['device_busy_ms']:.3f} ms, "
+              f"idle share {ph['device_idle_share']:.3f}, {ph['kernel_launches']:.0f} launches; "
+              f"port kernels {ph['repro_torch_kernel_launches']}")
+        for k in ph["top_kernels"]:
+            print(f"  {k['device_ms']:9.3f} ms  x{k['launches']:6.1f}  {k['name']}")
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

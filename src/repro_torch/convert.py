@@ -1,11 +1,17 @@
 """Carry state across from the JAX reference package.
 
-This system has no model weights: its state is the per-task state pytree
-of each segment (counters, bitsets, ring buffers, filter estimates). The
-reference keeps those as JAX arrays; handed over as numpy arrays (for
-example ``jax.tree.map(np.asarray, seg.states)``), :func:`states_from_jax`
-turns them into the port's form, so both packages can continue from the
-same mid-run state. :func:`states_to_numpy` goes the other way.
+The stream path's state is the per-task state pytree of each segment
+(counters, bitsets, ring buffers, filter estimates). The reference keeps
+those as JAX arrays; handed over as numpy arrays (for example
+``jax.tree.map(np.asarray, seg.states)``), :func:`states_from_jax` turns
+them into the port's form, so both packages can continue from the same
+mid-run state. :func:`states_to_numpy` goes the other way.
+
+The serving path's state is the model's parameters and the KV cache. The
+port keeps the reference's layouts (per-layer leading axis, ``wq (D, H,
+hd)``, ``wo (H, hd, D)``, the cache as ``(L, B, S, KV, hd)``), so
+:func:`params_from_jax` and :func:`cache_from_jax` move arrays and
+re-lay nothing out.
 """
 from __future__ import annotations
 
@@ -26,7 +32,24 @@ def states_from_jax(states: Any, device: torch.device | str = "cpu") -> Any:
     if isinstance(states, (tuple, list)):
         return type(states)(states_from_jax(v, device) for v in states)
     arr = np.array(states)  # a private, writable copy
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
+
+
+def params_from_jax(params_np: Any, device: torch.device | str = "cpu") -> Any:
+    """The reference's ``init_params`` tree (leaves as numpy) → the port's
+    parameters: the same nested dicts, each array a tensor on ``device``."""
+    return states_from_jax(params_np, device)
+
+
+def cache_from_jax(cache_np: Any, device: torch.device | str = "cpu") -> Any:
+    """A reference cache (leaves as numpy) → the port's: ``len`` becomes a
+    Python int, every other array a tensor on ``device``."""
+    out = {k: v for k, v in cache_np.items() if k != "len"}
+    out = states_from_jax(out, device)
+    out["len"] = int(np.asarray(cache_np["len"]))
+    return out
 
 
 def states_to_numpy(states: Any) -> Any:

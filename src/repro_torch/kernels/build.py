@@ -45,15 +45,26 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t)
+_I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of strides
+# C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t,
+# rt_decode_attention_smem a byte count)
 _SIGNATURES = {
     "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _P),
     "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _P),
     "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _P),
     "rt_kalman_scan": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _F, _F, _P),
+    "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_decode_attention": (
+        _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    "rt_decode_attention_smem": (_I, _I),
 }
 
-KERNELS = ("rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan")
+KERNELS = (
+    "rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan",
+    "rmsnorm_residual", "flash_attention", "decode_attention",
+)
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
@@ -156,6 +167,11 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def strides_arg(values) -> ctypes.Array:
+    """A host array of int64 strides for a ``const int64_t*`` argument."""
+    return (ctypes.c_int64 * len(values))(*values)
 
 
 def check(err: int, name: str) -> None:

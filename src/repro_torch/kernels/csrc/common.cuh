@@ -1,5 +1,10 @@
 // Shared device code of the port's row kernels (rmsnorm.cu, fused.cu).
 //
+// One template serves K1 rmsnorm, K3 affine_rmsnorm and K4
+// rmsnorm_residual: `kAffine` applies the stages as an element is loaded,
+// `kResidual` adds a second input (in f32) and writes the sum to a second
+// output. The reduction is the same code in every instantiation.
+//
 // Every float operation is an explicit round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn): nvcc may not contract a
 // product and a sum into an FMA, so
@@ -49,15 +54,36 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The row norm shared by rmsnorm and affine_rmsnorm. `kAffine` applies the
-// stages to each element as it is loaded; the reduction is the same code.
+// Residual rows (kResidual): `res` with its own row stride, and the sum
+// x + res written, rounded to T, to `added` (packed rows of d).
+struct Residual {
+  const void* res;
+  int64_t res_stride;
+  void* added;
+};
+
+// Element j of row r as the norm sees it: the stages applied (kAffine), or
+// the residual added in f32 and the rounded sum stored (kResidual).
+template <typename T, bool kAffine, bool kResidual>
+__device__ __forceinline__ float load_elem(const T* xr, int64_t r, int j, const Stages& st,
+                                           const Residual& rs, int d, bool store_added) {
+  float a = load_f32(xr + j);
+  if (kAffine) a = apply_stages(a, st);
+  if (kResidual) {
+    a = __fadd_rn(a, load_f32(static_cast<const T*>(rs.res) + r * rs.res_stride + j));
+    if (store_added) store_f32(static_cast<T*>(rs.added) + r * d + j, a);
+  }
+  return a;
+}
+
+// The row norm shared by rmsnorm, affine_rmsnorm and rmsnorm_residual.
 //
 // Narrow rows (d <= kNarrowD, the (B, 5) event batches): one thread per
 // row, the row held in registers, squares summed in column order.
-template <typename T, bool kAffine>
+template <typename T, bool kAffine, bool kResidual>
 __global__ void rms_rows_narrow(const T* __restrict__ x, int64_t stride,
                                 const float* __restrict__ scale, T* __restrict__ y,
-                                int64_t rows, int d, float eps, Stages st) {
+                                int64_t rows, int d, float eps, Stages st, Residual rs) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   const T* xr = x + r * stride;
@@ -66,8 +92,7 @@ __global__ void rms_rows_narrow(const T* __restrict__ x, int64_t stride,
 #pragma unroll
   for (int j = 0; j < kNarrowD; ++j) {
     if (j < d) {
-      float a = load_f32(xr + j);
-      if (kAffine) a = apply_stages(a, st);
+      const float a = load_elem<T, kAffine, kResidual>(xr, r, j, st, rs, d, true);
       v[j] = a;
       sumsq = __fadd_rn(sumsq, __fmul_rn(a, a));
     }
@@ -82,10 +107,10 @@ __global__ void rms_rows_narrow(const T* __restrict__ x, int64_t stride,
 // Each thread sums a strided slice, then a fixed shuffle tree and one warp
 // over the per-warp sums reduce the block: the order is the same on every
 // run. The second pass re-reads the row (from L2 at these widths).
-template <typename T, bool kAffine>
+template <typename T, bool kAffine, bool kResidual>
 __global__ void rms_rows_wide(const T* __restrict__ x, int64_t stride,
                               const float* __restrict__ scale, T* __restrict__ y,
-                              int64_t rows, int d, float eps, Stages st) {
+                              int64_t rows, int d, float eps, Stages st, Residual rs) {
   __shared__ float warp_sums[kRowThreads / 32];
   __shared__ float row_inv;
   const int64_t r = blockIdx.x;
@@ -93,8 +118,7 @@ __global__ void rms_rows_wide(const T* __restrict__ x, int64_t stride,
   T* yr = y + r * d;
   float part = 0.0f;
   for (int j = threadIdx.x; j < d; j += kRowThreads) {
-    float a = load_f32(xr + j);
-    if (kAffine) a = apply_stages(a, st);
+    const float a = load_elem<T, kAffine, kResidual>(xr, r, j, st, rs, d, true);
     part = __fadd_rn(part, __fmul_rn(a, a));
   }
   part = warp_sum(part);
@@ -110,24 +134,24 @@ __global__ void rms_rows_wide(const T* __restrict__ x, int64_t stride,
   __syncthreads();
   const float inv = row_inv;
   for (int j = threadIdx.x; j < d; j += kRowThreads) {
-    float a = load_f32(xr + j);
-    if (kAffine) a = apply_stages(a, st);
+    const float a = load_elem<T, kAffine, kResidual>(xr, r, j, st, rs, d, false);
     store_f32(yr + j, __fmul_rn(__fmul_rn(a, inv), scale[j]));
   }
 }
 
-template <typename T, bool kAffine>
+template <typename T, bool kAffine, bool kResidual = false>
 cudaError_t launch_rms_rows(const T* x, int64_t stride, const float* scale, T* y,
                             int64_t rows, int d, float eps, const Stages& st,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, Residual rs = Residual{nullptr, 0, nullptr}) {
   if (rows == 0) return cudaSuccess;
   if (d <= kNarrowD) {
     const int64_t blocks = (rows + kRowThreads - 1) / kRowThreads;
-    rms_rows_narrow<T, kAffine><<<static_cast<unsigned>(blocks), kRowThreads, 0, stream>>>(
-        x, stride, scale, y, rows, d, eps, st);
+    rms_rows_narrow<T, kAffine, kResidual>
+        <<<static_cast<unsigned>(blocks), kRowThreads, 0, stream>>>(
+            x, stride, scale, y, rows, d, eps, st, rs);
   } else {
-    rms_rows_wide<T, kAffine><<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(
-        x, stride, scale, y, rows, d, eps, st);
+    rms_rows_wide<T, kAffine, kResidual><<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(
+        x, stride, scale, y, rows, d, eps, st, rs);
   }
   return cudaGetLastError();
 }

@@ -22,3 +22,31 @@ extern "C" int rt_rmsnorm(const void* x, int64_t stride, const float* scale, voi
   return rt::launch_rms_rows<float, false>(static_cast<const float*>(x), stride, scale,
                                            static_cast<float*>(y), rows, d, eps, none, s);
 }
+
+// K4 rmsnorm_residual: h = x + res in f32; returns y = rmsnorm(h) * scale and
+// h, both rounded to x's dtype.
+//
+// Replaces the Pallas kernel repro/kernels/rmsnorm.py:rmsnorm_residual
+// (pallas_call at :94). It is K1's template with a second input and a
+// second output, so its reduction order is K1's. Like the Pallas kernel it
+// norms the f32 sum, not the sum rounded to x's dtype as
+// repro.kernels.ref.rmsnorm_residual_ref does; in bfloat16 the two differ
+// by about one bf16 rounding of h, inside the 2e-2 bf16 tolerance, and in
+// float32 they are the same sum. Bound by bytes: 4 * rows * d * elem (x and
+// res read once, y and h written once). The second pass re-reads x and res
+// (from L2 at model widths) instead of keeping the rounded h.
+extern "C" int rt_rmsnorm_residual(const void* x, int64_t stride, const void* res,
+                                   int64_t res_stride, const float* scale, void* y, void* added,
+                                   int64_t rows, int d, float eps, int is_bf16, void* stream) {
+  const rt::Stages none = rt::make_stages(nullptr, nullptr, 0);
+  const rt::Residual rs{res, res_stride, added};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return rt::launch_rms_rows<__nv_bfloat16, false, true>(
+        static_cast<const __nv_bfloat16*>(x), stride, scale, static_cast<__nv_bfloat16*>(y),
+        rows, d, eps, none, s, rs);
+  }
+  return rt::launch_rms_rows<float, false, true>(static_cast<const float*>(x), stride, scale,
+                                                 static_cast<float*>(y), rows, d, eps, none, s,
+                                                 rs);
+}

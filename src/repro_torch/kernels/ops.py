@@ -12,7 +12,7 @@ went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -28,6 +28,51 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
         return _cuda(x, scale, eps=eps)
     return ref.rmsnorm_ref(x, scale, eps)
+
+
+def rmsnorm_residual(
+    x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rmsnorm(x + res)·scale, x + res), the sum taken in float32."""
+    if x.is_cuda:
+        from .rmsnorm import rmsnorm_residual as _cuda
+
+        return _cuda(x, res, scale, eps=eps)
+    return ref.rmsnorm_residual_ref(x, res, scale, eps)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd): KV heads are taken natively."""
+    if q.is_cuda:
+        from .flash_attention import flash_attention as _cuda
+
+        return _cuda(q, k, v, causal=causal, window=window, scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: int,
+    *,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One query token (B, 1, H, hd) against a (B, S, KV, hd) cache."""
+    if q.is_cuda:
+        from .decode_attention import decode_attention as _cuda
+
+        return _cuda(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len, window=window, scale=scale)
 
 
 def map_chain(x: torch.Tensor, *, stages: Stages) -> torch.Tensor:

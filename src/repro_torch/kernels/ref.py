@@ -9,11 +9,12 @@ them.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 Stages = Sequence[Tuple[float, float]]
+NEG_INF = -1e30  # the reference's mask value
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -25,6 +26,86 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     xf = x.float().contiguous()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_residual_ref(
+    x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rmsnorm(h)·scale, h) with h = x + res summed in float32; both in x's dtype.
+
+    Like the Pallas kernel (and the CUDA one), the norm sees the float32
+    sum; ``repro.kernels.ref.rmsnorm_residual_ref`` norms the sum rounded to
+    x's dtype, which differs inside the bf16 tolerance.
+    """
+    h = x.float() + res.float()
+    return rmsnorm_ref(h, scale, eps).to(x.dtype), h.to(x.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Masked softmax attention in float32, q (B, Sq, H, hd), k/v (B, Sk, KV, hd).
+
+    Query head h reads KV head h // (H // KV) (q is regrouped, K/V are not
+    repeated). Key j is visible to query i when j <= i (causal) and
+    j > i - window (window > 0); masked scores are -1e30, the row sum is
+    clamped at 1e-30. The kernel takes the same softmax online over tiles.
+    """
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float().reshape(b, sq, kv, g, hd) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]  # (B, Sq, KV, G, 1)
+    return (out / torch.clamp(l, min=1e-30)).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: int,
+    *,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One query token (B, 1, H, hd) against a (B, S, KV, hd) cache, float32.
+
+    Positions [max(0, cache_len - window), cache_len) are valid (all below
+    cache_len for window = 0); an empty range gives a zero row, as in the
+    kernel, which never visits a tile without a valid position.
+    """
+    b, _, h, hd = q.shape
+    s_max, kv = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q[:, 0].float().reshape(b, kv, h // kv, hd) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    pos = torch.arange(s_max, device=q.device)
+    valid = pos < cache_len
+    if window:
+        valid &= pos >= cache_len - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 def map_chain_ref(x: torch.Tensor, stages: Stages) -> torch.Tensor:

@@ -1,0 +1,20 @@
+"""Model zoo of the port: the dense family (granite, nemotron, qwen1.5,
+qwen3) on the kernels of :mod:`repro_torch.kernels`. The configuration
+dataclasses cover all ten architectures; the other families raise
+``NotImplementedError`` until their slice of the port (ROADMAP)."""
+from .config import MLAConfig, MoEConfig, ModelConfig, SSMConfig, XLSTMConfig
+from .transformer import forward, init_params
+from .decode import decode_step, init_cache, prefill
+
+__all__ = [
+    "MLAConfig",
+    "MoEConfig",
+    "ModelConfig",
+    "SSMConfig",
+    "XLSTMConfig",
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "prefill",
+]

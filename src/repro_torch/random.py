@@ -129,3 +129,19 @@ _OPEN_MINUS_ONE = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.normal`` for float32: ``sqrt(2)·erfinv(u)``, u on (-1, 1)."""
     return erfinv(uniform(key, shape, _OPEN_MINUS_ONE, 1.0)) * _SQRT2
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel`` for float32 in its default ("low") mode:
+    ``-log(-log(u))`` with u uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis (the Gumbel-max trick),
+    for float32 logits: ``argmax(gumbel(key, logits.shape) + logits)``."""
+    g = gumbel(key.to(logits.device), tuple(logits.shape))
+    return torch.argmax(g + logits.float(), dim=-1)

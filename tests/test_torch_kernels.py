@@ -149,5 +149,7 @@ def test_build_is_lazy_and_keyed_by_source():
     # importing the kernels built nothing; the build key covers every source
     assert build._lib is None
     names = [p.rsplit("/", 1)[-1] for p in build.sources()]
-    assert names == ["fused.cu", "kalman.cu", "rmsnorm.cu"]
+    assert names == [
+        "decode_attention.cu", "flash_attention.cu", "fused.cu", "kalman.cu", "rmsnorm.cu",
+    ]
     assert len(build._digest()) == 16
