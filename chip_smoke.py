@@ -10,7 +10,9 @@ Phases, each fatal on failure:
      ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
   2. every kernel against its plain PyTorch version on the card, at the
      stream path's shapes (K1 also at model widths, f32 and bf16; K4-K6 at
-     the serving path's, bf16 and f32); K2/K3
+     qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's prefill
+     of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6 also at
+     zamba2's head dim of 80); K2/K3
      must be bitwise equal to the eager op-by-op path; device time per
      launch (CUDA-graph replay between CUDA events) beside the bound, the
      plain version's and the one-call library time;
@@ -20,17 +22,24 @@ Phases, each fatal on failure:
      just before and read just after; sink counts exact; digests bitwise
      equal to an unfused run; counts equal to a CPU run at base_batch=1024
      and checksums within CPU_RTOL;
-  4. the serving path at full width: qwen3-4b (36 layers, bf16, random
-     weights drawn on the card from a seeded generator) through
+  4. the dense serving path at full width: qwen3-4b (36 layers, bf16,
+     random weights drawn on the card from a seeded generator) through
      ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
      tokens, prompts of 128-2048 tokens; launch counts reset just before
      and read just after (K1, K4, K5, K6 > 0); prefill ms per prompt
      length, decode ms per token, tokens/s, peak memory; prefill/decode
-     consistency; the configuration cut to 2 layers in f32 on the card
-     against the CPU (logits within 1e-3, greedy tokens equal);
-  5. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3 and 4), the card line as nvidia-smi gives it, and as the
-     last line ``{"ok": true, "device": {...}}``.
+     consistency (in f32 at full width and depth, and in bf16); the
+     configuration cut to 2 layers on the card against the CPU, in f32
+     (logits within 1e-3, greedy tokens equal) and in bf16 (every kernel
+     against its plain version at full width);
+  5. the hybrid serving path the same way: zamba2-2.7b (54 Mamba2 layers
+     and one shared attention block applied 9 times, bf16) with K1, K4,
+     K5, K6 and K7 > 0 and K7 launched 54 times per prefill; bf16 checks
+     on a second weight seed too; its card against CPU cut is 6 layers
+     (one group, the shared block included);
+  6. a ``{"kernels": [...]}`` line (launches summed over the counted runs
+     of phases 3-5; each must be > 0), the card line as nvidia-smi gives
+     it, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--phase kernels`` stops after phase 2 (a first check of new kernels).
 """
@@ -256,6 +265,7 @@ def kernel_phase(dev):
     ))
     log(f"kalman_scan (16384,5): max|err| {err:.3g} vs plain (bitwise: {err == 0.0})")
     out += model_kernel_phase(dev, gen)
+    out += hybrid_kernel_phase(dev, gen)
     for k in out:
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us/launch on the device "
             f"({k['call_ms'] * 1e3:.2f} us per call from the host), plain {k['plain_ms'] * 1e3:.2f} us, "
@@ -358,6 +368,103 @@ def model_kernel_phase(dev, gen):
     return out
 
 
+# K7's output is float32 whatever its inputs, and the plain version computes in
+# float32 from the same (bf16-rounded) inputs, so the two differ only in the
+# order of their sums (up to 128 terms per chunk) and in the cumsum's order
+# inside exp(): held at 1e-4 of the largest |value| (y and the state each).
+SSD_REL = 1e-4
+
+
+def check_rel(name, got, want, rel) -> float:
+    err = max_err(got, want)
+    limit = rel * float(want.float().abs().max())
+    if not err <= limit:
+        raise AssertionError(f"{name}: max |err| {err} above {limit} ({rel} of max |want|)")
+    return err
+
+
+def ssd_bound(b, s, nh, p, n, chunk, el):
+    """(ms, by) of one K7 launch: xh, B, C in ``el`` bytes, dt f32 in, y and
+    h f32 out; per (batch, head, chunk) of l positions (the ragged last chunk
+    at its real length), C·Bᵀ and W·x over the l(l+1)/2 causal pairs (W is
+    zero above the diagonal) and the state products C·h and Bᵀ·x:
+    2·(l(l+1)/2·(N + P) + 2lNP) operations, at the f32 rate."""
+    io = (b * s * nh * p * el + b * s * nh * 4 + 2 * b * s * n * el
+          + b * s * nh * p * 4 + b * nh * n * p * 4)
+    lens = [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
+    ops = b * nh * sum(2 * (l * (l + 1) // 2 * (n + p) + 2 * l * n * p) for l in lens)
+    return bound_ms(io, ops)
+
+
+def hybrid_kernel_phase(dev, gen):
+    """K7 at the zamba2-2.7b prefill's shape (bf16, the row that goes into the
+    kernels line; f32; a ragged S = 1109), and K5/K6 at its shared block's
+    head dim of 80."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref, ssd
+
+    b, s, nh, p, n, chunk = 1, SERVE_PROMPT, 80, 64, 64, 128
+    k7 = None
+    for dtype, seq in ((torch.float32, s), (torch.bfloat16, 1109), (torch.bfloat16, s)):
+        tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'} S={seq}"
+        # xh, B, C in dtype; dt softplus'd and a negative, both f32, as the Mamba block passes them
+        xh = torch.randn((b, seq, nh, p), generator=gen).to(dev, dtype)
+        dt = F.softplus(torch.randn((b, seq, nh), generator=gen)).to(dev)
+        a = -torch.exp(0.5 * torch.randn((nh,), generator=gen)).to(dev)
+        bm = torch.randn((b, seq, n), generator=gen).to(dev, dtype)
+        cm = torch.randn((b, seq, n), generator=gen).to(dev, dtype)
+        got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk)
+        want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk)
+        err = max(check_rel(f"ssd_scan y {tag}", got_y, want_y, SSD_REL),
+                  check_rel(f"ssd_scan h {tag}", got_h, want_h, SSD_REL))
+        bnd, by = ssd_bound(b, seq, nh, p, n, chunk, xh.element_size())
+        row = dict(
+            name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
+            replaces="src/repro/kernels/ssd.py:73", max_abs_err=err,
+            ms=device_ms(lambda: ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk), per_graph=5),
+            plain_ms=device_ms(lambda: ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk),
+                               per_graph=2, reps=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            call_ms=call_ms(lambda: ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk), iters=20),
+        )
+        log(f"K7 ssd_scan xh ({b},{seq},{nh},{p}) N {n} chunk {chunk} {tag}: max|err| {err:.3g} "
+            f"(y {float(want_y.abs().max()):.3g}, h {float(want_h.abs().max()):.3g} max; "
+            f"limit {SSD_REL} of each); {row['ms'] * 1e3:.2f} us/launch on the device "
+            f"({row['call_ms'] * 1e3:.2f} us per call from the host), plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}), library: none")
+        k7 = row  # the last: bf16 at S = 2048, the serving path's prefill
+
+    # K5 and K6 at zamba2's shared attention: 32 heads over 32 KV heads of 80
+    h, kv, hd, s_cache = 32, 32, 80, 4096
+    dtype, el = torch.bfloat16, 2
+    q = torch.randn((1, s, h, hd), generator=gen).to(dev, dtype)
+    k = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+    v = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=4096)
+    err = check_close("flash_attention hd 80 bf16", got,
+                      ref.flash_attention_ref(q, k, v, causal=True, window=4096), ATTN_BF16_TOL)
+    pairs = s * (s + 1) // 2
+    bnd, by = bound_ms((2 * s * h + 2 * s * kv) * hd * el, 4 * h * hd * pairs, BF16_OPS_PER_S)
+    ms = device_ms(lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096),
+                   per_graph=5)
+    log(f"K5 flash_attention q (1,{s},{h},{hd}) kv {kv} causal window 4096 bf16: max|err| "
+        f"{err:.3g} (tol {ATTN_BF16_TOL}); {ms * 1e3:.2f} us/launch, bound {bnd * 1e3:.3f} us ({by})")
+    q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
+    kc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+    vc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+    got = decode_attention.decode_attention(q1, kc, vc, s, window=4096)
+    err = check_close("decode_attention hd 80 bf16", got,
+                      ref.decode_attention_ref(q1, kc, vc, s, window=4096), ATTN_BF16_TOL)
+    bnd, by = bound_ms((2 * s * kv + 2 * h) * hd * el, 4 * h * hd * s, BF16_OPS_PER_S)
+    ms = device_ms(lambda: decode_attention.decode_attention(q1, kc, vc, s, window=4096))
+    log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {s} bf16: "
+        f"max|err| {err:.3g} (tol {ATTN_BF16_TOL}); {ms * 1e3:.2f} us/launch, "
+        f"bound {bnd * 1e3:.3f} us ({by})")
+    return [k7]
+
+
 # -- phase 3: the main path ------------------------------------------------------------
 
 def run_script(base_batch, device, fuse):
@@ -441,19 +548,111 @@ def main_path_phase(dev):
 # -- phase 4: the serving path at full width --------------------------------------
 
 SERVE_ARCH = "qwen3-4b"
+HYBRID_ARCH = "zamba2-2.7b"
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4096
-# prefill(prompt) vs prefill(prompt[:-1]) + decode_step(prompt[-1]) in bf16 over
-# 36 layers: the two paths round the last token's activations in different
-# matmul shapes (M = S against M = 1) and attention kernels (K5 against K6),
-# about one bf16 rounding (2**-9 relative) per op, compounding through the
-# residual stream; held to 5e-2 of the largest logit, cosine >= 0.999 and
-# the same greedy token.
-CONSISTENCY_REL, CONSISTENCY_COS = 5e-2, 0.999
+DENSE_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention")
+WITNESS_PROMPT, WITNESS_STEPS = 160, 3  # one full chunk of 128 and a ragged one of 32
+# the serving phases: architecture, layers of its card-vs-CPU cut (zamba2's
+# 6 are one group: six Mamba layers and one application of the shared
+# block), the kernels its engine run must launch, the weight seeds of its
+# bf16 checks (the first is the engine's), and the limits of those checks
+# (max|diff| over the largest logit, cosine, same greedy token): at full
+# depth, then at the cut's depth (see below)
+SERVE_PHASES = (
+    (SERVE_ARCH, 2, DENSE_KERNELS, (0,), (5e-2, 0.999, True), (2e-2, 0.9998, True)),
+    (HYBRID_ARCH, 6, DENSE_KERNELS + ("ssd_scan",), (0, 1), (0.15, 0.995, False),
+     (0.2, 0.97, False)),
+)
+# The checks of each serving phase after its engine run:
+#  * prefill/decode consistency at full width and depth: prefill(prompt)
+#    against prefill(prompt[:-1]) + decode_step(prompt[-1]), on one prompt.
+#    In float32 (the first seed) the two paths compute the same function
+#    and differ only in the order of their sums (M = S against M = 1
+#    matmuls, K5 against K6, and for zamba2 K7's chunked scan against the
+#    one-step state update): held to 1e-4 of the largest logit, cosine >=
+#    0.99999 and the same greedy token (observed 2.2e-6 for qwen3-4b,
+#    1.2e-5 for zamba2-2.7b). In bf16, for each seed: each op rounds to
+#    2**-9 relative, and the roundings compound through the residual
+#    stream. qwen3-4b's two paths are held to 5e-2 of the largest logit,
+#    cosine >= 0.999 and the same greedy token. zamba2's 54 + 9 blocks of
+#    random weights drift much further from float32 in bf16, in the
+#    reference as in the port (at d_model 256 and 54 layers on the CPU the
+#    reference's bf16 forward is 0.26 of the largest logit from its f32
+#    forward, cosine 0.974: tests/test_torch_models.py::
+#    test_hybrid_bf16_drift_from_f32_is_the_references); its two bf16 paths
+#    round alike but may swap near-equal top logits, and are held only
+#    against gross faults: 0.15, cosine >= 0.995, no greedy token. Each
+#    bf16 path's departure from the f32 prefill (whose weights the bf16 ones
+#    round) is printed beside it.
+#  * the card against the CPU at the cut's depth and full width, in float32
+#    (PARITY_TOL; prefill and 4 decode steps at prompts of 64 and 256, the
+#    same greedy tokens) and, for each seed, in bf16 (bf16_witness): every
+#    kernel on the card against its plain version on the CPU, which rounds
+#    to bf16 at the same places, too few blocks deep for the roundings to
+#    compound. This is the check that tells a bf16-only fault of the served
+#    path from rounding. Sound runs read at most 0.0093 (cosine 0.999945,
+#    same greedy tokens) for qwen3-4b's 2 layers and 0.067 (cosine 0.9975)
+#    for zamba2's 6, over four seeds; a planted fault (K7's bf16 build
+#    leaving out y's C·h term) reads 0.62-0.93 (cosine 0.41-0.71) there.
+#    Held to 2e-2 and cosine 0.9998 with the same greedy tokens for
+#    qwen3-4b, and to 0.2 and cosine 0.97 for zamba2-2.7b, whose sound runs
+#    may swap a near-equal top logit (one seed of four did). The readings:
+#    scripts/torch_bf16_witness.py, on the tree and on a copy with the fault.
+CONSISTENCY_F32, CONSISTENCY_F32_COS = 1e-4, 0.99999
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)  # card vs CPU in f32: 2560- and 151936-wide sums
 
 
-def serve_phase(dev):
-    """qwen3-4b at full width and depth in bf16 through ServeEngine; returns
+def agree(a, b):
+    """max|a - b| / max|a|, the least cosine over rows, and the argmaxes."""
+    import torch
+
+    rel = float((a - b).abs().max() / a.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    return rel, cos, int(a.argmax()), int(b.argmax())
+
+
+def bf16_witness(dev, cfg, params, prompt):
+    """A bf16 model on the card against the same weights on the CPU: the
+    logits of ``forward`` at every position of ``prompt``, then prefill and
+    WITNESS_STEPS decode steps fed the CPU's greedy token. Returns the
+    worst max|diff| over the largest logit, the least cosine, and whether
+    the greedy tokens of the prefill and decode steps agreed."""
+    import torch
+
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+    from repro_torch.models.transformer import tree_map
+
+    ps = {"cpu": tree_map(lambda t: t.cpu(), params), dev: params}
+    n = len(prompt)
+    toks = torch.from_numpy(prompt).long()[None]
+    worst_rel, worst_cos, _, _ = agree(forward(ps["cpu"], cfg, toks)[0].float(),
+                                       forward(params, cfg, toks.to(dev))[0].float().cpu())
+    caches = {d: init_cache(cfg, 1, n + WITNESS_STEPS + 1, device=d) for d in ps}
+    logits = {d: prefill(ps[d], cfg, toks.to(d), caches[d])[0] for d in ps}
+    same = True
+    for i in range(WITNESS_STEPS + 1):
+        rel, cos, am, bm = agree(logits["cpu"].float(), logits[dev].float().cpu())
+        worst_rel, worst_cos, same = max(worst_rel, rel), min(worst_cos, cos), same and am == bm
+        if i == WITNESS_STEPS:
+            break
+        tok = torch.tensor([[am]])
+        logits = {d: decode_step(ps[d], cfg, tok.to(d), caches[d])[0] for d in ps}
+    return worst_rel, worst_cos, same
+
+
+def check_limits(reading, limits) -> bool:
+    rel, cos, same = reading
+    lim_rel, lim_cos, same_token = limits
+    return rel <= lim_rel and cos >= lim_cos and (same or not same_token)
+
+
+def limits_text(limits) -> str:
+    lim_rel, lim_cos, same_token = limits
+    return f"(limits {lim_rel}, cosine {lim_cos}{', same greedy token' if same_token else ''})"
+
+
+def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
+    """``arch`` at full width and depth in bf16 through ServeEngine; returns
     the launch counts of the engine run."""
     import numpy as np
     import torch
@@ -464,7 +663,8 @@ def serve_phase(dev):
     from repro_torch.models.transformer import tree_map
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = configs.get_config(SERVE_ARCH)
+    cfg = configs.get_config(arch)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -493,9 +693,12 @@ def serve_phase(dev):
     for r in results:
         if len(r.tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.rid}: tokens {r.tokens}")
-    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention"):
+    for name in needed:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
+    if cfg.family == "hybrid" and launches["ssd_scan"] != cfg.n_layers * SERVE_REQUESTS:
+        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} times for "
+                             f"{SERVE_REQUESTS} prefills of {cfg.n_layers} Mamba layers")
     log(f"served {len(results)} requests x {SERVE_NEW} tokens, prompts {sorted(lens.tolist())}, "
         f"slots {SERVE_SLOTS}, max_len {SERVE_MAX_LEN}: {wall:.2f} s, "
         f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} generated tokens/s; launches {launches}")
@@ -525,30 +728,60 @@ def serve_phase(dev):
     log(f"decode at {SERVE_PROMPT}+ cached positions, batch 1: "
         f"{statistics.median(times):.2f} ms/token (median of {len(times)})")
 
-    # prefill/decode consistency on one prompt
+    # prefill/decode consistency on one prompt, in bf16 and in float32
     prompt = torch.from_numpy(prompts[0]).long()[None].to(dev)
-    full, _ = prefill(params, cfg, prompt, init_cache(cfg, 1, SERVE_MAX_LEN, device=dev))
-    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
-    prefill(params, cfg, prompt[:, :-1], cache)
-    step, _ = decode_step(params, cfg, prompt[:, -1:], cache)
-    a, b = full.float(), step.float()
-    rel = float((a - b).abs().max() / a.abs().max())
-    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
-    log(f"prefill/decode consistency ({prompt.shape[1]} tokens): max|diff|/max|logit| {rel:.3g} "
-        f"(limit {CONSISTENCY_REL}), cosine {cos:.6f} (limit {CONSISTENCY_COS}), "
-        f"argmax {int(a.argmax())} vs {int(b.argmax())}")
-    if rel > CONSISTENCY_REL or cos < CONSISTENCY_COS or int(a.argmax()) != int(b.argmax()):
-        raise AssertionError("prefill and decode_step disagree on the last token")
+
+    def both_paths(p, c):
+        full, _ = prefill(p, c, prompt, init_cache(c, 1, SERVE_MAX_LEN, device=dev))
+        cache = init_cache(c, 1, SERVE_MAX_LEN, device=dev)
+        prefill(p, c, prompt[:, :-1], cache)
+        step, _ = decode_step(p, c, prompt[:, -1:], cache)
+        return full.float(), step.float()
+
+    bf16 = {seeds[0]: both_paths(params, cfg)}
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"peak device memory (max_memory_allocated): {peak:.2f} GiB")
+    embed_rows = params["embed"][:8].clone()
     del params, cache
+    for seed in seeds[1:]:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        bf16[seed] = both_paths(params, cfg)
+        del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(seeds[0]))
+    if not torch.equal(params32["embed"][:8].to(embed_rows.dtype), embed_rows):
+        raise AssertionError("the bf16 weights are not the float32 ones rounded")
+    f32 = both_paths(params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
 
-    # card against CPU: the same configuration cut to 2 layers, float32
-    cut = cfg.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    n = prompt.shape[1]
+    rel, cos, am, bm = agree(*f32)
+    log(f"prefill/decode consistency, f32, seed {seeds[0]} ({n} tokens): max|diff|/max|logit| "
+        f"{rel:.3g} (limit {CONSISTENCY_F32}), cosine {cos:.7f} (limit {CONSISTENCY_F32_COS}), "
+        f"argmax {am} vs {bm}")
+    if rel > CONSISTENCY_F32 or cos < CONSISTENCY_F32_COS or am != bm:
+        raise AssertionError("prefill and decode_step disagree on the last token in f32")
+    for seed in seeds:
+        rel, cos, am, bm = agree(*bf16[seed])
+        drift = ""
+        if seed == seeds[0]:
+            d = [agree(f32[0], x)[:2] for x in bf16[seed]]
+            drift = (f"; from the f32 prefill: prefill {d[0][0]:.3g} (cosine {d[0][1]:.6f}), "
+                     f"prefill + decode {d[1][0]:.3g} (cosine {d[1][1]:.6f})")
+        log(f"prefill/decode consistency, bf16, seed {seed} ({n} tokens): max|diff|/max|logit| "
+            f"{rel:.3g}, cosine {cos:.6f}, argmax {am} vs {bm} {limits_text(bf16_limits)}{drift}")
+        if not check_limits((rel, cos, am == bm), bf16_limits):
+            raise AssertionError(f"prefill and decode_step disagree on the last token in bf16, "
+                                 f"seed {seed}")
+
+    # card against CPU: the same configuration cut to a few layers, float32
+    cut = cfg.replace(n_layers=cut_layers, dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
     cpu_params = init_params(cut, torch.Generator().manual_seed(0))
     dev_params = tree_map(lambda t: t.to(dev), cpu_params)
-    log(f"{cut.name} cut to 2 layers, float32: parameters drawn on the CPU in "
+    log(f"{cut.name} cut to {cut_layers} layers, float32: parameters drawn on the CPU in "
         f"{time.perf_counter() - t0:.1f} s")
     worst = 0.0
     for n in (64, 256):
@@ -568,8 +801,20 @@ def serve_phase(dev):
                 break
             tok = torch.tensor([[nxt["cpu"]]])
             logits = {d: decode_step(ps[d], cut, tok.to(d), caches[d])[0] for d in caches}
-    log(f"card vs cpu (2 layers, f32, prompts 64 and 256, prefill + 4 decode steps): "
-        f"max|err| {worst:.3g} (tol {PARITY_TOL}), greedy tokens equal")
+    log(f"{cfg.name} card vs cpu ({cut_layers} layers, f32, prompts 64 and 256, prefill + 4 "
+        f"decode steps): max|err| {worst:.3g} (tol {PARITY_TOL}), greedy tokens equal")
+    del cpu_params, dev_params
+    cut16 = cfg.replace(n_layers=cut_layers)
+    for seed in seeds:
+        params = init_params(cut16, torch.Generator(device=dev).manual_seed(seed))
+        reading = bf16_witness(dev, cut16, params, prompts[0][:WITNESS_PROMPT])
+        del params
+        log(f"{cfg.name} card vs cpu ({cut_layers} layers, bf16, seed {seed}; forward at "
+            f"{WITNESS_PROMPT} positions, prefill + {WITNESS_STEPS} decode steps): max|diff|/"
+            f"max|logit| {reading[0]:.3g}, cosine {reading[1]:.6f}, greedy tokens "
+            f"{'equal' if reading[2] else 'differ'} {limits_text(cut_limits)}")
+        if not check_limits(reading, cut_limits):
+            raise AssertionError(f"bf16 on the card departs from bf16 on the cpu, seed {seed}")
     return launches
 
 
@@ -607,11 +852,15 @@ def main() -> int:
     kernels = kernel_phase(dev)
     if args.phase == "kernels":
         return 0
-    stream_launches, _ = main_path_phase(dev)
-    serve_launches = serve_phase(dev)
-    log(f"launches: stream path {stream_launches}; serving path {serve_launches}")
+    runs = {"stream path": main_path_phase(dev)[0]}
+    for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
+        runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
+                                              cut_limits)
+    log("launches: " + "; ".join(f"{name} {counts}" for name, counts in runs.items()))
     for k in kernels:
-        k["launches"] = stream_launches[k["name"]] + serve_launches[k["name"]]
+        k["launches"] = sum(counts[k["name"]] for counts in runs.values())
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} was launched on no counted path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's serving path spends its time, on the card.
 
-Builds qwen3-4b at full width and depth (bf16, random weights from a
-seeded generator on the card, with ``chip_smoke.py``'s serving
-architecture, longest prompt and cache length), warms up, then profiles
-with ``torch.profiler`` (CPU and CUDA activities):
+For each architecture of ``ARCHS`` (``chip_smoke.py``'s dense and hybrid
+serving architectures, qwen3-4b and zamba2-2.7b) in turn: builds it at
+full width and depth (bf16, random weights from a seeded generator on the
+card, with ``chip_smoke.py``'s longest prompt and cache length), warms up,
+then profiles with ``torch.profiler`` (CPU and CUDA activities):
   * one prefill of a 2048-token prompt into a batch-1 cache of 4096;
   * ``DECODE`` decode steps at batch 1 after it.
 
-Prints, and writes as JSON to ``--out``:
+Prints, and writes as JSON to ``--out`` (one entry per architecture):
   * wall ms (host clock around the call, which ends in a synchronize),
     without and with the profiler;
   * device busy ms (sum of kernel times; one stream, so kernels do not
     overlap) and the idle share ``1 - busy / wall``, per prefill and per
     decoded token;
   * kernel launches per prefill and per token, the port's kernel launch
-    counts, and the top kernels by device time in each phase.
+    counts, the device ms of each of the port's kernels (by the name of
+    its CUDA function) and the top kernels by device time in each phase.
 
 Usage (on a machine with a CUDA device, from the repository root):
     python3 scripts/torch_serve_profile.py [--out chiprun_out/torch_serve_profile.json]
@@ -34,9 +36,17 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import SERVE_ARCH, SERVE_MAX_LEN, SERVE_PROMPT  # noqa: E402
+from chip_smoke import HYBRID_ARCH, SERVE_ARCH, SERVE_MAX_LEN, SERVE_PROMPT  # noqa: E402
 
+ARCHS = (SERVE_ARCH, HYBRID_ARCH)
 DECODE = 8  # decode steps profiled after the prefill
+# the port's kernels by the name of their CUDA function(s) in the trace
+PORT_KERNELS = {
+    "rmsnorm/rmsnorm_residual": "rms_rows",
+    "flash_attention": "flash_fwd",
+    "decode_attention": "decode_",
+    "ssd_scan": "ssd_chunk_scan",
+}
 
 
 def _dev_us(e):
@@ -54,6 +64,10 @@ def _phase(prof, calls: int, wall_ms: float, top_n: int = 12) -> dict:
         "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
         "kernel_launches": sum(e.count for e in kernels) / calls,
+        "port_kernel_device_ms": {
+            name: sum(_dev_us(e) for e in kernels if fn in e.key) / 1e3 / calls
+            for name, fn in PORT_KERNELS.items()
+        },
         "top_kernels": [
             {"name": e.key[:120], "device_ms": _dev_us(e) / 1e3 / calls,
              "launches": e.count / calls}
@@ -77,23 +91,52 @@ def main() -> int:
     parser.add_argument("--out", default="chiprun_out/torch_serve_profile.json")
     args = parser.parse_args()
 
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch import configs
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-    from repro_torch.models import decode_step, init_cache, init_params, prefill
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda", 0)
-    cfg = configs.get_config(SERVE_ARCH)
+    print(f"card: {card}")
+    report = {}
+    for arch in ARCHS:
+        rep = report[arch] = profile_arch(arch, dev, card)
+        torch.cuda.empty_cache()
+        print(f"{rep['arch']} ({rep['layers']} layers, {rep['dtype']}), prompt {SERVE_PROMPT}, "
+              f"{DECODE} decode steps")
+        print(f"prefill wall ms without the profiler {rep['prefill_wall_ms_unprofiled']} "
+              f"(median {statistics.median(rep['prefill_wall_ms_unprofiled']):.3f})")
+        print(f"decode wall ms/token without the profiler "
+              f"{rep['decode_wall_ms_per_token_unprofiled']} "
+              f"(median {statistics.median(rep['decode_wall_ms_per_token_unprofiled']):.3f})")
+        for name in ("prefill", "decode_per_token"):
+            ph = rep[name]
+            print(f"{name}: wall {ph['wall_ms']:.3f} ms, device busy {ph['device_busy_ms']:.3f} ms, "
+                  f"idle share {ph['device_idle_share']:.3f}, {ph['kernel_launches']:.0f} launches; "
+                  f"port kernels {ph['repro_torch_kernel_launches']}; port kernel device ms "
+                  f"{ {k: round(v, 3) for k, v in ph['port_kernel_device_ms'].items()} }")
+            for k in ph["top_kernels"]:
+                print(f"  {k['device_ms']:9.3f} ms  x{k['launches']:6.1f}  {k['name']}")
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+def profile_arch(arch: str, dev, card: str) -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    cfg = configs.get_config(arch)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT)).long()[None].to(dev)
@@ -123,7 +166,7 @@ def main() -> int:
         wall_d = _timed(run_decode) / DECODE
     decode_launches = {k: v / DECODE for k, v in launch_counts().items()}
 
-    report = {
+    return {
         "card": card,
         "arch": cfg.name,
         "layers": cfg.n_layers,
@@ -136,24 +179,6 @@ def main() -> int:
         "decode_per_token": {**_phase(prof_d, DECODE, wall_d),
                              "repro_torch_kernel_launches": decode_launches},
     }
-    print(f"card: {card}")
-    print(f"{cfg.name} ({cfg.n_layers} layers, {cfg.dtype}), prompt {SERVE_PROMPT}, "
-          f"{DECODE} decode steps")
-    print(f"prefill wall ms without the profiler {plain_prefill} "
-          f"(median {statistics.median(plain_prefill):.3f})")
-    print(f"decode wall ms/token without the profiler {plain_decode} "
-          f"(median {statistics.median(plain_decode):.3f})")
-    for name in ("prefill", "decode_per_token"):
-        ph = report[name]
-        print(f"{name}: wall {ph['wall_ms']:.3f} ms, device busy {ph['device_busy_ms']:.3f} ms, "
-              f"idle share {ph['device_idle_share']:.3f}, {ph['kernel_launches']:.0f} launches; "
-              f"port kernels {ph['repro_torch_kernel_launches']}")
-        for k in ph["top_kernels"]:
-            print(f"  {k['device_ms']:9.3f} ms  x{k['launches']:6.1f}  {k['name']}")
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(report, f, indent=1)
-    return 0
 
 
 if __name__ == "__main__":

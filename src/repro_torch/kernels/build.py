@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of strides
 # C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t,
-# rt_decode_attention_smem a byte count)
+# the *_smem entries a byte count)
 _SIGNATURES = {
     "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _P),
     "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _P),
@@ -59,11 +59,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
     "rt_decode_attention_smem": (_I, _I),
+    "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_ssd_scan_smem": (_I, _I, _I, _I),
 }
 
 KERNELS = (
     "rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan",
-    "rmsnorm_residual", "flash_attention", "decode_attention",
+    "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

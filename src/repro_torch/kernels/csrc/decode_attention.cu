@@ -16,6 +16,8 @@
 // below cache_len with no window). Every tile a block visits holds at
 // least one valid position, so its running max is finite; masked scores
 // are -1e30, l is clamped at 1e-30, and cache_len = 0 gives a zero row.
+// Head dims 16, 32, 64, 80 (zamba2's shared block: 42 KB per split block
+// at G = 1, HD = 80 threads in the combine pass) and 128.
 #include "common.cuh"
 
 namespace {
@@ -193,6 +195,7 @@ cudaError_t dispatch_hd(const DecodeArgs& a, void* out, int64_t o_sb, int64_t o_
     case 16: return launch_decode<T, 16>(a, o, o_sb, o_sh, batch, stream);
     case 32: return launch_decode<T, 32>(a, o, o_sb, o_sh, batch, stream);
     case 64: return launch_decode<T, 64>(a, o, o_sb, o_sh, batch, stream);
+    case 80: return launch_decode<T, 80>(a, o, o_sb, o_sh, batch, stream);
     case 128: return launch_decode<T, 128>(a, o, o_sb, o_sh, batch, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -206,6 +209,7 @@ extern "C" int rt_decode_attention_smem(int groups, int hd) {
     case 16: return sizeof(float) * decode_smem_floats<16>(groups);
     case 32: return sizeof(float) * decode_smem_floats<32>(groups);
     case 64: return sizeof(float) * decode_smem_floats<64>(groups);
+    case 80: return sizeof(float) * decode_smem_floats<80>(groups);
     case 128: return sizeof(float) * decode_smem_floats<128>(groups);
     default: return -1;
   }

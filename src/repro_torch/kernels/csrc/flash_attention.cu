@@ -16,6 +16,9 @@
 // causal frontier or before the window are skipped whole; inside a tile the
 // mask is per element, as in the Pallas kernel (masked scores are -1e30,
 // l is clamped at 1e-30, default scale hd^-0.5 is applied by the caller).
+// Head dims 16, 32, 64, 80 (zamba2's shared block: HD / kRowLanes = 20
+// columns per thread, 78.6 KB of shared memory) and 128; nothing assumes a
+// power of two.
 #include "common.cuh"
 
 namespace {
@@ -177,6 +180,7 @@ cudaError_t dispatch_hd(const FlashArgs& a, int batch, int hd, cudaStream_t stre
     case 16: return launch_flash<T, 16>(a, batch, stream);
     case 32: return launch_flash<T, 32>(a, batch, stream);
     case 64: return launch_flash<T, 64>(a, batch, stream);
+    case 80: return launch_flash<T, 80>(a, batch, stream);
     case 128: return launch_flash<T, 128>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }

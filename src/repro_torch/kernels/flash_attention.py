@@ -18,7 +18,7 @@ import torch
 from . import build
 from ._launch import stream_ptr
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)  # 80: zamba2's shared attention block
 
 
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:

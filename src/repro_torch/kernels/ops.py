@@ -75,6 +75,25 @@ def decode_attention(
     return ref.decode_attention_ref(q, k_cache, v_cache, cache_len, window=window, scale=scale)
 
 
+def ssd_scan(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    B_ssm: torch.Tensor,
+    C_ssm: torch.Tensor,
+    *,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 chunked SSD scan → (y (B, S, nh, P), final state (B, nh, N, P)),
+    both float32; any S (the ragged last chunk is masked)."""
+    if xh.is_cuda:
+        from .ssd import ssd_scan as _cuda
+
+        return _cuda(xh, dt, a, B_ssm, C_ssm, chunk=chunk, h0=h0)
+    return ref.ssd_scan_ref(xh, dt, a, B_ssm, C_ssm, chunk, h0)
+
+
 def map_chain(x: torch.Tensor, *, stages: Stages) -> torch.Tensor:
     """Sequential per-channel affine stages — the fused senml_parse chain."""
     if x.is_cuda:

@@ -142,3 +142,58 @@ def kalman_scan_ref(
         rows.append(xe)
     y = torch.stack(rows) if rows else z.new_empty((0,) + tuple(z.shape[1:]))
     return y, xe, p
+
+
+def ssd_scan_ref(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    B_ssm: torch.Tensor,
+    C_ssm: torch.Tensor,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 chunked SSD scan in float32: xh (B, S, nh, P), dt (B, S, nh),
+    a (nh,), B/C (B, S, N) → (y (B, S, nh, P), final state (B, nh, N, P)).
+
+    The chunked algorithm of ``repro/models/ssm.py:_ssd_chunked_impl`` with
+    every input taken to float32 first (the jnp scan forms C·Bᵀ in the
+    inputs' dtype). Where ``chunk`` does not divide S, the sequence is
+    zero-padded to whole chunks (dt = 0 and x = B = C = 0: no decay, no
+    input) and y cropped, as the kernel masks its ragged last chunk; the
+    reference shrinks the chunk to a divisor of S instead. Both give the
+    same y and state up to rounding.
+    """
+    b, s, nh, p = xh.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t: torch.Tensor) -> torch.Tensor:  # (B, S, ...) → (nc, B, chunk, ...), f32
+        t = t.float()
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nc, chunk, *t.shape[2:]).transpose(0, 1)
+
+    xc, dtc, bc, cc = chunks(xh), chunks(dt), chunks(B_ssm), chunks(C_ssm)
+    n = B_ssm.shape[-1]
+    h = torch.zeros((b, nh, n, p), dtype=torch.float32, device=xh.device)
+    if h0 is not None:
+        h = h0.float().clone()
+    a = a.float()
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).tril()[None, :, :, None]
+    ys = []
+    for xi, dti, bi, ci in zip(xc, dtc, bc, cc):
+        cum = torch.cumsum(dti * a, dim=1)  # (B, L, nh) log-decay, ≤ 0
+        T = torch.where(causal, torch.exp(cum[:, :, None, :] - cum[:, None, :, :]), 0.0)
+        W = T * torch.einsum("bin,bjn->bij", ci, bi)[..., None] * dti[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", W, xi)
+        y_inter = torch.einsum("bin,bhnp->bihp", ci, h) * torch.exp(cum)[..., None]
+        last = cum[:, -1:, :]  # (B, 1, nh)
+        to_end = torch.exp(last - cum) * dti
+        h_add = torch.einsum("bjn,bjhp->bhnp", bi, xi * to_end[..., None])
+        h = torch.exp(last[:, 0, :])[:, :, None, None] * h + h_add
+        ys.append(y_intra + y_inter)
+    if not ys:
+        return torch.zeros((b, s, nh, p), dtype=torch.float32, device=xh.device), h
+    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, nh, p)[:, :s]
+    return y, h

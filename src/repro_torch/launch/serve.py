@@ -2,7 +2,11 @@
 (``repro/launch/serve.py`` without a subcommand), on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu
+
+Any architecture of the dense family (granite, nemotron, qwen1.5, qwen3)
+or the hybrid family (zamba2) serves; the others raise.
 
 Random weights from a seeded ``torch.Generator`` on the serving device,
 prompts of 4–11 tokens from ``numpy.random.default_rng(0)``. Without

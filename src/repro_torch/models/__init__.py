@@ -1,5 +1,6 @@
 """Model zoo of the port: the dense family (granite, nemotron, qwen1.5,
-qwen3) on the kernels of :mod:`repro_torch.kernels`. The configuration
+qwen3) and the hybrid family (zamba2: Mamba2 with a shared attention
+block) on the kernels of :mod:`repro_torch.kernels`. The configuration
 dataclasses cover all ten architectures; the other families raise
 ``NotImplementedError`` until their slice of the port (ROADMAP)."""
 from .config import MLAConfig, MoEConfig, ModelConfig, SSMConfig, XLSTMConfig

@@ -1,16 +1,23 @@
-"""Serving path of the dense family: KV cache layout, prefill (fills the
-cache, returns last-token logits) and single-token decode (port of the
-dense part of ``repro/models/decode.py``, its default ``"scan"`` cache
-layout).
+"""Serving path of the dense and hybrid families: cache layouts, prefill
+(fills the cache, returns last-token logits) and single-token decode (port
+of the dense and hybrid parts of ``repro/models/decode.py``, its default
+``"scan"`` cache layout).
 
-The cache keeps the reference's layout, stacked per layer:
-``{"len": int, "layers": {"k": (L, B, M, KV, hd), "v": ...}}`` with
-``M = max_len``, or ``min(max_len, window)`` under a sliding window, where
-the cache is a ring: position ``p`` lives in slot ``p % M``. Unlike the
-reference, whose functions return new arrays, :func:`prefill` and
-:func:`decode_step` write the cache IN PLACE and return the same dict
-(with ``len`` advanced): a full-width cache is hundreds of MB per slot,
-and a copy per token would double the bytes a decode step moves.
+The caches keep the reference's layouts, stacked per layer:
+  * dense: ``{"len": int, "layers": {"k": (L, B, M, KV, hd), "v": ...}}``;
+  * hybrid: ``{"len": int, "mamba": {"conv": (L, B, d_conv - 1, di + 2N),
+    "h": (L, B, nh, N, P) float32}, "shared": {"k": (L / every, B, M, KV,
+    hd), "v": ...}}``, one KV stack entry per application of the shared
+    block;
+with ``M = max_len``, or ``min(max_len, window)`` under a sliding window,
+where the KV cache is a ring: position ``p`` lives in slot ``p % M``.
+Unlike the reference, whose functions return new arrays, :func:`prefill`
+and :func:`decode_step` write the cache IN PLACE and return the same dict
+(with ``len`` advanced): a full-width cache is hundreds of MB per slot, and
+a copy per token would double the bytes a decode step moves. Prefill
+overwrites every Mamba layer's conv tail and state and positions ``[0, S)``
+of the KV cache, and attention reads only positions below ``len``, so
+setting ``len`` to 0 empties a cache.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 from .attention import attn_out, chunked_attention, gqa_decode, gqa_project_qkv
 from .common import add_norm
 from .config import ModelConfig
-from .transformer import _dt, _mlp_seam, lm_head, require_dense, run_blocks
+from .ssm import _mamba_seq, mamba_decode, mamba_init_cache
+from .transformer import _dt, _mlp_seam, lm_head, require_supported, run_blocks, run_hybrid
 
 PyTree = Any
 
@@ -37,15 +45,26 @@ def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, *, device: torch.device | str = "cpu"
 ) -> PyTree:
     """Empty cache for a serving session of ≤ max_len absolute positions."""
-    require_dense(cfg)
+    require_supported(cfg)
     m = _ring(cfg, max_len)
-    shape = (cfg.n_layers, batch, m, cfg.n_kv_heads, cfg.head_dim_)
+    if cfg.family == "dense":
+        return {"len": 0, "layers": _kv_stack(cfg, cfg.n_layers, batch, m, device)}
+    one = mamba_init_cache(cfg, batch, _dt(cfg), device)
+    cache = {"len": 0, "mamba": {
+        k: torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype, device=device)
+        for k, t in one.items()
+    }}
+    if cfg.shared_attn_every:
+        n_shared = cfg.n_layers // cfg.shared_attn_every
+        cache["shared"] = _kv_stack(cfg, n_shared, batch, m, device)
+    return cache
+
+
+def _kv_stack(cfg: ModelConfig, n: int, batch: int, m: int, device) -> Dict[str, torch.Tensor]:
+    shape = (n, batch, m, cfg.n_kv_heads, cfg.head_dim_)
     return {
-        "len": 0,
-        "layers": {
-            "k": torch.zeros(shape, dtype=_dt(cfg), device=device),
-            "v": torch.zeros(shape, dtype=_dt(cfg), device=device),
-        },
+        "k": torch.zeros(shape, dtype=_dt(cfg), device=device),
+        "v": torch.zeros(shape, dtype=_dt(cfg), device=device),
     }
 
 
@@ -92,26 +111,55 @@ def _gqa_prefill_layer(bp, h, a_in, positions, cfg, cl, next_norm, last_only: bo
     return _mlp_seam(bp, h, m_in, cfg, next_norm)
 
 
-def _cache_layer(cache: PyTree, i: int) -> Dict[str, torch.Tensor]:
-    return {"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i]}
+def _cache_layer(cache: PyTree, i: int, stack: str = "layers") -> Dict[str, torch.Tensor]:
+    """Layer ``i`` of one of the cache's stacks, as views."""
+    return {k: t[i] for k, t in cache[stack].items()}
+
+
+# ==================================================== hybrid-family prefill
+
+def _mamba_prefill(p, x, cfg, cl) -> torch.Tensor:
+    """Like ``mamba_block``, and fills the layer's cache ``cl`` IN PLACE:
+    the conv tail (the last ``d_conv - 1`` inputs of the conv, left-padded
+    with zeros for a shorter prompt, as the causal conv pads them; the
+    reference keeps only the prompt's rows there, from which its decode
+    cannot go on) and the final state. Both are overwritten whole."""
+    out, xbc, h_final = _mamba_seq(p, x, cfg)
+    conv = cl["conv"]
+    k = conv.shape[1]
+    tail = xbc[:, -k:]
+    conv[:, : k - tail.shape[1]] = 0
+    conv[:, k - tail.shape[1] :] = tail
+    cl["h"].copy_(h_final)
+    return out
 
 
 def prefill(
     params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache: PyTree
 ) -> Tuple[torch.Tensor, PyTree]:
     """Process a fresh prompt (B, S); returns (last-token logits (B, V), cache)."""
-    require_dense(cfg)
+    require_supported(cfg)
     S = tokens.shape[1]
     h = params["embed"][tokens].to(_dt(cfg))
     positions = torch.arange(S, device=h.device)[None, :]
-    last = cfg.n_layers - 1
-    _, normed = run_blocks(
-        params, cfg, h,
-        lambda i, bp, h, a_in, nxt: _gqa_prefill_layer(
-            bp, h, a_in, positions, cfg, _cache_layer(cache, i), nxt, last_only=i == last),
-    )
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        _, normed = run_hybrid(
+            params, cfg, h,
+            lambda i, mp, x: _mamba_prefill(mp, x, cfg, _cache_layer(cache, i, "mamba")),
+            lambda g, sp, h, a_in, nxt: _gqa_prefill_layer(
+                sp, h, a_in, positions, cfg, _cache_layer(cache, g, "shared"), nxt,
+                last_only=(g + 1) * every == cfg.n_layers),
+        )
+    else:
+        last = cfg.n_layers - 1
+        _, normed = run_blocks(
+            params, cfg, h,
+            lambda i, bp, h, a_in, nxt: _gqa_prefill_layer(
+                bp, h, a_in, positions, cfg, _cache_layer(cache, i), nxt, last_only=i == last),
+        )
     cache["len"] = S
-    return (normed @ lm_head(params, cfg))[:, 0], cache
+    return (normed[:, -1:] @ lm_head(params, cfg))[:, 0], cache
 
 
 # ================================================================ decode
@@ -120,15 +168,25 @@ def decode_step(
     params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache: PyTree
 ) -> Tuple[torch.Tensor, PyTree]:
     """One decode step on tokens (B, 1); returns (logits (B, V), cache)."""
-    require_dense(cfg)
+    require_supported(cfg)
     pos = int(cache["len"])
     h = params["embed"][tokens].to(_dt(cfg))
 
-    def layer(i, bp, h, a_in, nxt):
-        y, _ = gqa_decode(bp["attn"], a_in, {**_cache_layer(cache, i), "len": pos}, cfg)
+    def attn_mlp(bp, h, a_in, nxt, cl):
+        y, _ = gqa_decode(bp["attn"], a_in, {**cl, "len": pos}, cfg)
         m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
         return _mlp_seam(bp, h, m_in, cfg, nxt)
 
-    _, normed = run_blocks(params, cfg, h, layer)
+    if cfg.family == "hybrid":
+        _, normed = run_hybrid(
+            params, cfg, h,
+            lambda i, mp, x: mamba_decode(mp, x, _cache_layer(cache, i, "mamba"), cfg)[0],
+            lambda g, sp, h, a_in, nxt: attn_mlp(sp, h, a_in, nxt, _cache_layer(cache, g, "shared")),
+        )
+    else:
+        _, normed = run_blocks(
+            params, cfg, h,
+            lambda i, bp, h, a_in, nxt: attn_mlp(bp, h, a_in, nxt, _cache_layer(cache, i)),
+        )
     cache["len"] = pos + 1
     return (normed @ lm_head(params, cfg))[:, 0], cache

@@ -1,18 +1,25 @@
-"""Model assembly for the dense family: parameter init and the
-teacher-forcing forward (port of the dense part of
+"""Model assembly for the dense and hybrid families: parameter init and the
+teacher-forcing forward (port of the dense and hybrid parts of
 ``repro/models/transformer.py``).
 
 Parameters are a plain dictionary of tensors in the reference's layout:
 the per-layer weights stacked on a leading ``L`` axis (``wq (L, D, H, hd)``,
-``wo (L, H, hd, D)``, …), so :func:`repro_torch.convert.params_from_jax`
-moves arrays without re-laying them out. Layers run in a Python loop over
-views of the stack (PyTorch runs eagerly; there is no ``scan`` to lower).
+``wo (L, H, hd, D)``, ``mamba_blocks.mixer.w_in (L, D, E)``, …), and the
+hybrid family's one shared attention block unstacked, so
+:func:`repro_torch.convert.params_from_jax` moves arrays without re-laying
+them out. Layers run in a Python loop over views of the stack (PyTorch runs
+eagerly; there is no ``scan`` to lower).
 
-Each block's two residual seams are one K4 pass each: ``h + attn`` feeds
-the MLP norm, and ``h + mlp`` feeds the next layer's attention norm (the
-final norm after the last layer); only layer 0's attention norm is a K1
-pass of its own. Other families raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+Each residual seam is one K4 pass: in a dense block ``h + attn`` feeds the
+MLP norm, and ``h + mlp`` feeds the next layer's attention norm (the final
+norm after the last layer); only layer 0's attention norm is a K1 pass of
+its own. The hybrid family (zamba2) runs Mamba2 layers, ``h + mixer(norm(
+h))``, with the shared attention + MLP block after every
+``shared_attn_every``-th: each ``h + mixer`` seam feeds the next Mamba
+norm, the shared block's attention norm or the final norm, and the shared
+block's own two seams are a dense block's; K1 runs the first Mamba norm
+(and, inside the mixer, the gated ``out_norm``). Other families raise
+``NotImplementedError`` naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -24,12 +31,12 @@ from .attention import gqa_attention, gqa_params
 from .common import add_norm, apply_norm, dense_init, embed_init, norm_params
 from .config import ModelConfig
 from .mlp import mlp, mlp_params
+from .ssm import mamba_block, mamba_params
 
 PyTree = Any
 
-# the slice of the port (ROADMAP) that brings each family the dense one lacks
+# the slice of the port (ROADMAP) that brings each family the port lacks
 FAMILY_SLICE = {
-    "hybrid": "the hybrid slice (zamba2: models/ssm.py with K7 ssd_scan)",
     "moe": "the moe/MLA slice (mixtral, deepseek-v2)",
     "vlm": "the vlm slice (llama-3.2-vision cross-attention)",
     "audio": "the audio slice (seamless encoder-decoder)",
@@ -37,12 +44,12 @@ FAMILY_SLICE = {
 }
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_supported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "hybrid"):
         slice_ = FAMILY_SLICE.get(cfg.family, "a later slice")
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family only; family {cfg.family!r} "
-            f"comes with {slice_}"
+            f"{cfg.name}: the port runs the dense and hybrid families only; family "
+            f"{cfg.family!r} comes with {slice_}"
         )
 
 
@@ -59,7 +66,7 @@ def init_params(
     ``device`` (default: where they were drawn). Norm gains are ones and
     biases zeros, as in the reference; the numbers differ from
     ``jax.random``'s (tests load the reference's with ``params_from_jax``)."""
-    require_dense(cfg)
+    require_supported(cfg)
     dtype = _dt(cfg)
     V, D, L = cfg.padded_vocab, cfg.d_model, cfg.n_layers
     dev = generator.device
@@ -69,15 +76,30 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (D, V), dtype)
-    params["blocks"] = {
-        "attn_norm": norm_params(cfg.norm, (L, D), dtype, dev),
-        "attn": gqa_params(generator, cfg, dtype, L),
-        "mlp_norm": norm_params(cfg.norm, (L, D), dtype, dev),
-        "mlp": mlp_params(generator, D, cfg.d_ff, cfg.activation, dtype, L),
-    }
+    if cfg.family == "dense":
+        params["blocks"] = _dense_layers(generator, cfg, dtype, L)
+    else:
+        params["mamba_blocks"] = {
+            "norm": norm_params(cfg.norm, (L, D), dtype, dev),
+            "mixer": mamba_params(generator, cfg, dtype, L),
+        }
+        # ONE shared transformer block (weights reused at every application)
+        params["shared_attn"] = tree_map(
+            lambda t: t[0], _dense_layers(generator, cfg, dtype, 1))
     if device is not None and torch.device(device) != dev:
         params = tree_map(lambda t: t.to(device), params)
     return params
+
+
+def _dense_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int) -> PyTree:
+    """``n`` attn + MLP layers' weights, stacked on a leading axis."""
+    D = cfg.d_model
+    return {
+        "attn_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
+        "attn": gqa_params(gen, cfg, dtype, n),
+        "mlp_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
+        "mlp": mlp_params(gen, D, cfg.d_ff, cfg.activation, dtype, n),
+    }
 
 
 def tree_map(fn, tree: PyTree) -> PyTree:
@@ -132,16 +154,44 @@ def run_blocks(params: PyTree, cfg: ModelConfig, h: torch.Tensor, layer_fn):
     return h, a_in
 
 
+def run_hybrid(params: PyTree, cfg: ModelConfig, h: torch.Tensor, mamba_fn, shared_fn):
+    """Drive the hybrid stack: Mamba layer ``i`` adds ``mamba_fn(i, mixer,
+    norm_i(h))`` to the stream; after every ``shared_attn_every``-th the
+    shared block runs as ``shared_fn(g, shared, h, a_in, next_norm) -> (h,
+    normed)``, ``g`` its application and ``a_in`` its attention norm of h.
+    Returns the stream and its final-normed version."""
+    every = cfg.shared_attn_every
+    shared = params["shared_attn"] if every else None
+    blocks = layers(params["mamba_blocks"], cfg.n_layers)
+    norms = [bp["norm"] for bp in blocks[1:]] + [params["final_norm"]]
+    normed = apply_norm(h, blocks[0]["norm"], cfg.norm)
+    for i, bp in enumerate(blocks):
+        y = mamba_fn(i, bp["mixer"], normed)
+        if every and i % every == every - 1:
+            a_in, h = add_norm(y, h, shared["attn_norm"], cfg.norm)
+            h, normed = shared_fn(i // every, shared, h, a_in, norms[i])
+        else:
+            normed, h = add_norm(y, h, norms[i], cfg.norm)
+    return h, normed
+
+
 # ======================================================================== forward
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Teacher-forcing forward → logits (B, S, V)."""
-    require_dense(cfg)
+    require_supported(cfg)
     S = tokens.shape[1]
     h = params["embed"][tokens].to(_dt(cfg))
     positions = torch.arange(S, device=h.device)[None, :]
-    _, normed = run_blocks(
-        params, cfg, h,
-        lambda i, bp, h, a_in, nxt: _dense_block(bp, h, a_in, positions, cfg, nxt),
-    )
+    if cfg.family == "hybrid":
+        _, normed = run_hybrid(
+            params, cfg, h,
+            lambda i, mp, x: mamba_block(mp, x, cfg),
+            lambda g, sp, h, a_in, nxt: _dense_block(sp, h, a_in, positions, cfg, nxt),
+        )
+    else:
+        _, normed = run_blocks(
+            params, cfg, h,
+            lambda i, bp, h, a_in, nxt: _dense_block(bp, h, a_in, positions, cfg, nxt),
+        )
     return normed @ lm_head(params, cfg)

@@ -11,16 +11,19 @@ with atol 2e-3 for K5/K6 in bf16: their outputs are weighted means, small
 beside 2e-2, and two bf16 roundings of one value differ by at most one ulp,
 which rtol covers. K2/K3 and the kalman scan are held bitwise, as their
 contract says. The K5/K6 cases are tests/test_kernels.py's sweep plus
-qwen3's head dim.
+qwen3's head dim and zamba2's (80). K7 returns float32 whatever its inputs
+and its plain version computes in float32 from the same inputs, so they
+differ only in the order of their sums: held at 1e-4 of the largest |value|.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention, fused, kalman, ref, rmsnorm
+from repro_torch.kernels import decode_attention, flash_attention, fused, kalman, ref, rmsnorm, ssd
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-3)
+SSD_REL = 1e-4
 STAGES = ((2.0, 0.5), (0.7, -0.1))
 
 
@@ -118,6 +121,8 @@ def test_cuda_rmsnorm_residual(cuda, dtype, shape):
     (2, 33, 77, 2, 2, 16, False, 0),
     (1, 300, 300, 32, 8, 128, True, 0),
     (1, 200, 200, 8, 2, 128, True, 50),
+    (1, 333, 333, 32, 32, 80, True, 4096),
+    (2, 70, 70, 4, 4, 80, True, 16),
 ])
 def test_cuda_flash_attention(cuda, dtype, b, sq, sk, h, kv, hd, causal, window):
     g = torch.Generator().manual_seed(3)
@@ -138,6 +143,8 @@ def test_cuda_flash_attention(cuda, dtype, b, sq, sk, h, kv, hd, causal, window)
     (3, 96, 1, 2, 2, 16, 0),
     (1, 4096, 2048, 32, 8, 128, 0),
     (1, 64, 0, 4, 2, 16, 0),
+    (1, 4096, 2048, 32, 32, 80, 4096),
+    (2, 16, 13, 4, 4, 80, 16),
 ])
 def test_cuda_decode_attention(cuda, dtype, b, smax, clen, h, kv, hd, window):
     g = torch.Generator().manual_seed(4)
@@ -174,4 +181,81 @@ def test_dense_serving_path_on_the_card_matches_cpu(cuda, swa):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     counts = launch_counts()
     for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention"):
+        assert counts[name] > 0, name
+
+
+def _assert_rel(got, want, rel=SSD_REL):
+    limit = rel * float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= limit, f"max |err| {err} above {limit}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,p,n,chunk", [
+    (1, 64, 2, 32, 16, 16),      # tests/test_kernels.py's three shapes
+    (2, 128, 4, 64, 64, 32),
+    (1, 256, 2, 64, 128, 128),   # W in row tiles: a whole W does not fit
+    (1, 1109, 8, 64, 64, 128),   # zamba2's widths, a prime (ragged) S
+    (2, 37, 3, 32, 16, 8),       # zamba2 SMOKE's widths, ragged
+    (1, 100, 2, 16, 8, 48),
+])
+def test_cuda_ssd_scan(cuda, dtype, b, s, nh, p, n, chunk):
+    g = torch.Generator().manual_seed(5)
+    xh = _randn(g, (b, s, nh, p), cuda, dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=g)).to(cuda)
+    a = -torch.exp(0.5 * torch.randn((nh,), generator=g)).to(cuda)
+    bm, cm = _randn(g, (b, s, n), cuda, dtype), _randn(g, (b, s, n), cuda, dtype)
+    h0 = torch.randn((b, nh, n, p), generator=g).to(cuda) if s % 2 else None
+    got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk, h0=h0)
+    want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk, h0)
+    assert got_y.dtype == got_h.dtype == torch.float32
+    _assert_rel(got_y, want_y)
+    _assert_rel(got_h, want_h)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_reads_strided_slices(cuda):
+    # the Mamba block hands over xh, B and C as slices of one conv output
+    g = torch.Generator().manual_seed(6)
+    b, s, nh, p, n = 2, 50, 4, 32, 16
+    xbc = _randn(g, (b, s, nh * p + 2 * n), cuda, torch.bfloat16)
+    xh = xbc[..., : nh * p].reshape(b, s, nh, p)
+    bm, cm = xbc[..., nh * p : nh * p + n], xbc[..., nh * p + n :]
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=g)).to(cuda)
+    a = -torch.exp(torch.randn((nh,), generator=g)).to(cuda)
+    got = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=16)
+    want = ssd.ssd_scan(xh.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), chunk=16)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_hybrid_serving_path_on_the_card_matches_cpu(cuda):
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    cfg = configs.get_smoke_config("zamba2-2.7b")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    torch.testing.assert_close(forward(on_card, cfg, toks.to(cuda)).cpu(), forward(params, cfg, toks),
+                               rtol=1e-4, atol=1e-4)
+    caches = {"cpu": init_cache(cfg, 2, 32), "cuda": init_cache(cfg, 2, 32, device=cuda)}
+    want, _ = prefill(params, cfg, toks, caches["cpu"])
+    got, _ = prefill(on_card, cfg, toks.to(cuda), caches["cuda"])
+    for _ in range(3):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok = want.argmax(-1)[:, None]
+        want, _ = decode_step(params, cfg, tok, caches["cpu"])
+        got, _ = decode_step(on_card, cfg, tok.to(cuda), caches["cuda"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in ("conv", "h"):
+        torch.testing.assert_close(caches["cuda"]["mamba"][name].cpu(), caches["cpu"]["mamba"][name],
+                                   rtol=1e-4, atol=1e-4)
+    counts = launch_counts()
+    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan"):
         assert counts[name] > 0, name

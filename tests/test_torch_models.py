@@ -1,11 +1,14 @@
-"""The port's dense-family model path against the JAX reference on the CPU.
+"""The port's dense- and hybrid-family model paths against the JAX
+reference on the CPU.
 
 Parameters are the reference's ``init_params(cfg, PRNGKey(0))``, handed over
 as numpy through ``params_from_jax``; tokens are drawn with numpy. The
 SMOKE configs run in float32, so the two packages differ only in the order
-of their sums (2 layers, widths of 64–128, a 512-wide head): forward,
+of their sums (2–4 layers, widths of 64–128, a 512-wide head): forward,
 prefill (logits and the filled cache) and three decode steps are held to
-rtol = atol = 1e-5.
+rtol = atol = 1e-5. The hybrid family's float32 SSM state reaches ~10 and
+sums up to 12 chunked products per position, so it is held at 2e-5 of its
+largest value (observed ≤ 2e-6).
 """
 import dataclasses
 
@@ -26,9 +29,11 @@ from repro_torch.models import decode_step, forward, init_cache, init_params, pr
 from repro_torch.models.decode import _write_ring
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+STATE_REL = 2e-5
 DENSE = ["granite_20b", "nemotron_4_340b", "qwen15_110b", "qwen3_4b"]
+SERVED = DENSE + ["zamba2_2_7b"]
 OTHER = ["deepseek_v2_236b", "mixtral_8x22b", "llama32_vision_90b", "xlstm_1_3b",
-         "zamba2_2_7b", "seamless_m4t_medium"]
+         "seamless_m4t_medium"]
 
 
 def _configs(arch, swa=0):
@@ -51,8 +56,25 @@ def _t(tokens):
     return torch.from_numpy(np.asarray(tokens)).long()
 
 
-CASES = [(a, 0) for a in DENSE] + [("qwen3_4b", 8)]
-IDS = [a for a in DENSE] + ["qwen3_4b-swa8"]
+CASES = [(a, 0) for a in SERVED] + [("qwen3_4b", 8), ("zamba2_2_7b", 8)]
+IDS = [a for a in SERVED] + ["qwen3_4b-swa8", "zamba2_2_7b-swa8"]
+
+
+def _assert_cache_close(got, want):
+    """Every array of the port's cache against the reference's, same tree."""
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        if key == "len":
+            assert got["len"] == int(w)
+        elif isinstance(w, dict):
+            _assert_cache_close(got[key], w)
+        else:
+            g, w = got[key].float().numpy(), np.asarray(w, np.float32)
+            assert g.shape == w.shape, key
+            if key == "h":  # the float32 SSM state
+                assert np.abs(g - w).max() <= STATE_REL * np.abs(w).max(), key
+            else:
+                np.testing.assert_allclose(g, w, **TOL)
 
 
 @pytest.mark.parametrize("arch,swa", CASES, ids=IDS)
@@ -76,19 +98,36 @@ def test_prefill_and_decode_match_reference(arch, swa):
     tl, tc = prefill(tp, tcfg, _t(toks), init_cache(tcfg, B, max_len))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert tc["len"] == int(jc["len"]) == S
-    for name in ("k", "v"):
-        assert tc["layers"][name].shape == jc["layers"][name].shape
-        np.testing.assert_allclose(tc["layers"][name].numpy(), np.asarray(jc["layers"][name]), **TOL)
+    _assert_cache_close(tc, jc)
     for step in range(3):
         tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
         jl, jc = j_decode_step(jp, jcfg, tok, jc)
         tl, tc = decode_step(tp, tcfg, _t(tok), tc)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         assert tc["len"] == int(jc["len"]) == S + step + 1
-    np.testing.assert_allclose(tc["layers"]["k"].numpy(), np.asarray(jc["layers"]["k"]), **TOL)
+    _assert_cache_close(tc, jc)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def test_hybrid_two_token_prompt_decodes_as_the_forward():
+    # the reference's own decode cannot go on from a prompt shorter than
+    # d_conv - 1 (its conv tail keeps 2 rows of 3); the port's tail is
+    # left-padded with zeros, as the causal conv pads, so prefill of 2
+    # tokens and one decode step equal the reference's forward over the 3
+    jcfg, tcfg = _configs("zamba2_2_7b")
+    jp, tp = _params(jcfg)
+    toks = _tokens(jcfg, (2, 3))
+    want = np.asarray(j_forward(jp, jcfg, toks))
+    cache = init_cache(tcfg, 2, 8)
+    for name in ("conv", "h"):
+        cache["mamba"][name].fill_(5.0)  # stale state of an earlier prompt
+    got, cache = prefill(tp, tcfg, _t(toks[:, :2]), cache)
+    np.testing.assert_allclose(got.numpy(), want[:, 1], **TOL)
+    got, cache = decode_step(tp, tcfg, _t(toks[:, 2:]), cache)
+    np.testing.assert_allclose(got.numpy(), want[:, 2], **TOL)
+    assert cache["len"] == 3
+
+
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_consistency(arch):
     # tests/test_archs.py::test_prefill_decode_consistency on the port alone
     cfg = configs.get_smoke_config(arch)
@@ -107,13 +146,15 @@ def test_prefill_decode_consistency(arch):
     np.testing.assert_allclose(last.numpy(), plogits.numpy(), rtol=1e-5, atol=1e-5)
 
 
-def test_cache_from_jax_continues_the_reference():
-    jcfg, tcfg = _configs("qwen3_4b")
+@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_2_7b"])
+def test_cache_from_jax_continues_the_reference(arch):
+    jcfg, tcfg = _configs(arch)
     jp, tp = _params(jcfg)
     toks = _tokens(jcfg, (1, 9))
     jl, jc = j_prefill(jp, jcfg, toks, j_init_cache(jcfg, 1, 16))
     tc = cache_from_jax(jax.tree.map(np.asarray, jc))
     assert tc["len"] == 9 and isinstance(tc["len"], int)
+    _assert_cache_close(tc, jc)
     tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
     want, _ = j_decode_step(jp, jcfg, tok, jc)
     got, _ = decode_step(tp, tcfg, _t(tok), tc)
@@ -133,7 +174,7 @@ def test_params_from_jax_keeps_layout_and_bf16_bits():
         wq.float().numpy(), np.asarray(jp["blocks"]["attn"]["wq"], np.float32))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_init_params_matches_reference_tree(arch):
     # the port draws its own numbers, in the reference's tree and shapes
     jcfg, tcfg = _configs(arch)
@@ -169,3 +210,34 @@ def test_other_families_name_their_slice(arch):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=cfg.family):
         init_cache(cfg, 1, 8)
+
+
+def test_hybrid_bf16_drift_from_f32_is_the_references():
+    # Over 54 Mamba2 layers of random weights the residual stream in bf16
+    # drifts far from float32, in the reference as in the port; the bf16
+    # prefill/decode limits chip_smoke.py sets for zamba2-2.7b rest on this.
+    # Held here: the port's bf16 drift is no more than 1.5x the reference's
+    # (both round at other places), and the float32 forwards agree to 1e-4.
+    # Run with -s to print the numbers PERF.md quotes.
+    jcfg, tcfg = _configs("zamba2_2_7b")
+    deep = dict(n_layers=54, shared_attn_every=6, d_model=256, n_heads=4, n_kv_heads=4,
+                d_ff=1024, swa_window=0)
+    toks = _tokens(jcfg, (1, 48))
+    last = {}
+    for dt in ("float32", "bfloat16"):
+        jc = jcfg.replace(**deep, dtype=dt, param_dtype=dt)
+        jp, tp = _params(jc)  # the same keys: the bf16 weights are the f32 ones rounded
+        last["ref", dt] = np.asarray(j_forward(jp, jc, toks), np.float32)[0, -1]
+        last["port", dt] = forward(tp, tcfg.replace(**deep, dtype=dt, param_dtype=dt), _t(toks))[0, -1].float().numpy()
+
+    def drift(a, b):
+        return np.abs(a - b).max() / np.abs(a).max(), np.dot(a, b) / np.linalg.norm(a) / np.linalg.norm(b)
+
+    ref_rel, ref_cos = drift(last["ref", "float32"], last["ref", "bfloat16"])
+    port_rel, port_cos = drift(last["port", "float32"], last["port", "bfloat16"])
+    f32_rel, _ = drift(last["ref", "float32"], last["port", "float32"])
+    print(f"bf16 from f32 over 54 layers at d_model 256: reference {ref_rel:.3g} of the largest "
+          f"logit (cosine {ref_cos:.5f}), port {port_rel:.3g} (cosine {port_cos:.5f}); "
+          f"f32 port vs reference {f32_rel:.3g}")
+    assert f32_rel <= 1e-4
+    assert port_rel <= 1.5 * ref_rel and 1 - port_cos <= 1.5 * (1 - ref_cos)

@@ -50,6 +50,19 @@ def test_engine_greedy_matches_reference():
     assert all(0 <= t < tcfg.padded_vocab for toks in got.values() for t in toks)
 
 
+def test_hybrid_engine_greedy_matches_reference_over_refilled_slots():
+    # zamba2: 5 requests through 2 slots, so slots are refilled in place and
+    # prefill must overwrite the Mamba conv tails and states of the last
+    # request (prompts of 3+ tokens: the reference cannot decode after fewer)
+    jcfg, jp, tcfg, tp = _both("zamba2-2.7b", 0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, tcfg.vocab_size, size=n).astype(np.int32) for n in (9, 3, 17, 5, 12)]
+    want = _serve(JServeEngine, JRequest, jcfg, jp, prompts, slots=2)
+    got = _serve(ServeEngine, Request, tcfg, tp, prompts, slots=2)
+    assert got == want
+    assert sorted(got) == [0, 1, 2, 3, 4] and all(len(t) == 4 for t in got.values())
+
+
 def test_engine_greedy_deterministic_with_ragged_prompts():
     _, _, tcfg, tp = _both("qwen3-4b", 0)
     rng = np.random.default_rng(0)
@@ -101,10 +114,11 @@ def test_engine_temperature_sampling_runs_in_range():
     assert all(0 <= t < tcfg.padded_vocab for toks in a.values() for t in toks)
 
 
-def test_serve_cli_on_the_cpu():
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b"])
+def test_serve_cli_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-4b", "--smoke",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
          "--device", "cpu", "--requests", "5"],
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT,
     )

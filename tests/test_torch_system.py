@@ -9,6 +9,7 @@ and ``jnp.sum`` reduce in different orders). Within the port, fused and
 unfused runs are bitwise equal.
 """
 import ast
+import glob
 import os
 
 import numpy as np
@@ -256,6 +257,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths += glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))
     for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30
