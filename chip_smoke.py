@@ -12,8 +12,8 @@ Phases, each fatal on failure:
      stream path's shapes (K1 also at model widths, f32 and bf16; K4-K6 at
      qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's prefill
      of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6 also at
-     zamba2's head dim of 80); K2/K3
-     must be bitwise equal to the eager op-by-op path; device time per
+     zamba2's head dim of 80, f32 and bf16, each beside its library call;
+     which K5 kernel each dtype ran); K2/K3 must be bitwise equal to the eager op-by-op path; device time per
      launch (CUDA-graph replay between CUDA events) beside the bound, the
      plain version's and the one-call library time;
   3. the main path: ``StreamSystem(backend="torch", base_batch=16384)``
@@ -333,7 +333,7 @@ def model_kernel_phase(dev, gen):
             call_ms=call_ms(lambda: flash_attention.flash_attention(q, k, v), iters=20),
         )
         log(f"K5 flash_attention q (1,{sq},{h},{hd}) kv {kv} causal {tag}: max|err| {err:.3g} "
-            f"(tol {attn_tol})")
+            f"(tol {attn_tol}); kernel {flash_attention.KERNELS[dtype]}")
 
         # K6 decode_attention: one token against a 4096-slot cache holding 2048
         q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
@@ -356,7 +356,7 @@ def model_kernel_phase(dev, gen):
             call_ms=call_ms(lambda: decode_attention.decode_attention(q1, kc, vc, clen)),
         )
         log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {clen} {tag}: "
-            f"max|err| {err:.3g} (tol {attn_tol})")
+            f"max|err| {err:.3g} (tol {attn_tol}); splits merged in one launch")
         for k_ in (k4, k5, k6):
             log(f"  {k_['name']} {tag}: {k_['ms'] * 1e3:.2f} us/launch on the device "
                 f"({k_['call_ms'] * 1e3:.2f} us per call from the host), plain "
@@ -422,7 +422,7 @@ def hybrid_kernel_phase(dev, gen):
         bnd, by = ssd_bound(b, seq, nh, p, n, chunk, xh.element_size())
         row = dict(
             name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
-            replaces="src/repro/kernels/ssd.py:73", max_abs_err=err,
+            replaces="src/repro/kernels/ssd.py:90", max_abs_err=err,
             ms=device_ms(lambda: ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk), per_graph=5),
             plain_ms=device_ms(lambda: ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk),
                                per_graph=2, reps=5),
@@ -436,32 +436,50 @@ def hybrid_kernel_phase(dev, gen):
             f"{row['plain_ms'] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}), library: none")
         k7 = row  # the last: bf16 at S = 2048, the serving path's prefill
 
-    # K5 and K6 at zamba2's shared attention: 32 heads over 32 KV heads of 80
+    # K5 and K6 at zamba2's shared attention: 32 heads over 32 KV heads of 80,
+    # in f32 (the SIMT build of K5) and in bf16 (the serving path's type)
     h, kv, hd, s_cache = 32, 32, 80, 4096
-    dtype, el = torch.bfloat16, 2
-    q = torch.randn((1, s, h, hd), generator=gen).to(dev, dtype)
-    k = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
-    v = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
-    got = flash_attention.flash_attention(q, k, v, causal=True, window=4096)
-    err = check_close("flash_attention hd 80 bf16", got,
-                      ref.flash_attention_ref(q, k, v, causal=True, window=4096), ATTN_BF16_TOL)
-    pairs = s * (s + 1) // 2
-    bnd, by = bound_ms((2 * s * h + 2 * s * kv) * hd * el, 4 * h * hd * pairs, BF16_OPS_PER_S)
-    ms = device_ms(lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096),
-                   per_graph=5)
-    log(f"K5 flash_attention q (1,{s},{h},{hd}) kv {kv} causal window 4096 bf16: max|err| "
-        f"{err:.3g} (tol {ATTN_BF16_TOL}); {ms * 1e3:.2f} us/launch, bound {bnd * 1e3:.3f} us ({by})")
-    q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
-    kc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
-    vc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
-    got = decode_attention.decode_attention(q1, kc, vc, s, window=4096)
-    err = check_close("decode_attention hd 80 bf16", got,
-                      ref.decode_attention_ref(q1, kc, vc, s, window=4096), ATTN_BF16_TOL)
-    bnd, by = bound_ms((2 * s * kv + 2 * h) * hd * el, 4 * h * hd * s, BF16_OPS_PER_S)
-    ms = device_ms(lambda: decode_attention.decode_attention(q1, kc, vc, s, window=4096))
-    log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {s} bf16: "
-        f"max|err| {err:.3g} (tol {ATTN_BF16_TOL}); {ms * 1e3:.2f} us/launch, "
-        f"bound {bnd * 1e3:.3f} us ({by})")
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        el = torch.finfo(dtype).bits // 8
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        q = torch.randn((1, s, h, hd), generator=gen).to(dev, dtype)
+        k = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+        v = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+
+        def k5():
+            return flash_attention.flash_attention(q, k, v, causal=True, window=4096)
+
+        err = check_close(f"flash_attention hd 80 {tag}", k5(),
+                          ref.flash_attention_ref(q, k, v, causal=True, window=4096), tol)
+        pairs = s * (s + 1) // 2
+        bnd, by = bound_ms((2 * s * h + 2 * s * kv) * hd * el, 4 * h * hd * pairs, ops_rate)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms, host = device_ms(k5, per_graph=5), call_ms(k5, iters=20)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                        per_graph=5)
+        log(f"K5 flash_attention q (1,{s},{h},{hd}) kv {kv} causal window 4096 {tag}: max|err| "
+            f"{err:.3g} (tol {tol}); kernel {flash_attention.KERNELS[dtype]}; {ms * 1e3:.2f} "
+            f"us/launch on the device ({host * 1e3:.2f} us per call from the host), bound "
+            f"{bnd * 1e3:.3f} us ({by}), library F.scaled_dot_product_attention {lib * 1e3:.2f} us")
+        q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
+        kc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+        vc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+
+        def k6():
+            return decode_attention.decode_attention(q1, kc, vc, s, window=4096)
+
+        err = check_close(f"decode_attention hd 80 {tag}", k6(),
+                          ref.decode_attention_ref(q1, kc, vc, s, window=4096), tol)
+        bnd, by = bound_ms((2 * s * kv + 2 * h) * hd * el, 4 * h * hd * s, ops_rate)
+        q1t, kct, vct = q1.transpose(1, 2), kc[:, :s].transpose(1, 2), vc[:, :s].transpose(1, 2)
+        ms, host = device_ms(k6), call_ms(k6)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(q1t, kct, vct))
+        log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {s} {tag}: "
+            f"max|err| {err:.3g} (tol {tol}); {ms * 1e3:.2f} us/launch on the device "
+            f"({host * 1e3:.2f} us per call from the host), bound {bnd * 1e3:.3f} us ({by}), library "
+            f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
+        del q, k, v, kc, vc
     return [k7]
 
 

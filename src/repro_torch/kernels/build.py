@@ -54,11 +54,10 @@ _SIGNATURES = {
     "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _P),
     "rt_kalman_scan": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _F, _F, _P),
     "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "rt_decode_attention": (
-        _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
-    "rt_decode_attention_smem": (_I, _I),
     "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_ssd_scan_smem": (_I, _I, _I, _I),
 }

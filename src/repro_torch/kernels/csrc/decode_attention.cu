@@ -2,233 +2,366 @@
 // (B, S, KV, hd), scalar cache_len, optional window, GQA native.
 //
 // Replaces the Pallas kernel repro/kernels/decode_attention.py:
-// decode_attention (pallas_call at :111). As there, the G = H / KV q heads
-// of one KV head are processed against one cache tile, so each cache
-// element is read once. The TPU walks the cache tiles as a sequential grid
+// decode_attention (pallas_call at :111). As there, the q heads of one KV
+// head are processed against the same cache rows, so each cache element is
+// read once per block. The TPU walks the cache tiles as a sequential grid
 // axis; here that walk is split across blocks (flash-decoding): block
-// (b * KV + kv head, split) runs the online softmax over its own range of
-// positions and writes (m, l, acc) per q head; a second kernel merges the
-// splits. At batch 1 and 8 KV heads one block per KV head would leave 124 of
-// 132 SMs idle; the wrapper picks the split count from the SM count.
+// (b * KV + kv head, split, head group) runs the online softmax over its
+// own range of positions, and the splits are merged at the end.
 //
 // Bound by bytes: 2 * cache_len * KV * hd * elem (the valid K and V read
-// once). Valid positions are [max(0, cache_len - window), cache_len) (all
-// below cache_len with no window). Every tile a block visits holds at
-// least one valid position, so its running max is finite; masked scores
-// are -1e30, l is clamped at 1e-30, and cache_len = 0 gives a zero row.
-// Head dims 16, 32, 64, 80 (zamba2's shared block: 42 KB per split block
-// at G = 1, HD = 80 threads in the combine pass) and 128.
+// once), 2.5 us for qwen3-4b's 2048 cached positions. What the design does
+// about it:
+// * K and V rows are read with 16-byte vector loads straight into
+//   registers (8 bf16 or 4 f32 values per thread; a row of hd values takes
+//   hd / 8 threads in bf16, 10 at hd 80), with no staging in shared
+//   memory. A warp holds 32 / GS rows at once (GS: the row's thread count
+//   rounded up to a power of two), and each thread issues the loads of U
+//   rows of K and of V before it uses the first (U = 8, 4 for head groups
+//   of 8), so U * 32 bytes per thread stay in flight.
+// * The GB q rows of the block's head group are read with 16-byte loads
+//   after the first K and V loads are issued, and held in registers in f32,
+//   scaled by scale * log2(e). Each score is reduced with shuffles inside
+//   the row's thread group, and the online softmax (running max, sum l)
+//   and the P·V sum run in registers; the block's warps merge through
+//   shared memory once, at the end.
+// * The wrapper's split plan gives each block of 8 warps several
+//   64-position tiles (at qwen3-4b's shape, 128 positions: one step of
+//   loads) and still fills the card at batch 1
+//   (decode_attention.py:split_plan).
+// * The merge of the splits runs in the same launch: each block writes its
+//   partial (m, l, acc), and the last block of a (batch, KV head, head
+//   group) to finish, found through an atomic counter that it resets to 0,
+//   merges them and writes the output. The merge reads all splits' (m, l)
+//   at once into shared memory, then each column's partial sums, every read
+//   issued before the first is used. A second merge kernel measured within
+//   noise of this form on the card; one launch saves a launch per layer and
+//   decode step.
+//
+// Valid positions are [max(0, cache_len - window), cache_len) (all below
+// cache_len with no window). A block whose range holds no valid position
+// contributes nothing (m = -1e30, l = 0); l is clamped at 1e-30, so
+// cache_len = 0 gives a zero row. Head dims 16, 32, 64, 80 and 128; q heads
+// per KV head in groups of GB = 8, 4, 2 or 1 (the largest that divides G).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBS = 64;        // cache positions per tile
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSplits = 128;  // decode_attention.py:MAX_SPLITS
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct DecodeArgs {
   const void* q;
   const void* k;
   const void* v;
-  float* part_acc;  // [B*KV][splits][G][hd]
-  float* part_ml;   // [B*KV][splits][G][2]: running max, sum
+  void* o;
+  float* part_acc;  // [B*KV*n_hg][splits][GB][hd]
+  float* part_ml;   // [B*KV*n_hg][splits][GB][2]: running max (base 2), sum
+  int* counters;    // [B*KV*n_hg]: finished splits, reset to 0 by the last
   int64_t q_sb, q_sh;        // q (B, 1, H, hd): batch and head strides
   int64_t k_sb, k_ss, k_sh;  // k cache (B, S, KV, hd)
   int64_t v_sb, v_ss, v_sh;
+  int64_t o_sb, o_sh;        // o (B, 1, H, hd)
   int kv, groups;
   int lo, hi;    // valid positions [lo, hi)
   int base;      // lo rounded down to a tile
-  int chunk;     // positions per split, a multiple of kBS
+  int chunk;     // positions per split
   int splits;
   float scale;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
+// the VPT values of one 16-byte load, in f32
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);          // low bf16
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);  // high bf16
+  }
 }
 
-template <int HD>
-__host__ __device__ constexpr int decode_smem_floats(int g) {
-  return 2 * g * HD + kBS * (HD + 1) + kBS * HD + g * kBS + 3 * g;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
-  extern __shared__ float smem[];
-  constexpr int P = HD + 1;
-  const int G = a.groups;
-  float* qs = smem;             // [G][HD], scaled
-  float* ks = qs + G * HD;      // [kBS][P]
-  float* vs = ks + kBS * P;     // [kBS][HD]
-  float* ss = vs + kBS * HD;    // [G][kBS]: scores, then probabilities
-  float* accs = ss + G * kBS;   // [G][HD]
-  float* ms = accs + G * HD;    // [G]
-  float* ls = ms + G;           // [G]
-  float* cs = ls + G;           // [G]: correction of the current tile
-
-  const int bkv = blockIdx.x;
-  const int split = blockIdx.y;
+// The merge of the splits of one (batch, KV head, head group), by all
+// threads of the block that finished last: the splits' (m, l) into shared memory, the
+// weights 2^(m_s - M) per split and q head, then each output column sums its
+// splits with every read issued before the first is used.
+template <typename T, int HD, int GB>
+__device__ void merge_splits(const DecodeArgs& a, int bkvg, int n_hg) {
+  constexpr int kItems = (GB * HD + kThreads - 1) / kThreads;  // columns per thread
+  __shared__ float wsm[kMaxSplits * GB];                       // m, then the weight, per (split, q head)
+  __shared__ float lsm[kMaxSplits * GB];
+  __shared__ float inv_l[GB];
+  const int64_t first = static_cast<int64_t>(bkvg) * a.splits;
+  for (int i = threadIdx.x; i < a.splits * GB; i += kThreads) {
+    wsm[i] = __ldcg(a.part_ml + (first * GB + i) * 2);
+    lsm[i] = __ldcg(a.part_ml + (first * GB + i) * 2 + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < GB) {
+    const int gi = threadIdx.x;
+    float m = kNegInf;
+    for (int sp = 0; sp < a.splits; ++sp) m = fmaxf(m, wsm[sp * GB + gi]);
+    float l = 0.0f;
+    for (int sp = 0; sp < a.splits; ++sp) {
+      const float w = exp2f(wsm[sp * GB + gi] - m);
+      wsm[sp * GB + gi] = w;
+      l += lsm[sp * GB + gi] * w;
+    }
+    inv_l[gi] = 1.0f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  float acc[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) acc[k] = 0.0f;
+  const float* pa = a.part_acc + first * GB * HD;
+#pragma unroll 16
+  for (int sp = 0; sp < a.splits; ++sp) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < GB * HD) acc[k] = fmaf(wsm[sp * GB + i / HD], __ldcg(pa + sp * GB * HD + i), acc[k]);
+    }
+  }
+  const int bkv = bkvg / n_hg, hg = bkvg % n_hg;
   const int b = bkv / a.kv, kvh = bkv % a.kv;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  for (int i = tid; i < G * HD; i += kThreads) {
-    const int g = i / HD, d = i % HD;
-    qs[i] = rt::load_f32(qb + (kvh * G + g) * a.q_sh + d) * a.scale;  // head kvh * G + g
-    accs[i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < GB * HD) {
+      const int gi = i / HD, d = i % HD;
+      const int head = kvh * a.groups + hg * GB + gi;
+      rt::store_f32(static_cast<T*>(a.o) + b * a.o_sb + head * a.o_sh + d, acc[k] * inv_l[gi]);
+    }
   }
-  for (int g = tid; g < G; g += kThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.0f;
-  }
+}
 
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
+  constexpr int VPT = 16 / sizeof(T);  // values per 16-byte load
+  constexpr int TPR = HD / VPT;        // threads per cache row
+  constexpr int GS = TPR <= 1 ? 1 : TPR <= 2 ? 2 : TPR <= 4 ? 4 : TPR <= 8 ? 8 : TPR <= 16 ? 16 : 32;
+  constexpr int RPW = 32 / GS;         // rows a warp holds at once
+  constexpr int NG = kWarps * RPW;     // row groups of the block
+  constexpr int U = GB >= 8 ? 4 : 8;   // rows per group in flight
+  static_assert(HD % VPT == 0 && TPR <= 32, "head dim");
+  __shared__ float accs[kWarps][GB][HD];
+  __shared__ float mls[kWarps][GB][2];
+
+  const int bkv = blockIdx.x, split = blockIdx.y, hg = blockIdx.z, n_hg = gridDim.z;
+  const int b = bkv / a.kv, kvh = bkv % a.kv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp * RPW + lane / GS;
+  const int sub = lane % GS;
+  const bool active = sub < TPR;
+  const int d0 = sub * VPT;
+  const float sl2 = a.scale * kLog2e;
+
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh + d0;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh + d0;
   const int begin = a.base + split * a.chunk;
   const int end = min(a.hi, begin + a.chunk);
-  for (int t0 = begin; t0 < end; t0 += kBS) {
-    __syncthreads();
-    for (int i = tid; i < kBS * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD;
-      const int p = t0 + r;
-      const bool in = p < a.hi;
-      ks[r * P + d] = in ? rt::load_f32(kb + p * a.k_ss + d) : 0.0f;
-      vs[r * HD + d] = in ? rt::load_f32(vb + p * a.v_ss + d) : 0.0f;
+
+  // the K and V rows of one step: U rows per group, all loads issued together
+  uint4 kr[U], vr[U];
+  bool valid[U];
+  auto load_step = [&](int p0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + grp + u * NG;
+      valid[u] = p < end && p >= a.lo;
+      const bool in = valid[u] && active;
+      kr[u] = in ? __ldg(reinterpret_cast<const uint4*>(kb + p * a.k_ss)) : make_uint4(0, 0, 0, 0);
+      vr[u] = in ? __ldg(reinterpret_cast<const uint4*>(vb + p * a.v_ss)) : make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
-    for (int i = tid; i < G * kBS; i += kThreads) {
-      const int g = i / kBS, j = i % kBS;
-      const int p = t0 + j;
-      float s = kNegInf;
-      if (p >= a.lo && p < a.hi) {
-        s = 0.0f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) s = fmaf(qs[g * HD + d], ks[j * P + d], s);
+  };
+  load_step(begin);  // in flight while q is read
+
+  // the GB q rows of the head group, in f32, scaled by scale * log2(e)
+  float q[GB][VPT], acc[GB][VPT], m[GB], l[GB];
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + (kvh * a.groups + hg * GB) * a.q_sh + d0;
+#pragma unroll
+  for (int gi = 0; gi < GB; ++gi) {
+    const uint4 qr = active ? __ldg(reinterpret_cast<const uint4*>(qb + gi * a.q_sh)) : make_uint4(0, 0, 0, 0);
+    unpack(qr, q[gi]);
+#pragma unroll
+    for (int e = 0; e < VPT; ++e) {
+      q[gi][e] *= sl2;
+      acc[gi][e] = 0.0f;
+    }
+    m[gi] = kNegInf;
+    l[gi] = 0.0f;
+  }
+
+  for (int p0 = begin; p0 < end; p0 += NG * U) {  // the same trip count in every lane
+    if (p0 != begin) load_step(p0);
+    float s[U][GB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kx[VPT];
+      unpack(kr[u], kx);
+#pragma unroll
+      for (int gi = 0; gi < GB; ++gi) {
+        float x = 0.0f;
+#pragma unroll
+        for (int e = 0; e < VPT; ++e) x = fmaf(q[gi][e], kx[e], x);
+        s[u][gi] = x;
       }
-      ss[i] = s;
     }
-    __syncthreads();
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float s0 = ss[g * kBS + lane], s1 = ss[g * kBS + lane + 32];
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      ss[g * kBS + lane] = p0;
-      ss[g * kBS + lane + 32] = p1;
-      const float psum = rt::warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        ls[g] = ls[g] * corr + psum;
-        ms[g] = m_new;
-        cs[g] = corr;
+#pragma unroll
+    for (int off = GS / 2; off >= 1; off /= 2)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int gi = 0; gi < GB; ++gi) s[u][gi] += __shfl_xor_sync(0xffffffffu, s[u][gi], off);
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      float mx = m[gi];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = valid[u] ? fmaxf(mx, s[u][gi]) : mx;
+      const float c = exp2f(m[gi] - mx);
+      l[gi] *= c;
+#pragma unroll
+      for (int e = 0; e < VPT; ++e) acc[gi][e] *= c;
+      m[gi] = mx;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vx[VPT];
+      unpack(vr[u], vx);
+#pragma unroll
+      for (int gi = 0; gi < GB; ++gi) {
+        const float p = valid[u] ? exp2f(s[u][gi] - m[gi]) : 0.0f;
+        l[gi] += p;
+#pragma unroll
+        for (int e = 0; e < VPT; ++e) acc[gi][e] = fmaf(p, vx[e], acc[gi][e]);
       }
     }
-    __syncthreads();
-    for (int i = tid; i < G * HD; i += kThreads) {
-      const int g = i / HD, d = i % HD;
-      float acc = accs[i] * cs[g];
-#pragma unroll 8
-      for (int j = 0; j < kBS; ++j) acc = fmaf(ss[g * kBS + j], vs[j * HD + d], acc);
-      accs[i] = acc;
+  }
+
+  // merge the warp's row groups (lanes with the same columns), then the warps
+#pragma unroll
+  for (int off = GS; off < 32; off *= 2) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[gi], off);
+      const float mn = fmaxf(m[gi], mo);
+      const float ca = exp2f(m[gi] - mn), cb = exp2f(mo - mn);
+      l[gi] = l[gi] * ca + lo * cb;
+#pragma unroll
+      for (int e = 0; e < VPT; ++e)
+        acc[gi][e] = acc[gi][e] * ca + __shfl_xor_sync(0xffffffffu, acc[gi][e], off) * cb;
+      m[gi] = mn;
+    }
+  }
+  if (lane < GS && active) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi)
+#pragma unroll
+      for (int e = 0; e < VPT; ++e) accs[warp][gi][d0 + e] = acc[gi][e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      mls[warp][gi][0] = m[gi];
+      mls[warp][gi][1] = l[gi];
     }
   }
   __syncthreads();
-  const int64_t slot = static_cast<int64_t>(bkv) * a.splits + split;
-  for (int i = tid; i < G * HD; i += kThreads) a.part_acc[slot * G * HD + i] = accs[i];
-  for (int g = tid; g < G; g += kThreads) {
-    a.part_ml[(slot * G + g) * 2] = ms[g];
-    a.part_ml[(slot * G + g) * 2 + 1] = ls[g];
+
+  const int bkvg = bkv * n_hg + hg;
+  const int64_t slot = static_cast<int64_t>(bkvg) * a.splits + split;
+  for (int i = threadIdx.x; i < GB * HD; i += kThreads) {
+    const int gi = i / HD, d = i % HD;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, mls[w][gi][0]);
+    float ll = 0.0f, aa = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = exp2f(mls[w][gi][0] - mm);
+      ll += mls[w][gi][1] * c;
+      aa += accs[w][gi][d] * c;
+    }
+    if (a.splits == 1) {  // the block's range is the whole range: write the row
+      const int head = kvh * a.groups + hg * GB + gi;
+      rt::store_f32(static_cast<T*>(a.o) + b * a.o_sb + head * a.o_sh + d, aa / fmaxf(ll, 1e-30f));
+    } else {
+      a.part_acc[(slot * GB + gi) * HD + d] = aa;
+      if (d == 0) {
+        a.part_ml[(slot * GB + gi) * 2] = mm;
+        a.part_ml[(slot * GB + gi) * 2 + 1] = ll;
+      }
+    }
   }
+  if (a.splits == 1) return;
+
+  __shared__ int last;
+  __threadfence();  // this block's partials are visible to the block that merges
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.counters + bkvg, 1) == a.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  merge_splits<T, HD, GB>(a, bkvg, n_hg);
+  if (threadIdx.x == 0) a.counters[bkvg] = 0;  // ready for the next launch
 }
 
-// One block per (b * KV + kv head, g), one thread per output column.
-template <typename T>
-__global__ void decode_combine(const float* __restrict__ part_acc,
-                               const float* __restrict__ part_ml, T* __restrict__ out,
-                               int64_t o_sb, int64_t o_sh, int kv, int groups, int hd,
-                               int splits) {
-  const int bkv = blockIdx.x / groups, g = blockIdx.x % groups;
-  const int b = bkv / kv, kvh = bkv % kv;
-  const int d = threadIdx.x;
-  const int64_t first = static_cast<int64_t>(bkv) * splits;
-  float m = kNegInf;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, part_ml[((first + s) * groups + g) * 2]);
-  float l = 0.0f, acc = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    const int64_t slot = (first + s) * groups + g;
-    const float w = expf(part_ml[slot * 2] - m);
-    l += part_ml[slot * 2 + 1] * w;
-    acc += part_acc[slot * hd + d] * w;
-  }
-  rt::store_f32(out + b * o_sb + (kvh * groups + g) * o_sh + d, acc / fmaxf(l, 1e-30f));
-}
-
-template <typename T, int HD>
-cudaError_t launch_decode(const DecodeArgs& a, T* out, int64_t o_sb, int64_t o_sh, int batch,
-                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * decode_smem_floats<HD>(a.groups);
-  // above 48 KB only after opting in; raise the limit as larger groups come
-  static size_t attr_bytes = 0;
-  if (smem > attr_bytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    attr_bytes = smem;
-  }
-  const dim3 grid(batch * a.kv, a.splits);
-  decode_split<T, HD><<<grid, kThreads, smem, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  decode_combine<T><<<batch * a.kv * a.groups, HD, 0, stream>>>(
-      a.part_acc, a.part_ml, out, o_sb, o_sh, a.kv, a.groups, HD, a.splits);
+template <typename T, int HD, int GB>
+cudaError_t launch_gb(const DecodeArgs& a, int batch, cudaStream_t stream) {
+  const dim3 grid(batch * a.kv, a.splits, a.groups / GB);
+  decode_split<T, HD, GB><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t launch_hd(const DecodeArgs& a, int batch, cudaStream_t stream) {
+  if (a.groups % 8 == 0) return launch_gb<T, HD, 8>(a, batch, stream);
+  if (a.groups % 4 == 0) return launch_gb<T, HD, 4>(a, batch, stream);
+  if (a.groups % 2 == 0) return launch_gb<T, HD, 2>(a, batch, stream);
+  return launch_gb<T, HD, 1>(a, batch, stream);
+}
+
 template <typename T>
-cudaError_t dispatch_hd(const DecodeArgs& a, void* out, int64_t o_sb, int64_t o_sh, int batch,
-                        int hd, cudaStream_t stream) {
-  T* o = static_cast<T*>(out);
+cudaError_t dispatch_hd(const DecodeArgs& a, int batch, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_decode<T, 16>(a, o, o_sb, o_sh, batch, stream);
-    case 32: return launch_decode<T, 32>(a, o, o_sb, o_sh, batch, stream);
-    case 64: return launch_decode<T, 64>(a, o, o_sb, o_sh, batch, stream);
-    case 80: return launch_decode<T, 80>(a, o, o_sb, o_sh, batch, stream);
-    case 128: return launch_decode<T, 128>(a, o, o_sb, o_sh, batch, stream);
+    case 16: return launch_hd<T, 16>(a, batch, stream);
+    case 32: return launch_hd<T, 32>(a, batch, stream);
+    case 64: return launch_hd<T, 64>(a, batch, stream);
+    case 80: return launch_hd<T, 80>(a, batch, stream);
+    case 128: return launch_hd<T, 128>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Shared memory one split block takes for `groups` q heads per KV head.
-extern "C" int rt_decode_attention_smem(int groups, int hd) {
-  switch (hd) {
-    case 16: return sizeof(float) * decode_smem_floats<16>(groups);
-    case 32: return sizeof(float) * decode_smem_floats<32>(groups);
-    case 64: return sizeof(float) * decode_smem_floats<64>(groups);
-    case 80: return sizeof(float) * decode_smem_floats<80>(groups);
-    case 128: return sizeof(float) * decode_smem_floats<128>(groups);
-    default: return -1;
-  }
-}
-
 // strides: 10 int64 values: q (batch, head), k (batch, seq, head),
-// v (batch, seq, head), o (batch, head).
+// v (batch, seq, head), o (batch, head). part: B*KV*G*splits*(hd + 2)
+// floats; counters: B*KV*G ints, 0 on entry and left 0 on exit. K and V
+// base pointers and seq/head strides 16-byte aligned (checked by the wrapper).
 extern "C" int rt_decode_attention(const void* q, const void* k, const void* v, void* o,
-                                   float* part_acc, float* part_ml, const int64_t* strides,
+                                   float* part, int* counters, const int64_t* strides,
                                    int batch, int kv, int groups, int hd, int lo, int hi,
-                                   int chunk, int splits, float scale, int is_bf16,
+                                   int base, int chunk, int splits, float scale, int is_bf16,
                                    void* stream) {
   if (batch == 0 || kv == 0 || groups == 0) return cudaSuccess;
-  if (splits < 1 || chunk % kBS != 0) return cudaErrorInvalidValue;
-  DecodeArgs a{q, k, v, part_acc, part_ml,
+  if (splits < 1 || splits > kMaxSplits || chunk < 1) return cudaErrorInvalidValue;
+  float* part_acc = part;
+  float* part_ml = part + static_cast<int64_t>(batch) * kv * groups * splits * hd;
+  DecodeArgs a{q, k, v, o, part_acc, part_ml, counters,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-               strides[6], strides[7],
-               kv, groups, lo, hi, lo / kBS * kBS, chunk, splits, scale};
+               strides[6], strides[7], strides[8], strides[9],
+               kv, groups, lo, hi, base, chunk, splits, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_hd<__nv_bfloat16>(a, o, strides[8], strides[9], batch, hd, s)
-                 : dispatch_hd<float>(a, o, strides[8], strides[9], batch, hd, s);
+  return is_bf16 ? dispatch_hd<__nv_bfloat16>(a, batch, hd, s)
+                 : dispatch_hd<float>(a, batch, hd, s);
 }

@@ -4,64 +4,106 @@
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:flash_attention
 // (pallas_call at :133). There the TPU walks the KV blocks as the innermost,
 // sequential grid axis and carries (m, l, acc) in VMEM scratch; here one
-// block owns (batch, q head, tile of kBQ query rows) and loops over the KV
-// tiles itself, with (m, l, acc) in registers. The KV head of q head h is
+// block owns (batch, q head, tile of query rows) and loops over the KV tiles
+// itself, with (m, l, acc) in registers. The KV head of q head h is
 // h / (H / KV), read in place: no repeated K/V is materialized.
 //
-// Bound by operations at the serving path's prompts (2 * 2 * hd per visible
-// (q, k) pair; 34.4 GFLOP for a causal 2048-token prompt at 32 heads of
-// 128). This first version uses plain f32 FMAs from shared memory, not the
-// tensor cores: each thread holds a quarter of one query row's scores and
-// output, K and V tiles are staged in shared memory as f32. Tiles past the
-// causal frontier or before the window are skipped whole; inside a tile the
-// mask is per element, as in the Pallas kernel (masked scores are -1e30,
-// l is clamped at 1e-30, default scale hd^-0.5 is applied by the caller).
-// Head dims 16, 32, 64, 80 (zamba2's shared block: HD / kRowLanes = 20
-// columns per thread, 78.6 KB of shared memory) and 128; nothing assumes a
-// power of two.
+// Bound by operations at the serving path's prompts: 2 * 2 * hd per visible
+// (q, k) pair, 34.4 GFLOP for a causal 2048-token prompt at 32 heads of 128,
+// 34.8 us at the card's 989 bf16 TFLOP/s. Two kernels, chosen by dtype in
+// the C entry (a dispatch by type between two hand-written kernels, not a
+// fallback):
+//
+// * bfloat16 (the serving path): flash_fwd_wg, on the tensor cores.
+//   - One block of two warpgroups owns 128 query rows of one q head, 64 rows
+//     per warpgroup. S = Q·Kᵀ is wgmma m64n64k16 with Q and K in shared
+//     memory; O += P·V is wgmma m64nHDk16 with P from registers and V in
+//     shared memory as the transposed (MN-major) B operand, so V stays
+//     key-major as stored. Both accumulate in f32.
+//   - Q is loaded once. K and V tiles of 64 keys go through a three-stage
+//     ring in shared memory, filled with 16-byte cp.async copies in wgmma's
+//     32-byte-swizzle layout (any head dim that is a multiple of 16 fits
+//     it: hd 80 takes five 16-column slabs, no zero columns); the loads of
+//     tile j + 1 fly while tile j is computed, one barrier per tile.
+//   - Iteration j issues S_j and P_{j-1}·V_{j-1} together and runs the
+//     softmax of S_j while P_{j-1}·V_{j-1} is in flight, so the exp and
+//     the other per-element work overlap the tensor cores.
+//   - The softmax runs on the accumulator in registers: scale applied to
+//     S in f32 (q is not pre-rounded), the per-element mask only on tiles
+//     that cross the causal or window frontier or the end of Sk (masked
+//     scores are -inf, so a tile a warpgroup cannot see adds exactly
+//     nothing), running max and f32 sum l per row.
+//   - P is fed to P·V as two bf16 parts, hi = P truncated to bf16 and
+//     lo = bf16(P - hi), so it keeps about 16 bits, as the Pallas kernel's
+//     f32 P does. P rounded once to bf16, as FlashAttention does, errs by
+//     up to |v| * 2^-9 where the output is a near-cancelling sum, outside
+//     the port's bf16 attention tolerance (atol 2e-3); the second product
+//     costs half again the tensor-core work. The output is normalised by
+//     max(l, 1e-30) and stored as bf16.
+//   - Blocks take the q tiles heaviest first, from a plan the host makes
+//     (kernels/flash_attention.py:tile_plan): block t reads entry t / (H *
+//     B), the q tile and its range of keys. Under a causal mask the last
+//     query tiles see the most keys and go first, so the 16 x 32 = 512
+//     tiles of a 2048-token qwen3 prompt balance over 132 SMs.
+// * float32 (the checks only): flash_fwd_simt, scalar f32 FMAs from shared
+//   memory. The tensor cores take f32 only as TF32 (10-bit mantissa),
+//   which the f32 tolerance of 2e-5 does not admit.
+//
+// Both kernels mask scores with -inf, so a row with no visible key gets
+// zeros (the plain version gives it the mean of V); that cannot happen on
+// the serving path, where every row sees its own key. l is clamped at
+// 1e-30; the default scale hd^-0.5 is applied by the caller.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per tile
-constexpr int kRowLanes = 4;      // threads per query row
-constexpr int kThreads = kBQ * kRowLanes;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct FlashArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  const int* plan;  // bf16: (q tile, first key, end key) per block order; f32: unused
   int64_t q_sb, q_ss, q_sh;  // element strides of q (B, Sq, H, hd); inner stride 1
   int64_t k_sb, k_ss, k_sh;  // k (B, Sk, KV, hd)
   int64_t v_sb, v_ss, v_sh;  // v (B, Sk, KV, hd)
   int64_t o_sb, o_ss, o_sh;  // o (B, Sq, H, hd)
-  int sq, sk, h, kv;
+  int batch, sq, sk, h, kv;
   float scale;
   int causal;
   int window;  // 0 = full
 };
 
+// ---------------------------------------------------------------- float32: SIMT
+
+constexpr int kSimtBQ = 64;       // query rows per block
+constexpr int kSimtBK = 64;       // keys per tile
+constexpr int kRowLanes = 4;      // threads per query row
+constexpr int kSimtThreads = kSimtBQ * kRowLanes;
+
 template <int HD>
-constexpr int flash_smem_floats() {
-  return 2 * kBQ * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
+constexpr int simt_smem_floats() {
+  return 2 * kSimtBQ * (HD + 1) + kSimtBK * HD + kSimtBQ * (kSimtBK + 1);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd(FlashArgs a) {
+// Each thread holds a quarter of one query row's scores and output; K and V
+// tiles are staged in shared memory. Tiles past the causal frontier or
+// before the window are skipped whole; inside a tile the mask is per element.
+template <int HD>
+__global__ void __launch_bounds__(kSimtThreads) flash_fwd_simt(FlashArgs a) {
   extern __shared__ float smem[];
   constexpr int P = HD + 1;          // padded pitch: rows land on distinct banks
-  constexpr int PP = kBK + 1;
-  constexpr int NS = kBK / kRowLanes;  // scores per thread per tile
-  constexpr int NA = HD / kRowLanes;   // output columns per thread
-  float* qs = smem;                  // [kBQ][P], scaled query tile
-  float* ks = qs + kBQ * P;          // [kBK][P]
-  float* vs = ks + kBK * P;          // [kBK][HD]
-  float* ps = vs + kBK * HD;         // [kBQ][PP], probabilities of the tile
+  constexpr int PP = kSimtBK + 1;
+  constexpr int NS = kSimtBK / kRowLanes;  // scores per thread per tile
+  constexpr int NA = HD / kRowLanes;       // output columns per thread
+  float* qs = smem;                  // [kSimtBQ][P], scaled query tile
+  float* ks = qs + kSimtBQ * P;      // [kSimtBK][P]
+  float* vs = ks + kSimtBK * P;      // [kSimtBK][HD]
+  float* ps = vs + kSimtBK * HD;     // [kSimtBQ][PP], probabilities of the tile
 
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * kSimtBQ;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = head / (a.h / a.kv);
@@ -70,36 +112,36 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(FlashArgs a) {
   const int sub = tid % kRowLanes;
   const int q_pos = q_start + row;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + head * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + head * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
+  for (int i = tid; i < kSimtBQ * HD; i += kSimtThreads) {
     const int r = i / HD, d = i % HD;
     const int p = q_start + r;
-    qs[r * P + d] = p < a.sq ? rt::load_f32(qb + p * a.q_ss + d) * a.scale : 0.0f;
+    qs[r * P + d] = p < a.sq ? qb[p * a.q_ss + d] * a.scale : 0.0f;
   }
 
   // KV tiles this query tile can see: up to its last row (causal), from the
   // first key inside the window of its first row.
   int k_end = a.sk;
-  if (a.causal) k_end = min(k_end, q_start + kBQ);
+  if (a.causal) k_end = min(k_end, q_start + kSimtBQ);
   int k_begin = 0;
-  if (a.window > 0) k_begin = max(0, q_start - a.window + 1) / kBK * kBK;
+  if (a.window > 0) k_begin = max(0, q_start - a.window + 1) / kSimtBK * kSimtBK;
 
   float acc[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
   float m = kNegInf, l = 0.0f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kSimtBK) {
     __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int i = tid; i < kBK * HD; i += kThreads) {
+    for (int i = tid; i < kSimtBK * HD; i += kSimtThreads) {
       const int r = i / HD, d = i % HD;
       const int p = k0 + r;
       const bool in = p < a.sk;  // zero past Sk: masked, but 0 * v must stay finite
-      ks[r * P + d] = in ? rt::load_f32(kb + p * a.k_ss + d) : 0.0f;
-      vs[r * HD + d] = in ? rt::load_f32(vb + p * a.v_ss + d) : 0.0f;
+      ks[r * P + d] = in ? kb[p * a.k_ss + d] : 0.0f;
+      vs[r * HD + d] = in ? vb[p * a.v_ss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -113,14 +155,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(FlashArgs a) {
       for (int c = 0; c < NS; ++c) s[c] = fmaf(qd, ks[(sub + kRowLanes * c) * P + d], s[c]);
     }
 
-    float mx = kNegInf;
+    // masked scores are -inf: a row that sees no key of the tile adds
+    // exactly nothing (m stays at kNegInf, every p is 0)
+    const float kInf = __int_as_float(0x7f800000);
+    float mx = -kInf;
 #pragma unroll
     for (int c = 0; c < NS; ++c) {
       const int k_pos = k0 + sub + kRowLanes * c;
       bool ok = k_pos < a.sk;
       if (a.causal) ok = ok && k_pos <= q_pos;
       if (a.window > 0) ok = ok && k_pos > q_pos - a.window;
-      s[c] = ok ? s[c] : kNegInf;
+      s[c] = ok ? s[c] : -kInf;
       mx = fmaxf(mx, s[c]);
     }
     // the kRowLanes threads of a row are neighbouring lanes of one warp
@@ -144,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(FlashArgs a) {
 #pragma unroll
     for (int i = 0; i < NA; ++i) acc[i] *= corr;
 #pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < kSimtBK; ++j) {
       const float p = ps[row * PP + j];
 #pragma unroll
       for (int i = 0; i < NA; ++i) acc[i] = fmaf(p, vs[j * HD + sub + kRowLanes * i], acc[i]);
@@ -153,52 +198,455 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(FlashArgs a) {
 
   if (q_pos < a.sq) {
     const float lc = fmaxf(l, 1e-30f);
-    T* ob = static_cast<T*>(a.o) + b * a.o_sb + q_pos * a.o_ss + head * a.o_sh;
+    float* ob = static_cast<float*>(a.o) + b * a.o_sb + q_pos * a.o_ss + head * a.o_sh;
 #pragma unroll
-    for (int i = 0; i < NA; ++i) rt::store_f32(ob + sub + kRowLanes * i, acc[i] / lc);
+    for (int i = 0; i < NA; ++i) ob[sub + kRowLanes * i] = acc[i] / lc;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_flash(const FlashArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * flash_smem_floats<HD>();
+template <int HD>
+cudaError_t launch_simt(const FlashArgs& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * simt_smem_floats<HD>();
   static bool attr_set = false;  // above 48 KB only after opting in, once per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        flash_fwd_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, batch);
-  flash_fwd<T, HD><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.sq + kSimtBQ - 1) / kSimtBQ, a.h, a.batch);
+  flash_fwd_simt<HD><<<grid, kSimtThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const FlashArgs& a, int batch, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch_flash<T, 16>(a, batch, stream);
-    case 32: return launch_flash<T, 32>(a, batch, stream);
-    case 64: return launch_flash<T, 64>(a, batch, stream);
-    case 80: return launch_flash<T, 80>(a, batch, stream);
-    case 128: return launch_flash<T, 128>(a, batch, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------- bfloat16: tensor cores
+
+constexpr int kTcBQ = 128;       // query rows per block
+constexpr int kTcBK = 64;        // keys per K/V tile
+constexpr int kWgThreads = 256;  // two warpgroups of 64 query rows each
+constexpr int kWgStages = 3;     // K/V tiles in the ring
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// 2^x on the special-function unit (flushes subnormal results to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
+// (x0, x1) as hi + lo bf16 pairs: hi = x truncated to bf16 (exact in f32),
+// lo = the remainder (|lo| < 2^-7 |x|) rounded to bf16, so hi + lo holds x to
+// 2^-16 relative with one conversion per pair
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
+  hi = __byte_perm(b0, b1, 0x7632);
+  lo = pack_bf16(x0 - __uint_as_float(b0 & 0xffff0000u), x1 - __uint_as_float(b1 & 0xffff0000u));
+}
+
+// Shared tiles in wgmma's 32-byte-swizzle canonical layouts, filled by
+// 16-byte cp.async copies. A "slab" is 16 columns (32 bytes) of every row of
+// a tile: Q and K are stored slab-major (K-major operands: slab kk is the
+// k-step kk of Q·Kᵀ), V likewise (an MN-major operand: slab nb holds
+// columns 16nb..16nb+15 of every key). Inside a slab, row r sits at r * 32
+// bytes with its two 16-byte halves swapped when bit 2 of r is set (the
+// hardware's Swizzle<1,4,3> on the address bits).
+template <int HD>
+struct WgLayout {
+  static constexpr int kQ = kTcBQ * HD * 2;  // bytes
+  static constexpr int kKV = kTcBK * HD * 2;
+  static constexpr int kBytes = kQ + 2 * kWgStages * kKV + 1024;  // + slack to align the base to 1024
+};
+
+__device__ __forceinline__ uint32_t swz32(int row, int half) { return row * 32 + ((half ^ ((row >> 2) & 1)) << 4); }
+
+// rows [row0, row0 + ROWS) of a (·, HD) bf16 array (row stride ss, base
+// `src`) into a slab-major swizzled tile; rows at or past `limit` are
+// zero-filled. Thread t copies 16-byte chunk t % C of rows t / C, t / C + R,
+// ... (C chunks per row, R = threads / C rows per pass), so the addresses
+// advance by a constant step.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_swz(uint32_t dst, const __nv_bfloat16* src, int64_t ss,
+                                         int row0, int limit) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kRowStep = kWgThreads / kChunks;
+  constexpr int kPasses = (ROWS + kRowStep - 1) / kRowStep;
+  const int ch = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+  if (r0 >= kRowStep) return;
+  const __nv_bfloat16* p = src + (row0 + r0) * ss + ch * 8;
+  const uint32_t d = dst + (ch >> 1) * ROWS * 32;
+#pragma unroll
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int r = r0 + pass * kRowStep;
+    if (ROWS % kRowStep == 0 || r < ROWS) {
+      const bool in = row0 + r < limit;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d + swz32(r, ch & 1)),
+                   "l"(in ? p : src), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+    p += kRowStep * ss;
   }
+}
+
+// wgmma matrix descriptor: 32-byte swizzle, byte offsets lbo/sbo
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(3) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+// Keep registers that an in-flight wgmma reads or writes out of the
+// compiler's hands: an empty asm that "writes" them, placed after the wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(r[i][k])::"memory");
+}
+
+// d (m64n64, f32) (+)= A·B, A and B bf16 in shared memory (both K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n16, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n32, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n64, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n80, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n128, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 16) wgmma_rs_n16(o, a, db);
+  else if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (HD == 80) wgmma_rs_n80(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+// The softmax of one 64-key tile of S for this thread's two rows (row0, row0
+// + 8): masks the tile if it crosses a frontier (-inf, so a wholly masked
+// row adds exactly nothing), takes the running max m in the base-2 domain
+// (m = max(s) * scale * log2 e; scale > 0), turns s into p = 2^(s * scale *
+// log2 e - m), adds the row sums into l and returns the correction factors
+// 2^(m_old - m_new) of the two rows.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1, float sl2, bool edge,
+                                             int k0, int row0, int t4, const FlashArgs& a) {
+  const float kInf = __int_as_float(0x7f800000);
+  float mx0 = -kInf, mx1 = -kInf;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+        const int row = e < 2 ? row0 : row0 + 8;
+        bool ok = key < a.sk;
+        if (a.causal) ok = ok && key <= row;
+        if (a.window > 0) ok = ok && key > row - a.window;
+        s[4 * n + e] = ok ? s[4 * n + e] : -kInf;
+      }
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  // a row's 64 scores sit in the four lanes of a quad
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  mx0 = fmaxf(m0, mx0 * sl2);
+  mx1 = fmaxf(m1, mx1 * sl2);
+  c0 = ex2(m0 - mx0);
+  c1 = ex2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[4 * n] = ex2(fmaf(s[4 * n], sl2, -m0));
+    s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], sl2, -m0));
+    s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], sl2, -m1));
+    s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], sl2, -m1));
+    ps0 += s[4 * n] + s[4 * n + 1];
+    ps1 += s[4 * n + 2] + s[4 * n + 3];
+  }
+  l0 = l0 * c0 + ps0;
+  l1 = l1 * c1 + ps1;
+}
+
+// P (the softmaxed S, in S's accumulator layout, which is the A operand's:
+// two key n-tiles per k-step) as hi + lo bf16 fragments
+__device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&ph)[4][4], uint32_t (&pl)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split_bf16(s[8 * kk], s[8 * kk + 1], ph[kk][0], pl[kk][0]);
+    split_bf16(s[8 * kk + 2], s[8 * kk + 3], ph[kk][1], pl[kk][1]);
+    split_bf16(s[8 * kk + 4], s[8 * kk + 5], ph[kk][2], pl[kk][2]);
+    split_bf16(s[8 * kk + 6], s[8 * kk + 7], ph[kk][3], pl[kk][3]);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void issue_s(float (&s)[32], uint32_t qs, uint32_t kt, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_n64(s, wg_desc(qs + kk * kTcBQ * 32 + wg * 64 * 32, kTcBQ * 32, 256),
+                 wg_desc(kt + kk * kTcBK * 32, kTcBK * 32, 256), kk > 0);
+}
+
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&ph)[4][4],
+                                         const uint32_t (&pl)[4][4], uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dv = wg_desc(vt + kk * 16 * 32, kTcBK * 32, 256);
+    wgmma_pv<HD>(o, ph[kk], dv);
+    wgmma_pv<HD>(o, pl[kk], dv);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wg(FlashArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NO = HD / 2;  // accumulator registers of O
+  constexpr int ST = kWgStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;  // [HD/16][kTcBQ][16]
+  const uint32_t ks = qs + WgLayout<HD>::kQ;  // [ST][HD/16][kTcBK][16]
+  const uint32_t vs = ks + ST * WgLayout<HD>::kKV;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warpgroup index, broadcast so that the compiler sees it uniform in the
+  // warp (wgmma under a branch it takes for divergent is serialized)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int g = lane / 4, t4 = lane % 4;
+  const float sl2 = a.scale * kLog2e;
+
+  const int heads = a.h * a.batch;
+  const int i = blockIdx.x / heads, hb = blockIdx.x % heads;
+  const int head = hb % a.h, b = hb / a.h;
+  // the host's plan: the q tile (heaviest first) and the keys it can see;
+  // both warpgroups walk all of its K/V tiles, a tile that one cannot see
+  // is masked whole. Broadcast like wg: the K/V loop that holds the wgmmas
+  // runs on these values.
+  const int q_start = __shfl_sync(0xffffffffu, __ldg(a.plan + 3 * i), 0) * kTcBQ;
+  const int k_begin = __shfl_sync(0xffffffffu, __ldg(a.plan + 3 * i + 1), 0);
+  const int k_end = __shfl_sync(0xffffffffu, __ldg(a.plan + 3 * i + 2), 0);
+  const int kvh = head / (a.h / a.kv);
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + head * a.q_sh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK : 0;
+
+  load_swz<HD, kTcBQ>(qs, qb, a.q_ss, q_start, a.sq);
+  if (n_kt > 0) {
+    load_swz<HD, kTcBK>(ks, kb, a.k_ss, k_begin, a.sk);
+    load_swz<HD, kTcBK>(vs, vb, a.v_ss, k_begin, a.sk);
+  }
+  cp_async_commit();
+
+  const int qw = q_start + wg * 64;  // this warpgroup's first row
+  const int row0 = qw + (warp % 4) * 16 + g;
+  auto edge = [&](int k0) {  // does the tile cross a frontier for this warpgroup's rows?
+    return (a.causal && k0 + kTcBK - 1 > qw) || (a.window > 0 && k0 <= qw + 63 - a.window) ||
+           k0 + kTcBK > a.sk;
+  };
+  // tile j is in the ring once iteration j's barrier is passed; iteration j
+  // then fetches tile j + 1 into the stage that tile j - 2 left
+  auto next_tile = [&](int j) {
+    cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async writes -> wgmma reads
+    __syncthreads();
+    if (j + 1 < n_kt) {
+      const int nx = (j + 1) % ST, k1 = k_begin + (j + 1) * kTcBK;
+      load_swz<HD, kTcBK>(ks + nx * WgLayout<HD>::kKV, kb, a.k_ss, k1, a.sk);
+      load_swz<HD, kTcBK>(vs + nx * WgLayout<HD>::kKV, vb, a.v_ss, k1, a.sk);
+      cp_async_commit();
+    }
+  };
+
+  float o[NO];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+  float s[32];                  // S of this warpgroup's 64 rows x 64 keys; n-tile n is s[4n..4n+3]
+  uint32_t ph[4][4], pl[4][4];  // P of the previous tile, hi + lo bf16 parts
+  float c0, c1;
+
+  if (n_kt > 0) {  // tile 0: S and its softmax
+    next_tile(0);
+    wg_fence();
+    issue_s<HD>(s, qs, ks, wg);
+    wg_commit();
+    wg_wait0();
+    pin(s);
+    softmax_tile(s, m0, m1, l0, l1, c0, c1, sl2, edge(k_begin), k_begin, row0, t4, a);
+    split_p(s, ph, pl);
+  }
+  // Iteration j issues S_j = Q·K_jᵀ and O += P_{j-1}·V_{j-1} together and
+  // runs the softmax of S_j while the second product is in flight.
+  for (int j = 1; j < n_kt; ++j) {
+    const int k0 = k_begin + j * kTcBK;
+    next_tile(j);
+    pin(o);
+    wg_fence();
+    issue_s<HD>(s, qs, ks + (j % ST) * WgLayout<HD>::kKV, wg);
+    wg_commit();
+    issue_pv<HD>(o, ph, pl, vs + ((j - 1) % ST) * WgLayout<HD>::kKV);
+    wg_commit();
+    wg_wait1();  // S_j is done; P_{j-1}·V_{j-1} may still run
+    pin(s);
+    softmax_tile(s, m0, m1, l0, l1, c0, c1, sl2, edge(k0), k0, row0, t4, a);
+    wg_wait0();  // O holds P_{j-1}·V_{j-1}: rescale it to the new max
+    pin(o);
+    pin(ph);
+    pin(pl);
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      o[4 * n] *= c0;
+      o[4 * n + 1] *= c0;
+      o[4 * n + 2] *= c1;
+      o[4 * n + 3] *= c1;
+    }
+    split_p(s, ph, pl);
+  }
+  if (n_kt > 0) {  // the last tile's P·V
+    pin(o);
+    wg_fence();
+    issue_pv<HD>(o, ph, pl, vs + ((n_kt - 1) % ST) * WgLayout<HD>::kKV);
+    wg_commit();
+    wg_wait0();
+    pin(o);
+    pin(ph);
+    pin(pl);
+  }
+  cp_async_wait_all();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.o_sb + head * a.o_sh + 2 * t4;
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < NO / 4; ++n) {
+    if (row0 < a.sq)
+      *reinterpret_cast<uint32_t*>(ob + row0 * a.o_ss + n * 8) = pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    if (row1 < a.sq)
+      *reinterpret_cast<uint32_t*>(ob + row1 * a.o_ss + n * 8) = pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+  }
+}
+
+template <int HD>
+cudaError_t launch_wg(const FlashArgs& a, cudaStream_t stream) {
+  constexpr int smem = WgLayout<HD>::kBytes;
+  static bool attr_set = false;  // above 48 KB only after opting in, once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wg<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int n_qt = (a.sq + kTcBQ - 1) / kTcBQ;
+  flash_fwd_wg<HD><<<n_qt * a.h * a.batch, kWgThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 int64 values, (batch, seq, head) element strides of q, k, v, o.
+// bf16 takes the tensor-core kernel (base pointers and seq/head strides
+// 16-byte aligned, checked by the wrapper) and its tile plan on the device,
+// ceil(sq / 128) x 3 ints (kernels/flash_attention.py:tile_plan); f32 the
+// SIMT kernel, which takes no plan.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  const int64_t* strides, int batch, int sq, int sk, int h,
-                                  int kv, int hd, float scale, int causal, int window,
-                                  int is_bf16, void* stream) {
+                                  const int* plan, const int64_t* strides, int batch, int sq,
+                                  int sk, int h, int kv, int hd, float scale, int causal,
+                                  int window, int is_bf16, void* stream) {
   if (batch == 0 || sq == 0 || h == 0) return cudaSuccess;
-  if (kv <= 0 || h % kv != 0) return cudaErrorInvalidValue;
-  FlashArgs a{q, k, v, o,
+  if (kv <= 0 || h % kv != 0 || (is_bf16 && plan == nullptr)) return cudaErrorInvalidValue;
+  FlashArgs a{q, k, v, o, plan,
               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
               strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
-              sq, sk, h, kv, scale, causal, window};
+              batch, sq, sk, h, kv, scale, causal, window};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_hd<__nv_bfloat16>(a, batch, hd, s) : dispatch_hd<float>(a, batch, hd, s);
+  switch (hd) {
+    case 16: return is_bf16 ? launch_wg<16>(a, s) : launch_simt<16>(a, s);
+    case 32: return is_bf16 ? launch_wg<32>(a, s) : launch_simt<32>(a, s);
+    case 64: return is_bf16 ? launch_wg<64>(a, s) : launch_simt<64>(a, s);
+    case 80: return is_bf16 ? launch_wg<80>(a, s) : launch_simt<80>(a, s);
+    case 128: return is_bf16 ? launch_wg<128>(a, s) : launch_simt<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -5,56 +5,64 @@ One query token per sequence, q (B, 1, H, hd), against a cache
 are valid (``window=0``: all below ``cache_len``). ``cache_len`` is one host
 integer for the whole batch, as the Pallas kernel takes one scalar. The
 cache may be a strided view (one layer of the stacked (L, B, S, KV, hd)
-cache). The G = H / KV q heads of a KV head share each cache tile; the
-positions are split across blocks and merged by a second kernel, so a
-batch-1 decode fills the card. Port of the Pallas kernel
-``repro/kernels/decode_attention.py:decode_attention``. The plain version
-is :func:`repro_torch.kernels.ref.decode_attention_ref`.
+cache). The q heads of a KV head share each cache row; the positions are
+split across blocks (:func:`split_plan`) and merged in the same launch by
+the last block to finish, so a batch-1 decode fills the card. Port of the
+Pallas kernel ``repro/kernels/decode_attention.py:decode_attention``. The
+plain version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build
 from ._launch import stream_ptr
-from .flash_attention import check_heads
+from .flash_attention import COPY_BYTES, check_heads
 
-TILE = 64  # cache positions per tile (kBS in the source)
-MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+TILE = 64  # cache positions per tile: splits start on tile boundaries
+MIN_TILES = 2  # tiles per split at least, so a block keeps loads in flight
 BLOCKS_PER_SM = 2  # split target: this many blocks per SM in all
+MAX_SPLITS = 128  # the kernel's merge holds this many splits' (m, l) (kMaxSplits)
+
+# (device, stream) -> (partials, split counters); grown, never shrunk. The
+# counters start at 0 and every launch leaves them at 0, so calls on one
+# stream may share them.
+_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def split_plan(lo: int, hi: int, blocks: int, sms: int) -> Tuple[int, int]:
     """(chunk, splits): positions per split block and the number of splits.
 
     The valid range [lo, hi), taken from ``lo`` rounded down to a tile, is
-    cut into whole tiles shared out over at most ``BLOCKS_PER_SM * sms /
-    blocks`` splits, so ``blocks`` (B·KV) times the splits about fill the
-    card; never fewer than one split, whose range may be empty.
+    cut into splits of whole tiles, at least ``MIN_TILES`` each, and into
+    at most ``BLOCKS_PER_SM * sms / blocks`` splits (and ``MAX_SPLITS``), so
+    ``blocks`` (B·KV) times the splits about fill the card; never fewer
+    than one split, whose range may be empty.
     """
     base = lo // TILE * TILE
     tiles = -(-(hi - base) // TILE) if hi > lo else 0
-    target = max(1, -(-BLOCKS_PER_SM * sms // max(blocks, 1)))
-    splits = max(1, min(tiles, target))
-    per = max(1, -(-tiles // splits))
+    target = max(1, min(MAX_SPLITS, -(-BLOCKS_PER_SM * sms // max(blocks, 1))))
+    per = max(MIN_TILES, -(-tiles // target))
     return per * TILE, max(1, -(-tiles // per))
-
-
-@functools.lru_cache(maxsize=None)
-def _smem_bytes(groups: int, hd: int) -> int:
-    """Shared memory of one split block, checked against Hopper's limit."""
-    smem = build.library().rt_decode_attention_smem(groups, hd)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{groups} q heads per kv head need {smem} B of shared memory")
-    return smem
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _scratch_for(device: torch.device, stream: int, n_part: int, n_count: int):
+    buf = _scratch.get((device, stream))
+    if buf is None or buf[0].numel() < n_part or buf[1].numel() < n_count:
+        n_part = max(n_part, 0 if buf is None else buf[0].numel())
+        n_count = max(n_count, 0 if buf is None else buf[1].numel())
+        buf = (torch.empty(n_part, dtype=torch.float32, device=device),
+               torch.zeros(n_count, dtype=torch.int32, device=device))
+        _scratch[(device, stream)] = buf
+    return buf
 
 
 def decode_attention(
@@ -74,14 +82,21 @@ def decode_attention(
     hi = int(cache_len)
     if not 0 <= hi <= s_max:
         raise ValueError(f"cache_len {hi} outside [0, {s_max}]")
+    el = q.element_size()
+    for t, n, dims in ((q, "q", (0, 2)), (k_cache, "k_cache", (0, 1, 2)),
+                       (v_cache, "v_cache", (0, 1, 2))):
+        if t.data_ptr() % COPY_BYTES or any((t.stride(d) * el) % COPY_BYTES for d in dims):
+            raise ValueError(f"decode_attention: {n} is read in {COPY_BYTES}-byte pieces: its base "
+                             f"pointer and strides {tuple(t.stride())} must be multiples of "
+                             f"{COPY_BYTES} bytes")
     lo = max(0, hi - window) if window else 0
     groups = h // kv
-    _smem_bytes(groups, hd)
     chunk, splits = split_plan(lo, hi, b * kv, _sm_count(q.device))
     scale = float(scale if scale is not None else hd ** -0.5)
     o = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((b * kv, splits, groups, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * kv, splits, groups, 2), dtype=torch.float32, device=q.device)
+    stream = stream_ptr(q)
+    rows = b * kv * groups
+    part, counters = _scratch_for(q.device, stream, rows * splits * (hd + 2), rows)
     strides = build.strides_arg([
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
@@ -90,9 +105,9 @@ def decode_attention(
     ])
     err = build.library().rt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), strides,
-        b, kv, groups, hd, lo, hi, chunk, splits, scale,
-        int(q.dtype == torch.bfloat16), stream_ptr(q),
+        part.data_ptr(), counters.data_ptr(), strides,
+        b, kv, groups, hd, lo, hi, lo // TILE * TILE, chunk, splits, scale,
+        int(q.dtype == torch.bfloat16), stream,
     )
     build.check(err, "decode_attention")
     build.count_launch("decode_attention")

@@ -8,10 +8,18 @@ and sliding-window masks (``k_pos > q_pos - window``), whole tiles past
 either frontier skipped. Port of the Pallas kernel
 ``repro/kernels/flash_attention.py:flash_attention``. The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
+
+bfloat16 runs on the tensor cores (``flash_fwd_wg``: wgmma bf16 products,
+K/V tiles through a three-stage cp.async ring, heaviest q tiles first);
+float32, which only the checks use, runs the SIMT kernel (``flash_fwd_simt``).
+The host plans the tensor-core kernel's work in plain functions that the
+CPU tests check: :func:`tile_plan` (the q-tile order and each tile's K/V
+range, which the kernel reads from the card) and :func:`load_route`.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,6 +27,66 @@ from . import build
 from ._launch import stream_ptr
 
 HEAD_DIMS = (16, 32, 64, 80, 128)  # 80: zamba2's shared attention block
+BLOCK_Q = 128  # query rows per block of the tensor-core kernel (kTcBQ)
+BLOCK_K = 64  # keys per K/V tile (kTcBK)
+COPY_BYTES = 16  # one cp.async copy
+KERNELS = {
+    torch.bfloat16: "flash_fwd_wg (wgmma m64n64k16 / m64nHDk16 bf16, cp.async K/V ring, heavy-first)",
+    torch.float32: "flash_fwd_simt (f32 FMAs from shared memory)",
+}
+
+
+def tile_plan(sq: int, sk: int, causal: bool, window: int,
+              block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> List[Tuple[int, int, int]]:
+    """(q tile, first key, end key) in the order the tensor-core kernel's
+    blocks take the q tiles: block t takes entry ``t // (H * B)``, for head
+    ``t % H`` and batch ``t % (H * B) // H``, and visits the K/V tiles from
+    the first key in steps of ``block_k`` up to the end key.
+
+    A tile sees keys up to its last row under a causal mask, from the tile
+    of the first key inside its first row's window, and none past Sk. Under
+    a causal mask the last tiles carry the most work and go first; without
+    one a window only drops keys before a tile, so the first tiles go first.
+    Along the order the work never rises, with one exception: under a
+    causal mask and a window narrower than the prompt, every full q tile
+    past the window's width visits the same number of K/V tiles, and a
+    ragged last q tile, which goes first, may visit fewer.
+    """
+    n_qt = -(-sq // block_q)
+    plan = []
+    for qt in (range(n_qt - 1, -1, -1) if causal else range(n_qt)):
+        q_start = qt * block_q
+        end = min(sk, q_start + block_q) if causal else sk
+        begin = max(0, q_start - window + 1) // block_k * block_k if window > 0 else 0
+        plan.append((qt, begin, max(begin, end)))
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_on(device: torch.device, sq: int, sk: int, causal: bool, window: int) -> torch.Tensor:
+    """:func:`tile_plan` as an (n_qt, 3) int32 tensor on ``device``, made
+    once per shape (the copy is blocking, so every stream sees it)."""
+    return torch.tensor(tile_plan(sq, sk, causal, window), dtype=torch.int32).to(device)
+
+
+def load_route(dtype: torch.dtype, elem_bytes: int, ptrs: Sequence[int],
+               strides: Sequence[int]) -> str:
+    """How the kernel reads q, k and v: ``"simt"`` for float32 (scalar
+    loads, any stride), ``"cp.async"`` for bfloat16, whose rows are copied
+    in 16-byte pieces, so every base pointer and every (batch, seq, head)
+    stride in bytes must be a multiple of 16. Raises on what the kernel
+    cannot take."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+    bad = [p for p in ptrs if p % COPY_BYTES] + [s for s in strides if (s * elem_bytes) % COPY_BYTES]
+    if bad:
+        raise ValueError(
+            "flash_attention: bfloat16 q, k, v need base pointers and (batch, seq, head) "
+            f"strides that are multiples of {COPY_BYTES} bytes; got pointers "
+            f"{[p % COPY_BYTES for p in ptrs]} mod {COPY_BYTES} and strides {list(strides)}")
+    return "cp.async"
 
 
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
@@ -57,13 +125,14 @@ def flash_attention(
     check_heads(q, k, v, "flash_attention")
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    load_route(q.dtype, q.element_size(), [t.data_ptr() for t in (q, k, v)], strides)
     scale = float(scale if scale is not None else hd ** -0.5)
+    plan = _plan_on(q.device, sq, sk, bool(causal), int(window)).data_ptr() if q.dtype == torch.bfloat16 else 0
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
-    strides = build.strides_arg(
-        [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    )
     err = build.library().rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), plan,
+        build.strides_arg(strides + list(o.stride()[:3])),
         b, sq, sk, h, kv, hd, scale, int(causal), int(window),
         int(q.dtype == torch.bfloat16), stream_ptr(q),
     )

@@ -1,0 +1,138 @@
+"""Host-side planning of the port's attention kernels, in plain Python.
+
+K5 (``kernels/flash_attention.py``): the tile plan that the tensor-core
+kernel reads from the card (the order in which its blocks take the q tiles,
+heaviest first, and the range of keys each q tile visits), and the check of
+strides and alignment that decides how q, k and v are read. K6
+(``kernels/decode_attention.py``): how the split plan streams tiles and
+fills the card (its coverage of the valid range is held in
+``test_torch_model_kernels.py``). Each is held against a brute-force mask or
+a direct count.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+
+BQ, BK = fa.BLOCK_Q, fa.BLOCK_K
+
+
+def _mask(sq, sk, causal, window):
+    """(sq, sk) bool: key j visible to query i, as the plain version masks."""
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    m = np.ones((sq, sk), dtype=bool)
+    if causal:
+        m &= k <= q
+    if window:
+        m &= k > q - window
+    return m
+
+
+FLASH_PLANS = [
+    (2048, 2048, True, 0),       # qwen3-4b's prefill
+    (2048, 2048, True, 4096),    # zamba2's shared block: a window wider than the prompt
+    (1, 1, True, 0),
+    (127, 127, True, 0),
+    (129, 129, True, 0),
+    (2047, 2047, True, 0),
+    (300, 300, True, 100),       # a window that starts inside a tile
+    (129, 129, True, 33),
+    (1000, 1000, True, 64),
+    (127, 300, True, 0),         # Sq != Sk
+    (129, 2047, False, 0),
+    (2047, 2047, False, 300),    # a window without the causal mask
+    (333, 77, False, 0),
+]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", FLASH_PLANS)
+def test_kv_tile_range_holds_every_visible_key(sq, sk, causal, window):
+    mask = _mask(sq, sk, causal, window)
+    plan = fa.tile_plan(sq, sk, causal, window)
+    assert sorted(qt for qt, _, _ in plan) == list(range(-(-sq // BQ)))  # each q tile once
+    for qt, begin, end in plan:
+        assert begin % BK == 0 and 0 <= begin <= end <= sk
+        visible = np.flatnonzero(mask[qt * BQ:(qt + 1) * BQ].any(axis=0))
+        if visible.size:
+            assert begin <= visible.min() and visible.max() < end
+            assert visible.min() < begin + BK  # the first tile visited holds a visible key
+        # the tiles the kernel skips hold no visible key of the tile's rows
+        assert not mask[qt * BQ:(qt + 1) * BQ, :begin].any()
+        assert not mask[qt * BQ:(qt + 1) * BQ, end:].any()
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", FLASH_PLANS)
+def test_q_tile_order_is_heaviest_first(sq, sk, causal, window):
+    plan = fa.tile_plan(sq, sk, causal, window)
+    work = [-(-(end - begin) // BK) for _, begin, end in plan]  # K/V tiles each block computes
+    if causal and 0 < window < sq and sq % BQ:
+        # a ragged last q tile under a narrow window goes first, maybe lighter
+        assert work[1:] == sorted(work[1:], reverse=True)
+    else:
+        assert work == sorted(work, reverse=True)
+    # and every tile it computes holds a key that one of its rows can see
+    mask = _mask(sq, sk, causal, window)
+    for qt, begin, end in plan:
+        rows = mask[qt * BQ:(qt + 1) * BQ]
+        for k0 in range(begin, end, BK):
+            assert rows[:, k0:k0 + BK].any(), (qt, k0)
+
+
+def test_plan_tensor_is_the_plan_in_the_kernels_layout():
+    # the kernel reads three int32 per q tile, row i for the i-th block of heads
+    got = fa._plan_on(torch.device("cpu"), 300, 300, True, 100)
+    assert got.dtype == torch.int32 and got.is_contiguous() and got.shape == (3, 3)
+    assert got.tolist() == [list(e) for e in fa.tile_plan(300, 300, True, 100)]
+
+
+def test_load_route_takes_aligned_bf16_and_any_f32():
+    qwen3 = [2048 * 32 * 128, 32 * 128, 128]  # (batch, seq, head) strides of a packed q
+    zamba2 = [2048 * 32 * 80, 32 * 80, 80]
+    fused = [200 * 48 * 128, 48 * 128, 128]  # a slice of a fused (q, k, v) projection
+    for strides in (qwen3, zamba2, fused):
+        assert fa.load_route(torch.bfloat16, 2, [4096, 8192, 1 << 20], strides * 3) == "cp.async"
+    assert fa.load_route(torch.float32, 4, [4, 8, 12], [3, 5, 7] * 3) == "simt"
+
+
+@pytest.mark.parametrize("ptrs,strides", [
+    ([4096 + 2, 8192, 16384], [2048 * 512, 512, 64]),  # q's base pointer off by one element
+    ([4096, 8192, 16384], [2048 * 544, 544, 68]),      # a head stride of 136 bytes
+    ([4096, 8192, 16384], [2048 * 512, 500, 64]),      # a seq stride of 1000 bytes
+])
+def test_load_route_refuses_what_16_byte_copies_cannot_take(ptrs, strides):
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.load_route(torch.bfloat16, 2, ptrs, strides * 3)
+
+
+def test_load_route_refuses_other_types():
+    with pytest.raises(TypeError):
+        fa.load_route(torch.float16, 2, [0, 0, 0], [8, 8, 8] * 3)
+
+
+SPLIT_PLANS = [
+    (0, 2048, 8, 132),     # qwen3-4b: 8 KV heads, 2048 cached positions
+    (0, 2048, 32, 132),    # zamba2-2.7b's shared block: 32 KV heads
+    (0, 1, 8, 132),
+    (0, 63, 8, 132),
+    (0, 65, 8, 132),
+    (0, 0, 8, 132),
+    (186, 250, 2, 132),
+    (1948, 2048, 32, 132),  # a window of 100
+    (0, 4096, 1, 132),      # one KV head: the cap on the splits
+    (5, 6, 64, 132),
+    (0, 4000, 48, 132),
+    (0, 100, 1000, 132),
+]
+
+
+@pytest.mark.parametrize("lo,hi,blocks,sms", SPLIT_PLANS)
+def test_decode_split_plan_streams_tiles_and_fills_the_card(lo, hi, blocks, sms):
+    chunk, splits = da.split_plan(lo, hi, blocks, sms)
+    assert chunk % da.TILE == 0 and chunk >= da.MIN_TILES * da.TILE  # several tiles a block
+    assert splits <= da.MAX_SPLITS
+    tiles = -(-(hi - lo // da.TILE * da.TILE) // da.TILE) if hi > lo else 0
+    # as many blocks as the card has SMs, where the range has tiles enough
+    assert blocks * splits >= min(sms, blocks * -(-tiles // da.MIN_TILES), blocks * da.MAX_SPLITS)

@@ -11,7 +11,10 @@ with atol 2e-3 for K5/K6 in bf16: their outputs are weighted means, small
 beside 2e-2, and two bf16 roundings of one value differ by at most one ulp,
 which rtol covers. K2/K3 and the kalman scan are held bitwise, as their
 contract says. The K5/K6 cases are tests/test_kernels.py's sweep plus
-qwen3's head dim and zamba2's (80). K7 returns float32 whatever its inputs
+qwen3's head dim and zamba2's (80), and the edges of the kernels' tiling:
+lengths of 1, 127, 129 and 2047 against K5's 128-row q tiles and 64-key
+K/V tiles, windows that start inside a tile, GQA groups of 1 to 48, and
+cache lengths of 1, 63, 65 and 2048 against K6's split plan. K7 returns float32 whatever its inputs
 and its plain version computes in float32 from the same inputs, so they
 differ only in the order of their sums: held at 1e-4 of the largest |value|.
 """
@@ -123,6 +126,19 @@ def test_cuda_rmsnorm_residual(cuda, dtype, shape):
     (1, 200, 200, 8, 2, 128, True, 50),
     (1, 333, 333, 32, 32, 80, True, 4096),
     (2, 70, 70, 4, 4, 80, True, 16),
+    # the tensor-core kernel's edges: 128-row q tiles, 64-key K/V tiles
+    (1, 1, 1, 4, 4, 64, True, 0),
+    (2, 1, 129, 4, 2, 32, False, 0),
+    (1, 127, 127, 8, 2, 128, True, 0),       # G = 4
+    (1, 129, 129, 8, 1, 128, True, 0),       # G = 8
+    (2, 2047, 2047, 4, 4, 128, True, 0),     # G = 1, batch 2
+    (1, 127, 129, 4, 4, 80, False, 0),       # Sq != Sk, not causal
+    (1, 129, 2047, 2, 1, 64, False, 0),
+    (1, 127, 300, 4, 2, 64, True, 0),
+    (1, 300, 300, 4, 4, 64, True, 100),      # windows that start inside a tile
+    (1, 129, 129, 4, 4, 16, True, 33),
+    (1, 2047, 2047, 8, 8, 80, True, 200),
+    (1, 2047, 2047, 8, 4, 128, False, 300),  # a window without the causal mask
 ])
 def test_cuda_flash_attention(cuda, dtype, b, sq, sk, h, kv, hd, causal, window):
     g = torch.Generator().manual_seed(3)
@@ -131,6 +147,50 @@ def test_cuda_flash_attention(cuda, dtype, b, sq, sk, h, kv, hd, causal, window)
     got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd", [(32, 8, 128), (32, 32, 80), (4, 1, 64)])
+def test_cuda_flash_attention_reads_strided_views(cuda, dtype, h, kv, hd):
+    # q, k, v as slices of one fused projection, (batch, seq, head) strides
+    # of the wide row: the model may hand over such views
+    g = torch.Generator().manual_seed(7)
+    b, s = 2, 200
+    qkv = _randn(g, (b, s, (h + 2 * kv) * hd), cuda, dtype)
+    q = qkv[..., : h * hd].view(b, s, h, hd)
+    k = qkv[..., h * hd : (h + kv) * hd].view(b, s, kv, hd)
+    v = qkv[..., (h + kv) * hd :].view(b, s, kv, hd)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+    packed = flash_attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, packed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_gives_zeros_where_a_row_sees_no_key(cuda, dtype):
+    # causal with a window of 50 over 100 keys: rows 149 and up see none. Both
+    # builds give them zeros (the plain version gives the mean of V, a row the
+    # serving path never makes); the other rows match the plain version
+    g = torch.Generator().manual_seed(9)
+    sq, sk, window = 300, 100, 50
+    q = _randn(g, (2, sq, 4, 64), cuda, dtype)
+    k, v = _randn(g, (2, sk, 2, 64), cuda, dtype), _randn(g, (2, sk, 2, 64), cuda, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=window)
+    blind = sk + window - 1
+    assert torch.equal(got[:, blind:], torch.zeros_like(got[:, blind:]))
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got[:, :blind].float(), want[:, :blind].float(),
+                               **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_unaligned_bf16_rows(cuda):
+    x = torch.zeros((1, 16, 2, 68), device=cuda, dtype=torch.bfloat16)[..., 2:66]
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_attention(x, x, x)
 
 
 @pytest.mark.gpu
@@ -145,6 +205,14 @@ def test_cuda_flash_attention(cuda, dtype, b, sq, sk, h, kv, hd, causal, window)
     (1, 64, 0, 4, 2, 16, 0),
     (1, 4096, 2048, 32, 32, 80, 4096),
     (2, 16, 13, 4, 4, 80, 16),
+    # the split plan's and the row groups' edges
+    (1, 4096, 1, 32, 8, 128, 0),
+    (1, 4096, 63, 32, 8, 128, 0),
+    (1, 4096, 65, 32, 8, 128, 0),
+    (2, 2048, 2048, 16, 2, 128, 0),      # G = 8, the whole cache
+    (1, 4096, 2048, 32, 32, 80, 100),    # hd 80, G = 1, a window
+    (1, 512, 300, 48, 1, 64, 0),         # G = 48: six head groups of 8
+    (1, 512, 300, 12, 2, 64, 37),        # G = 6: groups of 2
 ])
 def test_cuda_decode_attention(cuda, dtype, b, smax, clen, h, kv, hd, window):
     g = torch.Generator().manual_seed(4)
@@ -155,6 +223,23 @@ def test_cuda_decode_attention(cuda, dtype, b, smax, clen, h, kv, hd, window):
     got = decode_attention.decode_attention(q, kc, vc, clen, window=window)
     want = ref.decode_attention_ref(q, kc, vc, clen, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_reuses_its_scratch(cuda):
+    # two calls in a row on the cached partials and counters, then a call at
+    # a new, larger shape (the scratch grows); the counters end at 0
+    g = torch.Generator().manual_seed(8)
+    dtype = torch.bfloat16
+    for b, smax, clen, h, kv, hd in ((1, 4096, 2048, 32, 8, 128), (1, 4096, 2048, 32, 8, 128),
+                                     (1, 4096, 1500, 32, 8, 128), (3, 4096, 4000, 16, 16, 80)):
+        q = _randn(g, (b, 1, h, hd), cuda, dtype)
+        kc, vc = _randn(g, (b, smax, kv, hd), cuda, dtype), _randn(g, (b, smax, kv, hd), cuda, dtype)
+        got = decode_attention.decode_attention(q, kc, vc, clen)
+        want = ref.decode_attention_ref(q, kc, vc, clen)
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_BF16_TOL)
+        key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+        assert int(decode_attention._scratch[key][1].abs().sum()) == 0
 
 
 @pytest.mark.gpu

@@ -154,6 +154,8 @@ def test_decode_attention_plain_empty_cache_is_a_zero_row():
 @pytest.mark.parametrize("lo,hi,blocks,sms", [
     (0, 2048, 8, 132), (0, 1, 8, 132), (0, 0, 8, 132), (186, 250, 2, 132),
     (0, 4096, 1, 132), (5, 6, 64, 132), (0, 100, 1000, 132),
+    (0, 2048, 32, 132), (0, 63, 8, 132), (0, 65, 8, 132), (1948, 2048, 32, 132),
+    (0, 4000, 48, 132),
 ])
 def test_decode_split_plan_covers_the_valid_range(lo, hi, blocks, sms):
     chunk, splits = decode_attention.split_plan(lo, hi, blocks, sms)
@@ -162,6 +164,11 @@ def test_decode_split_plan_covers_the_valid_range(lo, hi, blocks, sms):
     assert base + splits * chunk >= hi  # every valid position falls in a split
     assert base + (splits - 1) * chunk < max(hi, base + 1)  # and no split starts past the end
     assert blocks * splits <= max(blocks, decode_attention.BLOCKS_PER_SM * sms + blocks)
+    # split s reads [base + s * chunk, + chunk) clipped to [lo, hi), as the kernel
+    # does: each valid position once, and no split block idle where any is valid
+    ranges = [(max(lo, base + s * chunk), min(hi, base + (s + 1) * chunk)) for s in range(splits)]
+    assert [p for start, end in ranges for p in range(start, end)] == list(range(lo, hi))
+    assert hi <= lo or all(end > start for start, end in ranges)
 
 
 # -- dispatch and wrappers -------------------------------------------------------------
