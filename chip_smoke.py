@@ -13,9 +13,14 @@ Phases, each fatal on failure:
      qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's prefill
      of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6 also at
      zamba2's head dim of 80, f32 and bf16, each beside its library call;
-     which K5 kernel each dtype ran); K2/K3 must be bitwise equal to the eager op-by-op path; device time per
-     launch (CUDA-graph replay between CUDA events) beside the bound, the
-     plain version's and the one-call library time;
+     which K5 and K7 build each dtype ran, and K7's launches per call);
+     K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
+     scan to its plain version (from p0 = 1 and from the gain's fixed
+     point); device time per launch (CUDA-graph replay between CUDA
+     events) and host time per call beside the bound (K7's also at the
+     bf16 tensor-core rate for the operations it issues; the kalman
+     scan's beside its dependent chain's floor), the plain version's and
+     the one-call library time;
   3. the main path: ``StreamSystem(backend="torch", base_batch=16384)``
      runs the 21 RIoT dataflows plus the kernel flows — 3 steps, fuse(),
      3 steps, remove three dataflows, 2 steps — with launch counts reset
@@ -70,6 +75,8 @@ ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-3)
 CPU_RTOL = 1e-4  # card vs CPU checksums: reduction order, sin/log1p ulps
 REMOVED = ("urban_etl", "taxi_pred_lr", "FA")
 SERVE_PROMPT = 2048  # longest prompt of the serving phase
+KALMAN_SETTLE = 4096  # rows after which the gain chain from p = 1 sits at its fixed point
+CHAIN_CYCLES = 12  # latency of kalman's dependent fsub, fmul and fadd: 4 cycles each
 
 
 def log(msg: str) -> None:
@@ -84,6 +91,18 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock in Hz (nvidia-smi), or None."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        return float(out.stdout.strip().splitlines()[0]) * 1e6
+    except (ValueError, IndexError):
+        return None
 
 
 def call_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -244,26 +263,38 @@ def kernel_phase(dev):
     ))
     log("K3 affine_rmsnorm (16384,5): bitwise equal to eager stages + K1")
 
-    # kalman scan (a helper of the path, not a TPU-kernel port)
+    # kalman scan (a helper of the path, not a TPU-kernel port), bitwise the
+    # plain version, from p0 = 1 and from the gain chain's fixed point (the
+    # stream's state from its second step on)
     xe0 = torch.zeros(d, device=dev)
     p0 = torch.ones(d, device=dev)
-    y, xe1, p1 = kalman.kalman_scan(x, xe0, p0, 0.1, 1.0)
-    y_ref, xe_ref, p_ref = ref.kalman_scan_ref(x, xe0, p0, 0.1, 1.0)
-    err = max(check_close("kalman_scan", y, y_ref, F32_TOL),
-              check_close("kalman_scan xe", xe1, xe_ref, F32_TOL),
-              check_close("kalman_scan p", p1, p_ref, F32_TOL))
+    p_fix = ref.kalman_scan_ref(torch.zeros((KALMAN_SETTLE, d), device=dev), xe0, p0, 0.1, 1.0)[2]
+    for name, pin in (("p0 = 1", p0), ("p0 at its fixed point", p_fix)):
+        got = kalman.kalman_scan(x, xe0, pin, 0.1, 1.0)
+        want = ref.kalman_scan_ref(x, xe0, pin, 0.1, 1.0)
+        for part, g_, w_ in zip(("y", "xe", "p"), got, want):
+            check_bitwise(f"kalman_scan {part}, {name}", g_, w_)
+        ms = device_ms(lambda: kalman.kalman_scan(x, xe0, pin, 0.1, 1.0), per_graph=5, reps=5)
+        host = call_ms(lambda: kalman.kalman_scan(x, xe0, pin, 0.1, 1.0), iters=20)
+        log(f"kalman_scan (16384,5) {name}: bitwise equal to the plain version; "
+            f"{ms * 1e3:.2f} us/launch on the device ({host * 1e3:.2f} us per call from the "
+            f"host), 1 launch per call, kernel kalman_scan_kernel (chain, gain and copy warps)")
+        if name == "p0 = 1":
+            k_ms, k_host = ms, host
     b, by = bound_ms(io_bytes + 4 * d * 4, 8 * rows * d)
+    clock = sm_clock_hz()
+    floor = rows * CHAIN_CYCLES / clock * 1e3 if clock else None
     out.append(dict(
         name="kalman_scan", route="cuda", source="src/repro_torch/kernels/csrc/kalman.cu",
         replaces="src/repro/ops/riot.py:222 (lax.scan, not a Pallas kernel)",
-        max_abs_err=err,
-        ms=device_ms(lambda: kalman.kalman_scan(x, xe0, p0, 0.1, 1.0), per_graph=5, reps=5),
+        max_abs_err=0.0, ms=k_ms,
         # ~8 launches per row: too many to capture, timed as one call
         plain_ms=call_ms(lambda: ref.kalman_scan_ref(x, xe0, p0, 0.1, 1.0), iters=1, warmup=1),
-        bound_ms=b, bound_by=by, library_ms=None,
-        call_ms=call_ms(lambda: kalman.kalman_scan(x, xe0, p0, 0.1, 1.0), iters=20),
+        bound_ms=b, bound_by=by, library_ms=None, call_ms=k_host, chain_floor_ms=floor,
     ))
-    log(f"kalman_scan (16384,5): max|err| {err:.3g} vs plain (bitwise: {err == 0.0})")
+    log(f"kalman_scan (16384,5): bound {b * 1e3:.3f} us ({by}); the bitwise chain's floor, "
+        f"16384 rows x {CHAIN_CYCLES} cycles (dependent fsub, fmul, fadd) at the SM's "
+        + (f"{clock / 1e9:.3f} GHz: {floor * 1e3:.2f} us" if clock else "clock: not read"))
     out += model_kernel_phase(dev, gen)
     out += hybrid_kernel_phase(dev, gen)
     for k in out:
@@ -385,15 +416,43 @@ def check_rel(name, got, want, rel) -> float:
 
 def ssd_bound(b, s, nh, p, n, chunk, el):
     """(ms, by) of one K7 launch: xh, B, C in ``el`` bytes, dt f32 in, y and
-    h f32 out; per (batch, head, chunk) of l positions (the ragged last chunk
-    at its real length), C·Bᵀ and W·x over the l(l+1)/2 causal pairs (W is
-    zero above the diagonal) and the state products C·h and Bᵀ·x:
-    2·(l(l+1)/2·(N + P) + 2lNP) operations, at the f32 rate."""
+    h f32 out. B and C are shared by all heads, so per (batch, chunk) of l
+    positions (the ragged last chunk at its real length) C·Bᵀ needs
+    l(l+1)/2·N MACs over the causal pairs, and per (batch, head, chunk)
+    W·x l(l+1)/2·P (W is zero above the diagonal) and the state products
+    C·h and Bᵀ·x 2lNP; two operations per MAC, at the f32 rate."""
     io = (b * s * nh * p * el + b * s * nh * 4 + 2 * b * s * n * el
           + b * s * nh * p * 4 + b * nh * n * p * 4)
     lens = [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
-    ops = b * nh * sum(2 * (l * (l + 1) // 2 * (n + p) + 2 * l * n * p) for l in lens)
-    return bound_ms(io, ops)
+    macs = b * sum(l * (l + 1) // 2 * n + nh * (l * (l + 1) // 2 * p + 2 * l * n * p) for l in lens)
+    return bound_ms(io, 2 * macs)
+
+
+def ssd_tc_bound(b, s, nh, p, n, chunk, el):
+    """(ms, by) of the bf16 build at the tensor cores' bf16 rate, for the
+    operations it issues: mma tiles of 16 x 16 (x 8 columns) over padded
+    shapes, every chunk at its full padded length, C·Bᵀ on the tiles on or
+    below the diagonal once per (batch, chunk) and head group, W·x over the
+    same tiles, C·h and Bᵀ(x·w) whole; the products with an f32 operand
+    (all but C·Bᵀ) twice, hi and lo."""
+    from repro_torch.kernels import ssd
+
+    up = lambda v, m: -(-v // m) * m  # noqa: E731
+    lp, np_, pc = up(chunk, 16), up(n, 16), up(p, 8)
+    nc = -(-s // chunk)
+    tiles = (lp // 16) * (lp // 16 + 1) // 2
+    group = ssd.head_group(b, nc, nh, torch_sm_count())
+    blocks = b * nc * -(-nh // group)
+    macs = blocks * tiles * 256 * np_ + b * nc * nh * 2 * (tiles * 256 * pc + 2 * lp * np_ * pc)
+    io = (b * s * nh * p * el + b * s * nh * 4 + 2 * b * s * n * el
+          + b * s * nh * p * 4 + b * nh * n * p * 4)
+    return bound_ms(io, 2 * macs, BF16_OPS_PER_S)
+
+
+def torch_sm_count():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def hybrid_kernel_phase(dev, gen):
@@ -428,12 +487,20 @@ def hybrid_kernel_phase(dev, gen):
                                per_graph=2, reps=5),
             bound_ms=bnd, bound_by=by, library_ms=None,
             call_ms=call_ms(lambda: ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk), iters=20),
+            launches_per_call=ssd.LAUNCHES[dtype],
         )
+        tc = ""
+        if dtype == torch.bfloat16:
+            tcb, tcby = ssd_tc_bound(b, seq, nh, p, n, chunk, xh.element_size())
+            row["tc_bound_ms"] = tcb
+            tc = f", at the bf16 tensor-core rate for the operations issued {tcb * 1e3:.3f} us ({tcby})"
         log(f"K7 ssd_scan xh ({b},{seq},{nh},{p}) N {n} chunk {chunk} {tag}: max|err| {err:.3g} "
             f"(y {float(want_y.abs().max()):.3g}, h {float(want_h.abs().max()):.3g} max; "
-            f"limit {SSD_REL} of each); {row['ms'] * 1e3:.2f} us/launch on the device "
+            f"limit {SSD_REL} of each); kernel {ssd.KERNELS[dtype]}, {ssd.LAUNCHES[dtype]} "
+            f"launch(es) per call; {row['ms'] * 1e3:.2f} us per call on the device "
             f"({row['call_ms'] * 1e3:.2f} us per call from the host), plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}), library: none")
+            f"{row['plain_ms'] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}, f32 rate){tc}, "
+            f"library: none")
         k7 = row  # the last: bf16 at S = 2048, the serving path's prefill
 
     # K5 and K6 at zamba2's shared attention: 32 heads over 32 KV heads of 80,

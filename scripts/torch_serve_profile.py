@@ -45,7 +45,7 @@ PORT_KERNELS = {
     "rmsnorm/rmsnorm_residual": "rms_rows",
     "flash_attention": "flash_fwd",
     "decode_attention": "decode_",
-    "ssd_scan": "ssd_chunk_scan",
+    "ssd_scan": "ssd_",
 }
 
 

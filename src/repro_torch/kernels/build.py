@@ -58,8 +58,11 @@ _SIGNATURES = {
     "rt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
-    "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rt_ssd_scan": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+    ),
     "rt_ssd_scan_smem": (_I, _I, _I, _I),
+    "rt_ssd_mma_smem": (_I, _I, _I),
 }
 
 KERNELS = (

@@ -3,16 +3,12 @@
 // Replaces the Pallas kernel repro/kernels/ssd.py:ssd_scan (pallas_call at
 // :90, kernel body _ssd_kernel at :25-69). There the TPU runs the chunks as
 // the innermost, sequential grid axis with the (N x P) f32 state in VMEM
-// scratch. Blocks on Hopper run in no order, so here one block owns one
-// (batch, head) and walks its chunks itself, the state h in shared memory
-// from the first chunk to the last; it never goes to device memory between
-// chunks. Per chunk of L positions (cum = inclusive cumsum of dt * a):
+// scratch. Per chunk of L positions (cum = inclusive cumsum of dt * a):
 //   W[i][j] = exp(cum_i - cum_j) * (C_i . B_j) * dt_j   for j <= i, else 0
 //   y_i     = exp(cum_i) * (C_i . h) + sum_j W[i][j] x_j
 //   h      <- exp(cum_last) * h + sum_j B_j (x) (x_j * exp(cum_last - cum_j) * dt_j)
-// All math in f32 with expf; x, B and C (f32 or bf16) are converted to f32
-// as they are staged. Outputs: y (B, S, nh, P) f32 and the final h
-// (B, nh, N, P) f32; an optional h0 seeds the state.
+// All sums in f32; exp is expf. Outputs: y (B, S, nh, P) f32 and the final
+// h (B, nh, N, P) f32; an optional h0 seeds the state.
 //
 // Ragged length: S need not be a multiple of L. Positions >= S are staged
 // as dt = 0 and x = B = C = 0: their decay is exp(0) = 1 and they add
@@ -20,32 +16,61 @@
 // result of a shorter chunk (y past S is not written). The reference's jnp
 // scan instead shrinks the chunk to a divisor of S; the port never does.
 //
-// Bound by operations: per (head, chunk) of l positions, C.B^T and W.x
-// over the causal half (the l(l+1)/2 pairs j <= i; W is zero above the
-// diagonal) and the two state products C.h and B^T.x, that is
-// 2 * (l(l+1)/2 * (N + P) + 2 l N P). For a 2048-token prefill at zamba2's
-// 80 heads of P = 64, N = 64, L = 128 that is 5.39 GFLOP, about 80 us at
-// 67 TFLOP/s f32 (the type the Pallas kernel computes in); the bytes (xh,
-// dt, B, C in, y and h out, 65 MB) take 19.5 us. This first version runs
-// plain f32 FMAs from shared memory on a 16 x 16 thread grid, each thread a
-// register tile of up to 8 x 8 outputs, and computes the whole L x L square
-// of W with the causal mask applied per element. The redesign takes up, in
-// order: occupancy (one block per (batch, head) gives 80 blocks on 132 SMs
-// at batch 1; a split over chunk ranges with a second pass for the state
-// would fill the card), tensor cores (wgmma on C.B^T and W.x) and skipping
-// the upper triangle.
+// Two builds, chosen by the inputs' dtype:
 //
-// Shared memory (f32): x [L][P], B and C [L][N+1] (padded: a warp reads 16
-// rows of B at one column), h [N][P], a row tile of W [wi][L+1], and cum,
-// dt, exp(cum), the end weights [L] each. At (L, N, P) = (128, 64, 64)
-// with wi = L that is 183,808 bytes (opt-in above 48 KB). Where a whole W
-// would not fit, the wrapper passes a smaller row tile wi and the block
-// computes W and y tile by tile: tests/test_kernels.py's (L, N, P) =
-// (128, 128, 64) runs with wi = 32. L, N and P above 128 exceed the
-// register tiles and are refused (the wrapper raises before the launch).
+// bf16 (the serving path): tensor cores, chunks in parallel. The SSD
+// algebra splits the scan into three launches:
+//   A ssd_chunk_state, a block per (batch, chunk, head): the chunk's own
+//     state s_c = B^T (x * exp(cum_last - cum) * dt) and e_c = exp(cum_last);
+//   B ssd_state_pass, the only sequential part, per (batch, head) and state
+//     element: h_c = e_c h_{c-1} + s_c over the chunks (the order
+//     el * h + acc), writing the state before each chunk as hi + lo bf16;
+//   C ssd_chunk_out, a block per (batch, chunk, group of heads):
+//     y = exp(cum) (C . h_{c-1}) + W . x.
+// C's group is chosen on the host (kernels/ssd.py:head_group) to fill the
+// SMs in whole waves: at zamba2's prefill (16 chunks x 80 heads, one block
+// per SM) groups of 10 heads give 128 blocks, one wave. B and C are shared
+// by all heads, so C forms C.B^T once per block over the causal half
+// (tiles on or below the diagonal) and applies each head's
+// 2^((cum_i - cum_j) log2 e) dt_j to it as it builds W in registers; tiles
+// of W above the diagonal are skipped. Each block copies the next head's
+// x, h and dt in with 16-byte cp.async under the current head's products
+// (two stages where they fit in shared memory, else one). Products are
+// mma.sync m16n8k16 on bf16 with ldmatrix fragments: C.B^T from the inputs
+// (exact products, f32 sums); W.x, C.h and B^T (x w), whose one operand is
+// f32, with that operand split into hi + lo bf16 parts (2^-16 relative),
+// at twice the tensor work. The per-chunk states live in scratch buffers
+// cached per (device, stream) (kernels/ssd.py:_scratch).
+//
+// f32 (the checks only): the SIMT build of the first port, one block per
+// (batch, head) walking its chunks with h in shared memory, f32 FMAs on a
+// 16 x 16 thread grid with the whole L x L square of W (where W does not
+// fit, row tiles of wi rows: tests/test_kernels.py's (L, N, P) =
+// (128, 128, 64) runs with wi = 32).
+//
+// Bound: B and C are shared by the heads, so the inputs need C.B^T once per
+// (batch, chunk), l(l+1)/2 N MACs over the causal pairs, and per (batch,
+// head, chunk) l(l+1)/2 P MACs for W.x and 2 l N P for C.h and B^T.x. At
+// zamba2's 2048-token prefill (80 heads of P = 64, N = 64, L = 128) that is
+// 4.05 GFLOP: 60.5 us at 67 TFLOP/s f32; the bytes (xh, dt, B, C in, y and
+// h out, 65 MB) take 19.5 us. The bf16 build issues its products on the
+// tensor cores in whole 16 x 16 tiles (the diagonal's included) and the
+// f32-operand ones twice (hi + lo): 8.5 GFLOP, 8.6 us at 989 TFLOP/s
+// bf16, so on that rate the bytes bound it. What bounds the design: the
+// three launches move about 168 MB (x read twice, the chunk states written
+// and read, their hi + lo parts written and read, y written in f32), 50 us
+// at 3.35 TB/s; C forms W (an ex2 per causal pair) once per group of 32
+// columns of P and head; one block of 8 warps per SM runs C (C.B^T in f32
+// takes 70 KB of shared memory).
+//
+// L, N and P above 128 are refused (the wrapper raises before the launch).
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The SIMT build (f32 inputs).
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kGrid = 16;       // the threads as a 16 x 16 grid (ty, tx)
@@ -325,27 +350,597 @@ cudaError_t dispatch_p(const SsdArgs& a, int batch, cudaStream_t stream) {
   return launch_ssd<T, 8>(a, batch, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core build (bf16 inputs): three launches and scratch for the
+// per-chunk states.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;  // 8 warps
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory one block may use
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__host__ __device__ constexpr int up16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// Padded shapes and shared-memory layout. Tiles are padded to multiples of
+// 16 (rows and columns past the data are zero); bf16 rows have a stride of
+// 16k + 8 elements (ldmatrix reads 8 rows at distinct banks), the f32 rows
+// of C.B^T 16k + 8 floats (float2 loads of a fragment at distinct banks).
+struct MmaLayout {
+  int lp, np, pp;       // padded chunk, N, P
+  int xs, ns, cbs;      // row strides: x, and B/C/h^T (bf16); C.B^T (f32)
+  int x_bytes, bc_bytes, ht_bytes, vec_bytes;
+  // kernel C (outputs): C, C.B^T, cum log2 e, exp(cum), then `stages`
+  // regions of (x, h^T hi, h^T lo, dt); B sits in the last region until
+  // C.B^T is formed
+  int out_stage, out_region, out_c, out_cb, out_cl, out_ecum, out_regions, out_bytes, stages;
+  // kernel A (chunk states): B, x, dt, cum, end weights
+  int st_b, st_x, st_dt, st_cum, st_wend, st_bytes;
+
+  __host__ __device__ MmaLayout(int l, int n, int p) {
+    lp = up16(l);
+    np = up16(n);
+    pp = up16(p);
+    xs = pp + 8;
+    ns = np + 8;
+    cbs = lp + 8;
+    x_bytes = align16(lp * xs * 2);
+    bc_bytes = align16(lp * ns * 2);
+    ht_bytes = align16(pp * ns * 2);
+    vec_bytes = align16(lp * 4);
+    out_stage = x_bytes + 2 * ht_bytes + vec_bytes;
+    out_region = out_stage > bc_bytes ? out_stage : bc_bytes;
+    out_c = 0;
+    out_cb = out_c + bc_bytes;
+    out_cl = out_cb + align16(lp * cbs * 4);
+    out_ecum = out_cl + vec_bytes;
+    out_regions = out_ecum + vec_bytes;
+    stages = out_regions + 2 * out_region <= kMaxSmem ? 2 : 1;
+    out_bytes = out_regions + stages * out_region;
+    st_b = 0;
+    st_x = bc_bytes;
+    st_dt = st_x + x_bytes;
+    st_cum = st_dt + vec_bytes;
+    st_wend = st_cum + vec_bytes;
+    st_bytes = st_wend + vec_bytes;
+  }
+};
+
+struct MmaArgs {
+  const bf16* x;       // (B, S, nh, P)
+  const float* dt;     // (B, S, nh)
+  const float* a;      // (nh,)
+  const bf16* bm;      // (B, S, N)
+  const bf16* cm;      // (B, S, N)
+  const float* h0;     // (B, nh, N, P) packed, or null
+  float* y;            // (B, S, nh, P) packed
+  float* h;            // (B, nh, N, P) packed
+  float* states;       // (B, nc, nh, P, N) f32: each chunk's own state, transposed
+  bf16* hsplit;        // (B, nc, nh, 2, P, N): the state before each chunk, transposed, hi and lo
+  float* el;           // (B, nc, nh): exp(cum_last) of each chunk
+  int64_t x_sb, x_ss, x_sh;
+  int64_t dt_sb, dt_ss, dt_sh;
+  int64_t b_sb, b_ss;
+  int64_t c_sb, c_ss;
+  int s, nh, p, n, chunk, nc, group;
+  int vec;             // 1: x, B and C are copied in 16-byte pieces
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. trans: each thread gets a column pair instead
+// of a row pair (the B operand of a row-major K x N tile).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// rows [0, prow) x columns [0, pcol) of a bf16 tile into shared memory (row
+// stride ds); source rows past `rows` and columns past `cols` are zero.
+// vec: 16-byte cp.async pieces (cols, the source's base and row stride are
+// multiples of 8 elements); else plain loads and stores.
+__device__ __forceinline__ void stage_bf16(bf16* dst, int ds, const bf16* src, int64_t ss, int rows,
+                                           int cols, int prow, int pcol, bool vec) {
+  if (vec) {
+    const int cpr = pcol / 8;
+    for (int e = threadIdx.x; e < prow * cpr; e += kMmaThreads) {
+      const int r = e / cpr, c = (e % cpr) * 8;
+      const bool in = r < rows && c < cols;
+      cp_async16(dst + r * ds + c, in ? src + r * ss + c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < prow * pcol; e += kMmaThreads) {
+      const int r = e / pcol, c = e % pcol;
+      dst[r * ds + c] = r < rows && c < cols ? src[r * ss + c] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// dt of one head over the chunk's positions (zero past `rows`)
+__device__ __forceinline__ void stage_dt(float* dst, const float* src, int64_t ss, int rows, int lp) {
+  for (int t = threadIdx.x; t < lp; t += kMmaThreads) {
+    const bool in = t < rows;
+    cp_async4(dst + t, in ? src + t * ss : src, in);
+  }
+}
+
+// cum = inclusive cumsum of dt * a over the padded chunk, by one warp: each
+// lane sums a run of consecutive positions, a warp scan gives the offsets
+// (the SIMT build's order)
+__device__ __forceinline__ void chunk_cum(const float* dts, float decay, int lp, float* cum, int lane) {
+  const int per = (lp + 31) / 32;  // at most 4: lp <= 128
+  float vals[4];
+  float run = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = lane * per + k;
+    const bool in = k < per && t < lp;
+    run += (in ? dts[t] : 0.0f) * decay;
+    vals[k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  float off = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) off = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = lane * per + k;
+    if (k < per && t < lp) cum[t] = off + vals[k];
+  }
+  __syncwarp();
+}
+
+// (x0, x1) as hi + lo bf16 pairs: hi = x truncated to bf16 (exact in f32), lo
+// = the remainder rounded to bf16, so hi + lo holds x to 2^-16 relative
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
+  hi = __byte_perm(b0, b1, 0x7632);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __uint_as_float(b0 & 0xffff0000u),
+                                                 x1 - __uint_as_float(b1 & 0xffff0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 2^x on the special-function unit (flushes subnormal results to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D += A (16 x 16, row) . B (16 x 8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix row addresses. Pattern A, for a 16 x 16 A fragment of a
+// row-major tile (rows = M) and, transposed, for the B fragments of two
+// column tiles of a row-major K x N tile: matrices (rows +0, cols +0),
+// (+8, +0), (+0, +8), (+8, +8). Pattern B, for the B fragments of two
+// column tiles of an N x K tile (rows = N) and, transposed, for an A
+// fragment of a K x M tile: (+0, +0), (+0, +8), (+8, +0), (+8, +8).
+__device__ __forceinline__ int row_a(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
+__device__ __forceinline__ int col_a(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int row_b(int lane) { return (lane & 7) + (lane >> 4) * 8; }
+__device__ __forceinline__ int col_b(int lane) { return ((lane >> 3) & 1) * 8; }
+
+// Kernel A: for each (batch, chunk, head), the chunk's own state
+// s_c = B^T (x * exp(cum_last - cum) * dt), stored transposed (P x N, f32)
+// in `states`, and e_c = exp(cum_last) in `el`. Products on tensor cores:
+// M = N (B^T, exact in bf16), K = the chunk's positions, N = P (x times its
+// end weight in f32, as hi + lo bf16). One head per block, several blocks
+// per SM.
+__global__ void __launch_bounds__(kMmaThreads) ssd_chunk_state(MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  unsigned char* smem = mma_smem;
+  const MmaLayout lay(a.chunk, a.n, a.p);
+  const int c = blockIdx.x, hd = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * a.chunk;
+  const int rows = min(a.chunk, a.s - c0);
+  const int lane = threadIdx.x & 31;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) >> 5, 0);
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* bs = reinterpret_cast<bf16*>(smem + lay.st_b);
+  bf16* xs = reinterpret_cast<bf16*>(smem + lay.st_x);
+  float* dts = reinterpret_cast<float*>(smem + lay.st_dt);
+  float* cum = reinterpret_cast<float*>(smem + lay.st_cum);
+  float* wend = reinterpret_cast<float*>(smem + lay.st_wend);
+  const bool vec = a.vec != 0;
+  stage_bf16(bs, lay.ns, a.bm + b * a.b_sb + c0 * a.b_ss, a.b_ss, rows, a.n, lay.lp, lay.np, vec);
+  stage_bf16(xs, lay.xs, a.x + b * a.x_sb + c0 * a.x_ss + hd * a.x_sh, a.x_ss, rows, a.p, lay.lp,
+             lay.pp, vec);
+  stage_dt(dts, a.dt + b * a.dt_sb + c0 * a.dt_ss + hd * a.dt_sh, a.dt_ss, rows, lay.lp);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  if (warp == 0) {
+    chunk_cum(dts, a.a[hd], lay.lp, cum, lane);
+    const float last = cum[lay.lp - 1];
+    for (int t = lane; t < lay.lp; t += 32) wend[t] = expf(last - cum[t]) * dts[t];
+    if (lane == 0) a.el[(static_cast<int64_t>(b) * a.nc + c) * a.nh + hd] = expf(last);
+  }
+  __syncthreads();
+
+  const int nb = lay.np / 16, ntiles = (a.p + 7) / 8, ngroups = (ntiles + 3) / 4;
+  float* st = a.states + ((static_cast<int64_t>(b) * a.nc + c) * a.nh + hd) * a.n * a.p;
+  for (int task = warp; task < nb * ngroups; task += kMmaWarps) {
+    const int n0 = (task / ngroups) * 16, tg = (task % ngroups) * 4;
+    float acc[4][4] = {};
+    for (int kb = 0; kb < lay.lp; kb += 16) {
+      uint32_t af[4];  // A[n][j] = B[j][n]: B^T read transposed
+      ldsm4t(af, bs + (kb + row_b(lane)) * lay.ns + n0 + col_b(lane));
+      const int j0 = kb + 2 * t4;
+      const float w0 = wend[j0], w1 = wend[j0 + 1], w8 = wend[j0 + 8], w9 = wend[j0 + 9];
+#pragma unroll
+      for (int nt = 0; nt < 4; nt += 2) {
+        if (tg + nt >= ntiles) break;
+        uint32_t xf[4];  // (x[j0][p], x[j0+1][p]) and rows + 8, for two column tiles
+        ldsm4t(xf, xs + (kb + row_a(lane)) * lay.xs + (tg + nt) * 8 + col_a(lane));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t v0 = xf[2 * h], v1 = xf[2 * h + 1];
+          uint32_t hi0, lo0, hi1, lo1;
+          split2(__uint_as_float(v0 << 16) * w0, __uint_as_float(v0 & 0xffff0000u) * w1, hi0, lo0);
+          split2(__uint_as_float(v1 << 16) * w8, __uint_as_float(v1 & 0xffff0000u) * w9, hi1, lo1);
+          mma(acc[nt + h], af, hi0, hi1);
+          mma(acc[nt + h], af, lo0, lo1);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (tg + nt >= ntiles) break;
+      const int pc = (tg + nt) * 8 + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int nn = n0 + g + (e >> 1) * 8, pp = pc + (e & 1);
+        if (nn < a.n && pp < a.p) st[pp * a.n + nn] = acc[nt][e];
+      }
+    }
+  }
+}
+
+// Kernel B, the only sequential part: per (batch, head) and state element,
+// h_c = e_c h_{c-1} + s_c over the chunks, from h0 or zero. The state before
+// each chunk goes to `hsplit` as hi + lo bf16 (transposed, P x N: kernel C's
+// B operand of C.h); the last state goes to h.
+constexpr int kPassThreads = 256;
+constexpr int kPassBatch = 4;  // chunks whose loads are issued together
+
+__global__ void __launch_bounds__(kPassThreads) ssd_state_pass(MmaArgs a, int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t np = static_cast<int64_t>(a.n) * a.p;
+  const int64_t bh = idx / np, e = idx % np;  // e = p * N + n
+  const int64_t b = bh / a.nh, hd = bh % a.nh;
+  const int64_t packed = bh * np + (e % a.n) * a.p + e / a.n;  // (n, p) of h0 and h
+  float hv = a.h0 ? a.h0[packed] : 0.0f;
+  for (int c = 0; c < a.nc; c += kPassBatch) {
+    float sv[kPassBatch], ev[kPassBatch];
+#pragma unroll
+    for (int u = 0; u < kPassBatch; ++u) {
+      if (c + u < a.nc) {
+        const int64_t slot = (b * a.nc + c + u) * a.nh + hd;
+        sv[u] = a.states[slot * np + e];
+        ev[u] = a.el[slot];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPassBatch; ++u) {
+      if (c + u < a.nc) {
+        bf16* hs = a.hsplit + ((b * a.nc + c + u) * a.nh + hd) * 2 * np;
+        const uint32_t bits = __float_as_uint(hv);
+        const float hi = __uint_as_float(bits & 0xffff0000u);
+        hs[e] = __ushort_as_bfloat16(static_cast<unsigned short>(bits >> 16));
+        hs[np + e] = __float2bfloat16_rn(hv - hi);
+        hv = __fmaf_rn(ev[u], hv, sv[u]);  // el * h + acc, the SIMT build's order
+      }
+    }
+  }
+  a.h[packed] = hv;
+}
+
+// Kernel C: for each (batch, chunk) the block forms C.B^T once, over the
+// causal half (16 x 16 tiles on or below the diagonal), for all heads of
+// its group; then per head
+//   y_i = exp(cum_i) (C_i . h_{c-1}) + sum_{j <= i} W[i][j] x_j,
+//   W[i][j] = 2^((cum_i - cum_j) log2 e) (C.B^T)[i][j] dt_j,
+// with W formed in registers in the A-operand layout (tiles above the
+// diagonal are skipped) and the next head's x, h and dt copied in under
+// this head's products. C.h: A = C (exact), B = h as the hi + lo bf16 parts
+// kernel B wrote; W.x: A = W as hi + lo, B = x (exact).
+__global__ void __launch_bounds__(kMmaThreads, 1) ssd_chunk_out(MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  unsigned char* smem = mma_smem;
+  const MmaLayout lay(a.chunk, a.n, a.p);
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int h_lo = grp * a.group, h_hi = min(a.nh, h_lo + a.group);
+  const int c0 = c * a.chunk;
+  const int rows = min(a.chunk, a.s - c0);
+  const int lane = threadIdx.x & 31;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) >> 5, 0);
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* cs = reinterpret_cast<bf16*>(smem + lay.out_c);
+  float* cb = reinterpret_cast<float*>(smem + lay.out_cb);
+  float* cl = reinterpret_cast<float*>(smem + lay.out_cl);
+  float* ecum = reinterpret_cast<float*>(smem + lay.out_ecum);
+  auto region = [&](int r) { return smem + lay.out_regions + r * lay.out_region; };
+  const bool vec = a.vec != 0;
+  const bool hvec = a.n % 8 == 0;
+  const int64_t np = static_cast<int64_t>(a.n) * a.p;
+  auto stage_head = [&](int hd, int r) {
+    unsigned char* base = region(r);
+    stage_bf16(reinterpret_cast<bf16*>(base), lay.xs, a.x + b * a.x_sb + c0 * a.x_ss + hd * a.x_sh,
+               a.x_ss, rows, a.p, lay.lp, lay.pp, vec);
+    const bf16* hp = a.hsplit + ((static_cast<int64_t>(b) * a.nc + c) * a.nh + hd) * 2 * np;
+    stage_bf16(reinterpret_cast<bf16*>(base + lay.x_bytes), lay.ns, hp, a.n, a.p, a.n, lay.pp,
+               lay.np, hvec);
+    stage_bf16(reinterpret_cast<bf16*>(base + lay.x_bytes + lay.ht_bytes), lay.ns, hp + np, a.n,
+               a.p, a.n, lay.pp, lay.np, hvec);
+    stage_dt(reinterpret_cast<float*>(base + lay.x_bytes + 2 * lay.ht_bytes),
+             a.dt + b * a.dt_sb + c0 * a.dt_ss + hd * a.dt_sh, a.dt_ss, rows, lay.lp);
+  };
+
+  bf16* bs = reinterpret_cast<bf16*>(region(lay.stages - 1));
+  stage_bf16(cs, lay.ns, a.cm + b * a.c_sb + c0 * a.c_ss, a.c_ss, rows, a.n, lay.lp, lay.np, vec);
+  stage_bf16(bs, lay.ns, a.bm + b * a.b_sb + c0 * a.b_ss, a.b_ss, rows, a.n, lay.lp, lay.np, vec);
+  if (lay.stages == 2) stage_head(h_lo, 0);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+
+  // C.B^T over the tiles (ib, jb), jb <= ib: exact products of bf16 inputs
+  const int rb = lay.lp / 16;
+  for (int u = warp; u < rb * (rb + 1) / 2; u += kMmaWarps) {
+    int ib = 0;
+    while ((ib + 1) * (ib + 2) / 2 <= u) ++ib;
+    const int jb = u - ib * (ib + 1) / 2;
+    float acc[2][4] = {};
+    for (int kb = 0; kb < lay.np; kb += 16) {
+      uint32_t af[4], bf[4];
+      ldsm4(af, cs + (ib * 16 + row_a(lane)) * lay.ns + kb + col_a(lane));
+      ldsm4(bf, bs + (jb * 16 + row_b(lane)) * lay.ns + kb + col_b(lane));
+      mma(acc[0], af, bf[0], bf[1]);
+      mma(acc[1], af, bf[2], bf[3]);
+    }
+    const int i0 = ib * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int j = jb * 16 + nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(cb + i0 * lay.cbs + j) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(cb + (i0 + 8) * lay.cbs + j) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+  __syncthreads();  // B is no longer read: its region takes a head's tiles
+  if (lay.stages == 1) {
+    stage_head(h_lo, 0);
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
+  }
+
+  const int ntiles = (a.p + 7) / 8, ngroups = (ntiles + 3) / 4;
+  const int tasks = rb * ngroups;
+  for (int hd = h_lo; hd < h_hi; ++hd) {
+    const int r = lay.stages == 2 ? (hd - h_lo) & 1 : 0;
+    if (lay.stages == 2 && hd + 1 < h_hi) {
+      stage_head(hd + 1, r ^ 1);
+      cp_commit();
+    }
+    const bf16* xs = reinterpret_cast<const bf16*>(region(r));
+    const bf16* hhi = reinterpret_cast<const bf16*>(region(r) + lay.x_bytes);
+    const bf16* hlo = reinterpret_cast<const bf16*>(region(r) + lay.x_bytes + lay.ht_bytes);
+    const float* dts = reinterpret_cast<const float*>(region(r) + lay.x_bytes + 2 * lay.ht_bytes);
+    if (warp == 0) {
+      chunk_cum(dts, a.a[hd], lay.lp, cl, lane);
+      __syncwarp();
+      for (int t = lane; t < lay.lp; t += 32) {
+        const float v = cl[t];
+        ecum[t] = expf(v);
+        cl[t] = v * kLog2e;
+      }
+    }
+    __syncthreads();
+    float* yb = a.y + (static_cast<int64_t>(b) * a.s + c0) * a.nh * a.p + static_cast<int64_t>(hd) * a.p;
+    const int64_t y_ss = static_cast<int64_t>(a.nh) * a.p;
+    // tasks (row block, group of 4 column tiles), heaviest row blocks first,
+    // dealt to the warps in a snake so each warp's causal work evens out
+    for (int k = 0;; ++k) {
+      const int u = k * kMmaWarps + (k & 1 ? kMmaWarps - 1 - warp : warp);
+      if (u >= tasks) break;
+      const int ib = rb - 1 - u / ngroups, tg = (u % ngroups) * 4;
+      const int i0 = ib * 16 + g, i1 = i0 + 8;
+      float acc[4][4] = {};
+      // C_i . h_{c-1}
+      for (int kb = 0; kb < lay.np; kb += 16) {
+        uint32_t af[4];
+        ldsm4(af, cs + (ib * 16 + row_a(lane)) * lay.ns + kb + col_a(lane));
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          if (tg + nt >= ntiles) break;
+          uint32_t hf[4], lf[4];
+          const int off = ((tg + nt) * 8 + row_b(lane)) * lay.ns + kb + col_b(lane);
+          ldsm4(hf, hhi + off);
+          ldsm4(lf, hlo + off);
+          mma(acc[nt], af, hf[0], hf[1]);
+          mma(acc[nt], af, lf[0], lf[1]);
+          mma(acc[nt + 1], af, hf[2], hf[3]);
+          mma(acc[nt + 1], af, lf[2], lf[3]);
+        }
+      }
+      const float e0 = ecum[i0], e1 = ecum[i1];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        acc[nt][0] *= e0;
+        acc[nt][1] *= e0;
+        acc[nt][2] *= e1;
+        acc[nt][3] *= e1;
+      }
+      // + W . x over the key blocks up to the diagonal
+      const float ci0 = cl[i0], ci1 = cl[i1];
+      for (int kb = 0; kb <= ib; ++kb) {
+        const int j0 = kb * 16 + 2 * t4;
+        float w[8];  // (i0, j0), (i0, j0+1), (i1, j0), (i1, j0+1), then j + 8
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int j = j0 + 8 * q;
+          const float2 cj = *reinterpret_cast<const float2*>(cl + j);
+          const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+          const float2 r0 = *reinterpret_cast<const float2*>(cb + i0 * lay.cbs + j);
+          const float2 r1 = *reinterpret_cast<const float2*>(cb + i1 * lay.cbs + j);
+          w[4 * q + 0] = j <= i0 ? ex2(ci0 - cj.x) * r0.x * dj.x : 0.0f;
+          w[4 * q + 1] = j + 1 <= i0 ? ex2(ci0 - cj.y) * r0.y * dj.y : 0.0f;
+          w[4 * q + 2] = j <= i1 ? ex2(ci1 - cj.x) * r1.x * dj.x : 0.0f;
+          w[4 * q + 3] = j + 1 <= i1 ? ex2(ci1 - cj.y) * r1.y * dj.y : 0.0f;
+        }
+        uint32_t ah[4], al[4];
+        split2(w[0], w[1], ah[0], al[0]);
+        split2(w[2], w[3], ah[1], al[1]);
+        split2(w[4], w[5], ah[2], al[2]);
+        split2(w[6], w[7], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          if (tg + nt >= ntiles) break;
+          uint32_t xf[4];
+          ldsm4t(xf, xs + (kb * 16 + row_a(lane)) * lay.xs + (tg + nt) * 8 + col_a(lane));
+          mma(acc[nt], ah, xf[0], xf[1]);
+          mma(acc[nt], al, xf[0], xf[1]);
+          mma(acc[nt + 1], ah, xf[2], xf[3]);
+          mma(acc[nt + 1], al, xf[2], xf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (tg + nt >= ntiles) break;
+        const int pc = (tg + nt) * 8 + 2 * t4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? i0 : i1, pp = pc + (e & 1);
+          if (i < rows && pp < a.p) yb[i * y_ss + pp] = acc[nt][e];
+        }
+      }
+    }
+    if (lay.stages == 2) {
+      cp_wait_all();
+      __syncthreads();
+    } else {
+      __syncthreads();
+      if (hd + 1 < h_hi) {
+        stage_head(hd + 1, 0);
+        cp_commit();
+        cp_wait_all();
+        __syncthreads();
+      }
+    }
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K* kernel, int bytes, int& attr_bytes) {
+  if (bytes <= attr_bytes) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) attr_bytes = bytes;
+  return e;
+}
+
+cudaError_t launch_mma(const MmaArgs& a, int batch, cudaStream_t stream) {
+  const MmaLayout lay(a.chunk, a.n, a.p);
+  static int st_attr = 0, out_attr = 0;
+  cudaError_t e = set_smem(ssd_chunk_state, lay.st_bytes, st_attr);
+  if (e != cudaSuccess) return e;
+  e = set_smem(ssd_chunk_out, lay.out_bytes, out_attr);
+  if (e != cudaSuccess) return e;
+  if (a.nc > 0) {
+    ssd_chunk_state<<<dim3(a.nc, a.nh, batch), kMmaThreads, lay.st_bytes, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t total = static_cast<int64_t>(batch) * a.nh * a.n * a.p;
+  ssd_state_pass<<<static_cast<unsigned>((total + kPassThreads - 1) / kPassThreads), kPassThreads, 0,
+                   stream>>>(a, total);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.nc == 0) return e;
+  const int groups = (a.nh + a.group - 1) / a.group;
+  ssd_chunk_out<<<dim3(a.nc, groups, batch), kMmaThreads, lay.out_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Shared memory of one block for chunk L, state N, head dim P, W row tile wi.
+// Shared memory of one SIMT block for chunk L, state N, head dim P, W row tile wi.
 extern "C" int rt_ssd_scan_smem(int chunk, int n, int p, int wi) {
   return static_cast<int>(sizeof(float)) * ssd_smem_floats(chunk, n, p, wi);
 }
 
+// Shared memory of the tensor-core build's output kernel (C), the larger of
+// its two blocks.
+extern "C" int rt_ssd_mma_smem(int chunk, int n, int p) { return MmaLayout(chunk, n, p).out_bytes; }
+
 // strides: 10 int64 values: x (batch, seq, head), dt (batch, seq, head),
-// B (batch, seq), C (batch, seq).
+// B (batch, seq), C (batch, seq). f32 inputs (is_bf16 = 0) run the SIMT
+// build with W row tile wi; bf16 inputs the tensor-core build with heads in
+// groups of `group` and the scratch `states` and `hsplit` (batch *
+// ceil(s / chunk) * nh * n * p floats each) and `el` (batch *
+// ceil(s / chunk) * nh floats).
 extern "C" int rt_ssd_scan(const void* x, const float* dt, const float* a, const void* bm,
                            const void* cm, const float* h0, float* y, float* h,
                            const int64_t* strides, int batch, int s, int nh, int p, int n,
-                           int chunk, int wi, int is_bf16, void* stream) {
+                           int chunk, int wi, int group, float* states, void* hsplit, float* el,
+                           int is_bf16, void* stream) {
   if (batch == 0 || nh == 0) return cudaSuccess;
-  if (chunk < 1 || chunk > kMaxDim || n < 1 || n > kMaxDim || p < 1 || p > kMaxDim ||
-      wi < 1 || wi > chunk || s < 0)
+  if (chunk < 1 || chunk > kMaxDim || n < 1 || n > kMaxDim || p < 1 || p > kMaxDim || s < 0)
     return cudaErrorInvalidValue;
-  SsdArgs args{x, dt, a, bm, cm, h0, y, h,
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    if (wi < 1 || wi > chunk) return cudaErrorInvalidValue;
+    SsdArgs args{x, dt, a, bm, cm, h0, y, h,
+                 strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+                 strides[6], strides[7], strides[8], strides[9],
+                 s, nh, p, n, chunk, wi};
+    return dispatch_p<float>(args, batch, st);
+  }
+  if (group < 1 || !states || !hsplit || !el) return cudaErrorInvalidValue;
+  auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  bool vec = p % 8 == 0 && n % 8 == 0 && aligned(x) && aligned(bm) && aligned(cm);
+  const int bf16_strides[] = {0, 1, 2, 6, 7, 8, 9};  // x, B and C
+  for (int i : bf16_strides) vec = vec && strides[i] % 8 == 0;
+  MmaArgs args{static_cast<const bf16*>(x), dt, a, static_cast<const bf16*>(bm),
+               static_cast<const bf16*>(cm), h0, y, h, states, static_cast<bf16*>(hsplit), el,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                strides[6], strides[7], strides[8], strides[9],
-               s, nh, p, n, chunk, wi};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_p<__nv_bfloat16>(args, batch, st) : dispatch_p<float>(args, batch, st);
+               s, nh, p, n, chunk, (s + chunk - 1) / chunk, group, vec ? 1 : 0};
+  return launch_mma(args, batch, st);
 }

@@ -158,15 +158,25 @@ def ssd_scan_ref(
 
     The chunked algorithm of ``repro/models/ssm.py:_ssd_chunked_impl`` with
     every input taken to float32 first (the jnp scan forms C·Bᵀ in the
-    inputs' dtype). Where ``chunk`` does not divide S, the sequence is
-    zero-padded to whole chunks (dt = 0 and x = B = C = 0: no decay, no
-    input) and y cropped, as the kernel masks its ragged last chunk; the
-    reference shrinks the chunk to a divisor of S instead. Both give the
-    same y and state up to rounding.
+    inputs' dtype), in the decomposition of the bf16 CUDA build: every
+    chunk's own state s_c = Bᵀ(x·exp(cum_last − cum)·dt) and decay
+    e_c = exp(cum_last), all at once; then the state pass
+    h_c = e_c·h_{c−1} + s_c over the chunks, from ``h0`` or zero; then
+    y = W·x + exp(cum)·(C·h_{c−1}) for all chunks at once. Where ``chunk``
+    does not divide S, the sequence is zero-padded to whole chunks (dt = 0
+    and x = B = C = 0: no decay, no input) and y cropped, as the kernel
+    masks its ragged last chunk; the reference shrinks the chunk to a
+    divisor of S instead. Both give the same y and state up to rounding.
     """
     b, s, nh, p = xh.shape
+    n = B_ssm.shape[-1]
     nc = -(-s // chunk)
     pad = nc * chunk - s
+    h = torch.zeros((b, nh, n, p), dtype=torch.float32, device=xh.device)
+    if h0 is not None:
+        h = h0.float().clone()
+    if nc == 0:
+        return torch.zeros((b, s, nh, p), dtype=torch.float32, device=xh.device), h
 
     def chunks(t: torch.Tensor) -> torch.Tensor:  # (B, S, ...) → (nc, B, chunk, ...), f32
         t = t.float()
@@ -175,25 +185,23 @@ def ssd_scan_ref(
         return t.reshape(b, nc, chunk, *t.shape[2:]).transpose(0, 1)
 
     xc, dtc, bc, cc = chunks(xh), chunks(dt), chunks(B_ssm), chunks(C_ssm)
-    n = B_ssm.shape[-1]
-    h = torch.zeros((b, nh, n, p), dtype=torch.float32, device=xh.device)
-    if h0 is not None:
-        h = h0.float().clone()
-    a = a.float()
-    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).tril()[None, :, :, None]
-    ys = []
-    for xi, dti, bi, ci in zip(xc, dtc, bc, cc):
-        cum = torch.cumsum(dti * a, dim=1)  # (B, L, nh) log-decay, ≤ 0
-        T = torch.where(causal, torch.exp(cum[:, :, None, :] - cum[:, None, :, :]), 0.0)
-        W = T * torch.einsum("bin,bjn->bij", ci, bi)[..., None] * dti[:, None, :, :]
-        y_intra = torch.einsum("bijh,bjhp->bihp", W, xi)
-        y_inter = torch.einsum("bin,bhnp->bihp", ci, h) * torch.exp(cum)[..., None]
-        last = cum[:, -1:, :]  # (B, 1, nh)
-        to_end = torch.exp(last - cum) * dti
-        h_add = torch.einsum("bjn,bjhp->bhnp", bi, xi * to_end[..., None])
-        h = torch.exp(last[:, 0, :])[:, :, None, None] * h + h_add
-        ys.append(y_intra + y_inter)
-    if not ys:
-        return torch.zeros((b, s, nh, p), dtype=torch.float32, device=xh.device), h
-    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, nh, p)[:, :s]
+    cum = torch.cumsum(dtc * a.float(), dim=2)  # (nc, B, L, nh) log-decay, ≤ 0
+    last = cum[:, :, -1:, :]  # (nc, B, 1, nh)
+    # each chunk's own state and decay
+    to_end = torch.exp(last - cum) * dtc
+    states = torch.einsum("cbjn,cbjhp->cbhnp", bc, xc * to_end[..., None])
+    el = torch.exp(last[:, :, 0, :])[..., None, None]  # (nc, B, nh, 1, 1)
+    # the state pass: the state before each chunk, and the final one
+    before = []
+    for c in range(nc):
+        before.append(h)
+        h = el[c] * h + states[c]
+    h_prev = torch.stack(before)  # (nc, B, nh, N, P)
+    # the outputs of all chunks
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).tril()[:, :, None]
+    T = torch.where(causal, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0)
+    W = T * torch.einsum("cbin,cbjn->cbij", cc, bc)[..., None] * dtc[:, :, None, :, :]
+    y = torch.einsum("cbijh,cbjhp->cbihp", W, xc)
+    y = y + torch.einsum("cbin,cbhnp->cbihp", cc, h_prev) * torch.exp(cum)[..., None]
+    y = y.transpose(0, 1).reshape(b, nc * chunk, nh, p)[:, :s]
     return y, h

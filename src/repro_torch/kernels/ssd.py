@@ -4,20 +4,25 @@ xh (B, S, nh, P), dt (B, S, nh) float32 (softplus'd), a (nh,) float32
 (negative), B/C (B, S, N); xh, B and C float32 or bfloat16, all read
 through their strides (the model passes slices of the conv output without a
 copy), inner stride 1. Returns y (B, S, nh, P) and the final state
-(B, nh, N, P), both float32; ``h0`` (B, nh, N, P) seeds the state. One
-block per (batch, head) walks the chunks with the state in shared memory.
-S need not be a multiple of ``chunk``: the ragged last chunk is masked
-(dt = 0, x = B = C = 0 past S), which leaves y and the state exactly as a
-shorter chunk would. Where the whole L x L weight matrix W would not fit in
-shared memory, W is computed in row tiles (:func:`row_tile`); chunk, N
-and P above 128 are refused. Port of the Pallas kernel
-``repro/kernels/ssd.py:ssd_scan``. The plain version is
+(B, nh, N, P), both float32; ``h0`` (B, nh, N, P) seeds the state. S need
+not be a multiple of ``chunk``: the ragged last chunk is masked (dt = 0,
+x = B = C = 0 past S), which leaves y and the state exactly as a shorter
+chunk would; chunk, N and P above 128 are refused.
+
+Two builds, by dtype (:data:`KERNELS`). bfloat16, the serving path's: the
+chunks in parallel on tensor cores, in three launches (each chunk's own
+state, the state pass over the chunks, the outputs), with blocks over
+(batch, chunk, group of :func:`head_group` heads) and the per-chunk states
+in a scratch buffer cached per (device, stream). float32, for the checks:
+the SIMT build, one block per (batch, head) walking the chunks, with W in
+row tiles where it does not fit whole (:func:`row_tile`). Port of the
+Pallas kernel ``repro/kernels/ssd.py:ssd_scan``. The plain version is
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,11 +31,61 @@ from ._launch import stream_ptr
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 MAX_DIM = 128  # chunk, N and P: the kernel's register tiles
+SMEM_PER_SM = 233472  # bytes of shared memory on one SM (228 KB)
+BLOCK_RESERVED = 1024  # bytes the hardware keeps per resident block
+# C·Bᵀ of a chunk against one head's products (W·x, C·h), in head units: the
+# part of a block's time that does not grow with its heads
+CB_SHARE = 0.25
+
+# the build each input dtype runs, and the launches of one call
+KERNELS = {torch.float32: "ssd_chunk_scan (SIMT f32)",
+           torch.bfloat16: "ssd_chunk_state + ssd_state_pass + ssd_chunk_out (mma.sync bf16)"}
+LAUNCHES = {torch.float32: 1, torch.bfloat16: 3}
+
+# (device, stream) -> (per-chunk states, the states split into bf16 hi + lo,
+# per-chunk decays), float32; grown, never shrunk. Every launch writes the
+# slots it reads, so calls on one stream may share them.
+_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def head_group(batch: int, chunks: int, nh: int, slots: int) -> int:
+    """Heads per block of the bf16 build: blocks are (batch, chunk, group),
+    ``slots`` of them run at once. The group g minimises the waves of
+    blocks times a block's time, ``ceil(batch·chunks·ceil(nh/g) / slots) ·
+    (g + CB_SHARE)``; the smallest such g. Block ``k`` of a batch and chunk
+    takes heads ``[k·g, min(nh, k·g + g))``."""
+    best = None
+    for g in range(1, nh + 1):
+        blocks = batch * chunks * -(-nh // g)
+        cost = -(-blocks // slots) * (g + CB_SHARE)
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: torch.device, batch: int, chunks: int, nh: int, chunk: int, n: int, p: int) -> int:
+    props = torch.cuda.get_device_properties(device)
+    smem = build.library().rt_ssd_mma_smem(chunk, n, p)
+    per_sm = max(1, SMEM_PER_SM // (smem + BLOCK_RESERVED))
+    return head_group(batch, chunks, nh, props.multi_processor_count * per_sm)
+
+
+def _scratch_for(device: torch.device, stream: int, n_states: int, n_el: int):
+    buf = _scratch.get((device, stream))
+    if buf is None or buf[0].numel() < n_states or buf[2].numel() < n_el:
+        n_states = max(n_states, 1 if buf is None else buf[0].numel())
+        n_el = max(n_el, 1 if buf is None else buf[2].numel())
+        buf = tuple(torch.empty(k, dtype=torch.float32, device=device)
+                    for k in (n_states, n_states, n_el))
+        _scratch[(device, stream)] = buf
+    return buf
 
 
 @functools.lru_cache(maxsize=None)
 def row_tile(chunk: int, n: int, p: int) -> int:
-    """Rows of W per tile: the whole chunk, halved until the block fits."""
+    """Rows of W per tile of the SIMT build: the whole chunk, halved until
+    the block fits."""
     smem = build.library().rt_ssd_scan_smem
     wi = chunk
     while smem(chunk, n, p, wi) > MAX_SMEM:
@@ -80,7 +135,6 @@ def ssd_scan(
     for name, v in (("chunk", chunk), ("N", n), ("P", p)):
         if not 1 <= v <= MAX_DIM:
             raise ValueError(f"ssd_scan: {name} = {v} outside [1, {MAX_DIM}]")
-    wi = row_tile(chunk, n, p)
     y = torch.empty((b, s, nh, p), dtype=torch.float32, device=xh.device)
     h = torch.empty((b, nh, n, p), dtype=torch.float32, device=xh.device)
     a = a.contiguous()
@@ -90,10 +144,20 @@ def ssd_scan(
         B_ssm.stride(0), B_ssm.stride(1),
         C_ssm.stride(0), C_ssm.stride(1),
     ])
+    stream = stream_ptr(xh)
+    bf16 = xh.dtype == torch.bfloat16
+    wi, group, states, hsplit, el = 1, 0, None, None, None
+    if bf16:
+        chunks = -(-s // chunk)
+        group = _plan(xh.device, b, chunks, nh, int(chunk), n, p)
+        states, hsplit, el = (t.data_ptr() for t in _scratch_for(
+            xh.device, stream, b * chunks * nh * n * p, b * chunks * nh))
+    else:
+        wi = row_tile(chunk, n, p)
     err = build.library().rt_ssd_scan(
         xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_ssm.data_ptr(), C_ssm.data_ptr(),
         h0.data_ptr() if h0 is not None else None, y.data_ptr(), h.data_ptr(), strides,
-        b, s, nh, p, n, int(chunk), wi, int(xh.dtype == torch.bfloat16), stream_ptr(xh),
+        b, s, nh, p, n, int(chunk), wi, group, states, hsplit, el, int(bf16), stream,
     )
     build.check(err, "ssd_scan")
     build.count_launch("ssd_scan")

@@ -344,3 +344,117 @@ def test_hybrid_serving_path_on_the_card_matches_cpu(cuda):
     counts = launch_counts()
     for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan"):
         assert counts[name] > 0, name
+
+
+def _ssd_case(g, b, s, nh, p, n, dev, dtype, with_h0):
+    xh = _randn(g, (b, s, nh, p), dev, dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=g)).to(dev)
+    a = -torch.exp(0.5 * torch.randn((nh,), generator=g)).to(dev)
+    bm, cm = _randn(g, (b, s, n), dev, dtype), _randn(g, (b, s, n), dev, dtype)
+    h0 = torch.randn((b, nh, n, p), generator=g).to(dev) if with_h0 else None
+    return xh, dt, a, bm, cm, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,p,n,chunk,with_h0", [
+    (1, 1, 4, 64, 64, 128, False),       # S = 1
+    (1, 77, 4, 64, 64, 128, True),       # S < chunk
+    (1, 128, 4, 64, 64, 128, False),     # S = chunk
+    (1, 129, 4, 64, 64, 128, True),      # S one past a chunk
+    (1, 4096, 4, 32, 16, 16, False),     # 256 chunks: more blocks than one wave
+    (2, 300, 6, 64, 64, 128, True),      # batch 2 with h0
+    (1, 257, 3, 64, 128, 128, True),     # N = 128
+    (1, 50, 3, 18, 12, 24, True),        # widths that are not multiples of 8: plain staging
+])
+def test_cuda_ssd_scan_edges(cuda, dtype, b, s, nh, p, n, chunk, with_h0):
+    g = torch.Generator().manual_seed(9)
+    xh, dt, a, bm, cm, h0 = _ssd_case(g, b, s, nh, p, n, cuda, dtype, with_h0)
+    got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk, h0=h0)
+    want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk, h0)
+    _assert_rel(got_y, want_y)
+    _assert_rel(got_h, want_h)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_one_stage_layout(cuda):
+    # N = P = 128: two stages of a head's tiles do not fit beside C and C·Bᵀ,
+    # so the tensor-core build copies each head in after the last one's
+    # products (the f32 SIMT build does not fit this shape at all and raises)
+    g = torch.Generator().manual_seed(14)
+    xh, dt, a, bm, cm, h0 = _ssd_case(g, 1, 200, 2, 128, 128, cuda, torch.bfloat16, True)
+    got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=128, h0=h0)
+    want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, 128, h0)
+    _assert_rel(got_y, want_y)
+    _assert_rel(got_h, want_h)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_head_group_that_does_not_divide_the_heads(cuda):
+    # zamba2's widths with 81 heads: the plan's group of heads per block
+    # leaves a last group with fewer heads
+    g = torch.Generator().manual_seed(10)
+    b, s, nh, p, n, chunk = 1, 2048, 81, 64, 64, 128
+    xh, dt, a, bm, cm, h0 = _ssd_case(g, b, s, nh, p, n, cuda, torch.bfloat16, True)
+    assert nh % ssd._plan(xh.device, b, s // chunk, nh, chunk, n, p) != 0
+    got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk, h0=h0)
+    want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk, h0)
+    _assert_rel(got_y, want_y)
+    _assert_rel(got_h, want_h)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_reuses_its_scratch(cuda):
+    # two calls in a row on the cached chunk states give the same bits, then
+    # a new, larger shape grows the scratch, then the first shape again
+    g = torch.Generator().manual_seed(11)
+    first = _ssd_case(g, 1, 1109, 8, 64, 64, cuda, torch.bfloat16, False)
+    second = _ssd_case(g, 2, 2048, 16, 64, 64, cuda, torch.bfloat16, True)
+    runs = []
+    for xh, dt, a, bm, cm, h0 in (first, first, second, first):
+        got = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=128, h0=h0)
+        want = ref.ssd_scan_ref(xh, dt, a, bm, cm, 128, h0)
+        for x, y in zip(got, want):
+            _assert_rel(x, y)
+        runs.append(got)
+    for i, j in ((0, 1), (0, 3)):
+        for x, y in zip(runs[i], runs[j]):
+            assert torch.equal(x, y)
+
+
+def _kalman_fixed_point(q, r, rows=4096):
+    # p after `rows` rows of the gain chain, which never reads the data
+    _, _, p = ref.kalman_scan_ref(torch.zeros((rows, 1)), torch.zeros(1), torch.ones(1), q, r)
+    return float(p[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [0, 1, 31, 33, 16384])
+@pytest.mark.parametrize("q,r", [(0.1, 1.0), (0.3, 1.5), (1e-6, 1e3)])
+@pytest.mark.parametrize("p_start", ["ones", "fixed"])
+def test_cuda_kalman_scan_is_bitwise_the_plain_version(cuda, rows, q, r, p_start):
+    # a column slice of the (N, 8) event batch, as the stream path passes it;
+    # (0.3, 1.5) settles into a gain cycle of period 2, (1e-6, 1e3) not
+    # within 16384 rows
+    g = torch.Generator().manual_seed(12)
+    batch = torch.randn((rows, 8), generator=g) * 4.0 + 1.0
+    z = batch[:, 1:6]
+    xe = torch.randn((5,), generator=g)
+    p = torch.ones(5) if p_start == "ones" else torch.full((5,), _kalman_fixed_point(q, r))
+    want = ref.kalman_scan_ref(z, xe, p, q, r)
+    got = kalman.kalman_scan(batch.to(cuda)[:, 1:6], xe.to(cuda), p.to(cuda), q, r)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.gpu
+def test_cuda_kalman_scan_many_channels(cuda):
+    # 40 channels: three blocks of up to 16, the last one partial
+    g = torch.Generator().manual_seed(13)
+    z = torch.randn((1000, 40), generator=g)
+    xe, p = torch.randn((40,), generator=g), torch.rand((40,), generator=g) + 0.5
+    want = ref.kalman_scan_ref(z, xe, p, 0.2, 0.8)
+    got = kalman.kalman_scan(z.to(cuda), xe.to(cuda), p.to(cuda), 0.2, 0.8)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
