@@ -13,14 +13,15 @@ Phases, each fatal on failure:
      qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's prefill
      of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6 also at
      zamba2's head dim of 80, f32 and bf16, each beside its library call;
-     which K5 and K7 build each dtype ran, and K7's launches per call);
+     which K5 and K7 build each dtype ran, and K7's launches per call,
+     counted);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
-     events) and host time per call beside the bound (K7's also at the
-     bf16 tensor-core rate for the operations it issues; the kalman
-     scan's beside its dependent chain's floor), the plain version's and
-     the one-call library time;
+     events) and host time per call beside the bound (K7's for bf16 inputs
+     at the bf16 tensor-core rate, beside it the f32 rate and the
+     operations it issues; the kalman scan's beside its dependent chain's
+     floor), the plain version's and the one-call library time;
   3. the main path: ``StreamSystem(backend="torch", base_batch=16384)``
      runs the 21 RIoT dataflows plus the kernel flows — 3 steps, fuse(),
      3 steps, remove three dataflows, 2 steps — with launch counts reset
@@ -39,9 +40,9 @@ Phases, each fatal on failure:
      against its plain version at full width);
   5. the hybrid serving path the same way: zamba2-2.7b (54 Mamba2 layers
      and one shared attention block applied 9 times, bf16) with K1, K4,
-     K5, K6 and K7 > 0 and K7 launched 54 times per prefill; bf16 checks
-     on a second weight seed too; its card against CPU cut is 6 layers
-     (one group, the shared block included);
+     K5, K6 and K7 > 0 and K7 called 54 times per prefill (3 launches
+     each); bf16 checks on a second weight seed too; its card against CPU
+     cut is 6 layers (one group, the shared block included);
   6. a ``{"kernels": [...]}`` line (launches summed over the counted runs
      of phases 3-5; each must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
@@ -77,6 +78,7 @@ REMOVED = ("urban_etl", "taxi_pred_lr", "FA")
 SERVE_PROMPT = 2048  # longest prompt of the serving phase
 KALMAN_SETTLE = 4096  # rows after which the gain chain from p = 1 sits at its fixed point
 CHAIN_CYCLES = 12  # latency of kalman's dependent fsub, fmul and fadd: 4 cycles each
+K7_LAUNCHES = 3  # kernels one bf16 ssd_scan call launches
 
 
 def log(msg: str) -> None:
@@ -179,7 +181,7 @@ def check_bitwise(name, got, want) -> float:
 
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: not bitwise equal (max |err| {max_err(got, want)})")
-    return 0.0
+    return max_err(got, want)
 
 
 # -- phase 2: kernels against their plain versions ----------------------------------
@@ -269,11 +271,12 @@ def kernel_phase(dev):
     xe0 = torch.zeros(d, device=dev)
     p0 = torch.ones(d, device=dev)
     p_fix = ref.kalman_scan_ref(torch.zeros((KALMAN_SETTLE, d), device=dev), xe0, p0, 0.1, 1.0)[2]
+    k_err = 0.0
     for name, pin in (("p0 = 1", p0), ("p0 at its fixed point", p_fix)):
         got = kalman.kalman_scan(x, xe0, pin, 0.1, 1.0)
         want = ref.kalman_scan_ref(x, xe0, pin, 0.1, 1.0)
         for part, g_, w_ in zip(("y", "xe", "p"), got, want):
-            check_bitwise(f"kalman_scan {part}, {name}", g_, w_)
+            k_err = max(k_err, check_bitwise(f"kalman_scan {part}, {name}", g_, w_))
         ms = device_ms(lambda: kalman.kalman_scan(x, xe0, pin, 0.1, 1.0), per_graph=5, reps=5)
         host = call_ms(lambda: kalman.kalman_scan(x, xe0, pin, 0.1, 1.0), iters=20)
         log(f"kalman_scan (16384,5) {name}: bitwise equal to the plain version; "
@@ -287,10 +290,10 @@ def kernel_phase(dev):
     out.append(dict(
         name="kalman_scan", route="cuda", source="src/repro_torch/kernels/csrc/kalman.cu",
         replaces="src/repro/ops/riot.py:222 (lax.scan, not a Pallas kernel)",
-        max_abs_err=0.0, ms=k_ms,
+        max_abs_err=k_err, ms=k_ms,
         # ~8 launches per row: too many to capture, timed as one call
         plain_ms=call_ms(lambda: ref.kalman_scan_ref(x, xe0, p0, 0.1, 1.0), iters=1, warmup=1),
-        bound_ms=b, bound_by=by, library_ms=None, call_ms=k_host, chain_floor_ms=floor,
+        bound_ms=b, bound_by=by, library_ms=None, call_ms=k_host,
     ))
     log(f"kalman_scan (16384,5): bound {b * 1e3:.3f} us ({by}); the bitwise chain's floor, "
         f"16384 rows x {CHAIN_CYCLES} cycles (dependent fsub, fmul, fadd) at the SM's "
@@ -414,45 +417,34 @@ def check_rel(name, got, want, rel) -> float:
     return err
 
 
-def ssd_bound(b, s, nh, p, n, chunk, el):
-    """(ms, by) of one K7 launch: xh, B, C in ``el`` bytes, dt f32 in, y and
-    h f32 out. B and C are shared by all heads, so per (batch, chunk) of l
+def ssd_bound(b, s, nh, p, n, chunk, el, ops_rate):
+    """(ms, by) of one K7 call: xh, B, C in ``el`` bytes, dt f32 in, y and h
+    f32 out. B and C are shared by all heads, so per (batch, chunk) of l
     positions (the ragged last chunk at its real length) C·Bᵀ needs
     l(l+1)/2·N MACs over the causal pairs, and per (batch, head, chunk)
     W·x l(l+1)/2·P (W is zero above the diagonal) and the state products
-    C·h and Bᵀ·x 2lNP; two operations per MAC, at the f32 rate."""
+    C·h and Bᵀ·x 2lNP; two operations per MAC, at ``ops_rate``."""
     io = (b * s * nh * p * el + b * s * nh * 4 + 2 * b * s * n * el
           + b * s * nh * p * 4 + b * nh * n * p * 4)
     lens = [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
     macs = b * sum(l * (l + 1) // 2 * n + nh * (l * (l + 1) // 2 * p + 2 * l * n * p) for l in lens)
-    return bound_ms(io, 2 * macs)
+    return bound_ms(io, 2 * macs, ops_rate)
 
 
-def ssd_tc_bound(b, s, nh, p, n, chunk, el):
-    """(ms, by) of the bf16 build at the tensor cores' bf16 rate, for the
-    operations it issues: mma tiles of 16 x 16 (x 8 columns) over padded
-    shapes, every chunk at its full padded length, C·Bᵀ on the tiles on or
-    below the diagonal once per (batch, chunk) and head group, W·x over the
-    same tiles, C·h and Bᵀ(x·w) whole; the products with an f32 operand
-    (all but C·Bᵀ) twice, hi and lo."""
-    from repro_torch.kernels import ssd
-
+def ssd_issued_ms(b, s, nh, p, n, chunk, group):
+    """ms of the tensor-core operations K7 issues for bf16 inputs, at the
+    bf16 rate: mma tiles of 16 x 16 (x 8 columns) over padded shapes, every
+    chunk at its full padded length, C·Bᵀ on the tiles on or below the
+    diagonal once per (batch, chunk) and head group, W·x over the same
+    tiles, C·h and Bᵀ(x·w) whole; the products with an f32 operand (all
+    but C·Bᵀ) twice, hi and lo."""
     up = lambda v, m: -(-v // m) * m  # noqa: E731
     lp, np_, pc = up(chunk, 16), up(n, 16), up(p, 8)
     nc = -(-s // chunk)
     tiles = (lp // 16) * (lp // 16 + 1) // 2
-    group = ssd.head_group(b, nc, nh, torch_sm_count())
     blocks = b * nc * -(-nh // group)
     macs = blocks * tiles * 256 * np_ + b * nc * nh * 2 * (tiles * 256 * pc + 2 * lp * np_ * pc)
-    io = (b * s * nh * p * el + b * s * nh * 4 + 2 * b * s * n * el
-          + b * s * nh * p * 4 + b * nh * n * p * 4)
-    return bound_ms(io, 2 * macs, BF16_OPS_PER_S)
-
-
-def torch_sm_count():
-    import torch
-
-    return torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * macs / BF16_OPS_PER_S * 1e3
 
 
 def hybrid_kernel_phase(dev, gen):
@@ -463,6 +455,7 @@ def hybrid_kernel_phase(dev, gen):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, flash_attention, ref, ssd
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
 
     b, s, nh, p, n, chunk = 1, SERVE_PROMPT, 80, 64, 64, 128
     k7 = None
@@ -478,7 +471,13 @@ def hybrid_kernel_phase(dev, gen):
         want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk)
         err = max(check_rel(f"ssd_scan y {tag}", got_y, want_y, SSD_REL),
                   check_rel(f"ssd_scan h {tag}", got_h, want_h, SSD_REL))
-        bnd, by = ssd_bound(b, seq, nh, p, n, chunk, xh.element_size())
+        bf16 = dtype == torch.bfloat16
+        bnd, by = ssd_bound(b, seq, nh, p, n, chunk, xh.element_size(),
+                            BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        f32_bnd, f32_by = ssd_bound(b, seq, nh, p, n, chunk, xh.element_size(), FP32_OPS_PER_S)
+        reset_launch_counts()
+        ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk)
+        per_call = launch_counts()["ssd_scan"]  # kernels one call launched
         row = dict(
             name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
             replaces="src/repro/kernels/ssd.py:90", max_abs_err=err,
@@ -487,20 +486,20 @@ def hybrid_kernel_phase(dev, gen):
                                per_graph=2, reps=5),
             bound_ms=bnd, bound_by=by, library_ms=None,
             call_ms=call_ms(lambda: ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk), iters=20),
-            launches_per_call=ssd.LAUNCHES[dtype],
         )
-        tc = ""
-        if dtype == torch.bfloat16:
-            tcb, tcby = ssd_tc_bound(b, seq, nh, p, n, chunk, xh.element_size())
-            row["tc_bound_ms"] = tcb
-            tc = f", at the bf16 tensor-core rate for the operations issued {tcb * 1e3:.3f} us ({tcby})"
+        rate = "bf16 tensor-core rate" if bf16 else "f32 rate"
+        extra = ""
+        if bf16:
+            group = ssd._plan(xh.device, b, -(-seq // chunk), nh, chunk, n, p)
+            extra = (f"; at the f32 rate {f32_bnd * 1e3:.3f} us ({f32_by}); the tensor-core "
+                     f"operations issued (head group {group}) "
+                     f"{ssd_issued_ms(b, seq, nh, p, n, chunk, group) * 1e3:.3f} us at the bf16 rate")
         log(f"K7 ssd_scan xh ({b},{seq},{nh},{p}) N {n} chunk {chunk} {tag}: max|err| {err:.3g} "
             f"(y {float(want_y.abs().max()):.3g}, h {float(want_h.abs().max()):.3g} max; "
-            f"limit {SSD_REL} of each); kernel {ssd.KERNELS[dtype]}, {ssd.LAUNCHES[dtype]} "
-            f"launch(es) per call; {row['ms'] * 1e3:.2f} us per call on the device "
-            f"({row['call_ms'] * 1e3:.2f} us per call from the host), plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by}, f32 rate){tc}, "
-            f"library: none")
+            f"limit {SSD_REL} of each); kernel {ssd.KERNELS[dtype]}, {per_call} launch(es) per "
+            f"call; {row['ms'] * 1e3:.2f} us per call on the device ({row['call_ms'] * 1e3:.2f} "
+            f"us per call from the host), plain {row['plain_ms'] * 1e3:.2f} us, bound "
+            f"{bnd * 1e3:.3f} us ({by}, {rate}){extra}, library: none")
         k7 = row  # the last: bf16 at S = 2048, the serving path's prefill
 
     # K5 and K6 at zamba2's shared attention: 32 heads over 32 KV heads of 80,
@@ -781,8 +780,8 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
     for name in needed:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
-    if cfg.family == "hybrid" and launches["ssd_scan"] != cfg.n_layers * SERVE_REQUESTS:
-        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} times for "
+    if cfg.family == "hybrid" and launches["ssd_scan"] != K7_LAUNCHES * cfg.n_layers * SERVE_REQUESTS:
+        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} kernels for "
                              f"{SERVE_REQUESTS} prefills of {cfg.n_layers} Mamba layers")
     log(f"served {len(results)} requests x {SERVE_NEW} tokens, prompts {sorted(lens.tolist())}, "
         f"slots {SERVE_SLOTS}, max_len {SERVE_MAX_LEN}: {wall:.2f} s, "

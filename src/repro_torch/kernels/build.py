@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of strides
 # C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t,
-# the *_smem entries a byte count)
+# the *_smem entries a byte count, rt_ssd_blocks_per_sm a count of blocks)
 _SIGNATURES = {
     "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _P),
     "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _P),
@@ -62,7 +62,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
     ),
     "rt_ssd_scan_smem": (_I, _I, _I, _I),
-    "rt_ssd_mma_smem": (_I, _I, _I),
+    "rt_ssd_blocks_per_sm": (_I, _I, _I),
 }
 
 KERNELS = (

@@ -268,13 +268,11 @@ extern "C" int rt_kalman_scan(const float* z, int64_t stride, const float* xe0, 
                               float q, float r, void* stream) {
   if (channels <= 0) return cudaSuccess;
   const int smem = static_cast<int>(sizeof(KalmanSmem));
-  static bool attr = false;  // above 48 KB only after opting in
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kalman_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  // above 48 KB only after opting in; the attribute belongs to the current
+  // device, so it is set on every launch
+  const cudaError_t e =
+      cudaFuncSetAttribute(kalman_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
   kalman_scan_kernel<<<(channels + kChannels - 1) / kChannels, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       z, stride, xe0, p0, y, xe1, p1, rows, channels, q, r);

@@ -27,9 +27,10 @@
 //     el * h + acc), writing the state before each chunk as hi + lo bf16;
 //   C ssd_chunk_out, a block per (batch, chunk, group of heads):
 //     y = exp(cum) (C . h_{c-1}) + W . x.
-// C's group is chosen on the host (kernels/ssd.py:head_group) to fill the
-// SMs in whole waves: at zamba2's prefill (16 chunks x 80 heads, one block
-// per SM) groups of 10 heads give 128 blocks, one wave. B and C are shared
+// C's group is chosen on the host (kernels/ssd.py:head_group): the
+// smallest group whose blocks fit on the SMs in one wave. At zamba2's
+// prefill (16 chunks x 80 heads, one block per SM) groups of 10 heads give
+// 128 blocks. B and C are shared
 // by all heads, so C forms C.B^T once per block over the causal half
 // (tiles on or below the diagonal) and applies each head's
 // 2^((cum_i - cum_j) log2 e) dt_j to it as it builds W in registers; tiles
@@ -46,17 +47,24 @@
 // (batch, head) walking its chunks with h in shared memory, f32 FMAs on a
 // 16 x 16 thread grid with the whole L x L square of W (where W does not
 // fit, row tiles of wi rows: tests/test_kernels.py's (L, N, P) =
-// (128, 128, 64) runs with wi = 32).
+// (128, 128, 64) runs with wi = 32). f32 inputs split into hi + lo bf16
+// parts through the tensor-core kernels were tried and not kept: each
+// operand then holds 2^-16 of its value, not 2^-24, and zamba2's smoke
+// configuration on an H100 left the CPU by 3.3e-4 in an end-to-end check
+// held at 1e-4 (tests/test_torch_gpu.py:
+// test_hybrid_serving_path_on_the_card_matches_cpu).
 //
 // Bound: B and C are shared by the heads, so the inputs need C.B^T once per
 // (batch, chunk), l(l+1)/2 N MACs over the causal pairs, and per (batch,
 // head, chunk) l(l+1)/2 P MACs for W.x and 2 l N P for C.h and B^T.x. At
 // zamba2's 2048-token prefill (80 heads of P = 64, N = 64, L = 128) that is
-// 4.05 GFLOP: 60.5 us at 67 TFLOP/s f32; the bytes (xh, dt, B, C in, y and
-// h out, 65 MB) take 19.5 us. The bf16 build issues its products on the
-// tensor cores in whole 16 x 16 tiles (the diagonal's included) and the
-// f32-operand ones twice (hi + lo): 8.5 GFLOP, 8.6 us at 989 TFLOP/s
-// bf16, so on that rate the bytes bound it. What bounds the design: the
+// 4.05 GFLOP: 60.5 us at 67 TFLOP/s f32, 4.1 us at 989 TFLOP/s bf16; the
+// bytes (xh, dt, B, C in, y and h out, 65 MB) take 19.5 us. The bf16 build
+// runs its products on the bf16 tensor cores, so its bound is the bytes,
+// 19.5 us. It issues them in whole 16 x 16 tiles (the diagonal's included)
+// and the f32-operand ones twice (hi + lo): 8.5 GFLOP, 8.6 us at the bf16
+// rate, below the bytes too. The SIMT build's bound is the f32 rate's
+// 60.5 us. What bounds the design of the bf16 build: the
 // three launches move about 168 MB (x read twice, the chunk states written
 // and read, their hi + lo parts written and read, y written in f32), 50 us
 // at 3.35 TB/s; C forms W (an ex2 per causal pair) once per group of 32
@@ -327,17 +335,18 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_scan(SsdArgs a) {
   for (int i = tid; i < N * P; i += kThreads) a.h[bh * N * P + i] = hs[i];
 }
 
+// Shared memory above 48 KB only after opting in. The attribute belongs to
+// the current device, so it is set on every launch.
+template <typename K>
+cudaError_t set_smem(K* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 template <typename T, int TP>
 cudaError_t launch_ssd(const SsdArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ssd_smem_floats(a.chunk, a.n, a.p, a.wi);
-  // above 48 KB only after opting in; raise the limit as larger shapes come
-  static size_t attr_bytes = 0;
-  if (smem > attr_bytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_chunk_scan<T, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    attr_bytes = smem;
-  }
+  const int smem = static_cast<int>(sizeof(float)) * ssd_smem_floats(a.chunk, a.n, a.p, a.wi);
+  const cudaError_t e = set_smem(ssd_chunk_scan<T, TP>, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(a.nh, batch);
   ssd_chunk_scan<T, TP><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -867,21 +876,11 @@ __global__ void __launch_bounds__(kMmaThreads, 1) ssd_chunk_out(MmaArgs a) {
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K* kernel, int bytes, int& attr_bytes) {
-  if (bytes <= attr_bytes) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) attr_bytes = bytes;
-  return e;
-}
-
 cudaError_t launch_mma(const MmaArgs& a, int batch, cudaStream_t stream) {
   const MmaLayout lay(a.chunk, a.n, a.p);
-  static int st_attr = 0, out_attr = 0;
-  cudaError_t e = set_smem(ssd_chunk_state, lay.st_bytes, st_attr);
+  cudaError_t e = set_smem(ssd_chunk_state, lay.st_bytes);
   if (e != cudaSuccess) return e;
-  e = set_smem(ssd_chunk_out, lay.out_bytes, out_attr);
+  e = set_smem(ssd_chunk_out, lay.out_bytes);
   if (e != cudaSuccess) return e;
   if (a.nc > 0) {
     ssd_chunk_state<<<dim3(a.nc, a.nh, batch), kMmaThreads, lay.st_bytes, stream>>>(a);
@@ -905,9 +904,19 @@ extern "C" int rt_ssd_scan_smem(int chunk, int n, int p, int wi) {
   return static_cast<int>(sizeof(float)) * ssd_smem_floats(chunk, n, p, wi);
 }
 
-// Shared memory of the tensor-core build's output kernel (C), the larger of
-// its two blocks.
-extern "C" int rt_ssd_mma_smem(int chunk, int n, int p) { return MmaLayout(chunk, n, p).out_bytes; }
+// Blocks of the tensor-core build's output kernel (C) that one SM of the
+// current device holds at once (its shared memory and registers), for
+// chunk L, state N and head dim P; -1 on a CUDA error.
+extern "C" int rt_ssd_blocks_per_sm(int chunk, int n, int p) {
+  if (chunk < 1 || chunk > kMaxDim || n < 1 || n > kMaxDim || p < 1 || p > kMaxDim) return -1;
+  const int smem = MmaLayout(chunk, n, p).out_bytes;
+  int blocks = 0;
+  if (set_smem(ssd_chunk_out, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ssd_chunk_out, kMmaThreads, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
 
 // strides: 10 int64 values: x (batch, seq, head), dt (batch, seq, head),
 // B (batch, seq), C (batch, seq). f32 inputs (is_bf16 = 0) run the SIMT

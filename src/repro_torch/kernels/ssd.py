@@ -11,7 +11,8 @@ chunk would; chunk, N and P above 128 are refused.
 
 Two builds, by dtype (:data:`KERNELS`). bfloat16, the serving path's: the
 chunks in parallel on tensor cores, in three launches (each chunk's own
-state, the state pass over the chunks, the outputs), with blocks over
+state, the state pass over the chunks, the outputs; each launch counts,
+:func:`launches`), with blocks over
 (batch, chunk, group of :func:`head_group` heads) and the per-chunk states
 in a scratch buffer cached per (device, stream). float32, for the checks:
 the SIMT build, one block per (batch, head) walking the chunks, with W in
@@ -31,16 +32,10 @@ from ._launch import stream_ptr
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 MAX_DIM = 128  # chunk, N and P: the kernel's register tiles
-SMEM_PER_SM = 233472  # bytes of shared memory on one SM (228 KB)
-BLOCK_RESERVED = 1024  # bytes the hardware keeps per resident block
-# C·Bᵀ of a chunk against one head's products (W·x, C·h), in head units: the
-# part of a block's time that does not grow with its heads
-CB_SHARE = 0.25
 
-# the build each input dtype runs, and the launches of one call
+# the build each input dtype runs
 KERNELS = {torch.float32: "ssd_chunk_scan (SIMT f32)",
            torch.bfloat16: "ssd_chunk_state + ssd_state_pass + ssd_chunk_out (mma.sync bf16)"}
-LAUNCHES = {torch.float32: 1, torch.bfloat16: 3}
 
 # (device, stream) -> (per-chunk states, the states split into bf16 hi + lo,
 # per-chunk decays), float32; grown, never shrunk. Every launch writes the
@@ -49,26 +44,34 @@ _scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor, torch
 
 
 def head_group(batch: int, chunks: int, nh: int, slots: int) -> int:
-    """Heads per block of the bf16 build: blocks are (batch, chunk, group),
-    ``slots`` of them run at once. The group g minimises the waves of
-    blocks times a block's time, ``ceil(batch·chunks·ceil(nh/g) / slots) ·
-    (g + CB_SHARE)``; the smallest such g. Block ``k`` of a batch and chunk
-    takes heads ``[k·g, min(nh, k·g + g))``."""
-    best = None
+    """Heads per block of the bf16 build's output kernel: blocks are
+    (batch, chunk, group), ``slots`` of them run at once. The smallest group
+    whose blocks all fit in one wave; where even one block per (batch,
+    chunk) does not, all the heads (C·Bᵀ once per chunk). Block ``k`` of a
+    batch and chunk takes heads ``[k·g, min(nh, k·g + g))``."""
     for g in range(1, nh + 1):
-        blocks = batch * chunks * -(-nh // g)
-        cost = -(-blocks // slots) * (g + CB_SHARE)
-        if best is None or cost < best[0]:
-            best = (cost, g)
-    return best[1]
+        if batch * chunks * -(-nh // g) <= slots:
+            return g
+    return max(nh, 1)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(device: torch.device, batch: int, chunks: int, nh: int, chunk: int, n: int, p: int) -> int:
-    props = torch.cuda.get_device_properties(device)
-    smem = build.library().rt_ssd_mma_smem(chunk, n, p)
-    per_sm = max(1, SMEM_PER_SM // (smem + BLOCK_RESERVED))
-    return head_group(batch, chunks, nh, props.multi_processor_count * per_sm)
+    with torch.cuda.device(device):
+        per_sm = build.library().rt_ssd_blocks_per_sm(chunk, n, p)
+    if per_sm < 1:
+        raise RuntimeError(f"ssd_scan: no block of the output kernel fits an SM of {device}")
+    slots = torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+    return head_group(batch, chunks, nh, slots)
+
+
+def launches(b: int, s: int, nh: int, bf16: bool) -> int:
+    """Kernels one call launches: the SIMT build one; the bf16 build the
+    state pass, and the chunk states and the outputs where there are
+    positions. None for an empty batch."""
+    if b == 0 or nh == 0:
+        return 0
+    return 1 if not bf16 or s == 0 else 3
 
 
 def _scratch_for(device: torch.device, stream: int, n_states: int, n_el: int):
@@ -160,5 +163,6 @@ def ssd_scan(
         b, s, nh, p, n, int(chunk), wi, group, states, hsplit, el, int(bf16), stream,
     )
     build.check(err, "ssd_scan")
-    build.count_launch("ssd_scan")
+    for _ in range(launches(b, s, nh, bf16)):
+        build.count_launch("ssd_scan")
     return y, h

@@ -390,6 +390,34 @@ def test_cuda_ssd_scan_one_stage_layout(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_ssd_scan_refuses_f32_where_it_does_not_fit(cuda):
+    # L = N = P = 128 in f32: the SIMT build's tiles need more shared memory
+    # than a block has even with W in row tiles of one row; the wrapper
+    # raises before any launch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(15)
+    xh, dt, a, bm, cm, h0 = _ssd_case(g, 1, 200, 2, 128, 128, cuda, torch.float32, True)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="do not fit in shared memory"):
+        ssd.ssd_scan(xh, dt, a, bm, cm, chunk=128, h0=h0)
+    assert launch_counts()["ssd_scan"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_counts_each_launch(cuda):
+    # one count per kernel launched: three for bf16, one for f32
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(16)
+    for dtype, want in ((torch.bfloat16, 3), (torch.float32, 1)):
+        xh, dt, a, bm, cm, h0 = _ssd_case(g, 1, 300, 4, 64, 64, cuda, dtype, True)
+        reset_launch_counts()
+        ssd.ssd_scan(xh, dt, a, bm, cm, chunk=128, h0=h0)
+        assert launch_counts()["ssd_scan"] == want
+
+
+@pytest.mark.gpu
 def test_cuda_ssd_scan_head_group_that_does_not_divide_the_heads(cuda):
     # zamba2's widths with 81 heads: the plan's group of heads per block
     # leaves a last group with fewer heads

@@ -2,9 +2,11 @@
 
 ``kernels/ssd.py:head_group`` picks how many heads one block of the output
 kernel serves (C·Bᵀ of a chunk is formed once per block and shared by its
-heads); ``_scratch_for`` sizes the per-chunk state buffers, cached per
-(device, stream). The plan is held against a brute-force enumeration of the
-blocks and their heads, and the scratch against the sizes the kernels index.
+heads): the fewest that fit the blocks in one wave. ``_scratch_for`` sizes
+the per-chunk state buffers, cached per (device, stream); ``launches``
+counts the kernels of one call. The plan is held against a brute-force
+enumeration of the blocks and their heads, and the scratch against the
+sizes the kernels index.
 """
 import pytest
 import torch
@@ -32,22 +34,14 @@ def _blocks(batch, chunks, nh, group):
             for b in range(batch) for k in range(-(-nh // group)) for c in range(chunks)]
 
 
-def _cost(batch, chunks, nh, group, slots):
-    """Waves of blocks times the longest block's time, in head units."""
-    blocks = _blocks(batch, chunks, nh, group)
-    waves = -(-len(blocks) // slots)
-    longest = max((len(heads) for _, heads in blocks), default=0)
-    return waves * (longest + ssd.CB_SHARE) if blocks else 0.0
-
-
 @pytest.mark.parametrize("batch,chunks,nh,slots", PLANS)
 def test_head_group_is_the_cheapest_whole_wave_plan(batch, chunks, nh, slots):
+    # the smallest group whose blocks fit in one wave; where none does, all
+    # the heads in one block per (batch, chunk)
     group = ssd.head_group(batch, chunks, nh, slots)
     assert 1 <= group <= nh
-    costs = {g: _cost(batch, chunks, nh, g, slots) for g in range(1, nh + 1)}
-    best = min(costs.values())
-    assert costs[group] == best
-    assert group == min(g for g, c in costs.items() if c == best)  # the smallest of ties
+    one_wave = [g for g in range(1, nh + 1) if len(_blocks(batch, chunks, nh, g)) <= slots]
+    assert group == (min(one_wave) if one_wave else nh)
 
 
 @pytest.mark.parametrize("batch,chunks,nh,slots", PLANS)
@@ -65,6 +59,24 @@ def test_zamba2_prefill_fills_the_card_in_one_wave():
     group = ssd.head_group(1, 16, 80, H100_SMS)
     blocks = len(_blocks(1, 16, 80, group))
     assert group == 10 and blocks == 128 <= H100_SMS
+
+
+@pytest.mark.parametrize("chunks,group", [(1, 1), (4, 3), (8, 5), (9, 6), (16, 10)])
+def test_head_group_at_the_zamba2_serving_prompts(chunks, group):
+    # the chunk counts of the serving smoke's prompts (128 to 2048 tokens) at
+    # 80 heads: one wave of at most 132 blocks each
+    assert ssd.head_group(1, chunks, 80, H100_SMS) == group
+
+
+@pytest.mark.parametrize("b,s,nh,bf16,want", [
+    (1, 2048, 80, True, 3), (2, 1, 4, True, 3), (1, 0, 4, True, 1), (0, 64, 4, True, 0),
+    (1, 64, 0, True, 0), (1, 2048, 80, False, 1), (1, 0, 4, False, 1), (0, 64, 4, False, 0),
+])
+def test_launches_per_call(b, s, nh, bf16, want):
+    # bf16: the chunk states, the state pass and the outputs, only the state
+    # pass (h = h0) without positions; f32: the SIMT kernel; nothing for an
+    # empty batch
+    assert ssd.launches(b, s, nh, bf16) == want
 
 
 def test_scratch_grows_and_is_reused():
