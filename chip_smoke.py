@@ -9,12 +9,15 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); build the kernels from
      ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
   2. every kernel against its plain PyTorch version on the card, at the
-     stream path's shapes (K1 also at model widths, f32 and bf16; K4-K6 at
-     qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's prefill
-     of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6 also at
-     zamba2's head dim of 80, f32 and bf16, each beside its library call;
-     which K5 and K7 build each dtype ran, and K7's launches per call,
-     counted);
+     stream path's shapes (K1 also at model widths, f32 and bf16, and at
+     the serving shapes RMS_SHAPES in bf16 on a packed input and an
+     unaligned view, with the route its plan took, beside F.rms_norm; K2/K3
+     also in bf16, and K3 == K1 of K2's output at D = 128 and 5120; K4-K6
+     at qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's
+     prefill of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6
+     also at zamba2's head dim of 80 and nemotron-4-340b's of 192, f32 and
+     bf16, each beside its library call; which K5 and K7 build each dtype
+     ran, and K7's launches per call, counted);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -43,7 +46,10 @@ Phases, each fatal on failure:
      K5, K6 and K7 > 0 and K7 called 54 times per prefill (3 launches
      each); bf16 checks on a second weight seed too; its card against CPU
      cut is 6 layers (one group, the shared block included);
-  6. a ``{"kernels": [...]}`` line (launches summed over the counted runs
+  6. nemotron-4-340b cut in width (NEMOTRON_CUT: head dim 192, 12 q heads
+     per KV head) on the card against the CPU in f32, with decode steps
+     past the cache's last slot;
+  7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
      of phases 3-5; each must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -232,6 +238,7 @@ def kernel_phase(dev):
             f"{ms * 1e3:.1f} us/launch, bound {bw * 1e3:.1f} us, "
             f"plain {device_ms(lambda: ref.rmsnorm_ref(xw, gw, eps)) * 1e3:.1f} us, "
             f"library F.rms_norm {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}")
+    rms_shape_lines(dev, gen)
 
     # K2 map_chain: bitwise the eager x*s+o stages on the same card
     def eager_chain(v):
@@ -264,6 +271,7 @@ def kernel_phase(dev):
         call_ms=call_ms(lambda: fused.affine_rmsnorm(x, scale, stages, eps)),
     ))
     log("K3 affine_rmsnorm (16384,5): bitwise equal to eager stages + K1")
+    fused_widths(dev, gen, stages, eps)
 
     # kalman scan (a helper of the path, not a TPU-kernel port), bitwise the
     # plain version, from p0 = 1 and from the gain chain's fixed point (the
@@ -306,6 +314,85 @@ def kernel_phase(dev):
             f"bound {k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}), library "
             + ("n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.2f} us"))
     return out
+
+
+# K1 at the serving path's shapes, bf16: qwen3-4b's qk-norm at a 2048-token
+# prefill (q: 2048 x 32 heads of 128; k: x 8 heads), its layer-0 norm,
+# zamba2-2.7b's gated out_norm (d_inner 5120), and a decode step's q-norm
+RMS_SHAPES = (
+    ((65536, 128), "qwen3-4b q-norm, 2048 tokens"),
+    ((16384, 128), "qwen3-4b k-norm, 2048 tokens"),
+    ((2048, 2560), "qwen3-4b layer-0 norm, 2048 tokens"),
+    ((2048, 5120), "zamba2-2.7b out_norm, 2048 tokens"),
+    ((32, 128), "qwen3-4b q-norm, one decode token"),
+)
+
+
+def rms_shape_lines(dev, gen):
+    """K1 at RMS_SHAPES in bf16 against its plain version, on a packed input
+    and on a view whose rows start 2 bytes off and have an odd stride;
+    device us per launch (packed) beside the bound, the plain version and
+    F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref, rmsnorm
+
+    eps = 1e-6
+    for (rows, d), what in RMS_SHAPES:
+        wide = torch.randn((rows, d + 1), generator=gen).to(dev, torch.bfloat16)
+        view = wide[:, 1:]  # unaligned rows
+        x = view.contiguous()
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+        err = max(check_close(f"rmsnorm {(rows, d)} bf16", rmsnorm.rmsnorm(x, g, eps),
+                              ref.rmsnorm_ref(x, g, eps), BF16_TOL),
+                  check_close(f"rmsnorm {(rows, d)} bf16 view", rmsnorm.rmsnorm(view, g, eps),
+                              ref.rmsnorm_ref(view, g, eps), BF16_TOL))
+        plan = rmsnorm.row_plan(d, 2, True)
+        ms = device_ms(lambda: rmsnorm.rmsnorm(x, g, eps))
+        b, by = bound_ms(2 * rows * d * 2 + d * 4, 4 * rows * d)
+        g16 = g.to(torch.bfloat16)
+        lib = device_ms(lambda: F.rms_norm(x, (d,), g16, eps))
+        plain = device_ms(lambda: ref.rmsnorm_ref(x, g, eps))
+        log(f"K1 rmsnorm ({rows},{d}) bf16, {what}: max|err| {err:.3g} packed and unaligned view "
+            f"(tol {BF16_TOL}); route {plan.route}, {plan.threads} threads a row, {plan.chunks} "
+            f"16-byte chunk(s) a thread; {ms * 1e3:.2f} us/launch on the device, bound "
+            f"{b * 1e3:.2f} us ({by}), plain {plain * 1e3:.2f} us, library F.rms_norm "
+            f"{lib * 1e3:.2f} us")
+
+
+def fused_widths(dev, gen, stages, eps):
+    """K3 == K1 of K2's output, bitwise in f32, at D = 128 and 5120 with K3
+    reading an unaligned view and K1 K2's packed rows (D = 5 is the stream
+    shape's check above); K2/K3 in bf16 against their plain versions (K2's
+    bits; K3 within BF16_TOL: the norm's sum runs in another order) at the
+    stream shape and at 128 and 5120."""
+    import torch
+
+    from repro_torch.kernels import fused, ref, rmsnorm
+
+    for rows, d in ((4096, 128), (2048, 5120)):
+        x = (torch.randn((rows, d + 3), generator=gen) * 4.0 + 1.0).to(dev)[:, 1:1 + d]
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+        check_bitwise(f"affine_rmsnorm ({rows},{d}) f32", fused.affine_rmsnorm(x, g, stages, eps),
+                      rmsnorm.rmsnorm(fused.map_chain(x, stages), g, eps))
+        log(f"K3 affine_rmsnorm ({rows},{d}) f32, unaligned view: bitwise equal to K1 of K2's "
+            f"output (route {rmsnorm.row_plan(d, 4, False).route}, "
+            f"{rmsnorm.row_plan(d, 4, False).threads} threads a row)")
+    batch = (torch.randn((MAIN_BATCH, 8), generator=gen) * 4.0 + 1.0).to(dev, torch.bfloat16)
+    for name, x in (("(16384,5) strided", batch[:, 1:6]),
+                    ("(4096,128)", torch.randn((4096, 128), generator=gen).to(dev, torch.bfloat16)),
+                    ("(2048,5120)", torch.randn((2048, 5120), generator=gen).to(dev, torch.bfloat16))):
+        d = x.shape[-1]
+        g = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+        check_bitwise(f"map_chain {name} bf16", fused.map_chain(x, stages), ref.map_chain_ref(x, stages))
+        err = check_close(f"affine_rmsnorm {name} bf16", fused.affine_rmsnorm(x, g, stages, eps),
+                          ref.affine_rmsnorm_ref(x, g, stages, eps), BF16_TOL)
+        log(f"K2 map_chain {name} bf16: bitwise equal to the plain version (f32 stages, one "
+            f"rounding); K3 affine_rmsnorm {name} bf16: max|err| {err:.3g} (tol {BF16_TOL}); "
+            f"{device_ms(lambda: fused.map_chain(x, stages)) * 1e3:.2f} and "
+            f"{device_ms(lambda: fused.affine_rmsnorm(x, g, stages, eps)) * 1e3:.2f} us/launch on "
+            f"the device")
 
 
 def model_kernel_phase(dev, gen):
@@ -546,7 +633,79 @@ def hybrid_kernel_phase(dev, gen):
             f"({host * 1e3:.2f} us per call from the host), bound {bnd * 1e3:.3f} us ({by}), library "
             f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
         del q, k, v, kc, vc
+    head_dim_192(dev, gen)
     return [k7]
+
+
+# K5/K6 against F.scaled_dot_product_attention's output: the library rounds
+# where the plain version does not (its flash kernel feeds P to the tensor
+# cores in bf16, up to |v| * 2**-9 off), so its output is held at the bf16
+# tolerance, which a wrong row or head still misses by far
+LIB_TOL = BF16_TOL
+
+
+def head_dim_192(dev, gen):
+    """K5 and K6 at nemotron-4-340b's attention (96 q heads over 8 KV heads
+    of 192), in f32 (the SIMT build of K5) and bf16 (wgmma m64n192k16), each
+    against its plain version and F.scaled_dot_product_attention's output,
+    and timed beside that library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+
+    s, h, kv, hd, s_cache = SERVE_PROMPT, 96, 8, 192, 4096
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        el = torch.finfo(dtype).bits // 8
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        q = torch.randn((1, s, h, hd), generator=gen).to(dev, dtype)
+        k = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+        v = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+
+        def k5():
+            return flash_attention.flash_attention(q, k, v, causal=True)
+
+        err = check_close(f"flash_attention hd 192 {tag}", k5(), ref.flash_attention_ref(q, k, v), tol)
+        bnd, by = bound_ms((2 * s * h + 2 * s * kv) * hd * el, 4 * h * hd * (s * (s + 1) // 2),
+                           ops_rate)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_err = check_close(
+            f"flash_attention hd 192 {tag} vs the library", k5(),
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
+            LIB_TOL)
+        ms = device_ms(k5, per_graph=3, reps=7)
+        plain = device_ms(lambda: ref.flash_attention_ref(q, k, v), per_graph=1, reps=3)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               enable_gqa=True), per_graph=3, reps=7)
+        log(f"K5 flash_attention q (1,{s},{h},{hd}) kv {kv} causal {tag}: max|err| {err:.3g} "
+            f"(tol {tol}), {lib_err:.3g} from the library's output (tol {LIB_TOL}); kernel "
+            f"{flash_attention.KERNELS[dtype]}; {ms * 1e3:.2f} us/launch on "
+            f"the device, bound {bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
+            f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
+        del q, k, v, qt, kt, vt
+        q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
+        kc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+        vc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+
+        def k6():
+            return decode_attention.decode_attention(q1, kc, vc, s)
+
+        err = check_close(f"decode_attention hd 192 {tag}", k6(),
+                          ref.decode_attention_ref(q1, kc, vc, s), tol)
+        bnd, by = bound_ms((2 * s * kv + 2 * h) * hd * el, 4 * h * hd * s, ops_rate)
+        q1t, kct, vct = q1.transpose(1, 2), kc[:, :s].transpose(1, 2), vc[:, :s].transpose(1, 2)
+        lib_err = check_close(
+            f"decode_attention hd 192 {tag} vs the library", k6(),
+            F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True).transpose(1, 2), LIB_TOL)
+        ms, plain = device_ms(k6), device_ms(lambda: ref.decode_attention_ref(q1, kc, vc, s))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True))
+        log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {s} {tag}: "
+            f"max|err| {err:.3g} (tol {tol}), {lib_err:.3g} from the library's output (tol "
+            f"{LIB_TOL}); {ms * 1e3:.2f} us/launch on the device, bound "
+            f"{bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
+            f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
+        del q1, kc, vc
 
 
 # -- phase 3: the main path ------------------------------------------------------------
@@ -902,6 +1061,57 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
     return launches
 
 
+# nemotron-4-340b cut in width and depth for the card-vs-CPU check: its head
+# dim of 192 and 12 q heads per KV head kept (d_model 2304 = 12 x 192 over
+# one KV head), 2 layers, d_ff 4 x d_model as configured, a 4096-token
+# vocabulary; layernorm and squared ReLU (plain torch in the port, as in
+# the reference) as configured
+NEMOTRON_CUT = dict(n_layers=2, d_model=2304, n_heads=12, n_kv_heads=1, d_ff=9216,
+                    vocab_size=4096, dtype="float32", param_dtype="float32")
+
+
+def nemotron_cut_phase(dev):
+    """The nemotron cut on the card against the CPU in f32 (PARITY_TOL):
+    prefill of 64 and 256 tokens into a cache two slots longer, then 4
+    decode steps, the last two past the cache's last slot (written there,
+    as the reference's clamped write); the same greedy tokens."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    cut = configs.get_config("nemotron-4-340b").replace(**NEMOTRON_CUT)
+    cpu_params = init_params(cut, torch.Generator().manual_seed(0))
+    ps = {"cpu": cpu_params, dev: tree_map(lambda t: t.to(dev), cpu_params)}
+    rng = torch.Generator().manual_seed(2)
+    worst = 0.0
+    reset_launch_counts()
+    for n in (64, 256):
+        toks = torch.randint(0, cut.vocab_size, (1, n), generator=rng)
+        caches = {d: init_cache(cut, 1, n + 2, device=d) for d in ps}
+        logits = {d: prefill(ps[d], cut, toks.to(d), caches[d])[0] for d in ps}
+        for i in range(5):
+            worst = max(worst, check_close(f"nemotron cut, prompt {n}, step {i}",
+                                           logits[dev].cpu(), logits["cpu"], PARITY_TOL))
+            nxt = {d: int(logits[d].argmax()) for d in ps}
+            if nxt[dev] != nxt["cpu"]:
+                raise AssertionError(f"nemotron cut, prompt {n}, step {i}: greedy {nxt[dev]} on "
+                                     f"the card, {nxt['cpu']} on the cpu")
+            if i == 4:
+                break
+            tok = torch.tensor([[nxt["cpu"]]])
+            logits = {d: decode_step(ps[d], cut, tok.to(d), caches[d])[0] for d in ps}
+    counts = launch_counts()
+    if counts["flash_attention"] <= 0 or counts["decode_attention"] <= 0:
+        raise AssertionError(f"the nemotron cut ran no K5/K6 launch: {counts}")
+    log(f"nemotron-4-340b cut ({cut.n_layers} layers, d_model {cut.d_model}, {cut.n_heads} heads "
+        f"over {cut.n_kv_heads} of {cut.head_dim_}, f32) card vs cpu, prompts 64 and 256 into "
+        f"caches 2 slots longer, prefill + 4 decode steps (2 past the last slot): max|err| "
+        f"{worst:.3g} (tol {PARITY_TOL}), greedy tokens equal")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phase", choices=("all", "kernels"), default="all")
@@ -940,6 +1150,7 @@ def main() -> int:
     for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
         runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
                                               cut_limits)
+    nemotron_cut_phase(dev)
     log("launches: " + "; ".join(f"{name} {counts}" for name, counts in runs.items()))
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in runs.values())

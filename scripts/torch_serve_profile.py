@@ -21,19 +21,23 @@ Prints, and writes as JSON to ``--out`` (one entry per architecture):
 
 Usage (on a machine with a CUDA device, from the repository root):
     python3 scripts/torch_serve_profile.py [--out chiprun_out/torch_serve_profile.json]
+        [--arch qwen3-4b] [--src DIR]
+``--arch`` profiles one architecture only; ``--src`` takes the port from
+another checkout's ``src`` directory (to read two checkouts' kernels in
+one call; the model, shapes and profiling stay this script's).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import HYBRID_ARCH, SERVE_ARCH, SERVE_MAX_LEN, SERVE_PROMPT  # noqa: E402
@@ -42,11 +46,21 @@ ARCHS = (SERVE_ARCH, HYBRID_ARCH)
 DECODE = 8  # decode steps profiled after the prefill
 # the port's kernels by the name of their CUDA function(s) in the trace
 PORT_KERNELS = {
-    "rmsnorm/rmsnorm_residual": "rms_rows",
     "flash_attention": "flash_fwd",
     "decode_attention": "decode_",
     "ssd_scan": "ssd_",
 }
+# the row template's kernels (common.cuh: rms_rows_*<T, kAffine, kResidual, ...>):
+# K4 rmsnorm_residual where kResidual is true, else K1 rmsnorm (or K3)
+ROW_KERNEL = re.compile(r"rms_rows_\w+<[^,<>]+, (?:true|false), (true|false)")
+
+
+def port_kernel(key: str):
+    """The port kernel a CUDA function of the trace belongs to, or None."""
+    row = ROW_KERNEL.search(key)
+    if row:
+        return "rmsnorm_residual" if row.group(1) == "true" else "rmsnorm"
+    return next((name for name, fn in PORT_KERNELS.items() if fn in key), None)
 
 
 def _dev_us(e):
@@ -65,8 +79,8 @@ def _phase(prof, calls: int, wall_ms: float, top_n: int = 12) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
         "kernel_launches": sum(e.count for e in kernels) / calls,
         "port_kernel_device_ms": {
-            name: sum(_dev_us(e) for e in kernels if fn in e.key) / 1e3 / calls
-            for name, fn in PORT_KERNELS.items()
+            name: sum(_dev_us(e) for e in kernels if port_kernel(e.key) == name) / 1e3 / calls
+            for name in ("rmsnorm", "rmsnorm_residual", *PORT_KERNELS)
         },
         "top_kernels": [
             {"name": e.key[:120], "device_ms": _dev_us(e) / 1e3 / calls,
@@ -89,7 +103,11 @@ def _timed(fn) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="chiprun_out/torch_serve_profile.json")
+    parser.add_argument("--arch", choices=ARCHS, action="append",
+                        help="profile this architecture (repeatable; default: all)")
+    parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
 
@@ -101,9 +119,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda", 0)
-    print(f"card: {card}")
+    print(f"card: {card}; port from {os.path.abspath(args.src)}")
     report = {}
-    for arch in ARCHS:
+    for arch in args.arch or ARCHS:
         rep = report[arch] = profile_arch(arch, dev, card)
         torch.cuda.empty_cache()
         print(f"{rep['arch']} ({rep['layers']} layers, {rep['dtype']}), prompt {SERVE_PROMPT}, "

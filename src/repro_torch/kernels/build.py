@@ -49,11 +49,11 @@ _I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of strides
 # C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t,
 # the *_smem entries a byte count, rt_ssd_blocks_per_sm a count of blocks)
 _SIGNATURES = {
-    "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _P),
-    "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _P),
-    "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _P),
+    "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
+    "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _I, _P),
+    "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_kalman_scan": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _F, _F, _P),
-    "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _P),
+    "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "rt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,

@@ -14,7 +14,8 @@
 // about it:
 // * K and V rows are read with 16-byte vector loads straight into
 //   registers (8 bf16 or 4 f32 values per thread; a row of hd values takes
-//   hd / 8 threads in bf16, 10 at hd 80), with no staging in shared
+//   hd / 8 threads in bf16, 10 at hd 80, 24 at hd 192; f32 rows wider than
+//   32 loads, hd 192, take two loads a thread), with no staging in shared
 //   memory. A warp holds 32 / GS rows at once (GS: the row's thread count
 //   rounded up to a power of two), and each thread issues the loads of U
 //   rows of K and of V before it uses the first (U = 8, 4 for head groups
@@ -41,8 +42,10 @@
 // Valid positions are [max(0, cache_len - window), cache_len) (all below
 // cache_len with no window). A block whose range holds no valid position
 // contributes nothing (m = -1e30, l = 0); l is clamped at 1e-30, so
-// cache_len = 0 gives a zero row. Head dims 16, 32, 64, 80 and 128; q heads
-// per KV head in groups of GB = 8, 4, 2 or 1 (the largest that divides G).
+// cache_len = 0 gives a zero row. Head dims 16, 32, 64, 80, 128 and 192; q
+// heads per KV head in groups of GB = 8, 4, 2 or 1 (the largest that
+// divides G; at most 4 at hd 192, where the block's partials of 8 q heads
+// would pass the 48 KB of static shared memory).
 #include "common.cuh"
 
 namespace {
@@ -73,7 +76,7 @@ struct DecodeArgs {
   float scale;
 };
 
-// the VPT values of one 16-byte load, in f32
+// the values of one 16-byte load, in f32
 __device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
   x[0] = __uint_as_float(r.x);
   x[1] = __uint_as_float(r.y);
@@ -86,6 +89,19 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
   for (int i = 0; i < 4; ++i) {
     x[2 * i] = __uint_as_float(w[i] << 16);          // low bf16
     x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);  // high bf16
+  }
+}
+
+// the VPT values of a thread's LPT 16-byte loads of one row, in f32
+template <typename T, int LPT, int VPT>
+__device__ __forceinline__ void unpack_row(const uint4 (&r)[LPT], float (&x)[VPT]) {
+  constexpr int kPer = VPT / LPT;
+#pragma unroll
+  for (int l = 0; l < LPT; ++l) {
+    float t[kPer];
+    unpack(r[l], t);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) x[l * kPer + i] = t[i];
   }
 }
 
@@ -145,12 +161,13 @@ __device__ void merge_splits(const DecodeArgs& a, int bkvg, int n_hg) {
 
 template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
-  constexpr int VPT = 16 / sizeof(T);  // values per 16-byte load
+  constexpr int LPT = HD * static_cast<int>(sizeof(T)) / 16 > 32 ? 2 : 1;  // loads per thread and row
+  constexpr int VPT = LPT * 16 / static_cast<int>(sizeof(T));  // values per thread and row
   constexpr int TPR = HD / VPT;        // threads per cache row
   constexpr int GS = TPR <= 1 ? 1 : TPR <= 2 ? 2 : TPR <= 4 ? 4 : TPR <= 8 ? 8 : TPR <= 16 ? 16 : 32;
   constexpr int RPW = 32 / GS;         // rows a warp holds at once
   constexpr int NG = kWarps * RPW;     // row groups of the block
-  constexpr int U = GB >= 8 ? 4 : 8;   // rows per group in flight
+  constexpr int U = (GB >= 8 ? 4 : 8) / LPT;  // rows per group in flight
   static_assert(HD % VPT == 0 && TPR <= 32, "head dim");
   __shared__ float accs[kWarps][GB][HD];
   __shared__ float mls[kWarps][GB][2];
@@ -170,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
   const int end = min(a.hi, begin + a.chunk);
 
   // the K and V rows of one step: U rows per group, all loads issued together
-  uint4 kr[U], vr[U];
+  uint4 kr[U][LPT], vr[U][LPT];
   bool valid[U];
   auto load_step = [&](int p0) {
 #pragma unroll
@@ -178,8 +195,11 @@ __global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
       const int p = p0 + grp + u * NG;
       valid[u] = p < end && p >= a.lo;
       const bool in = valid[u] && active;
-      kr[u] = in ? __ldg(reinterpret_cast<const uint4*>(kb + p * a.k_ss)) : make_uint4(0, 0, 0, 0);
-      vr[u] = in ? __ldg(reinterpret_cast<const uint4*>(vb + p * a.v_ss)) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int l = 0; l < LPT; ++l) {
+        kr[u][l] = in ? __ldg(reinterpret_cast<const uint4*>(kb + p * a.k_ss) + l) : make_uint4(0, 0, 0, 0);
+        vr[u][l] = in ? __ldg(reinterpret_cast<const uint4*>(vb + p * a.v_ss) + l) : make_uint4(0, 0, 0, 0);
+      }
     }
   };
   load_step(begin);  // in flight while q is read
@@ -189,8 +209,11 @@ __global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + (kvh * a.groups + hg * GB) * a.q_sh + d0;
 #pragma unroll
   for (int gi = 0; gi < GB; ++gi) {
-    const uint4 qr = active ? __ldg(reinterpret_cast<const uint4*>(qb + gi * a.q_sh)) : make_uint4(0, 0, 0, 0);
-    unpack(qr, q[gi]);
+    uint4 qr[LPT];
+#pragma unroll
+    for (int l = 0; l < LPT; ++l)
+      qr[l] = active ? __ldg(reinterpret_cast<const uint4*>(qb + gi * a.q_sh) + l) : make_uint4(0, 0, 0, 0);
+    unpack_row<T>(qr, q[gi]);
 #pragma unroll
     for (int e = 0; e < VPT; ++e) {
       q[gi][e] *= sl2;
@@ -206,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kx[VPT];
-      unpack(kr[u], kx);
+      unpack_row<T>(kr[u], kx);
 #pragma unroll
       for (int gi = 0; gi < GB; ++gi) {
         float x = 0.0f;
@@ -235,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(DecodeArgs a) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vx[VPT];
-      unpack(vr[u], vx);
+      unpack_row<T>(vr[u], vx);
 #pragma unroll
       for (int gi = 0; gi < GB; ++gi) {
         const float p = valid[u] ? exp2f(s[u][gi] - m[gi]) : 0.0f;
@@ -324,7 +347,9 @@ cudaError_t launch_gb(const DecodeArgs& a, int batch, cudaStream_t stream) {
 
 template <typename T, int HD>
 cudaError_t launch_hd(const DecodeArgs& a, int batch, cudaStream_t stream) {
-  if (a.groups % 8 == 0) return launch_gb<T, HD, 8>(a, batch, stream);
+  if constexpr (HD <= 128) {  // accs of 8 q heads at hd 192 would pass 48 KB
+    if (a.groups % 8 == 0) return launch_gb<T, HD, 8>(a, batch, stream);
+  }
   if (a.groups % 4 == 0) return launch_gb<T, HD, 4>(a, batch, stream);
   if (a.groups % 2 == 0) return launch_gb<T, HD, 2>(a, batch, stream);
   return launch_gb<T, HD, 1>(a, batch, stream);
@@ -338,6 +363,7 @@ cudaError_t dispatch_hd(const DecodeArgs& a, int batch, int hd, cudaStream_t str
     case 64: return launch_hd<T, 64>(a, batch, stream);
     case 80: return launch_hd<T, 80>(a, batch, stream);
     case 128: return launch_hd<T, 128>(a, batch, stream);
+    case 192: return launch_hd<T, 192>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,7 @@ import torch
 from . import build
 from ._launch import stream_ptr
 
-HEAD_DIMS = (16, 32, 64, 80, 128)  # 80: zamba2's shared attention block
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # 80: zamba2's shared attention block; 192: nemotron-4-340b
 BLOCK_Q = 128  # query rows per block of the tensor-core kernel (kTcBQ)
 BLOCK_K = 64  # keys per K/V tile (kTcBK)
 COPY_BYTES = 16  # one cp.async copy

@@ -108,21 +108,30 @@ def decode_attention_ref(
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
-def map_chain_ref(x: torch.Tensor, stages: Stages) -> torch.Tensor:
-    """x ← x·s + o per stage, each product and sum rounded separately.
-
-    Sequential, never algebraically collapsed: bitwise identity with the
-    unfused op-by-op ``senml_parse`` chain is the contract.
-    """
+def _stages_f32(x: torch.Tensor, stages: Stages) -> torch.Tensor:
+    """x ← x·s + o per stage in float32, each product and sum rounded."""
+    x = x.float()
     for scale, offset in stages:
         x = x * scale + offset
     return x
 
 
+def map_chain_ref(x: torch.Tensor, stages: Stages) -> torch.Tensor:
+    """x ← x·s + o per stage in float32, each product and sum rounded
+    separately, cast once to x's dtype (as the Pallas kernel computes).
+
+    Sequential, never algebraically collapsed: bitwise identity with the
+    unfused op-by-op ``senml_parse`` chain is the contract, in float32,
+    where this is that very sequence of roundings.
+    """
+    return _stages_f32(x, stages).to(x.dtype)
+
+
 def affine_rmsnorm_ref(
     x: torch.Tensor, scale: torch.Tensor, stages: Stages, eps: float = 1e-6
 ) -> torch.Tensor:
-    return rmsnorm_ref(map_chain_ref(x, stages), scale, eps)
+    """rmsnorm of the stages' float32 result, cast once to x's dtype."""
+    return rmsnorm_ref(_stages_f32(x, stages), scale, eps).to(x.dtype)
 
 
 def kalman_scan_ref(

@@ -4,8 +4,11 @@
 K1: y = x·rsqrt(mean(x²)+eps)·scale with float32 math, output in x's dtype
 (float32 or bfloat16). Port of the Pallas kernel
 ``repro/kernels/rmsnorm.py:rmsnorm``. Narrow rows (D ≤ 8, the stream
-path's (B, 5) event batches) run one thread per row; model widths run one
-block per row. The plain version is :func:`repro_torch.kernels.ref.rmsnorm_ref`.
+path's (B, 5) event batches) run one thread per row; model widths run a
+group of threads per row that holds the row in registers; rows too wide
+for that run one block per row in two passes. :func:`row_plan` picks the
+route, which the wrapper passes to the kernel. The plain version is
+:func:`repro_torch.kernels.ref.rmsnorm_ref`.
 
 K4: h = x + res in float32, y = rmsnorm(h)·scale; returns (y, h), both in
 x's dtype. Port of ``repro/kernels/rmsnorm.py:rmsnorm_residual``; the same
@@ -14,22 +17,92 @@ template as K1 with a second input and output. The plain version is
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import build
 from ._launch import rows_of, scale_of, stream_ptr
 
+NARROW_D = 8  # csrc/common.cuh: kNarrowD
+CHUNK_BYTES = 16  # one vector load or store
+MAX_ROW_CHUNKS = 4  # 16-byte chunks one thread of the register route holds (kMaxRowChunks)
+MAX_ROW_THREADS = 512  # threads per row of the register route (kMaxRowThreads)
+TWO_PASS_THREADS = 256  # the two-pass route's block (kRowThreads)
+ROUTES = ("narrow", "registers", "two-pass")  # the kernel's route numbers 0, 1, 2
+
+
+class RowPlan(NamedTuple):
+    """How the row kernels (K1, K3, K4) take rows of ``d`` values.
+
+    ``route`` is one of :data:`ROUTES`; on the register route a group of
+    ``threads`` threads per row (a power of two) holds the row as 16-byte
+    chunks, at most ``chunks`` per thread (chunk ``t + c·threads`` in thread
+    ``t``), and ``vector`` says whether the rows are read and written 16
+    bytes at a time or one value at a time. The sum of squares runs in an
+    order fixed by ``(d, route, threads, chunks)``: ``vector`` never changes
+    it.
+    """
+
+    route: str
+    threads: int
+    chunks: int
+    vector: bool
+
+    def args(self) -> Tuple[int, int, int, int]:
+        """The plan as the kernels' C entry points take it."""
+        return ROUTES.index(self.route), self.threads, self.chunks, int(self.vector)
+
+
+def row_plan(d: int, elem_size: int, aligned: bool) -> RowPlan:
+    """The route for rows of ``d`` values of ``elem_size`` bytes.
+
+    Up to :data:`NARROW_D` values, one thread per row. Else the row is
+    ``n = ⌈d·elem_size / 16⌉`` 16-byte chunks: up to 32 chunks (512 bytes,
+    a head dim of 128 in float32 or bfloat16), one chunk per thread and a
+    group of ``n`` threads rounded up to a power of two, several rows to a
+    warp; beyond that the fewest threads, at least a warp and a power of
+    two, that hold the row at :data:`MAX_ROW_CHUNKS` chunks each, up to
+    :data:`MAX_ROW_THREADS`; wider rows take the two-pass route. At 2560
+    and 5120 bf16 values that is 128 and 256 threads of 3 chunks: of the
+    plans ``scripts/torch_row_bench.py --plans`` times there, the fastest
+    for K4 (PERF.md has the readings).
+    ``aligned`` says whether the rows' base pointers and strides (those of
+    every input and of the gains) are multiples of 16 bytes; the register
+    route then reads and writes whole chunks if the packed output rows
+    (``d·elem_size`` bytes) are too.
+    """
+    if d <= NARROW_D:
+        return RowPlan("narrow", 1, 1, False)
+    per = CHUNK_BYTES // elem_size  # values per chunk
+    n = -(-d // per)
+    if n <= 32:
+        threads = 1 << (n - 1).bit_length()
+    else:
+        threads = max(32, 1 << (-(-n // MAX_ROW_CHUNKS) - 1).bit_length())
+        if threads > MAX_ROW_THREADS:
+            return RowPlan("two-pass", TWO_PASS_THREADS, 1, False)
+    vector = aligned and (d * elem_size) % CHUNK_BYTES == 0
+    return RowPlan("registers", threads, -(-n // threads), vector)
+
+
+def aligned_rows(ptrs: Sequence[int], strides: Sequence[int], elem_size: int) -> bool:
+    """Whether every base pointer and every row stride (in elements of
+    ``elem_size`` bytes) is a multiple of 16 bytes."""
+    return (all(p % CHUNK_BYTES == 0 for p in ptrs)
+            and all((s * elem_size) % CHUNK_BYTES == 0 for s in strides))
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x2, rows, d, stride = rows_of(x, "x", (torch.float32, torch.bfloat16))
     g = scale_of(scale, x, d)
     y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    el = x.element_size()
+    plan = row_plan(d, el, aligned_rows((x2.data_ptr(), g.data_ptr()), (stride,), el))
     lib = build.library()
     err = lib.rt_rmsnorm(
         x2.data_ptr(), stride, g.data_ptr(), y.data_ptr(), rows, d, float(eps),
-        int(x.dtype == torch.bfloat16), stream_ptr(x),
+        int(x.dtype == torch.bfloat16), *plan.args(), stream_ptr(x),
     )
     build.check(err, "rmsnorm")
     build.count_launch("rmsnorm")
@@ -46,10 +119,14 @@ def rmsnorm_residual(
     g = scale_of(scale, x, d)
     y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     added = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    el = x.element_size()
+    plan = row_plan(d, el, aligned_rows((x2.data_ptr(), r2.data_ptr(), g.data_ptr()),
+                                        (stride, r_stride), el))
     lib = build.library()
     err = lib.rt_rmsnorm_residual(
         x2.data_ptr(), stride, r2.data_ptr(), r_stride, g.data_ptr(), y.data_ptr(),
-        added.data_ptr(), rows, d, float(eps), int(x.dtype == torch.bfloat16), stream_ptr(x),
+        added.data_ptr(), rows, d, float(eps), int(x.dtype == torch.bfloat16), *plan.args(),
+        stream_ptr(x),
     )
     build.check(err, "rmsnorm_residual")
     build.count_launch("rmsnorm_residual")

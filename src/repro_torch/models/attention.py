@@ -118,20 +118,19 @@ def gqa_decode(
     dict holds the same tensors), attend over the valid entries.
 
     Under a sliding window the cache is a ring of ``S_max`` slots: position
-    ``pos`` goes to slot ``pos % S_max``, and once ``S_max`` positions are in
-    all slots are valid (effective length ``min(len, S_max)``), as in the
-    reference.
+    ``pos`` goes to slot ``pos % S_max``. Without one, a position past the
+    last slot is written to the last slot, as the reference's
+    ``dynamic_update_slice`` clamps its start. Either way, once ``S_max``
+    positions are in all slots are valid (effective length
+    ``min(len, S_max)``), as in the reference.
     """
     pos = int(cache["len"])
     s_max = cache["k"].shape[1]
-    if not cfg.swa_window and pos >= s_max:
-        raise ValueError(f"cache full: position {pos} of {s_max}")
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = gqa_project_qkv(p, x, positions, cfg)
-    slot = pos % s_max if cfg.swa_window else pos
+    slot = pos % s_max if cfg.swa_window else min(pos, s_max - 1)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     new_len = pos + 1
-    eff = min(new_len, s_max) if cfg.swa_window else new_len
-    out = decode_attention(q, cache["k"], cache["v"], eff)
+    out = decode_attention(q, cache["k"], cache["v"], min(new_len, s_max))
     return attn_out(out, p["wo"]), {"k": cache["k"], "v": cache["v"], "len": new_len}

@@ -486,3 +486,166 @@ def test_cuda_kalman_scan_many_channels(cuda):
     got = kalman.kalman_scan(z.to(cuda), xe.to(cuda), p.to(cuda), 0.2, 0.8)
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y)
+
+
+# -- K1's routes, K2/K3 in bf16, K5/K6 at head dim 192 ---------------------------------
+
+def _rows(g, rows, d, dev, dtype, layout):
+    """(rows, d): packed, or a view whose rows start 2 or 4 bytes off a
+    16-byte boundary and have an odd stride (the scalar-load route)."""
+    if layout == "packed":
+        return _randn(g, (rows, d), dev, dtype)
+    return _randn(g, (rows, d + 1), dev, dtype)[:, 1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "unaligned view"])
+@pytest.mark.parametrize("rows,d", [(65536, 128), (16384, 128), (2048, 2560), (2048, 5120),
+                                    (32, 128)])
+def test_cuda_rmsnorm_serving_shapes(cuda, rows, d, layout):
+    # qwen3-4b's q- and k-norm at 2048 tokens, its layer-0 norm, zamba2's
+    # out_norm and a decode step's q-norm, in bf16, on both load routes
+    g = torch.Generator().manual_seed(14)
+    x = _rows(g, rows, d, cuda, torch.bfloat16, layout)
+    scale = (1.0 + 0.1 * torch.randn((d,), generator=g)).to(cuda)
+    torch.testing.assert_close(rmsnorm.rmsnorm(x, scale).float(),
+                               ref.rmsnorm_ref(x, scale).float(), **BF16_TOL)
+    assert torch.equal(rmsnorm.rmsnorm(x, scale), rmsnorm.rmsnorm(x.contiguous(), scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [9, 31, 100, 128, 130, 264, 1000, 2560, 4100, 8192, 16384, 18432])
+def test_cuda_rmsnorm_every_route(cuda, dtype, d):
+    # widths on every route and at ragged chunk counts: the two load routes
+    # give the same bits
+    g = torch.Generator().manual_seed(15)
+    x = _rows(g, 37, d, cuda, dtype, "unaligned view")
+    scale = (1.0 + 0.1 * torch.randn((d,), generator=g)).to(cuda)
+    got = rmsnorm.rmsnorm(x, scale)
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, scale).float(), **_tol(dtype))
+    assert torch.equal(got, rmsnorm.rmsnorm(x.contiguous(), scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [5, 128, 5120])
+def test_cuda_affine_rmsnorm_is_bitwise_rmsnorm_of_map_chain(cuda, d):
+    # K3 reads the caller's unaligned view, K1 the packed output of K2: the
+    # plan fixes the order of the sums whatever the load route
+    g = torch.Generator().manual_seed(16)
+    x = (torch.randn((300, d + 3), generator=g) * 4.0 + 1.0).to(cuda)[:, 1:1 + d]
+    scale = (1.0 + 0.1 * torch.randn((d,), generator=g)).to(cuda)
+    chained = fused.map_chain(x, STAGES)
+    assert torch.equal(chained, ref.map_chain_ref(x, STAGES))
+    assert torch.equal(fused.affine_rmsnorm(x, scale, STAGES), rmsnorm.rmsnorm(chained, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17, 5), (300, 128), (64, 5120)])
+def test_cuda_fused_kernels_in_bf16(cuda, shape):
+    # stages and norm in f32, one rounding to bf16 at the end, as the Pallas
+    # kernels and the plain versions: K2 gives the plain version's bits
+    g = torch.Generator().manual_seed(17)
+    x = (torch.randn(shape, generator=g) * 4.0 + 1.0).to(cuda, torch.bfloat16)
+    scale = (1.0 + 0.1 * torch.randn(shape[-1:], generator=g)).to(cuda)
+    got = fused.map_chain(x, STAGES)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ref.map_chain_ref(x, STAGES))
+    got = fused.affine_rmsnorm(x, scale, STAGES)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.affine_rmsnorm_ref(x, scale, STAGES).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,layout", [((1, 2048, 2560), "packed"), ((1, 1, 2560), "packed"),
+                                          ((64, 2560), "unaligned view")])
+def test_cuda_rmsnorm_residual_serving_shapes(cuda, dtype, shape, layout):
+    g = torch.Generator().manual_seed(18)
+    d = shape[-1]
+    if layout == "packed":
+        x, r = _randn(g, shape, cuda, dtype), _randn(g, shape, cuda, dtype)
+    else:
+        x, r = (_rows(g, shape[0], d, cuda, dtype, layout) for _ in range(2))
+    scale = (1.0 + 0.1 * torch.randn((d,), generator=g)).to(cuda)
+    got_y, got_h = rmsnorm.rmsnorm_residual(x, r, scale)
+    want_y, want_h = ref.rmsnorm_residual_ref(x, r, scale)
+    torch.testing.assert_close(got_h.float(), want_h.float(), **_tol(dtype))
+    torch.testing.assert_close(got_y.float(), want_y.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", [
+    (1, 2048, 2048, 96, 8, True, 0),   # nemotron-4-340b's heads, 12 per KV head
+    (2, 129, 129, 12, 1, True, 0),
+    (1, 300, 300, 4, 4, True, 64),
+    (1, 127, 200, 8, 2, False, 0),
+    (1, 333, 333, 12, 1, True, 100),
+])
+def test_cuda_flash_attention_head_dim_192(cuda, dtype, b, sq, sk, h, kv, causal, window):
+    g = torch.Generator().manual_seed(19)
+    q = _randn(g, (b, sq, h, 192), cuda, dtype)
+    k, v = _randn(g, (b, sk, kv, 192), cuda, dtype), _randn(g, (b, sk, kv, 192), cuda, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,smax,clen,h,kv,window", [
+    (1, 4096, 2048, 96, 8, 0),
+    (2, 300, 257, 12, 1, 0),
+    (1, 512, 500, 8, 8, 128),
+    (1, 64, 1, 24, 2, 0),
+    (1, 4096, 4096, 16, 2, 0),   # G = 8: two head groups of 4 at hd 192
+])
+def test_cuda_decode_attention_head_dim_192(cuda, dtype, b, smax, clen, h, kv, window):
+    g = torch.Generator().manual_seed(20)
+    q = _randn(g, (b, 1, h, 192), cuda, dtype)
+    kc = _randn(g, (2, b, smax, kv, 192), cuda, dtype)[1]
+    vc = _randn(g, (2, b, smax, kv, 192), cuda, dtype)[1]
+    got = decode_attention.decode_attention(q, kc, vc, clen, window=window)
+    want = ref.decode_attention_ref(q, kc, vc, clen, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+def nemotron_width_cut():
+    """nemotron-4-340b cut in width: head dim 192 and 12 q heads per KV head
+    kept (d_model 2304 = 12 x 192, one KV head), 2 layers, d_ff 4 x d_model,
+    a 4096-token vocabulary; layernorm and squared ReLU as configured."""
+    from repro_torch import configs
+
+    return configs.get_config("nemotron-4-340b").replace(
+        n_layers=2, d_model=2304, n_heads=12, n_kv_heads=1, d_ff=9216, vocab_size=4096,
+        dtype="float32", param_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_nemotron_width_cut_on_the_card_matches_cpu(cuda):
+    # prefill of 60 tokens into a 62-slot cache, then 4 decode steps: the
+    # last two write past the last slot, as the reference's clamped write
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    cfg = nemotron_width_cut()
+    assert cfg.head_dim_ == 192
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (1, 60), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    caches = {"cpu": init_cache(cfg, 1, 62), "cuda": init_cache(cfg, 1, 62, device=cuda)}
+    want, _ = prefill(params, cfg, toks, caches["cpu"])
+    got, _ = prefill(on_card, cfg, toks.to(cuda), caches["cuda"])
+    for _ in range(4):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+        tok = want.argmax(-1)[:, None]
+        want, _ = decode_step(params, cfg, tok, caches["cpu"])
+        got, _ = decode_step(on_card, cfg, tok.to(cuda), caches["cuda"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    assert caches["cuda"]["len"] == 64
+    counts = launch_counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0

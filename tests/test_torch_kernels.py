@@ -66,6 +66,29 @@ def test_fused_plain_match_reference(shape):
     np.testing.assert_allclose(_np(got_norm), _np(pallas_norm), **F32_TOL)
 
 
+# The Pallas kernels take a bf16 x to float32, run the stages and the norm
+# there and round once to bf16; so do the plain versions. The two compute
+# the same float32 values up to the order of the norm's sum (and any
+# contraction into an FMA on XLA's side), so they agree to one rounding of
+# bf16: 2**-8 of the value, held at rtol 2**-7 (a bf16 ulp).
+BF16_ONE_ROUNDING = dict(rtol=2.0**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(17, 5), (33, 8), (9, 128)])
+def test_fused_plain_in_bf16_match_pallas(shape):
+    xj, xt, sj, st = _inputs(shape, "bfloat16", seed=9)
+    got_map = ref.map_chain_ref(xt, STAGES)
+    got_norm = ref.affine_rmsnorm_ref(xt, st, STAGES)
+    assert got_map.dtype == got_norm.dtype == torch.bfloat16
+    pallas_map = pallas_map_chain(xj, stages=STAGES, block_rows=8, interpret=True)
+    pallas_norm = pallas_affine_rmsnorm(xj, sj, stages=STAGES, block_rows=8, interpret=True)
+    np.testing.assert_allclose(_np(got_map), _np(pallas_map), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(got_norm), _np(pallas_norm), **BF16_ONE_ROUNDING)
+    # one rounding, not one per product and sum: the float32 stages rounded
+    f32 = ref.map_chain_ref(xt.float(), STAGES)
+    assert torch.equal(got_map, f32.to(torch.bfloat16))
+
+
 def test_fused_plain_is_bitwise_the_op_sequence():
     # the contract the CUDA kernels keep on the card, here for the CPU path
     _, xt, _, st = _inputs((64, 8), seed=5)

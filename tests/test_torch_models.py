@@ -241,3 +241,56 @@ def test_hybrid_bf16_drift_from_f32_is_the_references():
           f"f32 port vs reference {f32_rel:.3g}")
     assert f32_rel <= 1e-4
     assert port_rel <= 1.5 * ref_rel and 1 - port_cos <= 1.5 * (1 - ref_cos)
+
+
+# -- head dim 192 and decode past a full cache ---------------------------------------
+
+def _nemotron_hd192():
+    """nemotron-4-340b's attention shape at a CPU test's size: head dim 192
+    and 12 q heads over one KV head (its 96 over 8), d_model 256, 2 layers,
+    layernorm and squared ReLU as configured, float32."""
+    cut = dict(n_layers=2, d_model=256, n_heads=12, n_kv_heads=1, head_dim=192, d_ff=512,
+               vocab_size=512, dtype="float32", param_dtype="float32")
+    return (jconfigs.get_config("nemotron_4_340b").replace(**cut),
+            configs.get_config("nemotron_4_340b").replace(**cut))
+
+
+def test_nemotron_head_dim_192_matches_reference():
+    jcfg, tcfg = _nemotron_hd192()
+    assert tcfg.head_dim_ == 192 and tcfg.n_heads // tcfg.n_kv_heads == 12
+    jp, tp = _params(jcfg)
+    toks = _tokens(jcfg, (2, 12))
+    np.testing.assert_allclose(forward(tp, tcfg, _t(toks)).numpy(),
+                               np.asarray(j_forward(jp, jcfg, toks)), **TOL)
+    jl, jc = j_prefill(jp, jcfg, toks, j_init_cache(jcfg, 2, 16))
+    tl, tc = prefill(tp, tcfg, _t(toks), init_cache(tcfg, 2, 16))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for _ in range(2):
+        tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
+        jl, jc = j_decode_step(jp, jcfg, tok, jc)
+        tl, tc = decode_step(tp, tcfg, _t(tok), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_close(tc, jc)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "nemotron_4_340b-hd192"])
+def test_decode_past_a_full_cache_matches_reference(arch):
+    # a prompt that fills the cache, then three steps past its last slot:
+    # the reference's dynamic_update_slice clamps each write to the last
+    # slot and attends over every slot; the port does the same
+    if arch == "qwen3_4b":
+        jcfg, tcfg = _configs(arch)
+    else:
+        jcfg, tcfg = _nemotron_hd192()
+    jp, tp = _params(jcfg)
+    B, S = 2, 12
+    toks = _tokens(jcfg, (B, S))
+    jl, jc = j_prefill(jp, jcfg, toks, j_init_cache(jcfg, B, S))
+    tl, tc = prefill(tp, tcfg, _t(toks), init_cache(tcfg, B, S))
+    for step in range(3):
+        tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
+        jl, jc = j_decode_step(jp, jcfg, tok, jc)
+        tl, tc = decode_step(tp, tcfg, _t(tok), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        assert tc["len"] == int(jc["len"]) == S + step + 1
+    _assert_cache_close(tc, jc)
