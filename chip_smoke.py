@@ -15,8 +15,9 @@ Phases, each fatal on failure:
      also in bf16, and K3 == K1 of K2's output at D = 128 and 5120; K4-K6
      at qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's
      prefill of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6
-     also at zamba2's head dim of 80 and nemotron-4-340b's of 192, f32 and
-     bf16, each beside its library call; which K5 and K7 build each dtype
+     also at zamba2's head dim of 80, nemotron-4-340b's of 192 and an
+     unbuilt 96 (run zero-padded to 128), f32 and bf16, each beside its
+     library call; which K5 and K7 build each dtype
      ran, and K7's launches per call, counted);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
@@ -31,6 +32,20 @@ Phases, each fatal on failure:
      just before and read just after; sink counts exact; digests bitwise
      equal to an unfused run; counts equal to a CPU run at base_batch=1024
      and checksums within CPU_RTOL;
+     then the session: ``ReuseSession(execute=True, backend="torch",
+     base_batch=16384)`` takes the same flows through submit_many — 3
+     steps, fuse(), 2 steps, checkpoint(), defragment(), 2 steps, remove
+     three dataflows, 2 steps — with launch counts reset just before and
+     read just after (K1, K2, K3, kalman_scan > 0) and its hooks fired;
+     ``ReuseSession.restore`` of the checkpoint on the card finishes the
+     script with digests bitwise equal; at base_batch=1024 a checkpoint
+     taken on the card finishes on the CPU and one taken on the CPU on the
+     card, counts exact and checksums within CPU_RTOL; the OPMW rw1 trace
+     (``rw_trace(seed=11)``) at base_batch=16384, one step after each event,
+     checkpointed and restored at its middle event, with per-submission
+     sink counts equal to the ``dryrun`` backend's after every event and
+     peaks of 471 submitted and 277 running tasks; the step walls,
+     checkpoint bytes, write and restore ms and rw1's wall time printed;
   4. the dense serving path at full width: qwen3-4b (36 layers, bf16,
      random weights drawn on the card from a seeded generator) through
      ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
@@ -50,7 +65,7 @@ Phases, each fatal on failure:
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5; each must be > 0), the card line as nvidia-smi gives
+     of phases 3-5, the session's included; each must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--phase kernels`` stops after phase 2 (a first check of new kernels).
@@ -633,7 +648,8 @@ def hybrid_kernel_phase(dev, gen):
             f"({host * 1e3:.2f} us per call from the host), bound {bnd * 1e3:.3f} us ({by}), library "
             f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
         del q, k, v, kc, vc
-    head_dim_192(dev, gen)
+    head_dim_checks(dev, gen, 96, 8, 192)
+    head_dim_checks(dev, gen, 32, 8, 96)
     return [k7]
 
 
@@ -644,19 +660,23 @@ def hybrid_kernel_phase(dev, gen):
 LIB_TOL = BF16_TOL
 
 
-def head_dim_192(dev, gen):
-    """K5 and K6 at nemotron-4-340b's attention (96 q heads over 8 KV heads
-    of 192), in f32 (the SIMT build of K5) and bf16 (wgmma m64n192k16), each
-    against its plain version and F.scaled_dot_product_attention's output,
-    and timed beside that library call."""
+def head_dim_checks(dev, gen, h, kv, hd):
+    """K5 and K6 at ``h`` q heads over ``kv`` KV heads of ``hd``, in f32 (the
+    SIMT build of K5) and bf16 (wgmma), each against its plain version and
+    F.scaled_dot_product_attention's output, and timed beside that library
+    call: nemotron-4-340b's attention (96 over 8 of 192, the widest build),
+    and a head dim the kernels are not built for (96, run zero-padded to
+    128; the bound is the true head dim's)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, flash_attention, ref
 
-    s, h, kv, hd, s_cache = SERVE_PROMPT, 96, 8, 192, 4096
+    s, s_cache = SERVE_PROMPT, 4096
+    width = flash_attention.padded_head_dim(hd)
+    route = "" if width == hd else f", zero-padded to {width}"
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        tag = ("bf16" if dtype == torch.bfloat16 else "f32") + route
         el = torch.finfo(dtype).bits // 8
         ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         q = torch.randn((1, s, h, hd), generator=gen).to(dev, dtype)
@@ -666,12 +686,12 @@ def head_dim_192(dev, gen):
         def k5():
             return flash_attention.flash_attention(q, k, v, causal=True)
 
-        err = check_close(f"flash_attention hd 192 {tag}", k5(), ref.flash_attention_ref(q, k, v), tol)
+        err = check_close(f"flash_attention hd {hd} {tag}", k5(), ref.flash_attention_ref(q, k, v), tol)
         bnd, by = bound_ms((2 * s * h + 2 * s * kv) * hd * el, 4 * h * hd * (s * (s + 1) // 2),
                            ops_rate)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_err = check_close(
-            f"flash_attention hd 192 {tag} vs the library", k5(),
+            f"flash_attention hd {hd} {tag} vs the library", k5(),
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
             LIB_TOL)
         ms = device_ms(k5, per_graph=3, reps=7)
@@ -691,12 +711,12 @@ def head_dim_192(dev, gen):
         def k6():
             return decode_attention.decode_attention(q1, kc, vc, s)
 
-        err = check_close(f"decode_attention hd 192 {tag}", k6(),
+        err = check_close(f"decode_attention hd {hd} {tag}", k6(),
                           ref.decode_attention_ref(q1, kc, vc, s), tol)
         bnd, by = bound_ms((2 * s * kv + 2 * h) * hd * el, 4 * h * hd * s, ops_rate)
         q1t, kct, vct = q1.transpose(1, 2), kc[:, :s].transpose(1, 2), vc[:, :s].transpose(1, 2)
         lib_err = check_close(
-            f"decode_attention hd 192 {tag} vs the library", k6(),
+            f"decode_attention hd {hd} {tag} vs the library", k6(),
             F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True).transpose(1, 2), LIB_TOL)
         ms, plain = device_ms(k6), device_ms(lambda: ref.decode_attention_ref(q1, kc, vc, s))
         lib = device_ms(lambda: F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True))
@@ -786,6 +806,183 @@ def main_path_phase(dev):
         f"{statistics.median(unfused_walls[3:]):.3f}")
     steps = len(walls)
     return {name: n for name, n in launches.items()}, steps
+
+
+# -- phase 3b: the session, its checkpoints and the OPMW rw1 replay ------------------
+
+RW1_SEED = 11  # rw1 as benchmarks/workload_traces.py and repro.launch.dryrun define it
+RW1_PEAKS = (471, 277)  # peak submitted and running tasks of rw1 (the dry run's)
+
+
+def session_digests(session):
+    return {n: session.sink_digests(n) for n in session.names}
+
+
+def session_head(session):
+    """The session script up to its checkpoint: submit_many the RIoT and
+    kernel flows, 3 steps, fuse(), 2 steps; returns the step walls."""
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    session.submit_many(riot_workload() + kernel_flows())
+    walls = [r.wall_ms for r in session.run(3)]
+    if not session.fuse():
+        raise AssertionError("fuse() fused no segment chain")
+    return walls + [r.wall_ms for r in session.run(2)]
+
+
+def session_tail(session):
+    """The script after its checkpoint: defragment(), 2 steps, remove three
+    flows, 2 steps; returns (digests, step walls)."""
+    session.defragment()
+    walls = [r.wall_ms for r in session.run(2)]
+    for name in REMOVED:
+        session.remove(name)
+    walls += [r.wall_ms for r in session.run(2)]
+    return session_digests(session), walls
+
+
+def compare_digests(label, got, want, rel):
+    """Counts exact; checksums equal (``rel`` 0) or within ``rel``."""
+    worst = 0.0
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: submissions {sorted(got)} != {sorted(want)}")
+    for sub, sinks in want.items():
+        for sink, dg in sinks.items():
+            g = got[sub][sink]
+            if g["count"] != dg["count"]:
+                raise AssertionError(f"{label}: {sub}/{sink} count {g['count']} != {dg['count']}")
+            if not math.isfinite(g["checksum"]):
+                raise AssertionError(f"{label}: {sub}/{sink} checksum {g['checksum']}")
+            if rel == 0 and g["checksum"] != dg["checksum"]:
+                raise AssertionError(f"{label}: {sub}/{sink} checksum {g['checksum']!r} != "
+                                     f"{dg['checksum']!r} (bitwise)")
+            worst = max(worst, abs(g["checksum"] - dg["checksum"]) / max(1.0, abs(dg["checksum"])))
+    if worst > rel:
+        raise AssertionError(f"{label}: checksum rel err {worst} > {rel}")
+    return worst
+
+
+def rw1_replay(session, dags, events, trail):
+    """One step after each event; appends each event's per-submission sink
+    counts to ``trail`` and returns the peaks of submitted and running tasks."""
+    from repro_torch.workloads import replay
+
+    peaks = (0, 0)
+    for _ev, _receipt in replay(session, dags, events):
+        session.step()
+        trail.append({n: {s: d["count"] for s, d in session.sink_digests(n).items()}
+                      for n in session.names})
+        peaks = (max(peaks[0], session.submitted_task_count),
+                 max(peaks[1], session.running_task_count))
+    return peaks
+
+
+def session_phase(dev, card):
+    """ReuseSession(execute=True, backend="torch") at base_batch=16384: the
+    RIoT and kernel flows through fuse(), checkpoint(), defragment() and
+    removals; a crash restored on the card (bitwise), checkpoints across
+    devices at base_batch=1024, and the OPMW rw1 trace replayed with a
+    restore at its middle event. Returns the launch counts of the session's
+    uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import ReuseSession
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.workloads import opmw_workload, rw_trace
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="session-", dir=root)
+    try:
+        fired = {"merge": 0, "defrag": 0, "step": 0}
+        hooks = {f"on_{k}": (lambda ev, k=k: fired.__setitem__(k, fired[k] + 1)) for k in fired}
+        ckpt_dir = os.path.join(tmp, "card")
+        reset_launch_counts()
+        session = ReuseSession(execute=True, backend="torch", base_batch=MAIN_BATCH,
+                               checkpoint_dir=ckpt_dir, **hooks)
+        walls = session_head(session)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = session.checkpoint()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = os.path.getsize(path)
+        digests, tail_walls = session_tail(session)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        walls += tail_walls
+        if not all(fired.values()):
+            raise AssertionError(f"session hooks that never fired: {fired}")
+        for name in ("rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the session path")
+        for sub, sinks in digests.items():
+            for sink, dg in sinks.items():
+                if dg["count"] != 9 or not math.isfinite(dg["checksum"]):
+                    raise AssertionError(f"session {sub}/{sink}: {dg} (count 9 expected)")
+        log(f"session: {len(session.names)} dataflows live, {session.stats().segments} segments "
+            f"after defragment(), hooks fired {fired}; launches {launches}")
+        log(f"session step wall ms at base_batch={MAIN_BATCH}: {[round(w, 3) for w in walls]}; "
+            f"median {statistics.median(walls):.3f} ({card})")
+
+        t0 = time.perf_counter()
+        restored = ReuseSession.restore(ckpt_dir, device=dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        log(f"checkpoint at step 5: {ckpt_bytes} bytes, written in {write_ms:.1f} ms, restored on "
+            f"the card in {restore_ms:.1f} ms ({card})")
+        compare_digests("restore on the card", session_tail(restored)[0], digests, 0)
+        log("restore on the card: sink digests bitwise equal to the uninterrupted run's")
+
+        # across devices at base_batch=1024: card -> cpu, then cpu -> card
+        for src, dst in ((dev, "cpu"), ("cpu", dev)):
+            src_dir = os.path.join(tmp, f"from-{torch.device(src).type}")
+            first = ReuseSession(execute=True, backend="torch", base_batch=CPU_BATCH,
+                                 device=src, checkpoint_dir=src_dir)
+            session_head(first)
+            first.checkpoint()
+            want, _ = session_tail(first)
+            got, _ = session_tail(ReuseSession.restore(src_dir, device=dst))
+            worst = compare_digests(f"restore {torch.device(src).type} -> {torch.device(dst).type}",
+                                    got, want, CPU_RTOL)
+            log(f"base_batch={CPU_BATCH}: checkpoint taken on {torch.device(src).type} restored on "
+                f"{torch.device(dst).type}: sink counts equal, checksum rel err {worst:.3g} "
+                f"(rtol {CPU_RTOL})")
+
+        # the OPMW rw1 trace, one step after each event, a restore at the middle
+        dags = opmw_workload()
+        events = rw_trace(dags, seed=RW1_SEED)
+        mid = len(events) // 2
+        dry_trail = []
+        dry_peaks = rw1_replay(ReuseSession(execute=True, backend="dryrun"), dags, events,
+                               dry_trail)
+        rw_dir = os.path.join(tmp, "rw1")
+        t0 = time.perf_counter()
+        card_trail = []
+        rw = ReuseSession(execute=True, backend="torch", base_batch=MAIN_BATCH,
+                          checkpoint_dir=rw_dir)
+        head_peaks = rw1_replay(rw, dags, events[:mid], card_trail)
+        rw.checkpoint()
+        rw = ReuseSession.restore(rw_dir, device=dev)
+        tail_peaks = rw1_replay(rw, dags, events[mid:], card_trail)
+        torch.cuda.synchronize()
+        rw_s = time.perf_counter() - t0
+        peaks = tuple(max(a, b) for a, b in zip(head_peaks, tail_peaks))
+        if card_trail != dry_trail:
+            bad = next(i for i, (a, b) in enumerate(zip(card_trail, dry_trail)) if a != b)
+            raise AssertionError(f"rw1: sink counts after event {bad} differ from dryrun's")
+        if peaks != dry_peaks or peaks != RW1_PEAKS:
+            raise AssertionError(f"rw1 peaks {peaks}, dryrun {dry_peaks}, expected {RW1_PEAKS}")
+        log(f"OPMW rw1 on the card at base_batch={MAIN_BATCH}: {len(events)} events and steps, "
+            f"restored at event {mid}, {rw_s:.2f} s; per-submission sink counts equal dryrun's "
+            f"after every event; peak submitted -> running tasks {peaks[0]} -> {peaks[1]} ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"session phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
 
 
 # -- phase 4: the serving path at full width --------------------------------------
@@ -1147,6 +1344,7 @@ def main() -> int:
     if args.phase == "kernels":
         return 0
     runs = {"stream path": main_path_phase(dev)[0]}
+    runs["session"] = session_phase(dev, card)
     for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
         runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
                                               cut_limits)

@@ -9,7 +9,9 @@ cache). The q heads of a KV head share each cache row; the positions are
 split across blocks (:func:`split_plan`) and merged in the same launch by
 the last block to finish, so a batch-1 decode fills the card. Port of the
 Pallas kernel ``repro/kernels/decode_attention.py:decode_attention``. The
-plain version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
+plain version is :func:`repro_torch.kernels.ref.decode_attention_ref`. A
+head dim the kernel is not built for runs zero-padded to the next built
+one, as K5's does (:func:`repro_torch.kernels.flash_attention.padded_head_dim`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from . import build
 from ._launch import stream_ptr
-from .flash_attention import COPY_BYTES, check_heads
+from .flash_attention import COPY_BYTES, check_heads, pad_head_dim, padded_head_dim
 
 TILE = 64  # cache positions per tile: splits start on tile boundaries
 MIN_TILES = 2  # tiles per split at least, so a block keeps loads in flight
@@ -78,6 +80,12 @@ def decode_attention(
     b, one, h, hd = q.shape
     if one != 1:
         raise ValueError(f"decode_attention takes one query token, got q {tuple(q.shape)}")
+    width = padded_head_dim(hd)
+    if width != hd:
+        q, k_cache, v_cache = pad_head_dim((q, k_cache, v_cache), width)
+        scale = hd ** -0.5 if scale is None else scale
+        o = decode_attention(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+        return o[..., :hd].contiguous()
     s_max, kv = k_cache.shape[1], k_cache.shape[2]
     hi = int(cache_len)
     if not 0 <= hi <= s_max:

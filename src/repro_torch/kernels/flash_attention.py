@@ -15,6 +15,13 @@ float32, which only the checks use, runs the SIMT kernel (``flash_fwd_simt``).
 The host plans the tensor-core kernel's work in plain functions that the
 CPU tests check: :func:`tile_plan` (the q-tile order and each tile's K/V
 range, which the kernel reads from the card) and :func:`load_route`.
+
+The kernels are built for the head dims in ``HEAD_DIMS``. Any other head
+dim up to the largest runs at the next built one (:func:`padded_head_dim`):
+q, k and v are zero-padded along the head dim, the softmax scale stays
+that of the true head dim, and the output's padded columns, which are 0,
+are sliced off. Zero columns add nothing to q·kᵀ. A built head dim takes
+no copy.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 from ._launch import stream_ptr
@@ -89,10 +97,26 @@ def load_route(dtype: torch.dtype, elem_bytes: int, ptrs: Sequence[int],
     return "cp.async"
 
 
+def padded_head_dim(hd: int) -> int:
+    """The built head dim that a head dim of ``hd`` runs at: ``hd`` itself
+    where it is built, else the next built one above it. Raises above the
+    largest."""
+    for built in HEAD_DIMS:
+        if built >= hd:
+            return built
+    raise ValueError(f"head dim {hd} is above {HEAD_DIMS[-1]}, the largest the kernels are built for")
+
+
+def pad_head_dim(tensors: Sequence[torch.Tensor], width: int) -> Tuple[torch.Tensor, ...]:
+    """``tensors`` zero-padded along their last (head) dim to ``width``; the
+    tensors themselves, uncopied, where it is already ``width``."""
+    return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])) for t in tensors)
+
+
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
     """q (B, ·, H, hd) against k/v (B, S, KV, hd): one CUDA device, one
-    float32/bfloat16 dtype, H a multiple of KV, a head dim the kernels
-    take, inner stride 1."""
+    float32/bfloat16 dtype, H a multiple of KV, a head dim up to the
+    largest built one, inner stride 1."""
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_cuda:
             raise ValueError(f"{name}: {n} must be a CUDA tensor, got one on {t.device}")
@@ -109,8 +133,9 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) ->
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{name}: {h} q heads are not a multiple of {k.shape[2]} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if hd > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {hd} is above {HEAD_DIMS[-1]}, the largest the "
+                         f"kernels are built for")
 
 
 def flash_attention(
@@ -124,6 +149,12 @@ def flash_attention(
 ) -> torch.Tensor:
     check_heads(q, k, v, "flash_attention")
     b, sq, h, hd = q.shape
+    width = padded_head_dim(hd)
+    if width != hd:
+        q, k, v = pad_head_dim((q, k, v), width)
+        scale = hd ** -0.5 if scale is None else scale
+        o = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        return o[..., :hd].contiguous()
     sk, kv = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     load_route(q.dtype, q.element_size(), [t.data_ptr() for t in (q, k, v)], strides)

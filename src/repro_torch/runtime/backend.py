@@ -3,28 +3,33 @@
 The port's copy of ``repro.runtime.backend``, trimmed to what the stream
 path uses: :class:`StreamSystem` drives a backend through the verbs
 
-  ``deploy / kill / forward / pause / resume / step / account /
-  sink_state / fuse_segments``
+  ``deploy / kill / forward / pause / resume / step / snapshot / account /
+  sink_state / fuse_segments / defragment / dump_state / restore_state``
 
 and backends plug in by name through :func:`register_backend` /
-:func:`resolve_backend`. The port ships one, ``"torch"``
-(:class:`repro_torch.runtime.executor.TorchBackend`). Segments step one
-after another in launch order (the reference's ``"sync"`` mode).
+:func:`resolve_backend`. The port ships two: ``"torch"``
+(:class:`repro_torch.runtime.executor.TorchBackend`, the data plane) and
+``"dryrun"`` (:class:`repro_torch.runtime.dryrun.DryRunBackend`, the
+cost model). Segments step one after another in launch order (the
+reference's ``"sync"`` mode; its ``"concurrent"`` mode is not ported).
 
 This module holds the shared bookkeeping: :class:`SegmentSpec`,
 :class:`StepReport`, the accounting constants, the O(1) task→segment
-reverse index and the segment dependency DAG that the fusion planner
-reads. Pause flags are host bools, so accounting never waits for the
-card.
+reverse index, the segment dependency DAG that the fusion planner reads,
+and the durable ``dump_state``/``restore_state`` payload, whose layout is
+the reference's, so checkpoints cross between the packages. Pause flags
+are host bools, so accounting never waits for the card.
 """
 from __future__ import annotations
 
 import importlib
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Set, Tuple, Type, Union
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Type, Union
 
 from repro_torch.core.graph import Dataflow, Task
+
+from .checkpoint import decode_pytree, encode_pytree
 
 # Fraction of a task's cost still consumed while paused (deployed-but-idle
 # Storm bolt). Calibrated so the paper's drain-phase crossover reproduces.
@@ -68,6 +73,42 @@ class StepReport:
     segment_ms: Dict[str, float] = field(default_factory=dict)
 
 
+def _encode_report(r: StepReport) -> Dict[str, Any]:
+    """JSON-safe StepReport for the opt-in checkpoint ring buffer."""
+    return {
+        "step": int(r.step),
+        "live_tasks": int(r.live_tasks),
+        "paused_tasks": int(r.paused_tasks),
+        "cost": float(r.cost),
+        "wall_ms": float(r.wall_ms),
+        "segment_ms": {k: float(v) for k, v in r.segment_ms.items()},
+    }
+
+
+def _decode_report(rec: Dict[str, Any]) -> StepReport:
+    return StepReport(
+        step=int(rec["step"]),
+        live_tasks=int(rec["live_tasks"]),
+        paused_tasks=int(rec["paused_tasks"]),
+        cost=float(rec["cost"]),
+        wall_ms=float(rec["wall_ms"]),
+        segment_ms={k: float(v) for k, v in rec.get("segment_ms", {}).items()},
+    )
+
+
+@dataclass
+class BackendSnapshot:
+    """Point-in-time backend state — the ``snapshot`` verb of the protocol."""
+
+    backend: str
+    step_count: int
+    segments: Dict[str, List[str]]  # segment name -> deployed task ids
+    paused: Set[str]
+    live_tasks: int
+    paused_tasks: int
+    cost: float
+
+
 def compute_batches(
     order: List[str],
     parents: Dict[str, List[str]],
@@ -88,8 +129,8 @@ class ExecutionBackend:
     """Data-plane protocol + the runtime-agnostic bookkeeping.
 
     Concrete backends implement :meth:`_build` (a :class:`SegmentSpec` →
-    a segment exposing ``spec``, ``states``, ``active``, ``cost_of`` and
-    ``pause``/``resume``) and :meth:`_step_one`.
+    a segment exposing ``spec``, ``states``, ``active``, ``cost_of``,
+    ``steps_run`` and ``pause``/``resume``) and :meth:`_step_one`.
     """
 
     name: str = ""
@@ -108,6 +149,12 @@ class ExecutionBackend:
         # boundary inputs, maintained across deploy/kill.
         self.seg_deps: Dict[str, Set[str]] = {}
         self.reports: List[StepReport] = []
+        # opt-in StepReport ring buffer: bounds self.reports in memory AND
+        # persists the tail in checkpoints (None = unbounded, not persisted)
+        self.history_limit: Optional[int] = None
+        # state-leaf encoder used by dump_state/_dump_extra — swapped for a
+        # deferring marker during background-checkpoint snapshots
+        self._state_encoder: Callable[[Any], Any] = encode_pytree
 
     # -- hooks for concrete backends ------------------------------------------
     def _build(
@@ -118,8 +165,12 @@ class ExecutionBackend:
     ) -> Any:
         raise NotImplementedError
 
-    def _step_one(self, seg: Any) -> None:
-        """Advance one segment one step; its wall time is measured around it."""
+    def _step_one(self, seg: Any) -> Optional[float]:
+        """Advance one segment one step.
+
+        Returns a simulated duration in ms (the dry-run latency model) or
+        ``None`` to report the wall time measured around the call.
+        """
         raise NotImplementedError
 
     def _drop_streams(self, seg: Any) -> None:
@@ -188,8 +239,8 @@ class ExecutionBackend:
     def _step_timed(self, name: str) -> float:
         seg = self.segments[name]
         s0 = time.perf_counter()
-        self._step_one(seg)
-        return (time.perf_counter() - s0) * 1e3
+        simulated = self._step_one(seg)
+        return simulated if simulated is not None else (time.perf_counter() - s0) * 1e3
 
     def step(self) -> StepReport:
         """Every segment once, in launch order (topological)."""
@@ -207,6 +258,8 @@ class ExecutionBackend:
             segment_ms=seg_ms,
         )
         self.reports.append(report)
+        if self.history_limit is not None and len(self.reports) > self.history_limit:
+            del self.reports[: len(self.reports) - self.history_limit]
         return report
 
     def run(self, steps: int) -> List[StepReport]:
@@ -239,6 +292,154 @@ class ExecutionBackend:
             raise KeyError(f"sink task {task_id!r} not deployed")
         return self.segments[owner].states[task_id]
 
+    def snapshot(self) -> BackendSnapshot:
+        live, paused_n, cost = self.account()
+        return BackendSnapshot(
+            backend=self.name or type(self).__name__,
+            step_count=self.step_count,
+            segments={n: list(s.spec.task_ids) for n, s in self.segments.items()},
+            paused=set(self.paused),
+            live_tasks=live,
+            paused_tasks=paused_n,
+            cost=cost,
+        )
+
+    def spawn_config(self) -> Dict[str, Any]:
+        """Constructor kwargs that reproduce this backend's topology.
+
+        Checkpoints persist this next to the backend name so a restore onto
+        the same backend re-creates the same data plane. Keys must be
+        JSON-safe and accepted by the backend's constructor. The device is
+        not one of them: a checkpoint restores on any device."""
+        return {}
+
+    # -- durability (checkpoint/restore verbs) ------------------------------------
+    def dump_state(self, state_encoder: Optional[Callable[[Any], Any]] = None) -> Dict[str, Any]:
+        """Serialize everything a restore needs to resume stepping exactly.
+
+        The payload is backend-portable: segment specs carry each task's
+        ⟨type, config⟩ so a restoring backend can rebuild operators (or cost
+        entries) without the original running DAGs — deployed-but-paused
+        tasks may no longer exist in any running DAG. Backend-specific
+        extras (broker buffers) ride in ``extra`` via :meth:`_dump_extra`
+        and are ignored by backends that don't know them, which is what
+        makes torch ↔ dryrun cross-restores work.
+
+        ``state_encoder`` overrides how state leaves are serialized — the
+        background checkpointer passes a deferring marker so the cheap
+        snapshot happens on the stepping thread and the host copy and
+        base64 encoding on the writer thread (states are replaced wholesale
+        each step, never written in place, so captured references stay
+        consistent).
+        """
+        self._state_encoder = encode_pytree if state_encoder is None else state_encoder
+        try:
+            return self._dump_state_inner()
+        finally:
+            self._state_encoder = encode_pytree
+
+    def _dump_state_inner(self) -> Dict[str, Any]:
+        enc = self._state_encoder
+        segments: List[Dict[str, Any]] = []
+        for name, seg in sorted(self.segments.items(), key=lambda kv: kv[1].spec.created_at):
+            spec = seg.spec
+            segments.append(
+                {
+                    "name": name,
+                    "dag_name": spec.dag_name,
+                    "task_ids": list(spec.task_ids),
+                    "parents": {t: list(ps) for t, ps in spec.parents.items()},
+                    # the *current* forwarding set, so runtime forward()
+                    # signals survive the restore as the new publish set
+                    "publish": sorted(self.forwarding.get(name, set())),
+                    "batch_of": {t: int(b) for t, b in spec.batch_of.items()},
+                    "created_at": int(spec.created_at),
+                    "fused": bool(spec.fused),
+                    "tasks": {
+                        t: {"type": self.task_defs[t].type, "config": self.task_defs[t].config}
+                        for t in spec.task_ids
+                    },
+                    "states": {t: enc(seg.states[t]) for t in spec.task_ids},
+                    "steps_run": int(seg.steps_run),
+                }
+            )
+        state = {
+            "step_count": int(self.step_count),
+            "launch_seq": int(self._launch_seq),
+            "paused": sorted(self.paused),
+            "segments": segments,
+            "extra": self._dump_extra(),
+        }
+        if self.history_limit is not None:
+            # opt-in monitoring history: the StepReport ring buffer survives
+            # restarts (dashboards resume with the pre-crash trajectory)
+            state["history_limit"] = int(self.history_limit)
+            state["reports"] = [_encode_report(r) for r in self.reports]
+        return state
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        """Redeploy every checkpointed segment and resume the counters.
+
+        Must be called on a *fresh* backend. Segments re-deploy in their
+        original launch order (so the launch-order-is-topological invariant
+        survives), with task states decoded through the backend-specific
+        :meth:`_decode_init_states` hook — that hook is where cross-backend
+        restores coerce states (torch ⇄ dryrun, and payloads of the
+        reference's backends). Keys this port does not keep (the
+        reference's straggler EWMAs and redispatch log) are ignored.
+        """
+        if self.segments:
+            raise ValueError("restore_state() needs a fresh backend (segments deployed)")
+        self._restore_extra(state.get("extra", {}))
+        for rec in sorted(state["segments"], key=lambda r: r["created_at"]):
+            spec = SegmentSpec(
+                name=rec["name"],
+                dag_name=rec["dag_name"],
+                task_ids=list(rec["task_ids"]),
+                parents={t: list(ps) for t, ps in rec["parents"].items()},
+                publish=set(rec["publish"]),
+                batch_of={t: int(b) for t, b in rec["batch_of"].items()},
+                fused=bool(rec.get("fused", False)),
+            )
+            # Synthetic task-definition container: deploy only reads
+            # dataflow.tasks[tid] (operator/cost construction), so the
+            # checkpointed ⟨type, config⟩ records are sufficient.
+            df = Dataflow(rec["dag_name"])
+            for tid in spec.task_ids:
+                t = rec["tasks"][tid]
+                df.add_task(Task.make(tid, t["type"], t["config"]))
+            init_states = self._decode_init_states(spec, df, rec["states"])
+            self._launch_seq = int(rec["created_at"])
+            seg = self.deploy(spec, df, init_states=init_states)
+            seg.steps_run = int(rec.get("steps_run", 0))
+        self._launch_seq = int(state["launch_seq"])
+        paused = set(state.get("paused", ()))
+        if paused:
+            self.pause(paused)
+        self.step_count = int(state["step_count"])
+        if state.get("history_limit") is not None:
+            self.history_limit = int(state["history_limit"])
+            self.reports = [_decode_report(r) for r in state.get("reports", ())]
+
+    def _decode_init_states(
+        self, spec: SegmentSpec, dataflow: Dataflow, states_enc: Dict[str, Any]
+    ) -> Dict[str, PyTree]:
+        """Decode checkpointed states into this backend's native form."""
+        return {tid: decode_pytree(enc) for tid, enc in states_enc.items()}
+
+    def _dump_extra(self) -> Dict[str, Any]:
+        """Backend-specific durable extras (broker buffers)."""
+        return {}
+
+    def _restore_extra(self, extra: Dict[str, Any]) -> None:
+        """Consume :meth:`_dump_extra` output; unknown keys must be ignored."""
+
+    def compile_cache_stats(self) -> Dict[str, int]:
+        """Counters of a compiled-segment cache, in the reference's four
+        keys. The port's segments run eagerly and have no cache yet, so
+        every counter reads 0."""
+        return {"hits": 0, "misses": 0, "evictions": 0, "entries": 0}
+
     # -- latency samples (fusion planner feed) --------------------------------------
     def latency_samples(self) -> List[Tuple[Dict[str, float], float]]:
         """⟨per-task-type work units, measured segment ms⟩ calibration pairs.
@@ -262,7 +463,32 @@ class ExecutionBackend:
                 samples.append((units, float(ms)))
         return samples
 
-    # -- fusion (enactment; planning in repro_torch.core.defrag) -------------------
+    # -- defragmentation and fusion (enactment; planning in repro_torch.core.defrag)
+    def defragment(
+        self,
+        dag_name: str,
+        fused_spec: SegmentSpec,
+        dataflow: Dataflow,
+    ) -> Any:
+        """Replace all segments of ``dag_name`` by one fused segment.
+
+        Task states carry over (state-preserving defrag — beyond the paper,
+        which would relaunch cold). Paused tasks are dropped entirely,
+        reclaiming their ε overhead. Segments are picked by the DAG name
+        they were deployed under, which a later merge does not rename:
+        :meth:`StreamSystem.defragment` therefore relaunches every running
+        DAG at once instead.
+        """
+        carried: Dict[str, PyTree] = {}
+        for name, seg in list(self.segments.items()):
+            if seg.spec.dag_name != dag_name:
+                continue
+            for tid in fused_spec.task_ids:
+                if tid in seg.spec.task_ids:
+                    carried[tid] = seg.states[tid]
+            self.kill(name)
+        return self.deploy(fused_spec, dataflow, init_states=carried)
+
     def fuse_segments(
         self,
         fused_spec: SegmentSpec,
@@ -295,6 +521,7 @@ _BACKENDS: Dict[str, Type[ExecutionBackend]] = {}
 # Built-ins resolve lazily, so importing this module builds no operator.
 _LAZY_BUILTINS: Dict[str, Tuple[str, str]] = {
     "torch": ("repro_torch.runtime.executor", "TorchBackend"),
+    "dryrun": ("repro_torch.runtime.dryrun", "DryRunBackend"),
 }
 
 

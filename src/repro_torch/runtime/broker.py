@@ -57,6 +57,18 @@ class Broker:
         with self._lock:
             self._topics.pop(topic, None)
 
+    def topics(self) -> Dict[str, Any]:
+        """Snapshot view of the live topic buffers (checkpointing)."""
+        with self._lock:
+            return dict(self._topics)
+
     def counters(self) -> Dict[str, int]:
+        """Cumulative ``{"bytes_published", "publishes"}`` across all topics."""
         with self._lock:
             return {"bytes_published": self.bytes_published, "publishes": self.publishes}
+
+    def restore_counters(self, bytes_published: int, publishes: int) -> None:
+        """Set the cumulative counters (checkpoint restore)."""
+        with self._lock:
+            self.bytes_published = int(bytes_published)
+            self.publishes = int(publishes)

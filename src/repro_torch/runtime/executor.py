@@ -10,17 +10,25 @@ The port of ``repro.runtime.executor.InProcessJitBackend``: PyTorch runs
 eagerly, so a segment has no compile step, and the step ends by waiting
 for the card's stream, where the reference calls ``jax.block_until_ready``,
 so that ``segment_ms`` measures compute rather than enqueueing.
+
+Checkpoints carry no device: decoded states become tensors on this
+backend's device, so a checkpoint taken on the card restores on the CPU,
+and the other way round, and payloads of the reference's ``inprocess``
+backend restore here (and this backend's there).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import Dataflow
 
 from .backend import ExecutionBackend, PyTree, SegmentSpec
 from .broker import Broker, topic_for
+from .checkpoint import decode_pytree
 from .segment import Segment, build_segment
 
 
@@ -47,6 +55,9 @@ class TorchBackend(ExecutionBackend):
         super().__init__()
         self.device = resolve_device(device)
         self.broker = Broker()
+        # state leaves that a restore could not take from the checkpoint
+        # and reset to the operator's template (see _conform_state)
+        self.template_fallbacks = 0
 
     def _build(
         self,
@@ -62,6 +73,9 @@ class TorchBackend(ExecutionBackend):
 
     def _step_one(self, seg: Segment) -> None:
         inputs = {t: self.broker.fetch(t) for t in seg.boundary_topics}
+        # The step returns new state tensors and never writes into the old
+        # ones: a background checkpoint holds references to the states of
+        # the step it snapshotted (checkpoint.DeferredState).
         new_states, outputs = seg.step_fn(seg.states, seg.active, inputs)
         seg.states = new_states
         for tid in self.forwarding[seg.name]:
@@ -71,3 +85,106 @@ class TorchBackend(ExecutionBackend):
         # card so segment_ms measures compute, not enqueueing.
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        seg.steps_run += 1
+
+    # -- durability hooks ---------------------------------------------------------
+    def dump_state(self, state_encoder: Optional[Callable[..., Any]] = None) -> Dict[str, Any]:
+        """On the card, a deferring ``state_encoder`` (the background
+        checkpointer's) is given a CUDA event recorded now on the stepping
+        stream, which the writer thread waits on before its copy to the
+        host: the copy is ordered after the step that produced the state."""
+        if state_encoder is not None and self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            state_encoder = functools.partial(state_encoder, ready=ready)
+        return super().dump_state(state_encoder)
+
+    def _decode_init_states(
+        self, spec: SegmentSpec, dataflow: Dataflow, states_enc: Dict[str, Any]
+    ) -> Dict[str, PyTree]:
+        """Conform checkpointed states to this backend's operator templates,
+        as tensors on this backend's device in the template's dtype.
+
+        Same-package restores round-trip bit-exactly, and so do the
+        reference's ``inprocess`` states, whose leaves have the port's
+        shapes and dtypes. A dry-run checkpoint carries only sink counters
+        and ``()`` placeholders: leaves that do not match the template
+        fall back to it and are counted in :attr:`template_fallbacks`.
+        """
+        from repro_torch.ops import operator_for_task
+
+        out: Dict[str, PyTree] = {}
+        fallbacks: List[int] = [0]
+        for tid, enc in states_enc.items():
+            batch = spec.batch_of[tid]
+            op = operator_for_task(dataflow.tasks[tid], batch=batch, device=self.device)
+            out[tid] = _conform_state(decode_pytree(enc), op.init_state(batch), fallbacks)
+        self.template_fallbacks += fallbacks[0]
+        return out
+
+    def _dump_extra(self) -> Dict[str, Any]:
+        """Broker topic buffers + publish counters (the reference's keys).
+
+        Strictly, buffers are reconstructible (launch order is topological,
+        so every boundary topic is re-published upstream within the first
+        post-restore step before its consumer fetches it) — but persisting
+        them keeps a restored broker observable-identical.
+        """
+        counters = self.broker.counters()
+        return {
+            "broker": {
+                topic: self._state_encoder(batch)
+                for topic, batch in sorted(self.broker.topics().items())
+            },
+            "broker_bytes_published": int(counters["bytes_published"]),
+            "broker_publishes": int(counters["publishes"]),
+        }
+
+    def _restore_extra(self, extra: Dict[str, Any]) -> None:
+        for topic, enc in extra.get("broker", {}).items():
+            self.broker.publish(topic, torch.as_tensor(decode_pytree(enc)).to(self.device))
+        # publish() above bumped the counters; restore the checkpointed view
+        self.broker.restore_counters(
+            int(extra.get("broker_bytes_published", 0)),
+            int(extra.get("broker_publishes", 0)),
+        )
+
+
+def _conform_state(value: Any, template: Any, fallbacks: List[int]) -> Any:
+    """Merge a decoded state pytree onto an operator's init-state template.
+
+    Matching leaves adopt the checkpointed value (as a tensor in the
+    template's dtype, on its device); structural mismatches — missing dict
+    keys, wrong tuple arity, wrong array shape, ``()`` placeholders from a
+    dry-run checkpoint — resolve to the template, leaf by leaf, and add the
+    template leaves they reset to ``fallbacks[0]``."""
+    if isinstance(template, dict):
+        if not isinstance(value, dict):
+            return _fall_back(template, fallbacks)
+        return {k: _conform_state(value.get(k, _MISSING), t, fallbacks) for k, t in template.items()}
+    if isinstance(template, (tuple, list)):
+        if not isinstance(value, (tuple, list)) or len(value) != len(template):
+            return _fall_back(template, fallbacks)
+        return type(template)(_conform_state(v, t, fallbacks) for v, t in zip(value, template))
+    if value is _MISSING or value is None:
+        return _fall_back(template, fallbacks)
+    arr = np.asarray(value)
+    if tuple(arr.shape) != tuple(template.shape):
+        return _fall_back(template, fallbacks)
+    return torch.as_tensor(arr).to(device=template.device, dtype=template.dtype)
+
+
+def _fall_back(template: Any, fallbacks: List[int]) -> Any:
+    fallbacks[0] += _leaves(template)
+    return template
+
+
+def _leaves(tree: Any) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaves(t) for t in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_leaves(t) for t in tree)
+    return 1
+
+
+_MISSING = object()

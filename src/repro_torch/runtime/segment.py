@@ -45,6 +45,7 @@ class Segment:
     cost_of: Dict[str, float] = field(default_factory=dict)  # per-task cost_weight
     # tail task -> the run (head .. tail) its multi-op kernel computes
     fused_runs: Dict[str, List[str]] = field(default_factory=dict)
+    steps_run: int = 0
 
     @property
     def name(self) -> str:

@@ -13,21 +13,54 @@ Manager binds to Storm:
   * ``fuse`` — replace each accepted linear chain of segments by one fused
     segment, whose straight-line kernel runs go through the multi-op
     kernels.
+  * ``defragment`` — enact :func:`repro_torch.core.defrag.plan_defrag`:
+    relaunch one fused segment per running DAG, carrying task states over,
+    dropping paused tasks and broker hops.
 
-The port's copy of ``repro.runtime.system``, trimmed to the stream path
-(submit, submit_many, remove, step, run, fuse, sink_digests). The data
-plane runs on the card unless the caller passes ``device="cpu"``.
+Durability: with ``checkpoint_dir=`` (and optionally ``checkpoint_every=N``
+steps) the system writes versioned on-disk checkpoints — control-plane
+journal + the backend's full ``dump_state`` — and
+:meth:`StreamSystem.restore` rebuilds the whole system from the newest
+valid one: replay the journal, redeploy every segment (on the checkpointed
+backend, another one, or another device), re-pause, and resume stepping
+with trajectories identical to an uninterrupted run. The payload is the
+reference's, so checkpoints cross between the packages.
+
+The port's copy of ``repro.runtime.system``, trimmed to the stream path:
+no concurrent stepping, worker-process or cluster plane, and no telemetry
+plane. The data plane runs on the card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Set, Union
 
 from repro_torch.core import MergeStrategy, ReuseManager
-from repro_torch.core.defrag import FusionPlan, FusionReport, canonical_parents, plan_fusion, score_fusion_plan
+from repro_torch.core.defrag import (
+    FusionPlan,
+    FusionReport,
+    canonical_parents,
+    plan_defrag,
+    plan_fusion,
+    score_fusion_plan,
+)
 from repro_torch.core.graph import Dataflow
 from repro_torch.core.manager import RemovalReceipt, SubmissionReceipt
 
 from .backend import ExecutionBackend, SegmentSpec, StepReport, compute_batches, resolve_backend
+from .checkpoint import BackgroundCheckpointWriter, CheckpointStore, deferred_encoder
+
+# The reference's name for stepping segments one after another in launch
+# order, the only mode the port has.
+SYNC = "sync"
+
+
+def _check_step_mode(step_mode: Optional[str]) -> None:
+    if step_mode not in (None, SYNC):
+        raise NotImplementedError(
+            f"step_mode {step_mode!r}: the port steps segments in launch order only ({SYNC!r})"
+        )
 
 
 class StreamSystem:
@@ -39,7 +72,14 @@ class StreamSystem:
         journal_path: Optional[str] = None,
         backend: Union[str, ExecutionBackend] = "torch",
         device: Optional[Any] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_keep_last: Optional[int] = None,
+        checkpoint_background: bool = False,
+        step_mode: Optional[str] = None,
+        report_history: Optional[int] = None,
     ):
+        _check_step_mode(step_mode)
         self.manager = ReuseManager(
             strategy=strategy, check_invariants=check_invariants, journal_path=journal_path
         )
@@ -49,6 +89,10 @@ class StreamSystem:
                 "already has its device"
             )
         self.backend = resolve_backend(backend, **({} if device is None else {"device": device}))
+        if report_history is not None:
+            if report_history < 1:
+                raise ValueError("report_history must be >= 1")
+            self.backend.history_limit = report_history
         self.base_batch = base_batch
         self.task_batch: Dict[str, int] = {}  # running task id -> output batch size
         self._seg_counter = 0
@@ -56,6 +100,25 @@ class StreamSystem:
         # Last fusion planner verdicts (every accept/reject with reasons) —
         # refreshed by each fuse() call.
         self.fusion_report: Optional[FusionReport] = None
+        if checkpoint_every and not checkpoint_dir:
+            raise ValueError("checkpoint_every needs a checkpoint_dir")
+        if checkpoint_keep_last and not checkpoint_dir:
+            raise ValueError("checkpoint_keep_last needs a checkpoint_dir")
+        if checkpoint_background and not checkpoint_dir:
+            raise ValueError("checkpoint_background needs a checkpoint_dir")
+        self.checkpoint_keep_last = checkpoint_keep_last
+        self.checkpoint_store = (
+            CheckpointStore(checkpoint_dir, keep_last=checkpoint_keep_last)
+            if checkpoint_dir
+            else None
+        )
+        self.checkpoint_every = checkpoint_every
+        # Background checkpointing: the auto-cadence snapshots on the
+        # stepping thread (reference capture) and copies to the host,
+        # encodes, fsyncs and renames on a writer thread, so
+        # checkpoint_every=1 does not pause stepping.
+        self.checkpoint_background = bool(checkpoint_background)
+        self._ckpt_writer: Optional[BackgroundCheckpointWriter] = None
 
     @property
     def reuses(self) -> bool:
@@ -126,6 +189,51 @@ class StreamSystem:
         for tid in receipt.terminated_tasks:
             self.task_batch.pop(tid, None)
         return receipt
+
+    def defragment(self) -> int:
+        """Relaunch one fused segment per running DAG; returns segments killed.
+
+        The relaunched segments are built as fused ones, so the peephole
+        puts their straight-line runs on the multi-op kernels, as
+        :meth:`fuse` does (the reference's jit plane fuses such a segment
+        whole when it compiles it)."""
+        plan = plan_defrag(self.manager.running)
+        killed = len(self.backend.segments)
+        # Carry live task states across the relaunch (beyond-paper:
+        # state-preserving defrag — Storm would restart cold).
+        carried: Dict[str, Any] = {}
+        live: Set[str] = set()
+        for fused in plan.fused:
+            live |= set(fused.order)
+        for seg in list(self.backend.segments.values()):
+            for tid in seg.spec.task_ids:
+                if tid in live:
+                    carried[tid] = seg.states[tid]
+        for seg_name in list(self.backend.segments):
+            self.backend.kill(seg_name)
+        for fused in plan.fused:
+            run_df = self.manager.running[fused.dag_name]
+            spec = SegmentSpec(
+                name=self._mint_segment(),
+                dag_name=fused.dag_name,
+                task_ids=fused.order,
+                parents=fused.parents,
+                publish=set(),
+                batch_of={t: self.task_batch[t] for t in fused.order},
+                fused=True,
+            )
+            self.backend.deploy(
+                spec, run_df, init_states={t: carried[t] for t in fused.order if t in carried}
+            )
+        # Dropped paused tasks are no longer deployed anywhere — their batch
+        # entries go with them.
+        self.task_batch = {t: b for t, b in self.task_batch.items() if t in live}
+        # Segment ownership bookkeeping: after defrag, segments are shared —
+        # submissions no longer own segments (only meaningful for Default,
+        # which never defragments).
+        for sub in self._segments_of:
+            self._segments_of[sub] = []
+        return killed
 
     def _score_fusion(self, plan: FusionPlan, overhead_ms: float) -> FusionReport:
         """Score a fusion plan with the latency model fit on this backend's
@@ -220,10 +328,202 @@ class StreamSystem:
 
     # -- execution -----------------------------------------------------------------
     def step(self) -> StepReport:
-        return self.backend.step()
+        report = self.backend.step()
+        if (
+            self.checkpoint_every
+            and self.checkpoint_store is not None
+            and self.backend.step_count % self.checkpoint_every == 0
+        ):
+            if self.checkpoint_background:
+                self._checkpoint_async()
+            else:
+                self.checkpoint()
+        return report
 
     def run(self, steps: int) -> List[StepReport]:
+        # Route through step() so the auto-checkpoint cadence applies.
         return [self.step() for _ in range(steps)]
+
+    # -- durability (full-system checkpoint/restore) --------------------------------
+    def checkpoint_payload(self, state_encoder: Optional[Any] = None) -> Dict[str, Any]:
+        """The full durable state: control-plane journal + data-plane dump.
+
+        Deterministic for a given system state (no wall-clock stamps — the
+        envelope written by :class:`CheckpointStore` carries those), which
+        is what makes ``payload → restore → payload`` a fixed point. The
+        keys are the reference's; ``step_mode`` is always ``"sync"`` and
+        ``max_workers`` always ``None`` here. ``state_encoder`` is forwarded
+        to the backend dump — the background checkpointer passes the
+        deferring marker encoder."""
+        return {
+            "backend": self.backend.name or type(self.backend).__name__,
+            "backend_config": self.backend.spawn_config(),
+            "strategy": self.manager.strategy,
+            "journal": list(self.manager.journal),
+            "base_batch": int(self.base_batch),
+            "seg_counter": int(self._seg_counter),
+            "task_batch": {t: int(b) for t, b in self.task_batch.items()},
+            "segments_of": {n: list(segs) for n, segs in self._segments_of.items()},
+            "checkpoint_every": self.checkpoint_every,
+            "checkpoint_keep_last": self.checkpoint_keep_last,
+            "checkpoint_background": self.checkpoint_background,
+            "step_mode": SYNC,
+            "max_workers": None,
+            "data": self.backend.dump_state(state_encoder),
+        }
+
+    def _checkpoint_async(self) -> None:
+        """Queue a snapshot for the writer thread (auto-cadence path)."""
+        if self._ckpt_writer is None:
+            self._ckpt_writer = BackgroundCheckpointWriter(self.checkpoint_store)
+        self._ckpt_writer.submit(self.checkpoint_payload(deferred_encoder))
+
+    def flush_checkpoints(self) -> None:
+        """Block until queued background checkpoints are durably on disk."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.flush()
+
+    def checkpoint(self, checkpoint_dir: Optional[str] = None) -> str:
+        """Write one durable checkpoint synchronously; returns its path.
+
+        Queued background checkpoints are flushed first so ids on disk
+        stay chronological."""
+        store = (
+            CheckpointStore(checkpoint_dir, keep_last=self.checkpoint_keep_last)
+            if checkpoint_dir
+            else self.checkpoint_store
+        )
+        if store is None:
+            raise ValueError(
+                "no checkpoint_dir configured — pass one to checkpoint() or the constructor"
+            )
+        self.flush_checkpoints()
+        return store.save(self.checkpoint_payload())
+
+    @classmethod
+    def from_payload(
+        cls,
+        payload: Dict[str, Any],
+        backend: Optional[Union[str, ExecutionBackend]] = None,
+        device: Optional[Any] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_keep_last: Optional[int] = None,
+        checkpoint_background: Optional[bool] = None,
+        step_mode: Optional[str] = None,
+        journal_path: Optional[str] = None,
+        check_invariants: bool = False,
+    ) -> "StreamSystem":
+        """Reconstruct a full system from a checkpoint payload.
+
+        Replays the control-plane journal (minting the exact same running
+        task ids and DAG names), then redeploys every checkpointed segment
+        on the target backend — by default the checkpointed one, or any
+        other registered backend for a cross-backend restore. A payload of
+        the reference's names its backend (``"inprocess"``) and restores
+        here with ``backend="torch"``; its ``backend_config`` applies only
+        when the names match, and its ``max_workers`` is ignored.
+        ``device`` places a torch backend (the card by default)."""
+        _check_step_mode(step_mode)
+        _check_step_mode(payload.get("step_mode"))
+        mgr = ReuseManager.replay(
+            payload["journal"],
+            strategy=payload["strategy"],
+            journal_path=journal_path,
+        )
+        mgr.check_invariants = check_invariants
+        target = backend if backend is not None else payload["backend"]
+        options: Dict[str, Any] = {}
+        if isinstance(target, str) and target == payload.get("backend"):
+            options.update(payload.get("backend_config") or {})
+        if device is not None:
+            options["device"] = device
+        if options and isinstance(target, ExecutionBackend):
+            raise ValueError("device= needs a backend name: a backend instance already has its device")
+        system = cls(
+            strategy=payload["strategy"],
+            base_batch=int(payload["base_batch"]),
+            backend=resolve_backend(target, **options),
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_background=(
+                checkpoint_background
+                if checkpoint_background is not None
+                else (bool(payload.get("checkpoint_background", False)) and bool(checkpoint_dir))
+            ),
+        )
+        # The cadence/retention survive the restore even when no
+        # checkpoint_dir is configured yet (step() only auto-checkpoints
+        # once a store exists), so payload → restore → payload stays a
+        # fixed point.
+        system.checkpoint_every = (
+            checkpoint_every if checkpoint_every is not None else payload.get("checkpoint_every")
+        )
+        system.checkpoint_keep_last = (
+            checkpoint_keep_last
+            if checkpoint_keep_last is not None
+            else payload.get("checkpoint_keep_last")
+        )
+        if system.checkpoint_store is not None:
+            system.checkpoint_store.keep_last = system.checkpoint_keep_last
+        system.manager = mgr
+        system.task_batch = {t: int(b) for t, b in payload["task_batch"].items()}
+        system._seg_counter = int(payload["seg_counter"])
+        system._segments_of = {n: list(s) for n, s in payload["segments_of"].items()}
+        system.backend.restore_state(payload["data"])
+        if check_invariants:
+            system.manager.verify()
+        return system
+
+    @classmethod
+    def restore(
+        cls,
+        path: str,
+        backend: Optional[Union[str, ExecutionBackend]] = None,
+        device: Optional[Any] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_keep_last: Optional[int] = None,
+        checkpoint_background: Optional[bool] = None,
+        step_mode: Optional[str] = None,
+        journal_path: Optional[str] = None,
+        check_invariants: bool = False,
+    ) -> "StreamSystem":
+        """Restore from ``path`` — a checkpoint directory (newest valid
+        checkpoint wins; torn last checkpoints are skipped) or one concrete
+        ``ckpt-*.json`` file. The restored system keeps checkpointing into
+        the same directory unless ``checkpoint_dir`` says otherwise."""
+        if os.path.isdir(path):
+            payload = CheckpointStore(path).latest_payload()
+            default_dir = path
+        else:
+            default_dir = os.path.dirname(path) or "."
+            payload = CheckpointStore(default_dir).load(path)["payload"]
+        return cls.from_payload(
+            payload,
+            backend=backend,
+            device=device,
+            checkpoint_dir=checkpoint_dir or default_dir,
+            checkpoint_every=checkpoint_every,
+            checkpoint_keep_last=checkpoint_keep_last,
+            checkpoint_background=checkpoint_background,
+            step_mode=step_mode,
+            journal_path=journal_path,
+            check_invariants=check_invariants,
+        )
+
+    def quiesce(self) -> None:
+        """Block until queued background checkpoints are durably on disk,
+        releasing nothing (the port steps on the caller's thread, so there
+        is no dispatch in flight to drain)."""
+        self.flush_checkpoints()
+
+    def close(self) -> None:
+        """Flush and stop the background checkpoint writer. Idempotent; the
+        system stays usable (a later background checkpoint starts a new
+        writer)."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.close()
+            self._ckpt_writer = None
 
     # -- observability ----------------------------------------------------------------
     def sink_digests(self, sub_name: str) -> Dict[str, Dict[str, Any]]:

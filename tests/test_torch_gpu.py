@@ -649,3 +649,132 @@ def test_nemotron_width_cut_on_the_card_matches_cpu(cuda):
     assert caches["cuda"]["len"] == 64
     counts = launch_counts()
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+
+
+# -- K5/K6 at head dims the kernels are not built for ------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [24, 96])
+def test_cuda_attention_at_unbuilt_head_dims(cuda, dtype, hd):
+    # zero-padded to the next built head dim (32, 128), scaled by the true one
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(hd)
+    q = _randn(g, (2, 200, 8, hd), cuda, dtype)
+    k, v = _randn(g, (2, 200, 2, hd), cuda, dtype), _randn(g, (2, 200, 2, hd), cuda, dtype)
+    reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=0)
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v).float(),
+                               **_tol(dtype, ATTN_BF16_TOL))
+    kc = _randn(g, (2, 2, 300, 2, hd), cuda, dtype)[1]
+    vc = _randn(g, (2, 2, 300, 2, hd), cuda, dtype)[1]
+    got = decode_attention.decode_attention(q[:, :1], kc, vc, 257)
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q[:, :1], kc, vc, 257).float(),
+                               **_tol(dtype, ATTN_BF16_TOL))
+    counts = launch_counts()
+    assert counts["flash_attention"] == counts["decode_attention"] == 1
+
+
+# -- the session's checkpoints on the card -------------------------------------------------
+
+CPU_RTOL = 1e-4  # card vs CPU checksums (chip_smoke.py): reduction order, sin/log1p ulps
+
+
+def _stream_system(device, **kw):
+    from repro_torch.runtime.system import StreamSystem
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    system = StreamSystem(base_batch=256, device=device, **kw)
+    for df in riot_workload() + kernel_flows():
+        system.submit(df)
+    return system
+
+
+def _digests(system):
+    return {n: system.sink_digests(n) for n in sorted(system.manager.submitted)}
+
+
+def _assert_close_digests(got, want, rel=CPU_RTOL):
+    assert got.keys() == want.keys()
+    for sub, sinks in want.items():
+        for sink, dg in sinks.items():
+            assert got[sub][sink]["count"] == dg["count"], (sub, sink)
+            assert got[sub][sink]["checksum"] == pytest.approx(dg["checksum"], rel=rel), (sub, sink)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trips_bit_exact(cuda):
+    from repro_torch.runtime.system import StreamSystem
+
+    system = _stream_system(cuda)
+    system.run(2)
+    system.fuse()
+    system.run(1)
+    payload = system.checkpoint_payload()
+    restored = StreamSystem.from_payload(payload, device=cuda)
+    assert restored.checkpoint_payload() == payload
+    assert restored.backend.template_fallbacks == 0
+    system.run(2)
+    restored.run(2)
+    assert _digests(restored) == _digests(system)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoints_restore_across_devices(cuda):
+    from repro_torch.runtime.system import StreamSystem
+
+    for src, dst in ((cuda, "cpu"), ("cpu", cuda)):
+        system = _stream_system(src)
+        system.run(2)
+        system.fuse()
+        restored = StreamSystem.from_payload(system.checkpoint_payload(), device=dst)
+        assert restored.backend.template_fallbacks == 0
+        system.run(2)
+        restored.run(2)
+        _assert_close_digests(_digests(restored), _digests(system))
+
+
+@pytest.mark.gpu
+def test_cuda_defragment_after_fuse_keeps_fused_equal_unfused(cuda):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    def run(fuse):
+        system = _stream_system(cuda)
+        system.run(2)
+        if fuse:
+            system.fuse()
+        system.run(1)
+        system.remove("urban_etl")
+        system.defragment()
+        system.run(2)
+        return _digests(system)
+
+    reset_launch_counts()
+    fused = run(True)
+    assert launch_counts()["map_chain"] > 0 and launch_counts()["affine_rmsnorm"] > 0
+    assert fused == run(False)
+
+
+@pytest.mark.gpu
+def test_cuda_background_checkpoints_hold_the_state_of_their_step(cuda, tmp_path):
+    # the writer copies each step's state to the host after that step ran,
+    # while later steps go on; every checkpoint restores to its step's digests
+    from repro_torch.runtime.checkpoint import CheckpointStore
+    from repro_torch.runtime.system import StreamSystem
+
+    system = _stream_system(cuda, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+                            checkpoint_background=True)
+    at_step = {}
+    for _ in range(5):
+        system.step()
+        at_step[system.backend.step_count] = _digests(system)
+    system.close()
+    store = CheckpointStore(str(tmp_path))
+    assert store.list_ids() == [1, 2, 3, 4, 5]
+    for cid in store.list_ids():
+        restored = StreamSystem.restore(store.path_of(cid), device=cuda)
+        assert restored.backend.step_count == cid
+        assert _digests(restored) == at_step[cid]

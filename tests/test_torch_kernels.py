@@ -181,3 +181,61 @@ def test_build_is_lazy_and_keyed_by_source():
         "ssd.cu",
     ]
     assert len(build._digest()) == 16
+
+
+# -- K5/K6 at head dims the kernels are not built for ------------------------------------
+
+
+def _attn_pair(g, shape, dtype):
+    x = g.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(x).astype(jnp.dtype(dtype)), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [24, 96])
+def test_attention_plain_at_unbuilt_head_dims_matches_pallas(hd, dtype):
+    """The plain versions at head dims 24 and 96 against the Pallas kernels
+    in interpret mode, and the padded route the CUDA wrappers take (zero
+    columns up to the next built head dim, the true head dim's scale, the
+    padding sliced off) computes the same function."""
+    from repro.kernels.decode_attention import decode_attention as pallas_decode
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+    from repro_torch.kernels.flash_attention import pad_head_dim, padded_head_dim
+
+    g = np.random.default_rng(hd)
+    b, s, h, kv = 1, 96, 4, 2
+    qj, qt = _attn_pair(g, (b, s, h, hd), dtype)
+    kj, kt = _attn_pair(g, (b, s, kv, hd), dtype)
+    vj, vt = _attn_pair(g, (b, s, kv, hd), dtype)
+    width = padded_head_dim(hd)
+    assert width == {24: 32, 96: 128}[hd]
+    qp, kp, vp = pad_head_dim((qt, kt, vt), width)
+    assert qp.shape[-1] == width and not qp[..., hd:].any()
+
+    got = ref.flash_attention_ref(qt, kt, vt, causal=True)
+    pal = pallas_flash(qj, jnp.repeat(kj, h // kv, axis=2), jnp.repeat(vj, h // kv, axis=2),
+                       causal=True, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pal), **_tol(dtype))
+    padded = ref.flash_attention_ref(qp, kp, vp, causal=True, scale=hd ** -0.5)
+    np.testing.assert_allclose(_np(padded[..., :hd]), _np(got), **_tol(dtype))
+    assert not padded[..., hd:].any()
+
+    clen = 70
+    got = ref.decode_attention_ref(qt[:, :1], kt, vt, clen)
+    pal = pallas_decode(qj[:, :1], kj, vj, jnp.asarray(clen, jnp.int32), block_s=64,
+                        interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pal), **_tol(dtype))
+    padded = ref.decode_attention_ref(qp[:, :1], kp, vp, clen, scale=hd ** -0.5)
+    np.testing.assert_allclose(_np(padded[..., :hd]), _np(got), **_tol(dtype))
+
+
+def test_built_head_dims_take_no_padding_copy():
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, pad_head_dim, padded_head_dim
+
+    for hd in HEAD_DIMS:
+        assert padded_head_dim(hd) == hd
+        ts = tuple(torch.zeros((1, 2, 1, hd)) for _ in range(3))
+        assert all(a is b for a, b in zip(pad_head_dim(ts, hd), ts))
+    assert [padded_head_dim(hd) for hd in (1, 17, 65, 81, 129, 191)] == [16, 32, 80, 128, 192, 192]
+    with pytest.raises(ValueError, match="above 192"):
+        padded_head_dim(193)
