@@ -31,7 +31,12 @@ Phases, each fatal on failure:
      3 steps, remove three dataflows, 2 steps — with launch counts reset
      just before and read just after; sink counts exact; digests bitwise
      equal to an unfused run; counts equal to a CPU run at base_batch=1024
-     and checksums within CPU_RTOL;
+     and checksums within CPU_RTOL; every segment steps through CUDA graphs
+     after its first, eager step, and the fused script run again with
+     ``TorchBackend(capture=False)`` gives bitwise the same digests and the
+     same kernel launch counts; graphs captured, capture ms per graph, host
+     launch calls and card operations per steady step (torch.profiler, one
+     step each) and the step walls of both are printed;
      then the session: ``ReuseSession(execute=True, backend="torch",
      base_batch=16384)`` takes the same flows through submit_many — 3
      steps, fuse(), 2 steps, checkpoint(), defragment(), 2 steps, remove
@@ -45,7 +50,8 @@ Phases, each fatal on failure:
      checkpointed and restored at its middle event, with per-submission
      sink counts equal to the ``dryrun`` backend's after every event and
      peaks of 471 submitted and 277 running tasks; the step walls,
-     checkpoint bytes, write and restore ms and rw1's wall time printed;
+     checkpoint bytes, write and restore ms and rw1's wall time printed,
+     with the graphs captured and their capture ms;
   4. the dense serving path at full width: qwen3-4b (36 layers, bf16,
      random weights drawn on the card from a seeded generator) through
      ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
@@ -730,12 +736,14 @@ def head_dim_checks(dev, gen, h, kv, hd):
 
 # -- phase 3: the main path ------------------------------------------------------------
 
-def run_script(base_batch, device, fuse):
-    """The stream path's script; returns (digests, per-step wall ms, system)."""
+def run_script(base_batch, device, fuse, capture=True):
+    """The stream path's script; returns (digests, per-step wall ms, system).
+    ``capture=False`` steps eagerly on the card (no CUDA graphs)."""
+    from repro_torch.runtime.executor import TorchBackend
     from repro_torch.runtime.system import StreamSystem
     from repro_torch.workloads import kernel_flows, riot_workload
 
-    system = StreamSystem(backend="torch", base_batch=base_batch, device=device)
+    system = StreamSystem(backend=TorchBackend(device, capture=capture), base_batch=base_batch)
     flows = riot_workload() + kernel_flows()
     for df in flows:
         system.submit(df)
@@ -749,6 +757,53 @@ def run_script(base_batch, device, fuse):
     walls += [r.wall_ms for r in system.run(2)]
     digests = {df.name: system.sink_digests(df.name) for df in flows if df.name not in REMOVED}
     return digests, walls, system
+
+
+# host calls that put work on the card: kernel launches, graph launches,
+# and the copies and fills torch issues as their own calls
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def step_launches(system):
+    """One more step of ``system`` under torch.profiler: (host launch calls,
+    of them graph launches, operations the card ran: kernels, copies and
+    fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        system.step()
+    calls = graphs = on_card = 0
+    for ev in prof.events():
+        if "CUDA" in str(ev.device_type):
+            on_card += 1
+        elif ev.name in LAUNCH_CALLS:
+            calls += 1
+            graphs += ev.name == "cudaGraphLaunch"
+    return calls, graphs, on_card
+
+
+def capture_line(label, backend, steps):
+    """The captured steps of ``backend`` over ``steps`` steps, as one line."""
+    import torch
+
+    st = backend.capture_stats
+    ms = st.capture_ms
+    per = (f"capture ms per graph median {statistics.median(ms):.3f} (min {min(ms):.3f}, max "
+           f"{max(ms):.3f}, total {sum(ms):.1f})") if ms else "no capture"
+    return (f"{label}: {st.graphs} graphs captured, {per}, {st.eager_steps} eager warm-up "
+            f"segment steps, {st.replays} graph replays ({st.replays / max(steps, 1):.1f} a step), "
+            f"{st.input_copies / max(steps, 1):.1f} input copies a step, graph pools "
+            f"{st.pool_bytes / 2**20:.1f} MiB, memory_reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+
+def verdicts(system):
+    report = system.fusion_report.to_dict()
+    return sorted((tuple(d["members"]), d["accepted"]) for d in
+                  report["accepted"] + report["rejected"])
 
 
 def main_path_phase(dev):
@@ -768,6 +823,39 @@ def main_path_phase(dev):
     for name in ("rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name, seg in system.backend.segments.items():
+        if not seg.graphs.graphs:
+            raise AssertionError(f"segment {name} never stepped through a CUDA graph")
+    log(capture_line("captured run", system.backend, len(walls)))
+    captured_launches = step_launches(system)
+    captured_verdicts = verdicts(system)
+    del system
+
+    # the same script stepped eagerly (capture=False) on the same card
+    reset_launch_counts()
+    eager_digests, eager_walls, eager = run_script(MAIN_BATCH, dev, fuse=True, capture=False)
+    eager_counts = launch_counts()
+    if eager_digests != fused_digests:
+        bad = [s for s in fused_digests if fused_digests[s] != eager_digests.get(s)]
+        raise AssertionError(f"captured digests differ from the eager step's for {bad}")
+    log("captured == eager (capture=False) sink digests (bitwise)")
+    eager_verdicts = verdicts(eager)
+    log(f"fusion verdicts (chain, accepted): captured {captured_verdicts}; eager "
+        f"{'the same' if eager_verdicts == captured_verdicts else eager_verdicts}")
+    if eager_counts == launches:
+        log(f"kernel launches counted under capture (replays included) equal the eager run's: "
+            f"{eager_counts}")
+    elif eager_verdicts == captured_verdicts:
+        raise AssertionError(f"kernel launches counted under capture {launches} != eager "
+                             f"{eager_counts}")
+    else:
+        log(f"kernel launches differ with the fusion verdicts: eager {eager_counts}")
+    eager_launches = step_launches(eager)
+    del eager
+    for label, (calls, graphs, on_card) in (("captured", captured_launches),
+                                            ("eager", eager_launches)):
+        log(f"launches per steady step, {label}: {calls} host launch calls ({graphs} graph "
+            f"launches), {on_card} operations on the card")
     for sub, sinks in fused_digests.items():
         for sink, dg in sinks.items():
             if dg["count"] != 8:
@@ -800,10 +888,11 @@ def main_path_phase(dev):
     # steps 1-3 before fusion, 4-6 fused, 7-8 after the removals; step 1
     # includes first-launch costs (cuBLAS handle, allocator growth)
     log(f"step wall ms, fused run: {[round(w, 3) for w in walls]}")
+    log(f"step wall ms, fused run, eager: {[round(w, 3) for w in eager_walls]}")
     log(f"step wall ms, unfused run: {[round(w, 3) for w in unfused_walls]}")
     log(f"median step wall ms at base_batch={MAIN_BATCH}: fused steps 4-8 "
-        f"{statistics.median(walls[3:]):.3f}, unfused steps 4-8 "
-        f"{statistics.median(unfused_walls[3:]):.3f}")
+        f"{statistics.median(walls[3:]):.3f}, eager {statistics.median(eager_walls[3:]):.3f}, "
+        f"unfused steps 4-8 {statistics.median(unfused_walls[3:]):.3f}")
     steps = len(walls)
     return {name: n for name, n in launches.items()}, steps
 
@@ -891,6 +980,7 @@ def session_phase(dev, card):
 
     from repro_torch.api import ReuseSession
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.runtime.executor import TorchBackend
     from repro_torch.workloads import opmw_workload, rw_trace
 
     t_phase = time.perf_counter()
@@ -902,7 +992,8 @@ def session_phase(dev, card):
         hooks = {f"on_{k}": (lambda ev, k=k: fired.__setitem__(k, fired[k] + 1)) for k in fired}
         ckpt_dir = os.path.join(tmp, "card")
         reset_launch_counts()
-        session = ReuseSession(execute=True, backend="torch", base_batch=MAIN_BATCH,
+        backend = TorchBackend(dev)
+        session = ReuseSession(execute=True, backend=backend, base_batch=MAIN_BATCH,
                                checkpoint_dir=ckpt_dir, **hooks)
         walls = session_head(session)
         torch.cuda.synchronize()
@@ -927,6 +1018,11 @@ def session_phase(dev, card):
             f"after defragment(), hooks fired {fired}; launches {launches}")
         log(f"session step wall ms at base_batch={MAIN_BATCH}: {[round(w, 3) for w in walls]}; "
             f"median {statistics.median(walls):.3f} ({card})")
+        for name, seg in backend.segments.items():
+            if not seg.graphs.graphs:
+                raise AssertionError(f"session segment {name} never stepped through a CUDA graph")
+        log(capture_line("session", backend, len(walls)))
+        del session, backend
 
         t0 = time.perf_counter()
         restored = ReuseSession.restore(ckpt_dir, device=dev)
@@ -962,11 +1058,12 @@ def session_phase(dev, card):
         rw_dir = os.path.join(tmp, "rw1")
         t0 = time.perf_counter()
         card_trail = []
-        rw = ReuseSession(execute=True, backend="torch", base_batch=MAIN_BATCH,
+        backends = [TorchBackend(dev), TorchBackend(dev)]
+        rw = ReuseSession(execute=True, backend=backends[0], base_batch=MAIN_BATCH,
                           checkpoint_dir=rw_dir)
         head_peaks = rw1_replay(rw, dags, events[:mid], card_trail)
         rw.checkpoint()
-        rw = ReuseSession.restore(rw_dir, device=dev)
+        rw = ReuseSession.restore(rw_dir, backend=backends[1])
         tail_peaks = rw1_replay(rw, dags, events[mid:], card_trail)
         torch.cuda.synchronize()
         rw_s = time.perf_counter() - t0
@@ -979,6 +1076,9 @@ def session_phase(dev, card):
         log(f"OPMW rw1 on the card at base_batch={MAIN_BATCH}: {len(events)} events and steps, "
             f"restored at event {mid}, {rw_s:.2f} s; per-submission sink counts equal dryrun's "
             f"after every event; peak submitted -> running tasks {peaks[0]} -> {peaks[1]} ({card})")
+        log(capture_line(f"rw1 events 1-{mid}", backends[0], mid))
+        log(capture_line(f"rw1 events {mid + 1}-{len(events)}, restored", backends[1],
+                         len(events) - mid))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"session phase: {time.perf_counter() - t_phase:.1f} s ({card})")

@@ -14,9 +14,14 @@ compiler.
 
 This module also keeps the launch counts: each wrapper calls
 :func:`count_launch` right where it launches its kernel, and nowhere else.
+A CUDA graph runs its kernels without calling their wrappers, so a capture
+takes back what its wrapper calls counted (:func:`recording_launches`) and
+each replay adds them again (:func:`add_launches`): the counts stay the
+launches the card ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +29,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 DEFAULT_BUILD_DIR = os.path.abspath(
@@ -91,6 +96,29 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Launches counted inside the block, taken back out of the counts on
+    exit and left in the yielded dict: a CUDA-graph capture records kernel
+    launches without running them."""
+    before = dict(_launches)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, n in before.items():
+            if _launches[name] != n:
+                recorded[name] = _launches[name] - n
+            _launches[name] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count launches the card ran without a wrapper call: a replay of the
+    launches :func:`recording_launches` recorded."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 def sources() -> List[str]:

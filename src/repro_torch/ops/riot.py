@@ -175,7 +175,7 @@ def bloom_filter(cfg: Dict[str, Any], device: torch.device) -> Operator:
         for s in salts:
             idx = _bucket(_hash_channel(x, s), m)
             seen = seen & (state[idx] > 0)
-            new[idx] = 1
+            new.index_fill_(0, idx, 1)  # a scalar fill: no host copy inside a CUDA graph
         # mark duplicate events invalid (flag *= not-seen)
         return new, _with(x, FLAG, x[:, FLAG] * (~seen).to(x.dtype))
 
@@ -347,7 +347,7 @@ def distinct_count(cfg: Dict[str, Any], device: torch.device) -> Operator:
     def apply(state, x):
         idx = _bucket(_hash_channel(x, 7), m)
         bits = state.clone()
-        bits[idx] = 1
+        bits.index_fill_(0, idx, 1)
         zeros = (m - bits.sum(dtype=torch.int32)).to(torch.float32)
         est = -float(m) * torch.log(torch.clamp(zeros, min=1.0) / float(m))
         return bits, _with(x, 5, est)

@@ -328,9 +328,9 @@ class ExecutionBackend:
         ``state_encoder`` overrides how state leaves are serialized — the
         background checkpointer passes a deferring marker so the cheap
         snapshot happens on the stepping thread and the host copy and
-        base64 encoding on the writer thread (states are replaced wholesale
-        each step, never written in place, so captured references stay
-        consistent).
+        base64 encoding on the writer thread. A backend whose steps write
+        states in place (the torch backend on the card) hands the marker a
+        copy of each leaf.
         """
         self._state_encoder = encode_pytree if state_encoder is None else state_encoder
         try:
@@ -435,10 +435,13 @@ class ExecutionBackend:
         """Consume :meth:`_dump_extra` output; unknown keys must be ignored."""
 
     def compile_cache_stats(self) -> Dict[str, int]:
-        """Counters of a compiled-segment cache, in the reference's four
-        keys. The port's segments run eagerly and have no cache yet, so
-        every counter reads 0."""
-        return {"hits": 0, "misses": 0, "evictions": 0, "entries": 0}
+        """Hit/miss/evict counters of the segment-step reuse cache, in the
+        reference's four keys: the torch backend's ``compile_cache``; zeros
+        for a backend without one (dryrun)."""
+        cache = getattr(self, "compile_cache", None)
+        if cache is None:
+            return {"hits": 0, "misses": 0, "evictions": 0, "entries": 0}
+        return cache.stats()
 
     # -- latency samples (fusion planner feed) --------------------------------------
     def latency_samples(self) -> List[Tuple[Dict[str, float], float]]:

@@ -132,8 +132,9 @@ class DeferredState:
 
     The background checkpointer snapshots on the stepping thread by
     wrapping each segment's state values in this marker — a reference
-    capture, safe because backends replace state pytrees wholesale every
-    step and never write into a state tensor — and the writer thread later
+    capture, safe because a backend either replaces its state pytrees
+    wholesale every step or, where it writes them in place (the torch
+    backend on the card), wraps a copy — and the writer thread later
     materializes them with :func:`encode_deferred`. ``ready`` (a CUDA
     event recorded on the stepping stream at capture, or ``None``) orders
     the writer's copy to the host after the step that produced the values.

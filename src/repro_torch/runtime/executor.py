@@ -6,10 +6,16 @@ order is a valid topological order of the segment graph. Task states and
 streams are torch tensors on the backend's device; the operators launch
 the port's CUDA kernels when that device is the card.
 
-The port of ``repro.runtime.executor.InProcessJitBackend``: PyTorch runs
-eagerly, so a segment has no compile step, and the step ends by waiting
-for the card's stream, where the reference calls ``jax.block_until_ready``,
-so that ``segment_ms`` measures compute rather than enqueueing.
+The port of ``repro.runtime.executor.InProcessJitBackend``. Where the
+reference compiles each segment's step into one XLA executable through
+its :class:`~repro_torch.runtime.compile_cache.CompileCache`, the port
+shares the canonical step through the same cache and, on the card,
+replays each segment's step as CUDA graphs with its states updated in
+place (:mod:`repro_torch.runtime.graphs`). ``capture=False`` keeps the
+eager step on the card, against which the tests hold the captured one. The
+step ends by waiting for the card's stream, where the reference calls
+``jax.block_until_ready``, so that ``segment_ms`` measures compute rather
+than enqueueing.
 
 Checkpoints carry no device: decoded states become tensors on this
 backend's device, so a checkpoint taken on the card restores on the CPU,
@@ -18,7 +24,6 @@ backend restore here (and this backend's there).
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -29,6 +34,8 @@ from repro_torch.core.graph import Dataflow
 from .backend import ExecutionBackend, PyTree, SegmentSpec
 from .broker import Broker, topic_for
 from .checkpoint import decode_pytree
+from .compile_cache import CompileCache
+from .graphs import CapturedStep, CaptureStats, map_leaves
 from .segment import Segment, build_segment
 
 
@@ -47,14 +54,23 @@ def resolve_device(device: Optional[Any]) -> torch.device:
 
 class TorchBackend(ExecutionBackend):
     """Segments of torch operators, broker topics between them, task states
-    on ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    on ``device`` (the card unless the caller passes ``device="cpu"``).
+
+    On the card each segment steps through CUDA graphs after its first,
+    eager step, unless ``capture=False``; on the CPU ``capture`` has no
+    effect. Structurally identical segments share one canonical step
+    (``compile_cache``) either way."""
 
     name = "torch"
 
-    def __init__(self, device: Optional[Any] = None):
+    def __init__(self, device: Optional[Any] = None, capture: bool = True):
         super().__init__()
         self.device = resolve_device(device)
         self.broker = Broker()
+        self.compile_cache = CompileCache(self.device)
+        self.capture = bool(capture) and self.device.type == "cuda"
+        self.capture_stats = CaptureStats()
+        self._capture_stream: Optional[torch.cuda.Stream] = None
         # state leaves that a restore could not take from the checkpoint
         # and reset to the operator's template (see _conform_state)
         self.template_fallbacks = 0
@@ -65,7 +81,20 @@ class TorchBackend(ExecutionBackend):
         dataflow: Dataflow,
         init_states: Optional[Dict[str, PyTree]],
     ) -> Segment:
-        return build_segment(spec, dataflow, init_states=init_states, device=self.device)
+        seg = build_segment(
+            spec, dataflow, init_states=init_states, cache=self.compile_cache, device=self.device
+        )
+        if self.capture:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            seg.graphs = CapturedStep(self._capture_stream, self.capture_stats)
+        return seg
+
+    def kill(self, segment_name: str) -> None:
+        seg = self.segments[segment_name]
+        super().kill(segment_name)
+        if seg.graphs is not None:
+            seg.graphs.release()
 
     def _drop_streams(self, seg: Segment) -> None:
         for tid in seg.spec.task_ids:
@@ -73,11 +102,12 @@ class TorchBackend(ExecutionBackend):
 
     def _step_one(self, seg: Segment) -> None:
         inputs = {t: self.broker.fetch(t) for t in seg.boundary_topics}
-        # The step returns new state tensors and never writes into the old
-        # ones: a background checkpoint holds references to the states of
-        # the step it snapshotted (checkpoint.DeferredState).
-        new_states, outputs = seg.step_fn(seg.states, seg.active, inputs)
-        seg.states = new_states
+        if seg.graphs is not None:
+            # copies the inputs into the graph's, replays; states in place
+            outputs = seg.graphs.step(seg, inputs)
+        else:
+            new_states, outputs = seg.step_fn(seg.states, seg.active, inputs)
+            seg.states = new_states
         for tid in self.forwarding[seg.name]:
             if tid in outputs:
                 self.broker.publish(topic_for(tid), outputs[tid])
@@ -90,14 +120,21 @@ class TorchBackend(ExecutionBackend):
     # -- durability hooks ---------------------------------------------------------
     def dump_state(self, state_encoder: Optional[Callable[..., Any]] = None) -> Dict[str, Any]:
         """On the card, a deferring ``state_encoder`` (the background
-        checkpointer's) is given a CUDA event recorded now on the stepping
-        stream, which the writer thread waits on before its copy to the
-        host: the copy is ordered after the step that produced the state."""
-        if state_encoder is not None and self.device.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            state_encoder = functools.partial(state_encoder, ready=ready)
-        return super().dump_state(state_encoder)
+        checkpointer's) gets a copy of every state leaf and broker topic,
+        made on the stepping stream — later steps write states and graph
+        outputs in place — and a CUDA event recorded after those copies,
+        which the writer thread waits on before its copy to the host."""
+        if state_encoder is None or self.device.type != "cuda":
+            return super().dump_state(state_encoder)
+        ready = torch.cuda.Event()
+        defer = state_encoder
+
+        def copy_and_defer(value: Any) -> Any:
+            return defer(map_leaves(lambda t: t.clone(), value), ready=ready)
+
+        state = super().dump_state(copy_and_defer)
+        ready.record(torch.cuda.current_stream(self.device))
+        return state
 
     def _decode_init_states(
         self, spec: SegmentSpec, dataflow: Dataflow, states_enc: Dict[str, Any]

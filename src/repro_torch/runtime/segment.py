@@ -17,6 +17,12 @@ Pause (paper §4.3): each task has a host-side ``active`` flag. A paused
 task's operator is skipped and it emits zeros of its output shape, which a
 shape probe on the ``meta`` device finds when the segment is built. The
 flags are Python bools, so neither pausing nor stepping waits for the card.
+
+With a :class:`~repro_torch.runtime.compile_cache.CompileCache`, the step
+function and the operators are the canonical twin's, shared by every
+structurally identical segment. On the card the torch backend steps a
+segment through CUDA graphs of that step, with the states updated in place
+(:mod:`repro_torch.runtime.graphs`); ``Segment.graphs`` holds them.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ class Segment:
     # tail task -> the run (head .. tail) its multi-op kernel computes
     fused_runs: Dict[str, List[str]] = field(default_factory=dict)
     steps_run: int = 0
+    # the captured step on the card (runtime/graphs.py:CapturedStep), or None
+    graphs: Any = None
 
     @property
     def name(self) -> str:
@@ -67,7 +75,8 @@ def _peephole_fused_kernels(
     dataflow: Dataflow,
     operators: Dict[str, Operator],
     parents: Dict[str, List[str]],
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
 ) -> Dict[str, List[str]]:
     """Collapse straight-line elementwise runs onto the multi-op kernels.
 
@@ -147,15 +156,26 @@ def build_segment(
     spec: SegmentSpec,
     dataflow: Dataflow,
     init_states: Optional[Dict[str, PyTree]] = None,
-    device: torch.device | str = "cpu",
+    cache: Any = None,
+    *,
+    device: torch.device | str,
 ) -> Segment:
-    """Build a segment: its operators on ``device`` and one step function."""
+    """Build a segment: its operators on ``device`` and one step function.
+
+    With a ``cache`` (a :class:`repro_torch.runtime.compile_cache.CompileCache`
+    on the same device), the step function and operators are looked up by
+    the spec's structural signature: a structurally identical segment built
+    earlier shares them, and this segment steps through the cache's
+    renaming adapter.
+    """
     device = torch.device(device)
-    operators: Dict[str, Operator] = {}
-    for tid in spec.task_ids:
-        operators[tid] = operator_for_task(
-            dataflow.tasks[tid], batch=spec.batch_of[tid], device=device
-        )
+    if cache is not None:
+        if cache.device != device:
+            raise ValueError(f"the compile cache is on {cache.device}, the segment on {device}")
+        step_fn = cache.step_fn_for(spec, dataflow)
+        operators, fused_runs = step_fn.operators, step_fn.fused_runs
+    else:
+        operators, step_fn, fused_runs = _compile(spec, dataflow, device)
 
     in_segment = set(spec.task_ids)
     boundary_parents: List[str] = []
@@ -171,8 +191,27 @@ def build_segment(
             states[tid] = init_states[tid]
         else:
             states[tid] = operators[tid].init_state(spec.batch_of[tid])
-    active = {tid: True for tid in spec.task_ids}
+    return Segment(
+        spec=spec,
+        operators=operators,
+        step_fn=step_fn,
+        states=states,
+        active={tid: True for tid in spec.task_ids},
+        boundary_topics=boundary_topics,
+        cost_of={tid: operators[tid].cost_weight for tid in spec.task_ids},
+        fused_runs=fused_runs,
+    )
 
+
+def _compile(
+    spec: SegmentSpec, dataflow: Dataflow, device: torch.device
+) -> Tuple[Dict[str, Operator], Callable, Dict[str, List[str]]]:
+    """The operators of a spec's tasks, its step function and its peephole runs."""
+    operators: Dict[str, Operator] = {}
+    for tid in spec.task_ids:
+        operators[tid] = operator_for_task(
+            dataflow.tasks[tid], batch=spec.batch_of[tid], device=device
+        )
     task_ids = list(spec.task_ids)
     parents = {t: list(spec.parents[t]) for t in task_ids}
     batch_of = dict(spec.batch_of)
@@ -190,22 +229,28 @@ def build_segment(
     ):
         outputs: Dict[str, torch.Tensor] = {}  # task id -> output batch
         new_states: Dict[str, PyTree] = {}
-        for tid in task_ids:
+        for i, tid in enumerate(task_ids):
             op, st = operators[tid], states[tid]
             y: Optional[torch.Tensor] = None
-            if not active[tid]:
-                st2 = st
-                if op.is_source:
-                    y = torch.zeros((batch_of[tid], EVENT_WIDTH), dtype=torch.float32, device=device)
-                elif not op.is_sink:
-                    shape, dtype = out_shape[tid]
-                    y = torch.zeros(shape, dtype=dtype, device=device)
-            elif op.is_source:
-                st2, y = op.apply(st)
-            else:
-                xs = [outputs[p] if p in outputs else inputs[topic_for(p)] for p in parents[tid]]
-                x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
-                st2, y = op.apply(st, x)
+            try:
+                if not active[tid]:
+                    st2 = st
+                    if op.is_source:
+                        y = torch.zeros((batch_of[tid], EVENT_WIDTH), dtype=torch.float32, device=device)
+                    elif not op.is_sink:
+                        shape, dtype = out_shape[tid]
+                        y = torch.zeros(shape, dtype=dtype, device=device)
+                elif op.is_source:
+                    st2, y = op.apply(st)
+                else:
+                    xs = [outputs[p] if p in outputs else inputs[topic_for(p)] for p in parents[tid]]
+                    x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+                    st2, y = op.apply(st, x)
+            except Exception as err:
+                # the position names the task under any renaming (a cached
+                # step runs under canonical ids): graphs.py reports it
+                err.task_index = i
+                raise
             new_states[tid] = st2
             if y is not None:
                 outputs[tid] = y
@@ -213,13 +258,41 @@ def build_segment(
         # subset to the broker (runtime-switchable, no rebuild).
         return new_states, outputs
 
-    return Segment(
-        spec=spec,
-        operators=operators,
-        step_fn=step_fn,
-        states=states,
-        active=active,
-        boundary_topics=boundary_topics,
-        cost_of={tid: operators[tid].cost_weight for tid in spec.task_ids},
-        fused_runs=fused_runs,
+    return operators, step_fn, fused_runs
+
+
+def donation_report(seg: Segment, inputs: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Whether a segment's step updates its states in place, and its bytes.
+
+    The port of the reference's check of XLA buffer donation. A segment
+    stepped through CUDA graphs (:mod:`repro_torch.runtime.graphs`) writes
+    its new states into the buffers it owns: ``alias_size_in_bytes`` counts
+    those state bytes, and ``donation_holds`` is true when it is above 0.
+    The argument bytes are the static state and input buffers, the output
+    bytes the graph's outputs, the temporary bytes what the graph's private
+    memory pool reserved beyond them (``torch.cuda.memory_reserved`` around
+    the capture). A segment stepped eagerly (on the CPU, or with
+    ``capture=False``) replaces its states each step: nothing is aliased,
+    and no memory analysis is reported, as in the reference on a backend
+    without one. ``inputs`` are the segment's boundary batches; on the card
+    a pattern of ``active`` flags not captured yet is captured with them.
+    """
+    report: Dict[str, Any] = {
+        "fused": bool(seg.spec.fused),
+        "donation_holds": False,
+        "alias_size_in_bytes": 0,
+    }
+    if seg.graphs is None:
+        return report
+    mem = seg.graphs.memory(seg, inputs)
+    report.update(mem)
+    # live bytes a step allocates beyond its aliased states — the number the
+    # fused-vs-unfused roofline compares
+    report["total_allocation_size"] = (
+        mem["argument_size_in_bytes"]
+        + mem["output_size_in_bytes"]
+        + mem["temp_size_in_bytes"]
+        - mem["alias_size_in_bytes"]
     )
+    report["donation_holds"] = mem["alias_size_in_bytes"] > 0
+    return report

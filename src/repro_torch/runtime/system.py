@@ -311,7 +311,9 @@ class StreamSystem:
                 parents=parents,
                 publish=publish,
                 batch_of=batch_of,
-                fused=True,
+                # the reference's flag: under background checkpointing its
+                # fused step does not donate, and the payload says so
+                fused=not self.checkpoint_background,
             )
             self.backend.fuse_segments(spec, df, members)
             members_set = set(members)

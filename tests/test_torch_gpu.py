@@ -778,3 +778,158 @@ def test_cuda_background_checkpoints_hold_the_state_of_their_step(cuda, tmp_path
         restored = StreamSystem.restore(store.path_of(cid), device=cuda)
         assert restored.backend.step_count == cid
         assert _digests(restored) == at_step[cid]
+
+
+# -- the captured step: CUDA graphs of each segment against the eager step -----------------
+
+REMOVED = ("urban_etl", "taxi_pred_lr", "FA")  # chip_smoke.py's removals
+
+
+def _phase3(cuda, capture, fuse, batch=1024):
+    """chip_smoke.py's phase-3 script: 3 steps, [fuse()], 3 steps, remove
+    three flows, 2 steps. Returns (digests, system)."""
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.runtime.system import StreamSystem
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    system = StreamSystem(backend=TorchBackend(cuda, capture=capture), base_batch=batch)
+    flows = riot_workload() + kernel_flows()
+    for df in flows:
+        system.submit(df)
+    system.run(3)
+    if fuse:
+        assert system.fuse()
+    system.run(3)
+    for name in REMOVED:
+        system.remove(name)
+    system.run(2)
+    return {df.name: system.sink_digests(df.name) for df in flows if df.name not in REMOVED}, system
+
+
+def _sink_states(system):
+    """(count, checksum) of every deployed sink, paused ones included."""
+    out = {}
+    for seg in system.backend.segments.values():
+        for tid, op in seg.operators.items():
+            if op.is_sink:
+                st = seg.states[tid]
+                out[tid] = (int(st["count"]), float(st["checksum"]))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+def test_captured_step_is_bitwise_the_eager_step(cuda, fuse):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    captured, system = _phase3(cuda, capture=True, fuse=fuse)
+    captured_launches = launch_counts()
+    reset_launch_counts()
+    eager, eager_system = _phase3(cuda, capture=False, fuse=fuse)
+    assert captured == eager
+    # replays count the launches their capture recorded: the same kernels ran
+    assert captured_launches == launch_counts()
+    assert captured_launches["kalman_scan"] > 0
+    assert (captured_launches["map_chain"] > 0) == fuse
+    stats = system.backend.capture_stats
+    assert stats.graphs > 0 and stats.replays > 0
+    for name, seg in system.backend.segments.items():
+        assert seg.graphs.graphs, f"segment {name} never replayed a graph"
+    assert all(seg.graphs is None for seg in eager_system.backend.segments.values())
+    assert eager_system.backend.capture_stats.graphs == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["signature", "none"])
+def test_pause_resume_and_kill_under_capture_keep_the_eager_digests(cuda, strategy):
+    # signature: remove() pauses, and a later resume picks the graph of the
+    # earlier flags again; none (Default): remove() kills the segments
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.runtime.system import StreamSystem
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    def run(capture):
+        system = StreamSystem(strategy=strategy, backend=TorchBackend(cuda, capture=capture),
+                              base_batch=256)
+        for df in riot_workload() + kernel_flows():
+            system.submit(df)
+        system.run(3)
+        terminated = set()
+        for name in REMOVED:
+            terminated |= set(system.remove(name).terminated_tasks)
+        system.run(2)
+        graphs = system.backend.capture_stats.graphs
+        if strategy == "signature":
+            system.backend.resume(terminated)
+        system.run(2)
+        return _sink_states(system), graphs, system
+
+    captured, graphs_before, system = run(True)
+    eager, _, _ = run(False)
+    assert captured == eager
+    if strategy == "signature":
+        # the resumed flags are the first pattern's: its graph, not a new one
+        assert system.backend.capture_stats.graphs == graphs_before
+
+
+@pytest.mark.gpu
+def test_restore_on_a_capturing_backend_captures_afresh(cuda):
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.runtime.system import StreamSystem
+
+    captured = _stream_system(cuda)
+    eager = _stream_system(None, backend=TorchBackend(cuda, capture=False))
+    for system in (captured, eager):
+        system.run(2)
+        system.fuse()
+        system.run(1)
+    restored = StreamSystem.from_payload(captured.checkpoint_payload(), device=cuda)
+    for system in (restored, eager):
+        system.run(3)
+    assert _digests(restored) == _digests(eager)
+    assert restored.backend.capture_stats.graphs == len(restored.backend.segments)
+
+
+@pytest.mark.gpu
+def test_donation_report_on_the_card_updates_states_in_place(cuda):
+    from repro_torch.runtime.segment import donation_report
+
+    system = _stream_system(cuda)
+    system.run(2)
+    assert system.fuse()
+    system.run(2)
+    seg = next(s for s in system.backend.segments.values() if s.spec.fused)
+    inputs = {t: system.backend.broker.fetch(t) for t in seg.boundary_topics}
+    states = {t: int(st["count"]) for t, st in seg.states.items() if isinstance(st, dict)
+              and "count" in st}
+    report = donation_report(seg, inputs)
+    assert report["fused"] and report["donation_holds"]
+    assert report["alias_size_in_bytes"] > 0
+    assert report["total_allocation_size"] < (
+        report["argument_size_in_bytes"] + report["output_size_in_bytes"]
+        + report["temp_size_in_bytes"])
+    # the report captures without running: the states keep their values
+    assert states == {t: int(st["count"]) for t, st in seg.states.items()
+                      if isinstance(st, dict) and "count" in st}
+    system.run(1)
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_names_the_segment_and_the_task(cuda):
+    # a host sync inside an operator cannot be captured: the step raises
+    # and never falls back to the eager step
+    from repro_torch.runtime.graphs import CaptureError
+
+    system = _stream_system(cuda)
+    system.run(1)  # the eager warm-up
+    seg = next(s for s in system.backend.segments.values()
+               if any(system.backend.task_defs[t].type == "kalman" for t in s.spec.task_ids))
+    tid = next(t for t in seg.spec.task_ids if system.backend.task_defs[t].type == "kalman")
+    op = seg.operators[tid]
+    inner = op.apply
+    op.apply = lambda st, x: (float(x.sum()), inner(st, x))[1]
+    with pytest.raises(CaptureError, match=f"segment {seg.name!r}.*task {tid!r}.*'kalman'"):
+        system.step()
+    op.apply = inner
+    torch.cuda.synchronize()

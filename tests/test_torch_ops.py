@@ -257,7 +257,7 @@ def test_peephole_rewires_only_fused_specs(fused):
     spec = _spec([t for t, _, _ in tasks], {"p1": ["s"], "p2": ["p1"], "n": ["p2"], "k": ["n"]}, fused)
     operators = {t: port_ops.operator_for_task(df.tasks[t], batch=8) for t in spec.task_ids}
     parents = {t: list(spec.parents[t]) for t in spec.task_ids}
-    _peephole_fused_kernels(spec, df, operators, parents)
+    _peephole_fused_kernels(spec, df, operators, parents, device="cpu")
     assert parents["n"] == (["s"] if fused else ["p2"])  # tail consumes the run head's input
     assert parents["p1"] == ["s"] and parents["p2"] == ["p1"]  # interiors keep
     assert spec.parents["n"] == ["p2"]  # spec untouched

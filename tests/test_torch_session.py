@@ -42,9 +42,9 @@ def _fig1(builder):
     ]
 
 
-def _linear(name, extra="win"):
+def _linear(name, extra="win", fl=flow):
     return (
-        flow(name)
+        fl(name)
         .source("urban")
         .then("senml_parse", schema="urban")
         .then("kalman", q=0.1)
@@ -201,7 +201,13 @@ def test_session_stats_and_hooks():
     assert st.running_task_count == 7
     assert 0.29 < st.task_reduction < 0.31
     assert st.reuse_histogram.get(2) == 3  # shared prefix used by both
-    assert st.backend == "torch" and st.compile_cache_hits == 0
+    ref = RefSession(execute=True, backend="inprocess", base_batch=BATCH)
+    ref.submit(_linear("a", fl=ref_flow))
+    ref.submit(_linear("b", extra="avg", fl=ref_flow))
+    ref_st = ref.stats()
+    assert st.backend == "torch"
+    assert (st.compile_cache_hits, st.compile_cache_misses) == (
+        ref_st.compile_cache_hits, ref_st.compile_cache_misses) == (0, 2)
     assert [m.name for m in merges] == ["a", "b"]
     assert merges[1].num_reused == 3 and not merges[1].batched
     session.run(2)
