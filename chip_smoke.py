@@ -36,7 +36,15 @@ Phases, each fatal on failure:
      ``TorchBackend(capture=False)`` gives bitwise the same digests and the
      same kernel launch counts; graphs captured, capture ms per graph, host
      launch calls and card operations per steady step (torch.profiler, one
-     step each) and the step walls of both are printed;
+     step each) and the step walls of both are printed; the fused script
+     again in concurrent mode (``step_mode="concurrent"``, max_workers None
+     and 4: the stepping thread issues each wave's graph replays onto that
+     many CUDA streams, the widest wave's width for None, ordered by an
+     event per producer), with digests bitwise equal to the sync captured
+     run's, the same kernel launch counts, ``on_wave`` events covering
+     every segment once a step in the waves ``segment_waves()`` gives, every
+     segment stepped through a graph, and STEADY steady steps' walls and
+     ``makespan_ms`` and the step_launches profile beside the sync run's;
      then the session: ``ReuseSession(execute=True, backend="torch",
      base_batch=16384)`` takes the same flows through submit_many — 3
      steps, fuse(), 2 steps, checkpoint(), defragment(), 2 steps, remove
@@ -51,7 +59,13 @@ Phases, each fatal on failure:
      sink counts equal to the ``dryrun`` backend's after every event and
      peaks of 471 submitted and 277 running tasks; the step walls,
      checkpoint bytes, write and restore ms and rw1's wall time printed,
-     with the graphs captured and their capture ms;
+     with the graphs captured and their capture ms; then the session script
+     in concurrent mode (digests bitwise equal to the sync session's, its
+     launches counted), its checkpoint restored in sync mode and the sync
+     one in concurrent mode (bitwise), telemetry on over its tail
+     (``configure_obs(trace=True)``: spans counted by category, the
+     Prometheus text, a Chrome trace that ``json`` loads), and rw1 in
+     concurrent mode, sink counts equal to the dry run's after every event;
   4. the dense serving path at full width: qwen3-4b (36 layers, bf16,
      random weights drawn on the card from a seeded generator) through
      ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
@@ -71,7 +85,8 @@ Phases, each fatal on failure:
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5, the session's included; each must be > 0), the card line as nvidia-smi gives
+     of phases 3-5, the session's and the concurrent ones included; each
+     must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--phase kernels`` stops after phase 2 (a first check of new kernels).
@@ -736,14 +751,25 @@ def head_dim_checks(dev, gen, h, kv, hd):
 
 # -- phase 3: the main path ------------------------------------------------------------
 
-def run_script(base_batch, device, fuse, capture=True):
+def run_script(base_batch, device, fuse, capture=True, waves=None, **stepping):
     """The stream path's script; returns (digests, per-step wall ms, system).
-    ``capture=False`` steps eagerly on the card (no CUDA graphs)."""
+    ``capture=False`` steps eagerly on the card (no CUDA graphs);
+    ``stepping`` are StreamSystem's step_mode and max_workers. With a list
+    ``waves``, each wave event is appended to it with the waves and the
+    segments the backend had when it fired."""
     from repro_torch.runtime.executor import TorchBackend
     from repro_torch.runtime.system import StreamSystem
     from repro_torch.workloads import kernel_flows, riot_workload
 
-    system = StreamSystem(backend=TorchBackend(device, capture=capture), base_batch=base_batch)
+    system = StreamSystem(backend=TorchBackend(device, capture=capture), base_batch=base_batch,
+                          **stepping)
+    if waves is not None:
+        def on_wave(event):
+            backend = system.backend
+            waves.append((event, [list(w) for w in backend.segment_waves()],
+                          sorted(backend.segments)))
+
+        system.backend.configure_stepping(on_wave=on_wave)
     flows = riot_workload() + kernel_flows()
     for df in flows:
         system.submit(df)
@@ -800,6 +826,37 @@ def capture_line(label, backend, steps):
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
 
 
+STEADY = 20  # steady steps timed after the script, sync against concurrent
+
+
+def check_waves(label, events, steps):
+    """Every step's events cover every segment once, in the waves
+    ``segment_waves()`` gave, indexed 0..n-1."""
+    by_step = {}
+    for event, waves, segments in events:
+        by_step.setdefault(event.step, []).append((event, waves, segments))
+    if sorted(by_step) != list(range(1, steps + 1)):
+        raise AssertionError(f"{label}: wave events for steps {sorted(by_step)}")
+    for step, group in by_step.items():
+        waves, segments = group[0][1], group[0][2]
+        if [e.index for e, _, _ in group] != list(range(len(waves))):
+            raise AssertionError(f"{label}: step {step} wave indices {[e.index for e, _, _ in group]}")
+        if [list(e.segments) for e, _, _ in group] != waves:
+            raise AssertionError(f"{label}: step {step} waves differ from segment_waves()")
+        stepped = [n for e, _, _ in group for n in e.segments]
+        if sorted(stepped) != segments:
+            raise AssertionError(f"{label}: step {step} stepped {stepped}, segments {segments}")
+
+
+def steady(system):
+    """STEADY more steps: (wall ms, makespan ms) of each."""
+    import torch
+
+    torch.cuda.synchronize()
+    reports = system.run(STEADY)
+    return [r.wall_ms for r in reports], [r.makespan_ms for r in reports]
+
+
 def verdicts(system):
     report = system.fusion_report.to_dict()
     return sorted((tuple(d["members"]), d["accepted"]) for d in
@@ -829,7 +886,46 @@ def main_path_phase(dev):
     log(capture_line("captured run", system.backend, len(walls)))
     captured_launches = step_launches(system)
     captured_verdicts = verdicts(system)
+    timing = {"sync": steady(system) + (captured_launches,)}
     del system
+
+    # concurrent mode: each wave's replays go onto several streams at once
+    conc_launches = None
+    for workers in (None, 4):
+        label = f"concurrent, max_workers={workers}"
+        events = []
+        reset_launch_counts()
+        conc_digests, conc_walls, conc = run_script(MAIN_BATCH, dev, fuse=True, waves=events,
+                                                    step_mode="concurrent", max_workers=workers)
+        counts = launch_counts()
+        if conc_digests != fused_digests:
+            bad = [s for s in fused_digests if fused_digests[s] != conc_digests.get(s)]
+            raise AssertionError(f"{label}: digests differ from the sync captured run's for {bad}")
+        if verdicts(conc) != captured_verdicts:
+            raise AssertionError(f"{label}: fusion verdicts {verdicts(conc)} differ")
+        if counts != launches:
+            raise AssertionError(f"{label}: kernel launches {counts} != sync {launches}")
+        check_waves(label, events, len(conc_walls))
+        for name, seg in conc.backend.segments.items():
+            if not seg.graphs.graphs:
+                raise AssertionError(f"{label}: segment {name} never stepped through a CUDA graph")
+        sizes = [len(w) for w in conc.backend.segment_waves()]
+        log(f"{label}: sink digests bitwise equal to the sync captured run's, kernel launches "
+            f"equal ({counts}), on_wave covered every segment once in each of "
+            f"{len(conc_walls)} steps; waves of {sizes} segments after the script; "
+            f"step wall ms {[round(w, 3) for w in conc_walls]}")
+        log(capture_line(label, conc.backend, len(conc_walls)))
+        profiled = step_launches(conc)
+        timing[label] = steady(conc) + (profiled,)
+        conc.close()
+        if workers is None:
+            conc_launches = counts
+        del conc
+    for label, (walls_, makespans, (calls, graphs, on_card)) in timing.items():
+        log(f"steady fused step, {label}: wall ms median {statistics.median(walls_):.3f} "
+            f"(min {min(walls_):.3f}, max {max(walls_):.3f}) over {STEADY} steps, makespan_ms "
+            f"median {statistics.median(makespans):.3f}; {calls} host launch calls ({graphs} "
+            f"graph launches), {on_card} operations on the card a step")
 
     # the same script stepped eagerly (capture=False) on the same card
     reset_launch_counts()
@@ -894,7 +990,7 @@ def main_path_phase(dev):
         f"{statistics.median(walls[3:]):.3f}, eager {statistics.median(eager_walls[3:]):.3f}, "
         f"unfused steps 4-8 {statistics.median(unfused_walls[3:]):.3f}")
     steps = len(walls)
-    return {name: n for name, n in launches.items()}, steps
+    return {name: n for name, n in launches.items()}, conc_launches, steps
 
 
 # -- phase 3b: the session, its checkpoints and the OPMW rw1 replay ------------------
@@ -1079,9 +1175,93 @@ def session_phase(dev, card):
         log(capture_line(f"rw1 events 1-{mid}", backends[0], mid))
         log(capture_line(f"rw1 events {mid + 1}-{len(events)}, restored", backends[1],
                          len(events) - mid))
+        del rw, backends
+
+        conc_launches = concurrent_session(dev, card, tmp, ckpt_dir, digests, dags, events,
+                                           dry_trail)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"session phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches, conc_launches
+
+
+SPAN_CATEGORIES = ("step", "segment", "control", "compile", "checkpoint")
+PROMETHEUS_NAMES = ("repro_steps_total", "repro_segment_step_ms", "repro_reuse_tasks_saved",
+                    "repro_reuse_tasks_reused_total", "repro_reuse_core_steps_avoided_total")
+
+
+def concurrent_session(dev, card, tmp, sync_dir, digests, dags, events, dry_trail):
+    """The session script in concurrent mode against the sync session's
+    ``digests`` (bitwise), telemetry on over its tail, its checkpoint
+    restored in sync mode and the sync one (in ``sync_dir``) in concurrent
+    mode, and rw1 in concurrent mode against the dry run's ``dry_trail``.
+    Returns the launch counts of the concurrent session's run."""
+    import torch
+
+    from repro_torch.api import ReuseSession
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.runtime.executor import TorchBackend
+
+    conc_dir = os.path.join(tmp, "concurrent")
+    reset_launch_counts()
+    session = ReuseSession(execute=True, backend=TorchBackend(dev), base_batch=MAIN_BATCH,
+                           checkpoint_dir=conc_dir, step_mode="concurrent")
+    walls = session_head(session)
+    session.configure_obs(trace=True)
+    session.checkpoint()
+    got, tail_walls = session_tail(session)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    compare_digests("concurrent session", got, digests, 0)
+    for name in ("rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the concurrent session path")
+    log(f"session, concurrent: sink digests bitwise equal to the sync session's; launches "
+        f"{launches}; step wall ms {[round(w, 3) for w in walls + tail_walls]} ({card})")
+
+    prom = session.prometheus_text()
+    missing = [n for n in PROMETHEUS_NAMES if n not in prom]
+    if missing:
+        raise AssertionError(f"prometheus text lacks {missing}")
+    path = os.path.join(tmp, "trace.json")
+    n = session.export_chrome_trace(path)
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    by_cat = {}
+    for e in spans:
+        by_cat[e["cat"]] = by_cat.get(e["cat"], 0) + 1
+    if len(spans) != n or any(by_cat.get(c, 0) <= 0 for c in SPAN_CATEGORIES):
+        raise AssertionError(f"chrome trace of {n} spans holds {len(spans)}, by category {by_cat}")
+    log(f"telemetry over the concurrent session's tail: {n} spans by category "
+        f"{dict(sorted(by_cat.items()))}; Prometheus text of {len(prom.splitlines())} lines holds "
+        f"{', '.join(PROMETHEUS_NAMES)}; the Chrome trace loads with json")
+    session.close()
+    del session
+
+    for label, src, mode in (("concurrent -> sync", conc_dir, "sync"),
+                             ("sync -> concurrent", sync_dir, "concurrent")):
+        restored = ReuseSession.restore(src, device=dev, step_mode=mode)
+        compare_digests(f"checkpoint {label}", session_tail(restored)[0], digests, 0)
+        restored.close()
+        log(f"checkpoint taken in {label.split(' -> ')[0]} mode restored on the card in "
+            f"{mode} mode: sink digests bitwise equal to the uninterrupted run's")
+
+    t0 = time.perf_counter()
+    trail = []
+    rw = ReuseSession(execute=True, backend=TorchBackend(dev), base_batch=MAIN_BATCH,
+                      step_mode="concurrent")
+    peaks = rw1_replay(rw, dags, events, trail)
+    torch.cuda.synchronize()
+    rw_s = time.perf_counter() - t0
+    if trail != dry_trail:
+        bad = next(i for i, (a, b) in enumerate(zip(trail, dry_trail)) if a != b)
+        raise AssertionError(f"rw1 concurrent: sink counts after event {bad} differ from dryrun's")
+    if peaks != RW1_PEAKS:
+        raise AssertionError(f"rw1 concurrent peaks {peaks}, expected {RW1_PEAKS}")
+    log(f"OPMW rw1 on the card in concurrent mode at base_batch={MAIN_BATCH}: {len(events)} "
+        f"events and steps, {rw_s:.2f} s; per-submission sink counts equal dryrun's after every "
+        f"event ({card})")
+    rw.close()
     return launches
 
 
@@ -1443,8 +1623,9 @@ def main() -> int:
     kernels = kernel_phase(dev)
     if args.phase == "kernels":
         return 0
-    runs = {"stream path": main_path_phase(dev)[0]}
-    runs["session"] = session_phase(dev, card)
+    stream, stream_concurrent, _ = main_path_phase(dev)
+    runs = {"stream path": stream, "stream path, concurrent": stream_concurrent}
+    runs["session"], runs["session, concurrent"] = session_phase(dev, card)
     for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
         runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
                                               cut_limits)

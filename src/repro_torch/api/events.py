@@ -13,8 +13,8 @@ from typing import Any, Dict, List, Set, Tuple
 
 from repro_torch.core.manager import RemovalReceipt, SubmissionReceipt
 
-# The wave event lives with the (reference's) wave scheduler; re-exported
-# here so session users import every event type from one place.
+# The wave event is minted where waves are scheduled; re-exported here so
+# session users import every event type from one place.
 from repro_torch.runtime.scheduler import WaveEvent
 
 __all__ = [
@@ -70,6 +70,11 @@ class StepEvent:
     wall_ms: float
     report: Any  # the backend's full StepReport
 
+    @property
+    def makespan_ms(self) -> float:
+        """Dependency-DAG modelled step latency (wave max in concurrent mode)."""
+        return self.report.makespan_ms
+
 
 @dataclass(frozen=True)
 class BatchSubmitReceipt:
@@ -119,7 +124,7 @@ class SessionStats:
     steps_run: int = 0
     backend: Any = None  # ExecutionBackend registry name
     # compiled-segment reuse cache counters (collaborative reuse at the
-    # compiled-segment level; zeros until the port has a segment cache)
+    # compiled-segment level; zeros for backends that never build a step)
     compile_cache_hits: int = 0
     compile_cache_misses: int = 0
     compile_cache_evictions: int = 0

@@ -26,11 +26,14 @@ plane from the newest valid checkpoint and resumes exactly where the
 crashed process stopped (see :mod:`repro_torch.runtime.checkpoint`), on
 the same device or another.
 
+Concurrent stepping (``step_mode="concurrent"``, ``max_workers``,
+``on_wave``) and the telemetry plane (``configure_obs``,
+``metrics_snapshot``, ``prometheus_text``, ``drain_spans``,
+``export_chrome_trace``, ``segment_latency_ms``) are the reference's.
 Trimmed from the reference: the worker-process, sharded, supervision and
 autoscaling planes (``transport``, ``workers``, ``backend_options``,
-``supervise``, ``autoscale``, ``on_worker_event``), concurrent stepping
-(``max_workers``, ``on_wave``) and the telemetry methods. Passing one of
-those arguments raises.
+``supervise``, ``autoscale``, ``on_worker_event``, ``worker_health``).
+Passing one of those arguments raises.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from .events import (
     SessionStats,
     StepEvent,
     UnmergeEvent,
+    WaveEvent,
 )
 
 Submittable = Union[Dataflow, DataflowBuilder]
@@ -57,14 +61,12 @@ Hook = Callable[[Any], None]
 
 # The reference's session arguments for planes the port does not have.
 TRIMMED = (
-    "max_workers",
     "transport",
     "workers",
     "backend_options",
     "supervise",
     "autoscale",
     "on_worker_event",
-    "on_wave",
 )
 
 
@@ -76,7 +78,7 @@ def _refuse_trimmed(trimmed: Dict[str, Any]) -> None:
         raise TypeError(f"unexpected keyword arguments: {', '.join(unknown)}")
     names = ", ".join(sorted(k for k, v in trimmed.items() if v not in (None, False)))
     if names:
-        raise DataflowError(f"{names}: not in the port (no worker-process, cluster or concurrent plane)")
+        raise DataflowError(f"{names}: not in the port (no worker-process or cluster plane)")
 
 
 class ReuseSession:
@@ -95,12 +97,14 @@ class ReuseSession:
         checkpoint_keep_last: Optional[int] = None,
         checkpoint_background: Optional[bool] = None,
         step_mode: Optional[str] = None,
+        max_workers: Optional[int] = None,
         report_history: Optional[int] = None,
         system: Optional[Any] = None,
         on_merge: Optional[Hook] = None,
         on_unmerge: Optional[Hook] = None,
         on_defrag: Optional[Hook] = None,
         on_step: Optional[Hook] = None,
+        on_wave: Optional[Hook] = None,
         **trimmed: Any,
     ):
         _refuse_trimmed(trimmed)
@@ -109,6 +113,7 @@ class ReuseSession:
             "unmerge": [],
             "defrag": [],
             "step": [],
+            "wave": [],
         }
         if on_merge:
             self._hooks["merge"].append(on_merge)
@@ -118,21 +123,21 @@ class ReuseSession:
             self._hooks["defrag"].append(on_defrag)
         if on_step:
             self._hooks["step"].append(on_step)
+        if on_wave:
+            self._hooks["wave"].append(on_wave)
         self._system = None
         if system is not None:
             # Wrap an existing StreamSystem (the restore() path) — hooks
-            # passed alongside apply to the wrapped planes; checkpoint
-            # wiring, the device and the report history are the system's
+            # and stepping knobs passed alongside apply to the wrapped
+            # planes; checkpoint wiring and the device are the system's
             # own and cannot be changed here (pass them to
-            # StreamSystem/restore instead; a checkpoint keeps its history).
+            # StreamSystem/restore instead).
             rebind = {
                 "device": device,
                 "checkpoint_dir": checkpoint_dir,
                 "checkpoint_every": checkpoint_every,
                 "checkpoint_keep_last": checkpoint_keep_last,
                 "checkpoint_background": checkpoint_background,
-                "step_mode": step_mode,
-                "report_history": report_history,
             }
             if any(v is not None for v in rebind.values()):
                 names = ", ".join(k for k, v in rebind.items() if v is not None)
@@ -143,6 +148,12 @@ class ReuseSession:
                 )
             self._system = system
             self.manager = system.manager
+            system.backend.configure_stepping(
+                step_mode=step_mode,
+                max_workers=max_workers,
+                on_wave=self._dispatch_wave,
+                report_history=report_history,
+            )
         elif execute:
             from repro_torch.runtime.system import StreamSystem
 
@@ -158,6 +169,8 @@ class ReuseSession:
                 checkpoint_keep_last=checkpoint_keep_last,
                 checkpoint_background=bool(checkpoint_background),
                 step_mode=step_mode,
+                max_workers=max_workers,
+                on_wave=self._dispatch_wave,
                 report_history=report_history,
             )
             self.manager: ReuseManager = self._system.manager
@@ -169,6 +182,7 @@ class ReuseSession:
                 "checkpoint_keep_last": checkpoint_keep_last,
                 "checkpoint_background": checkpoint_background,
                 "step_mode": step_mode,
+                "max_workers": max_workers,
                 "report_history": report_history,
             }
             if any(v is not None for v in bad.values()):
@@ -183,6 +197,10 @@ class ReuseSession:
                 check_invariants=check_invariants,
                 journal_path=journal_path,
             )
+
+    def _dispatch_wave(self, event: WaveEvent) -> None:
+        if self._hooks["wave"]:
+            self._emit("wave", event)
 
     # -- construction helpers ------------------------------------------------
     @classmethod
@@ -209,7 +227,10 @@ class ReuseSession:
         if os.path.isdir(path) or is_checkpoint_path(path):
             from repro_torch.runtime.system import StreamSystem
 
-            hooks = {k: kwargs.pop(k, None) for k in ("on_merge", "on_unmerge", "on_defrag", "on_step")}
+            hooks = {
+                k: kwargs.pop(k, None)
+                for k in ("on_merge", "on_unmerge", "on_defrag", "on_step", "on_wave")
+            }
             _refuse_trimmed({k: kwargs.pop(k) for k in list(kwargs) if k in TRIMMED})
             system = StreamSystem.restore(path, **kwargs)
             return cls(system=system, **{k: v for k, v in hooks.items() if v})
@@ -277,6 +298,13 @@ class ReuseSession:
     def on_step(self, fn: Hook) -> Hook:
         """Register a per-step observer (fires on ``step()`` and ``run()``)."""
         self._hooks["step"].append(fn)
+        return fn
+
+    def on_wave(self, fn: Hook) -> Hook:
+        """Register a wave observer: one :class:`WaveEvent` per dependency
+        wave per step (which segments stepped together, and the wave's
+        contribution to the step makespan)."""
+        self._hooks["wave"].append(fn)
         return fn
 
     def _emit(self, kind: str, event: Any) -> None:
@@ -414,15 +442,17 @@ class ReuseSession:
         return self._require_system("sink_digests").sink_digests(name)
 
     def quiesce(self) -> None:
-        """Block until queued background checkpoints are durably on disk —
-        see :meth:`repro_torch.runtime.system.StreamSystem.quiesce`."""
+        """Drain in-flight data-plane work (concurrent dispatch, queued
+        background checkpoints) without releasing anything — see
+        :meth:`repro_torch.runtime.system.StreamSystem.quiesce`."""
         self._require_system("quiesce").quiesce()
 
     def close(self) -> None:
-        """Release data-plane resources (the background checkpoint writer).
+        """Release data-plane resources (the concurrent dispatch pool, the
+        background checkpoint writer).
 
         Idempotent and non-destructive — control-plane state survives and
-        the session stays usable."""
+        stepping after close() re-creates the pool lazily."""
         if self._system is not None:
             self._system.close()
 
@@ -473,6 +503,58 @@ class ReuseSession:
             compile_cache_evictions=cache.get("evictions", 0),
             compile_cache_entries=cache.get("entries", 0),
         )
+
+    # -- telemetry plane (repro_torch.obs) -------------------------------------
+    def configure_obs(
+        self,
+        metrics: Optional[bool] = None,
+        trace: Optional[bool] = None,
+        sample_stride: Optional[int] = None,
+        trace_capacity: Optional[int] = None,
+    ) -> "ReuseSession":
+        """Turn the metrics registry and/or span tracing on or off.
+
+        ``trace=True`` arms span tracing on every layer (wave dispatch,
+        per-segment steps, broker fetch and publish, compile misses,
+        merge/unmerge, checkpoints); ``sample_stride=N`` records every Nth
+        span per name. ``metrics=False`` swaps in a null registry for
+        overhead-sensitive runs. Needs a data plane.
+        """
+        self._require_system("configure_obs").configure_obs(
+            metrics=metrics,
+            trace=trace,
+            sample_stride=sample_stride,
+            trace_capacity=trace_capacity,
+        )
+        return self
+
+    def enable_tracing(self, sample_stride: int = 1) -> "ReuseSession":
+        """Shorthand for ``configure_obs(trace=True, sample_stride=...)``."""
+        return self.configure_obs(trace=True, sample_stride=sample_stride)
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Metrics snapshot — counters, gauges and histograms as plain
+        JSON-safe dicts."""
+        return self._require_system("metrics_snapshot").metrics_snapshot()
+
+    def prometheus_text(self) -> str:
+        """The snapshot as Prometheus text exposition 0.0.4."""
+        return self._require_system("prometheus_text").prometheus_text()
+
+    def drain_spans(self) -> List[Dict[str, Any]]:
+        """Drain buffered trace spans (destructive)."""
+        return self._require_system("drain_spans").drain_spans()
+
+    def export_chrome_trace(self, path: str) -> int:
+        """Drain spans into a Chrome/Perfetto-loadable trace file; returns
+        the number of spans written."""
+        return self._require_system("export_chrome_trace").export_chrome_trace(path)
+
+    def segment_latency_ms(self) -> Dict[str, Dict[str, float]]:
+        """Canonical per-segment step-latency digest (mean/last/max/samples
+        in ms) — the same measured samples the fusion calibrator consumes;
+        see :meth:`repro_torch.runtime.system.StreamSystem.segment_latency_ms`."""
+        return self._require_system("segment_latency_ms").segment_latency_ms()
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         plane = f"data[{self.backend_name}]" if self.executes else "control"

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import json
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
@@ -70,9 +71,14 @@ class ReuseManager:
         self._task_counter = 0
         self._dag_counter = 0
         self.journal: List[Dict[str, Any]] = []
-        # Cumulative op counters. Journal replay re-runs submit/remove, so
-        # a restored manager's counters are consistent with its rebuilt Δ/Φ
-        # state.
+        # -- telemetry plane (repro_torch.obs, optional) ---------------------
+        # An owning StreamSystem wires its backend's Tracer in here so
+        # merge/unmerge/preview planning shows up as "control" spans; the
+        # cumulative op counters below are mirrored into the metrics
+        # registry by a snapshot-time collector (never read on the hot
+        # path). Journal replay re-runs submit/remove, so a restored
+        # manager's counters are consistent with its rebuilt Δ/Φ state.
+        self.tracer: Optional[Any] = None
         self.op_counts: Dict[str, int] = {
             "tasks_submitted": 0,  # running tasks requested (reused + created)
             "tasks_reused": 0,  # requested tasks satisfied by a running task
@@ -81,6 +87,13 @@ class ReuseManager:
             "unmerge_events": 0,  # removals (every removal plans an unmerge)
             "previews": 0,  # admission-control dry plans
         }
+
+    def _span(self, name: str, **args: Any):
+        """A "control"-category tracer span, or a no-op without a tracer."""
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            return tracer.span(name, "control", **args)
+        return nullcontext()
 
     def _count_merge(self, plan: MergePlan) -> None:
         oc = self.op_counts
@@ -128,13 +141,14 @@ class ReuseManager:
 
         df = df.copy()  # signatures are keyed by task id, which copy preserves
         merged_name = self._mint_dag_name()
-        plan = self._strategy.plan(self, df, merged_name, sigs=sigs)
-        # Update Δ/Φ: all submissions supported by the absorbed DAGs now
-        # map to the merged DAG.
-        absorbed: Set[str] = set()
-        for run_name in plan.overlapping:
-            absorbed |= self.delta.pop(run_name, set())
-        apply_merge(self.running, df, plan)
+        with self._span("merge", dataflow=df.name, running_dag=merged_name):
+            plan = self._strategy.plan(self, df, merged_name, sigs=sigs)
+            # Update Δ/Φ: all submissions supported by the absorbed DAGs now
+            # map to the merged DAG.
+            absorbed: Set[str] = set()
+            for run_name in plan.overlapping:
+                absorbed |= self.delta.pop(run_name, set())
+            apply_merge(self.running, df, plan)
         for sub_name in absorbed:
             self.phi[sub_name] = merged_name
         self.submitted[df.name] = df
@@ -183,7 +197,8 @@ class ReuseManager:
         saved_counter = self._task_counter
         self.op_counts["previews"] += 1
         try:
-            return self._strategy.plan(self, df, "__preview__", sigs=sigs)
+            with self._span("preview", dataflow=df.name):
+                return self._strategy.plan(self, df, "__preview__", sigs=sigs)
         finally:
             self._task_counter = saved_counter
 
@@ -390,14 +405,15 @@ class ReuseManager:
         run_name = self.phi[name]
         run_df = self.running[run_name]
         remaining = sorted(self.delta[run_name] - {name})
-        plan = plan_unmerge(
-            run_df,
-            remaining_task_maps={n: self.task_maps[n] for n in remaining},
-            remaining_sinks={n: self.submitted[n].sink_ids for n in remaining},
-            removed_name=name,
-            mint_name=self._mint_dag_name,
-        )
-        apply_unmerge(self.running, plan)
+        with self._span("unmerge", dataflow=name, running_dag=run_name):
+            plan = plan_unmerge(
+                run_df,
+                remaining_task_maps={n: self.task_maps[n] for n in remaining},
+                remaining_sinks={n: self.submitted[n].sink_ids for n in remaining},
+                removed_name=name,
+                mint_name=self._mint_dag_name,
+            )
+            apply_unmerge(self.running, plan)
         # Re-point Δ/Φ for the survivors: a submitted DAG belongs to the
         # component that contains its mapped tasks (exactly one, verified).
         del self.delta[run_name]

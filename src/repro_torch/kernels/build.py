@@ -15,9 +15,13 @@ compiler.
 This module also keeps the launch counts: each wrapper calls
 :func:`count_launch` right where it launches its kernel, and nowhere else.
 A CUDA graph runs its kernels without calling their wrappers, so a capture
-takes back what its wrapper calls counted (:func:`recording_launches`) and
-each replay adds them again (:func:`add_launches`): the counts stay the
-launches the card ran.
+records what its wrapper calls count instead of counting it
+(:func:`recording_launches`) and each replay adds them
+(:func:`add_launches`): the counts stay the launches the card ran.
+Concurrent stepping launches from several threads at once, so the counts
+change under a lock, and a recording belongs to the thread that opened it:
+a capture on one thread never takes in, nor takes back, what another
+thread launched meanwhile.
 """
 from __future__ import annotations
 
@@ -75,6 +79,9 @@ KERNELS = (
     "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
+# per thread: the stack of open recordings (innermost last)
+_recording = threading.local()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -85,40 +92,51 @@ class KernelBuildError(RuntimeError):
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    """One launch of kernel ``name``: into this thread's innermost open
+    recording if there is one, else into the counts."""
+    stack = getattr(_recording, "stack", None)
+    if stack:
+        recorded = stack[-1]
+        recorded[name] = recorded.get(name, 0) + 1
+        return
+    with _count_lock:
+        _launches[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 @contextlib.contextmanager
 def recording_launches() -> Iterator[Dict[str, int]]:
-    """Launches counted inside the block, taken back out of the counts on
-    exit and left in the yielded dict: a CUDA-graph capture records kernel
-    launches without running them."""
-    before = dict(_launches)
+    """Launches this thread counts inside the block, kept out of the counts
+    and left in the yielded dict: a CUDA-graph capture records kernel
+    launches without running them. Other threads count as before."""
     recorded: Dict[str, int] = {}
+    stack = getattr(_recording, "stack", None)
+    if stack is None:
+        stack = _recording.stack = []
+    stack.append(recorded)
     try:
         yield recorded
     finally:
-        for name, n in before.items():
-            if _launches[name] != n:
-                recorded[name] = _launches[name] - n
-            _launches[name] = n
+        stack.pop()
 
 
 def add_launches(counts: Dict[str, int]) -> None:
     """Count launches the card ran without a wrapper call: a replay of the
     launches :func:`recording_launches` recorded."""
-    for name, n in counts.items():
-        _launches[name] += n
+    with _count_lock:
+        for name, n in counts.items():
+            _launches[name] += n
 
 
 def sources() -> List[str]:

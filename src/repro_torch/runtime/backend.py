@@ -10,26 +10,40 @@ and backends plug in by name through :func:`register_backend` /
 :func:`resolve_backend`. The port ships two: ``"torch"``
 (:class:`repro_torch.runtime.executor.TorchBackend`, the data plane) and
 ``"dryrun"`` (:class:`repro_torch.runtime.dryrun.DryRunBackend`, the
-cost model). Segments step one after another in launch order (the
-reference's ``"sync"`` mode; its ``"concurrent"`` mode is not ported).
+cost model). Stepping runs in the reference's two modes
+(:meth:`ExecutionBackend.configure_stepping`): ``"sync"``, one segment
+after another in launch order, or ``"concurrent"``, a dependency-aware
+ready-queue dispatch over a persistent thread pool
+(:mod:`repro_torch.runtime.scheduler`); the torch backend on the card
+issues the waves onto several CUDA streams from the stepping thread
+instead, which puts independent segments on the card at once.
 
 This module holds the shared bookkeeping: :class:`SegmentSpec`,
 :class:`StepReport`, the accounting constants, the O(1) task→segment
-reverse index, the segment dependency DAG that the fusion planner reads,
-and the durable ``dump_state``/``restore_state`` payload, whose layout is
-the reference's, so checkpoints cross between the packages. Pause flags
-are host bools, so accounting never waits for the card.
+reverse index, the segment dependency DAG that the wave scheduler and the
+fusion planner read, the straggler EWMAs, the telemetry instruments
+(:mod:`repro_torch.obs`) and the durable ``dump_state``/``restore_state``
+payload, whose layout is the reference's, so checkpoints cross between
+the packages. Pause flags are host bools, so accounting never waits for
+the card. The reference's cluster-plane hooks (worker events and health,
+in-step recovery) belong to the worker-process plane, which the port does
+not have yet.
 """
 from __future__ import annotations
 
 import importlib
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Type, Union
 
 from repro_torch.core.graph import Dataflow, Task
+from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, Tracer
 
 from .checkpoint import decode_pytree, encode_pytree
+from .scheduler import WaveEvent, compute_waves, run_ready_queue
+
+STEP_MODES = ("sync", "concurrent")
 
 # Fraction of a task's cost still consumed while paused (deployed-but-idle
 # Storm bolt). Calibrated so the paper's drain-phase crossover reproduces.
@@ -37,6 +51,15 @@ PAUSE_EPSILON = 0.03
 # events·cost_weight per core: 1 core ≡ one weight-1.0 task at 10 ev/s ×
 # 32-event batches — matches the paper's constant 10 ev/s input rate setup.
 CORE_CALIBRATION = 320.0
+# Straggler detection floor: below this median step-time the k·median test
+# would flag pure perf_counter jitter (the dry-run backend steps in
+# microseconds), so segments are only judged once steps cost real time.
+STRAGGLER_MIN_MEDIAN_MS = 0.05
+# A segment is a straggler when its step-time EWMA exceeds this many times
+# the median EWMA; the EWMA weighs each new step by EWMA_ALPHA (the
+# reference's defaults).
+STRAGGLER_FACTOR = 3.0
+EWMA_ALPHA = 0.3
 
 PyTree = Any
 
@@ -70,7 +93,15 @@ class StepReport:
     paused_tasks: int
     cost: float  # core-equivalents this step
     wall_ms: float
+    # host ms around each segment's step, which waits for its work; on the
+    # card in concurrent mode, the device ms between events around it
     segment_ms: Dict[str, float] = field(default_factory=dict)
+    stragglers: List[str] = field(default_factory=list)
+    # Modelled step latency from the segment dependency DAG: Σ over waves of
+    # the wave max in concurrent mode (independent segments overlap), Σ of
+    # all segment_ms in sync mode (one serial sweep). For the dry-run
+    # backend this *is* the predicted wall-clock of a concurrent deployment.
+    makespan_ms: float = 0.0
 
 
 def _encode_report(r: StepReport) -> Dict[str, Any]:
@@ -82,6 +113,8 @@ def _encode_report(r: StepReport) -> Dict[str, Any]:
         "cost": float(r.cost),
         "wall_ms": float(r.wall_ms),
         "segment_ms": {k: float(v) for k, v in r.segment_ms.items()},
+        "stragglers": list(r.stragglers),
+        "makespan_ms": float(r.makespan_ms),
     }
 
 
@@ -93,6 +126,8 @@ def _decode_report(rec: Dict[str, Any]) -> StepReport:
         cost=float(rec["cost"]),
         wall_ms=float(rec["wall_ms"]),
         segment_ms={k: float(v) for k, v in rec.get("segment_ms", {}).items()},
+        stragglers=list(rec.get("stragglers", ())),
+        makespan_ms=float(rec.get("makespan_ms", 0.0)),
     )
 
 
@@ -131,11 +166,24 @@ class ExecutionBackend:
     Concrete backends implement :meth:`_build` (a :class:`SegmentSpec` →
     a segment exposing ``spec``, ``states``, ``active``, ``cost_of``,
     ``steps_run`` and ``pause``/``resume``) and :meth:`_step_one`.
+
+    Stepping runs in one of two modes (:meth:`configure_stepping`):
+    ``"sync"`` — a single-thread sweep in launch order — or
+    ``"concurrent"`` — a dependency-aware ready-queue dispatch where every
+    segment whose boundary producers have finished steps at once on a
+    thread pool (simulated clock on the dry-run backend). Both modes
+    produce identical sink digests: concurrent dispatch respects the same
+    producer-before-consumer order the launch-order sweep implies, and the
+    broker's per-topic sequencing enforces it on the data path.
     """
 
     name: str = ""
+    # Whether concurrent mode actually uses threads. The dry-run backend
+    # flips this off: it keeps the dependency-DAG *makespan model* (wave
+    # max, not wave sum) but steps on the caller's thread.
+    concurrent_dispatch: bool = True
 
-    def __init__(self) -> None:
+    def __init__(self, step_mode: str = "sync", max_workers: Optional[int] = None) -> None:
         self.segments: Dict[str, Any] = {}
         self.forwarding: Dict[str, Set[str]] = {}  # segment -> task ids forwarded
         self.paused: Set[str] = set()  # running task ids paused (global view)
@@ -148,13 +196,104 @@ class ExecutionBackend:
         # Segment dependency DAG: segment -> upstream segments producing its
         # boundary inputs, maintained across deploy/kill.
         self.seg_deps: Dict[str, Set[str]] = {}
-        self.reports: List[StepReport] = []
+        self._waves_cache: Optional[List[List[str]]] = None
+        self._order_cache: Optional[List[str]] = None  # launch order, for the sync sweep
+        # stepping pipeline knobs (see configure_stepping)
+        if step_mode not in STEP_MODES:
+            raise ValueError(f"step_mode must be one of {STEP_MODES}, got {step_mode!r}")
+        self.step_mode = step_mode
+        self.max_workers = max_workers
+        # Persistent dispatch pool for concurrent stepping, created lazily
+        # on the first concurrent step and reused across steps (pool
+        # spin-up costs more than a small step); dropped when max_workers
+        # changes and on close().
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self.on_wave: Optional[Callable[[WaveEvent], None]] = None
         # opt-in StepReport ring buffer: bounds self.reports in memory AND
         # persists the tail in checkpoints (None = unbounded, not persisted)
         self.history_limit: Optional[int] = None
+        # straggler tracking: per-segment step-time EWMAs, and the
+        # reference's log of segments it moved, which the port (one card,
+        # no spare host) only carries from a payload to the next
+        self.ewma_ms: Dict[str, float] = {}
+        self.redispatches: List[Tuple[int, str]] = []
+        self.reports: List[StepReport] = []
         # state-leaf encoder used by dump_state/_dump_extra — swapped for a
         # deferring marker during background-checkpoint snapshots
         self._state_encoder: Callable[[Any], Any] = encode_pytree
+        # telemetry plane (repro_torch.obs): a per-backend metrics registry
+        # (so tests running many systems in one process don't
+        # cross-pollute) and a span tracer, disabled until
+        # configure_obs(trace=True)
+        self.metrics: MetricsRegistry = MetricsRegistry()
+        self.tracer = Tracer(enabled=False)
+        self._mint_instruments()
+
+    def _mint_instruments(self) -> None:
+        """Pre-mint the hot-path instruments so step() does no name lookups."""
+        m = self.metrics
+        self._m_steps = m.counter("repro_steps_total", "data-plane steps completed")
+        self._m_step_wall = m.histogram("repro_step_wall_ms", "whole-step wall time (ms)")
+        self._m_seg_ms = m.histogram("repro_segment_step_ms", "per-segment step time (ms)")
+        self._m_live = m.gauge("repro_tasks_live", "live (active) deployed tasks")
+        self._m_paused = m.gauge("repro_tasks_paused", "paused deployed tasks")
+        self._m_cost = m.gauge("repro_cost_cores", "core-equivalents consumed by the last step")
+
+    def configure_obs(
+        self,
+        metrics: Optional[bool] = None,
+        trace: Optional[bool] = None,
+        sample_stride: Optional[int] = None,
+        trace_capacity: Optional[int] = None,
+    ) -> "ExecutionBackend":
+        """Telemetry knobs (None leaves a knob unchanged).
+
+        ``metrics=False`` swaps the registry for a no-op twin (the honest
+        baseline of an overhead measurement); ``trace=True`` arms span
+        recording at ``sample_stride`` (record every Nth span per name).
+        """
+        if metrics is not None:
+            self.metrics = MetricsRegistry() if metrics else NULL_REGISTRY
+            self._mint_instruments()
+        if trace is not None or sample_stride is not None or trace_capacity is not None:
+            self.tracer.configure(enabled=trace, sample_stride=sample_stride, capacity=trace_capacity)
+        return self
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Aggregated metrics snapshot."""
+        return self.metrics.snapshot()
+
+    def drain_spans(self) -> List[Dict[str, Any]]:
+        """Pop all buffered trace spans."""
+        return self.tracer.drain()
+
+    def configure_stepping(
+        self,
+        step_mode: Optional[str] = None,
+        max_workers: Optional[int] = None,
+        on_wave: Optional[Callable[[WaveEvent], None]] = None,
+        report_history: Optional[int] = None,
+    ) -> "ExecutionBackend":
+        """Set the stepping-pipeline knobs (None leaves a knob unchanged).
+
+        Safe between steps at any point in the lifecycle — switching
+        ``step_mode`` mid-run changes only the dispatch schedule, never
+        the results.
+        """
+        if step_mode is not None:
+            if step_mode not in STEP_MODES:
+                raise ValueError(f"step_mode must be one of {STEP_MODES}, got {step_mode!r}")
+            self.step_mode = step_mode
+        if max_workers is not None and max_workers != self.max_workers:
+            self.max_workers = max_workers
+            self._reset_pool()  # resize on next concurrent step
+        if on_wave is not None:
+            self.on_wave = on_wave
+        if report_history is not None:
+            if report_history < 1:
+                raise ValueError("report_history must be >= 1")
+            self.history_limit = report_history
+        return self
 
     # -- hooks for concrete backends ------------------------------------------
     def _build(
@@ -169,12 +308,22 @@ class ExecutionBackend:
         """Advance one segment one step.
 
         Returns a simulated duration in ms (the dry-run latency model) or
-        ``None`` to report the wall time measured around the call.
+        ``None`` to report the wall time measured around the call. In
+        concurrent mode this runs on a dispatch thread; it may touch only
+        its own segment plus thread-safe transports (the broker).
         """
         raise NotImplementedError
 
     def _drop_streams(self, seg: Any) -> None:
         """Release any transport resources of a killed segment (broker topics)."""
+
+    def _begin_concurrent_step(self) -> None:
+        """Hook before a concurrent dispatch (the torch backend snapshots
+        per-topic sequence targets here so boundary reads sync on their
+        producers)."""
+
+    def _end_concurrent_step(self) -> None:
+        """Hook after a concurrent dispatch completes or fails."""
 
     # -- deployment -----------------------------------------------------------
     def deploy(
@@ -202,14 +351,17 @@ class ExecutionBackend:
             self.task_defs[tid] = dataflow.tasks[tid]
         deps.discard(spec.name)
         self.seg_deps[spec.name] = deps
+        self._waves_cache = self._order_cache = None
         return seg
 
     def kill(self, segment_name: str) -> None:
         seg = self.segments.pop(segment_name)
         self.forwarding.pop(segment_name, None)
+        self.ewma_ms.pop(segment_name, None)
         self.seg_deps.pop(segment_name, None)
         for deps in self.seg_deps.values():
             deps.discard(segment_name)
+        self._waves_cache = self._order_cache = None
         self._drop_streams(seg)
         for tid in seg.spec.task_ids:
             self.paused.discard(tid)
@@ -235,20 +387,99 @@ class ExecutionBackend:
             seg.resume(task_ids)
         self.paused -= set(task_ids)
 
-    # -- stepping -----------------------------------------------------------------
-    def _step_timed(self, name: str) -> float:
+    # -- stepping pipeline --------------------------------------------------------
+    def segment_waves(self) -> List[List[str]]:
+        """Topological levels of the segment dependency DAG (cached; segments
+        in one wave are independent and step concurrently)."""
+        if self._waves_cache is None:
+            order = {n: s.spec.created_at for n, s in self.segments.items()}
+            self._waves_cache = compute_waves(self.seg_deps, order)
+        return self._waves_cache
+
+    def _step_named(self, name: str) -> float:
         seg = self.segments[name]
         s0 = time.perf_counter()
-        simulated = self._step_one(seg)
-        return simulated if simulated is not None else (time.perf_counter() - s0) * 1e3
+        if self.tracer.enabled:
+            with self.tracer.span(name, "segment", step=self.step_count):
+                simulated = self._step_one(seg)
+        else:
+            simulated = self._step_one(seg)
+        ms = simulated if simulated is not None else (time.perf_counter() - s0) * 1e3
+        self._m_seg_ms.observe(ms)
+        return ms
+
+    def _step_segments(self) -> Dict[str, float]:
+        """The sync sweep: every segment once, in launch order (topological)."""
+        if self._order_cache is None:
+            self._order_cache = sorted(self.segments,
+                                       key=lambda n: self.segments[n].spec.created_at)
+        return {name: self._step_named(name) for name in self._order_cache}
+
+    def _step_segments_concurrent(self) -> Dict[str, float]:
+        """Dependency-aware concurrent dispatch (:meth:`_dispatch_concurrent`);
+        falls back to the caller's thread when the backend models time
+        instead of spending it (``concurrent_dispatch = False``)."""
+        if not self.concurrent_dispatch:
+            return self._step_segments()
+        self._begin_concurrent_step()
+        try:
+            with self.tracer.span(
+                "wave_dispatch", "step", step=self.step_count, segments=len(self.segments),
+            ):
+                return self._dispatch_concurrent()
+        finally:
+            self._end_concurrent_step()
+
+    def _dispatch_concurrent(self) -> Dict[str, float]:
+        """The ready queue over the persistent pool: every segment steps on
+        a dispatch thread as soon as its producers have finished."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.max_workers, thread_name_prefix="repro-step"
+            )
+        order = {n: s.spec.created_at for n, s in self.segments.items()}
+        return run_ready_queue(
+            self.seg_deps, self._step_named, self.max_workers, order, pool=self._pool,
+        )
+
+    def _reset_pool(self) -> None:
+        """Drop the dispatch pool only (recreated lazily at the next
+        concurrent step) — the pool-resize half of :meth:`close`, safe to
+        call on a live backend."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def close(self) -> None:
+        """Release stepping resources (the persistent dispatch pool).
+
+        Idempotent; stepping after close() lazily recreates the pool."""
+        self._reset_pool()
 
     def step(self) -> StepReport:
-        """Every segment once, in launch order (topological)."""
+        if self.tracer.enabled:
+            with self.tracer.span("step", "step", step=self.step_count + 1):
+                return self._step_impl()
+        return self._step_impl()
+
+    def _step_impl(self) -> StepReport:
         t0 = time.perf_counter()
-        ordered = sorted(self.segments, key=lambda n: self.segments[n].spec.created_at)
-        seg_ms = {name: self._step_timed(name) for name in ordered}
+        concurrent = self.step_mode == "concurrent"
+        seg_ms = self._step_segments_concurrent() if concurrent else self._step_segments()
+        waves = self.segment_waves()
+        wave_ms = [
+            (max if concurrent else sum)([seg_ms[n] for n in wave if n in seg_ms] or [0.0])
+            for wave in waves
+        ]
         live, paused_n, cost = self.account()
+        stragglers = self._update_stragglers(seg_ms)
         self.step_count += 1
+        if self.on_wave is not None:
+            for i, wave in enumerate(waves):
+                self.on_wave(
+                    WaveEvent(step=self.step_count, index=i, segments=tuple(wave),
+                              wave_ms=wave_ms[i])
+                )
         report = StepReport(
             step=self.step_count,
             live_tasks=live,
@@ -256,7 +487,14 @@ class ExecutionBackend:
             cost=cost,
             wall_ms=(time.perf_counter() - t0) * 1e3,
             segment_ms=seg_ms,
+            stragglers=stragglers,
+            makespan_ms=sum(wave_ms),
         )
+        self._m_steps.inc()
+        self._m_step_wall.observe(report.wall_ms)
+        self._m_live.set(live)
+        self._m_paused.set(paused_n)
+        self._m_cost.set(cost)
         self.reports.append(report)
         if self.history_limit is not None and len(self.reports) > self.history_limit:
             del self.reports[: len(self.reports) - self.history_limit]
@@ -367,6 +605,8 @@ class ExecutionBackend:
             "step_count": int(self.step_count),
             "launch_seq": int(self._launch_seq),
             "paused": sorted(self.paused),
+            "ewma_ms": {k: float(v) for k, v in self.ewma_ms.items()},
+            "redispatches": [[int(s), n] for s, n in self.redispatches],
             "segments": segments,
             "extra": self._dump_extra(),
         }
@@ -385,8 +625,7 @@ class ExecutionBackend:
         survives), with task states decoded through the backend-specific
         :meth:`_decode_init_states` hook — that hook is where cross-backend
         restores coerce states (torch ⇄ dryrun, and payloads of the
-        reference's backends). Keys this port does not keep (the
-        reference's straggler EWMAs and redispatch log) are ignored.
+        reference's backends).
         """
         if self.segments:
             raise ValueError("restore_state() needs a fresh backend (segments deployed)")
@@ -417,6 +656,8 @@ class ExecutionBackend:
         if paused:
             self.pause(paused)
         self.step_count = int(state["step_count"])
+        self.ewma_ms = {k: float(v) for k, v in state.get("ewma_ms", {}).items()}
+        self.redispatches = [(int(s), n) for s, n in state.get("redispatches", ())]
         if state.get("history_limit") is not None:
             self.history_limit = int(state["history_limit"])
             self.reports = [_decode_report(r) for r in state.get("reports", ())]
@@ -465,6 +706,63 @@ class ExecutionBackend:
                     units[ttype] = units.get(ttype, 0.0) + work
                 samples.append((units, float(ms)))
         return samples
+
+    def segment_latency_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-segment latency digest from the same ``StepReport.segment_ms``
+        history that feeds :meth:`latency_samples` (killed segments skipped
+        identically), so the fusion calibrator and any monitoring reader
+        agree by construction. This — not ``ewma_ms``, a smoothed
+        straggler-detection signal that resets when it flags — is the
+        canonical per-segment latency surface; use
+        ``StreamSystem.segment_latency_ms()`` from the API layer.
+
+        Returns ``{segment: {"mean_ms", "last_ms", "max_ms", "samples"}}``.
+        """
+        agg: Dict[str, Dict[str, float]] = {}
+        for report in self.reports:
+            for name, ms in report.segment_ms.items():
+                if name not in self.segments:  # killed since — same skip as above
+                    continue
+                cell = agg.get(name)
+                if cell is None:
+                    cell = agg[name] = {
+                        "mean_ms": 0.0, "last_ms": 0.0, "max_ms": 0.0, "samples": 0, "_sum": 0.0,
+                    }
+                ms = float(ms)
+                cell["_sum"] += ms
+                cell["samples"] += 1
+                cell["last_ms"] = ms
+                cell["max_ms"] = max(cell["max_ms"], ms)
+        for cell in agg.values():
+            cell["mean_ms"] = cell.pop("_sum") / cell["samples"]
+        return agg
+
+    # -- straggler mitigation -----------------------------------------------------
+    def _update_stragglers(self, seg_ms: Dict[str, float]) -> List[str]:
+        """Fold this step's segment_ms into the EWMAs and flag the segments
+        whose EWMA exceeds ``STRAGGLER_FACTOR`` times the median, as the
+        reference does. The reference's placement plane then moves a flagged
+        segment to another device and logs it in ``redispatches``; the port
+        has no such plane yet, so a flag only resets the segment's EWMA (it
+        is judged afresh) and goes into the step's report."""
+        flagged: List[str] = []
+        for name, ms in seg_ms.items():
+            prev = self.ewma_ms.get(name)
+            self.ewma_ms[name] = ms if prev is None else (
+                EWMA_ALPHA * ms + (1 - EWMA_ALPHA) * prev
+            )
+        # prune EWMAs of killed segments
+        for name in list(self.ewma_ms):
+            if name not in self.segments:
+                del self.ewma_ms[name]
+        if len(self.ewma_ms) >= 2:
+            vals = sorted(self.ewma_ms.values())
+            median = vals[len(vals) // 2]
+            for name, ew in list(self.ewma_ms.items()):
+                if median > STRAGGLER_MIN_MEDIAN_MS and ew > STRAGGLER_FACTOR * median:
+                    flagged.append(name)
+                    del self.ewma_ms[name]
+        return flagged
 
     # -- defragmentation and fusion (enactment; planning in repro_torch.core.defrag)
     def defragment(

@@ -41,6 +41,7 @@ import queue
 import re
 import threading
 import time
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -204,6 +205,18 @@ class CheckpointStore:
         # checkpoint files are immutable once renamed into place, so prune
         # never has to re-read them (retention stays O(1) per save).
         self._validated_ids: set = set()
+        # Telemetry plane (repro_torch.obs), wired by the owning
+        # StreamSystem. Instrumentation lives in the store — not the
+        # system — so the background writer thread's saves are traced and
+        # counted identically to synchronous ones.
+        self.tracer: Optional[Any] = None
+        self.metrics: Optional[Any] = None
+
+    def _span(self, name: str, **args: Any):
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            return tracer.span(name, "checkpoint", **args)
+        return nullcontext()
 
     # -- naming ---------------------------------------------------------------
     @staticmethod
@@ -231,13 +244,15 @@ class CheckpointStore:
         The id is one past the highest id on disk — torn files included, so
         a checkpoint that failed mid-write is never overwritten in place.
         """
+        t0 = time.perf_counter()
         os.makedirs(self.root, exist_ok=True)
         ids = self.list_ids()
         checkpoint_id = (ids[-1] + 1) if ids else 1
         # Serialize the payload exactly once: the canonical string is both
         # the digest input and the bytes written (load() re-canonicalizes
         # the parsed payload, which reproduces this string — sorted keys).
-        payload_json = _canonical_json(payload)
+        with self._span("ckpt_encode", checkpoint_id=checkpoint_id):
+            payload_json = _canonical_json(payload)
         header = json.dumps(
             {
                 "checkpoint_format": CHECKPOINT_FORMAT_VERSION,
@@ -248,11 +263,12 @@ class CheckpointStore:
         )
         final = self.path_of(checkpoint_id)
         tmp = final + ".tmp"
-        with open(tmp, "w") as f:
-            f.write(header[:-1] + ', "payload": ' + payload_json + "}")
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, final)
+        with self._span("ckpt_fsync", checkpoint_id=checkpoint_id, bytes=len(payload_json)):
+            with open(tmp, "w") as f:
+                f.write(header[:-1] + ', "payload": ' + payload_json + "}")
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, final)
         try:  # best-effort directory fsync so the rename itself is durable
             dirfd = os.open(self.root, os.O_RDONLY)
             try:
@@ -262,6 +278,13 @@ class CheckpointStore:
         except OSError:  # pragma: no cover - platform-dependent
             pass
         self._validated_ids.add(checkpoint_id)  # valid by construction
+        metrics = self.metrics
+        if metrics is not None:
+            metrics.counter("repro_checkpoints_total", "durable checkpoints written").inc()
+            metrics.histogram(
+                "repro_checkpoint_save_ms",
+                "end-to-end checkpoint save time: encode + fsync + rename (ms)",
+            ).observe((time.perf_counter() - t0) * 1e3)
         if self.keep_last is not None:
             self.prune()
         return final

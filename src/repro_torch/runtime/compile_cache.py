@@ -29,13 +29,18 @@ Where the reference's artifact is a traced XLA executable, the port's is
 the canonical torch step; on the card each segment captures that step into
 CUDA graphs of its own (:mod:`repro_torch.runtime.graphs`), because a graph
 bakes in the addresses of one segment's buffers. A cache belongs to one
-backend, and so to one device. The reference's ``compile_miss`` span is
-not ported yet (the port has no tracer).
+backend, and so to one device. A miss is traced as the reference's
+``compile_miss`` span (category ``compile``) when the owning backend's
+tracer is on.
+
+The cache takes no lock: segments are built only by ``deploy``, which runs
+between steps on the caller's thread, never on a dispatch thread of
+concurrent stepping on the CPU (those only step segments already built).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -187,6 +192,9 @@ class CompileCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # optional repro_torch.obs.Tracer set by the owning backend; a miss
+        # (a canonical build) is the expensive event worth a span
+        self.tracer: Optional[Any] = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -213,7 +221,13 @@ class CompileCache:
             self._entries.move_to_end(key)
         else:
             self.misses += 1
-            seg = build_segment(canon_spec, canon_df, device=self.device)
+            tracer = self.tracer
+            if tracer is not None and tracer.enabled:
+                with tracer.span("compile_miss", "compile", signature=key[:12],
+                                 tasks=len(spec.task_ids), fused=bool(spec.fused)):
+                    seg = build_segment(canon_spec, canon_df, device=self.device)
+            else:
+                seg = build_segment(canon_spec, canon_df, device=self.device)
             canon = _Canonical(seg.step_fn, seg.operators, seg.fused_runs)
             self._entries[key] = canon
             if len(self._entries) > self.capacity:

@@ -19,7 +19,10 @@ identical sink event *counts*; checksums are data-plane only and read as
 Latency is *modelled*, not spent: with a calibrated
 :class:`~repro_torch.ops.costs.LatencyModel` (fit from recorded
 ``StepReport``s via :meth:`ExecutionBackend.latency_samples`) every
-segment reports the wall time the torch backend would have measured.
+segment reports the wall time the torch backend would have measured, and
+``step_mode="concurrent"`` turns into a simulated-clock makespan study —
+per-wave ``segment_ms = max`` (independent segments overlap), summed
+across dependency waves.
 """
 from __future__ import annotations
 
@@ -64,9 +67,17 @@ class DrySegment:
 
 class DryRunBackend(ExecutionBackend):
     name = "dryrun"
+    # Concurrency is simulated, not spent: stepping stays on the caller's
+    # thread and the dependency-DAG makespan model (wave max) does the rest.
+    concurrent_dispatch = False
 
-    def __init__(self, latency_model: Optional[LatencyModel] = None):
-        super().__init__()
+    def __init__(
+        self,
+        step_mode: str = "sync",
+        max_workers: Optional[int] = None,
+        latency_model: Optional[LatencyModel] = None,
+    ):
+        super().__init__(step_mode=step_mode, max_workers=max_workers)
         self.latency_model = latency_model
 
     def calibrate(self, samples_or_model: Union[LatencyModel, list]) -> LatencyModel:

@@ -1,10 +1,18 @@
 """TorchBackend — the port's data plane behind the ExecutionBackend API.
 
-Steps deployed segments in launch order: merges only ever add segments
-downstream of existing ones (boundary streams flow old → new), so launch
-order is a valid topological order of the segment graph. Task states and
-streams are torch tensors on the backend's device; the operators launch
-the port's CUDA kernels when that device is the card.
+In sync mode the backend steps deployed segments in launch order: merges
+only ever add segments downstream of existing ones (boundary streams flow
+old → new), so launch order is a valid topological order of the segment
+graph. In concurrent mode (:meth:`ExecutionBackend.configure_stepping`)
+segments whose producers have finished step at once, and each boundary
+read checks its producer's publish of this step (per-topic sequencing, as
+the reference's ``_topic_target``). On the CPU that is the reference's
+ready queue over a pool of dispatch threads. On the card the stepping
+thread issues the waves itself (:meth:`TorchBackend._issue_waves`): each
+segment of a wave goes onto one of a fixed set of CUDA streams, waits on
+an event of each of its producers, and the step ends with one synchronize.
+Task states and streams are torch tensors on the backend's device; the
+operators launch the port's CUDA kernels when that device is the card.
 
 The port of ``repro.runtime.executor.InProcessJitBackend``. Where the
 reference compiles each segment's step into one XLA executable through
@@ -12,8 +20,8 @@ its :class:`~repro_torch.runtime.compile_cache.CompileCache`, the port
 shares the canonical step through the same cache and, on the card,
 replays each segment's step as CUDA graphs with its states updated in
 place (:mod:`repro_torch.runtime.graphs`). ``capture=False`` keeps the
-eager step on the card, against which the tests hold the captured one. The
-step ends by waiting for the card's stream, where the reference calls
+eager step on the card, against which the tests hold the captured one. A
+segment's step ends by waiting for its stream, where the reference calls
 ``jax.block_until_ready``, so that ``segment_ms`` measures compute rather
 than enqueueing.
 
@@ -24,7 +32,7 @@ backend restore here (and this backend's there).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,18 +67,39 @@ class TorchBackend(ExecutionBackend):
     On the card each segment steps through CUDA graphs after its first,
     eager step, unless ``capture=False``; on the CPU ``capture`` has no
     effect. Structurally identical segments share one canonical step
-    (``compile_cache``) either way."""
+    (``compile_cache``) either way. ``step_mode`` and ``max_workers`` are
+    the reference's; on the card ``max_workers`` is the number of streams
+    a concurrent step issues its waves onto (None: the widest wave's
+    width)."""
 
     name = "torch"
 
-    def __init__(self, device: Optional[Any] = None, capture: bool = True):
-        super().__init__()
+    def __init__(
+        self,
+        device: Optional[Any] = None,
+        capture: bool = True,
+        step_mode: str = "sync",
+        max_workers: Optional[int] = None,
+    ):
+        super().__init__(step_mode=step_mode, max_workers=max_workers)
         self.device = resolve_device(device)
         self.broker = Broker()
         self.compile_cache = CompileCache(self.device)
+        self.compile_cache.tracer = self.tracer
         self.capture = bool(capture) and self.device.type == "cuda"
         self.capture_stats = CaptureStats()
-        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self._capture_stream: Optional[torch.cuda.Stream] = (
+            torch.cuda.Stream(self.device) if self.capture else None)
+        # the streams a concurrent step on the card issues its waves onto,
+        # made as a wider step first needs them, and each segment's pair of
+        # timing events there (see _issue_waves)
+        self._wave_streams: List[torch.cuda.Stream] = []
+        self._seg_events: Dict[str, Tuple[torch.cuda.Event, torch.cuda.Event]] = {}
+        # Per-topic sequence targets for the concurrent step in flight
+        # (None outside one): each forwarding task publishes exactly once
+        # per step, so a boundary read of this step must observe sequence
+        # start+1 on its producer's topic — and only on that topic.
+        self._topic_target: Optional[Dict[str, int]] = None
         # state leaves that a restore could not take from the checkpoint
         # and reset to the operator's template (see _conform_state)
         self.template_fallbacks = 0
@@ -85,14 +114,13 @@ class TorchBackend(ExecutionBackend):
             spec, dataflow, init_states=init_states, cache=self.compile_cache, device=self.device
         )
         if self.capture:
-            if self._capture_stream is None:
-                self._capture_stream = torch.cuda.Stream(self.device)
             seg.graphs = CapturedStep(self._capture_stream, self.capture_stats)
         return seg
 
     def kill(self, segment_name: str) -> None:
         seg = self.segments[segment_name]
         super().kill(segment_name)
+        self._seg_events.pop(segment_name, None)
         if seg.graphs is not None:
             seg.graphs.release()
 
@@ -100,22 +128,147 @@ class TorchBackend(ExecutionBackend):
         for tid in seg.spec.task_ids:
             self.broker.drop(topic_for(tid))
 
+    def _fetch_inputs(self, seg: Segment) -> Dict[str, Any]:
+        """Boundary inputs for one segment.
+
+        During a concurrent step each topic read synchronizes on *its*
+        producer's publish of this step (per-topic sequencing) — the
+        ready-queue already dispatched producers first, so the wait is a
+        cheap verification, but it guarantees deterministic inputs even
+        under a looser dispatch.
+        """
+        targets = self._topic_target
+        if targets is None:
+            return {t: self.broker.fetch(t) for t in seg.boundary_topics}
+        return {
+            t: self.broker.fetch_synced(t, targets[t]) if t in targets else self.broker.fetch(t)
+            for t in seg.boundary_topics
+        }
+
+    def _begin_concurrent_step(self) -> None:
+        seqs = self.broker.sequences()
+        self._topic_target = {
+            topic_for(tid): seqs.get(topic_for(tid), 0) + 1
+            for name, tids in self.forwarding.items()
+            if name in self.segments
+            for tid in tids
+        }
+
+    def _end_concurrent_step(self) -> None:
+        self._topic_target = None
+
+    def _dispatch_concurrent(self) -> Dict[str, float]:
+        if self.device.type != "cuda":
+            return super()._dispatch_concurrent()
+        return self._issue_waves()
+
+    def _issue_waves(self) -> Dict[str, float]:
+        """A concurrent step on the card, issued from the stepping thread.
+
+        Segment ``i`` of each wave goes onto wave stream ``i mod n``; before
+        it, that stream waits on the end event of each of the segment's
+        producers, so a consumer reads a batch only once it is complete,
+        whichever stream wrote it. No dispatch thread and no synchronize
+        comes between two segments: the host issues the whole step and
+        then waits once for every stream. Returns each segment's device ms
+        between a pair of events around its work on its stream.
+
+        Tensors shared across streams stay safe without ``record_stream``
+        because nothing a step reads is freed before that synchronize:
+        published batches stay in the broker until the next step publishes
+        again, graph buffers live as long as their segment, and the states
+        a step replaces (an eager step's old states, a first load's
+        originals) are held here until the end.
+        """
+        waves = self.segment_waves()
+        streams = self._streams(self.max_workers or max((len(w) for w in waves), default=1))
+        current = torch.cuda.current_stream(self.device)
+        start = torch.cuda.Event()
+        start.record(current)
+        for stream in streams:
+            stream.wait_event(start)
+        done: Dict[str, torch.cuda.Event] = {}
+        held: List[Any] = []
+        try:
+            for wave in waves:
+                for i, name in enumerate(wave):
+                    seg = self.segments[name]
+                    stream = streams[i % len(streams)]
+                    for producer in self.seg_deps[name]:
+                        stream.wait_event(done[producer])
+                    begin, end = self._events_of(name)
+                    held.append(seg.states)
+                    with torch.cuda.stream(stream):
+                        begin.record(stream)
+                        if self.tracer.enabled:
+                            with self.tracer.span(name, "segment", step=self.step_count):
+                                self._run(seg)
+                        else:
+                            self._run(seg)
+                        end.record(stream)
+                    done[name] = end
+        finally:
+            for stream in streams:
+                current.wait_stream(stream)
+            current.synchronize()
+            del held
+        seg_ms = {name: self._seg_events[name][0].elapsed_time(end) for name, end in done.items()}
+        for ms in seg_ms.values():
+            self._m_seg_ms.observe(ms)
+        return seg_ms
+
+    def _streams(self, n: int) -> List[torch.cuda.Stream]:
+        """The first ``n`` wave streams. PyTorch hands streams out
+        round-robin from a pool of 32, so one equal to the capture stream
+        is passed over."""
+        while len(self._wave_streams) < n:
+            stream = torch.cuda.Stream(self.device)
+            # compared with ``==``: torch.cuda.Stream defines only __eq__,
+            # and ``stream != None`` (no capture stream) is false
+            if not stream == self._capture_stream:
+                self._wave_streams.append(stream)
+        return self._wave_streams[:n]
+
+    def _events_of(self, name: str) -> Tuple[torch.cuda.Event, torch.cuda.Event]:
+        events = self._seg_events.get(name)
+        if events is None:
+            events = self._seg_events[name] = (
+                torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        return events
+
     def _step_one(self, seg: Segment) -> None:
-        inputs = {t: self.broker.fetch(t) for t in seg.boundary_topics}
+        self._run(seg)
+        # The Storm worker finishes its batch before acking: wait for the
+        # card so segment_ms measures compute, not enqueueing.
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _run(self, seg: Segment) -> None:
+        """Fetch, step and publish ``seg`` on the current stream, without
+        waiting for it."""
+        if self.tracer.enabled:
+            with self.tracer.span("fetch", "transport", segment=seg.name,
+                                  topics=len(seg.boundary_topics)):
+                inputs = self._fetch_inputs(seg)
+        else:
+            inputs = self._fetch_inputs(seg)
         if seg.graphs is not None:
             # copies the inputs into the graph's, replays; states in place
             outputs = seg.graphs.step(seg, inputs)
         else:
             new_states, outputs = seg.step_fn(seg.states, seg.active, inputs)
             seg.states = new_states
+        if self.tracer.enabled:
+            with self.tracer.span("publish", "transport", segment=seg.name):
+                self._publish(seg, outputs)
+        else:
+            self._publish(seg, outputs)
+        seg.steps_run += 1
+
+    def _publish(self, seg: Segment, outputs: Dict[str, Any]) -> None:
         for tid in self.forwarding[seg.name]:
             if tid in outputs:
                 self.broker.publish(topic_for(tid), outputs[tid])
-        # The Storm worker finishes its batch before acking: wait for the
-        # card so segment_ms measures compute, not enqueueing.
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        seg.steps_run += 1
 
     # -- durability hooks ---------------------------------------------------------
     def dump_state(self, state_encoder: Optional[Callable[..., Any]] = None) -> Dict[str, Any]:

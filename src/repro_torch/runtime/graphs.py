@@ -28,12 +28,29 @@ call traces. From then on each pattern of flags is captured the first time
 it steps and replayed after; a task that turns live without having run
 eagerly in this segment gets one more eager step first. Warm-up and
 capture run on the backend's capture stream, the replays on the current
-stream. A capture that fails raises :class:`CaptureError` naming the
-segment and the task; nothing falls back to the eager step.
+stream: under concurrent stepping on the card, the stream the backend
+issues the segment on (``TorchBackend._issue_waves``). Every warm-up,
+capture and replay is issued from the stepping thread, so the capture
+stream needs no lock, and ``pool_bytes``, the growth of
+``memory_reserved`` during a capture, is the capture's own: no other
+thread allocates on the card meanwhile (the background checkpoint writer
+copies to the host only). A capture that fails raises
+:class:`CaptureError` naming the segment and the task; nothing falls
+back to the eager step.
 
 Captures use ``capture_error_mode="thread_local"``: the background
 checkpoint writer copies states to the host from another thread, which a
 capture in progress must not fail.
+
+Each graph gets a cuBLAS workspace of its own. PyTorch keeps one
+workspace per (cuBLAS handle, stream) and allocates it at the first
+product issued on that pair, so every graph captured on the capture
+stream would otherwise reuse one buffer, and two such graphs replayed at
+once on two streams would race on it wherever cuBLAS reduces through its
+workspace (split-K). A capture therefore drops PyTorch's workspaces
+before it begins, so the first product inside it allocates a new one from
+the graph's private pool, and again after it ends, so that no later
+warm-up or capture issues into the buffer the graph holds.
 """
 from __future__ import annotations
 
@@ -81,7 +98,8 @@ class CapturedStep:
         self.warm: Set[str] = set()  # tasks that stepped eagerly while live
 
     def step(self, seg: Any, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Advance ``seg`` one step; returns its output batches."""
+        """Advance ``seg`` one step on the current stream; returns its
+        output batches."""
         self._load(seg, inputs)
         key = tuple(seg.active[t] for t in seg.spec.task_ids)
         live = {t for t, on in zip(seg.spec.task_ids, key) if on}
@@ -126,7 +144,8 @@ class CapturedStep:
     def _load(self, seg: Any, inputs: Dict[str, torch.Tensor]) -> None:
         """Copy the boundary batches into the static inputs; on the first
         call, make the static buffers: the segment's own copies of its
-        states and inputs."""
+        states and inputs. The caller keeps the states they replace until
+        the current stream is done with them."""
         if self.inputs is None:
             seg.states = map_leaves(lambda t: t.clone(), seg.states)
             self.inputs = {topic: x.clone() for topic, x in inputs.items()}
@@ -159,6 +178,7 @@ class CapturedStep:
         device = self.stream.device
         current = torch.cuda.current_stream(device)
         self.stream.wait_stream(current)
+        _fresh_blas_workspaces(self.stream)
         graph = torch.cuda.CUDAGraph()
         reserved = torch.cuda.memory_reserved(device)
         failure: Optional[BaseException] = None
@@ -174,6 +194,7 @@ class CapturedStep:
                 graph.capture_end()
             except RuntimeError as err:
                 failure = failure or err
+        _fresh_blas_workspaces(self.stream)
         if failure is not None:
             raise CaptureError(_describe(seg, failure)) from failure
         ms = (time.perf_counter() - t0) * 1e3
@@ -185,6 +206,18 @@ class CapturedStep:
         self.stats.capture_ms.append(ms)
         self.stats.pool_bytes += captured.pool_bytes
         return captured
+
+
+def _fresh_blas_workspaces(stream: torch.cuda.Stream) -> None:
+    """Make this thread's cuBLAS handle outside any capture (a capture
+    forbids creating it), then drop every cuBLAS workspace PyTorch holds:
+    the next product on a (handle, stream) pair allocates a new one, inside
+    a capture from that graph's private pool. A dropped workspace goes back
+    to the pool of the stream or graph that allocated it, which only that
+    stream's or graph's later allocations reuse."""
+    with torch.cuda.stream(stream):
+        torch.cuda.current_blas_handle()
+    torch._C._cuda_clearCublasWorkspaces()
 
 
 def _describe(seg: Any, err: BaseException) -> str:

@@ -14,8 +14,15 @@ Manager binds to Storm:
     segment, whose straight-line kernel runs go through the multi-op
     kernels.
   * ``defragment`` — enact :func:`repro_torch.core.defrag.plan_defrag`:
-    relaunch one fused segment per running DAG, carrying task states over,
+    relaunch one segment per running DAG, carrying task states over,
     dropping paused tasks and broker hops.
+
+Stepping runs in the reference's two modes: ``step_mode="sync"`` steps
+segments one after another in launch order; ``"concurrent"`` steps every
+segment whose producers have finished at once — on ``max_workers``
+dispatch threads, or on the card on ``max_workers`` CUDA streams that the
+stepping thread issues each wave onto — and ``on_wave`` observes each
+dependency wave. Both give the same sink digests.
 
 Durability: with ``checkpoint_dir=`` (and optionally ``checkpoint_every=N``
 steps) the system writes versioned on-disk checkpoints — control-plane
@@ -26,14 +33,23 @@ backend, another one, or another device), re-pause, and resume stepping
 with trajectories identical to an uninterrupted run. The payload is the
 reference's, so checkpoints cross between the packages.
 
-The port's copy of ``repro.runtime.system``, trimmed to the stream path:
-no concurrent stepping, worker-process or cluster plane, and no telemetry
-plane. The data plane runs on the card unless the caller passes
-``device="cpu"``.
+Telemetry (:mod:`repro_torch.obs`): the backend owns the metrics
+registry and the span tracer; the system wires the control plane and the
+checkpoint store into them and mirrors broker, compile-cache and reuse
+state into the registry at scrape time (``metrics_snapshot``,
+``prometheus_text``, ``drain_spans``, ``export_chrome_trace``), under the
+reference's metric and span names.
+
+The port's copy of ``repro.runtime.system``, trimmed to the paper's main
+path: no worker-process, sharded or cluster plane (``transport``,
+``workers``, ``backend_options``, ``supervise``, ``autoscale``,
+``on_worker_event``, ``worker_health``, ``placement``). The data plane
+runs on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import os
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Set, Union
 
 from repro_torch.core import MergeStrategy, ReuseManager
@@ -47,20 +63,10 @@ from repro_torch.core.defrag import (
 )
 from repro_torch.core.graph import Dataflow
 from repro_torch.core.manager import RemovalReceipt, SubmissionReceipt
+from repro_torch.obs import render_prometheus, write_chrome_trace
 
 from .backend import ExecutionBackend, SegmentSpec, StepReport, compute_batches, resolve_backend
 from .checkpoint import BackgroundCheckpointWriter, CheckpointStore, deferred_encoder
-
-# The reference's name for stepping segments one after another in launch
-# order, the only mode the port has.
-SYNC = "sync"
-
-
-def _check_step_mode(step_mode: Optional[str]) -> None:
-    if step_mode not in (None, SYNC):
-        raise NotImplementedError(
-            f"step_mode {step_mode!r}: the port steps segments in launch order only ({SYNC!r})"
-        )
 
 
 class StreamSystem:
@@ -77,9 +83,10 @@ class StreamSystem:
         checkpoint_keep_last: Optional[int] = None,
         checkpoint_background: bool = False,
         step_mode: Optional[str] = None,
+        max_workers: Optional[int] = None,
+        on_wave: Optional[Any] = None,
         report_history: Optional[int] = None,
     ):
-        _check_step_mode(step_mode)
         self.manager = ReuseManager(
             strategy=strategy, check_invariants=check_invariants, journal_path=journal_path
         )
@@ -89,10 +96,12 @@ class StreamSystem:
                 "already has its device"
             )
         self.backend = resolve_backend(backend, **({} if device is None else {"device": device}))
-        if report_history is not None:
-            if report_history < 1:
-                raise ValueError("report_history must be >= 1")
-            self.backend.history_limit = report_history
+        self.backend.configure_stepping(
+            step_mode=step_mode,
+            max_workers=max_workers,
+            on_wave=on_wave,
+            report_history=report_history,
+        )
         self.base_batch = base_batch
         self.task_batch: Dict[str, int] = {}  # running task id -> output batch size
         self._seg_counter = 0
@@ -119,6 +128,16 @@ class StreamSystem:
         # checkpoint_every=1 does not pause stepping.
         self.checkpoint_background = bool(checkpoint_background)
         self._ckpt_writer: Optional[BackgroundCheckpointWriter] = None
+        # Telemetry plane: the backend owns the registry and tracer; the
+        # system wires the control plane and durability layer into them
+        # and contributes a snapshot-time collector mirroring broker /
+        # compile-cache / reuse-savings state — scrape-time work only,
+        # never on the stepping hot path.
+        self.manager.tracer = self.backend.tracer
+        if self.checkpoint_store is not None:
+            self._wire_checkpoint_store(self.checkpoint_store)
+        self._obs_registry: Optional[Any] = None
+        self._wire_collectors()
 
     @property
     def reuses(self) -> bool:
@@ -127,6 +146,14 @@ class StreamSystem:
     def _mint_segment(self) -> str:
         self._seg_counter += 1
         return f"seg{self._seg_counter}"
+
+    def _span(self, name: str, **args: Any):
+        """A "control"-category span on the backend's tracer (no-op when
+        tracing is off)."""
+        tracer = self.backend.tracer
+        if tracer.enabled:
+            return tracer.span(name, "control", **args)
+        return nullcontext()
 
     # -- operations ---------------------------------------------------------------
     def submit(self, df: Dataflow) -> SubmissionReceipt:
@@ -191,12 +218,15 @@ class StreamSystem:
         return receipt
 
     def defragment(self) -> int:
-        """Relaunch one fused segment per running DAG; returns segments killed.
+        """Relaunch one segment per running DAG; returns segments killed.
 
-        The relaunched segments are built as fused ones, so the peephole
-        puts their straight-line runs on the multi-op kernels, as
-        :meth:`fuse` does (the reference's jit plane fuses such a segment
-        whole when it compiles it)."""
+        The relaunched segments are built as the reference builds them (not
+        fusion-built), so their specs, payloads and compile-cache keys are
+        the reference's."""
+        with self._span("defrag", segments=len(self.backend.segments)):
+            return self._defragment_impl()
+
+    def _defragment_impl(self) -> int:
         plan = plan_defrag(self.manager.running)
         killed = len(self.backend.segments)
         # Carry live task states across the relaunch (beyond-paper:
@@ -220,7 +250,6 @@ class StreamSystem:
                 parents=fused.parents,
                 publish=set(),
                 batch_of={t: self.task_batch[t] for t in fused.order},
-                fused=True,
             )
             self.backend.deploy(
                 spec, run_df, init_states={t: carried[t] for t in fused.order if t in carried}
@@ -273,6 +302,10 @@ class StreamSystem:
 
         Returns ``{fused segment name: [member names replaced]}``.
         """
+        with self._span("fuse", segments=len(self.backend.segments)):
+            return self._fuse_impl(min_length, overhead_ms)
+
+    def _fuse_impl(self, min_length: int, overhead_ms: float) -> Dict[str, List[str]]:
         dag_of = {n: s.spec.dag_name for n, s in self.backend.segments.items()}
         plan = plan_fusion(self.backend.seg_deps, dag_of, min_length=min_length)
         self.fusion_report = self._score_fusion(plan, overhead_ms=overhead_ms)
@@ -316,6 +349,14 @@ class StreamSystem:
                 fused=not self.checkpoint_background,
             )
             self.backend.fuse_segments(spec, df, members)
+            # Reuse-savings attribution, recorded where the decision lands:
+            # every accepted chain dispatches one segment where it used to
+            # dispatch len(members).
+            self.backend.metrics.counter(
+                "repro_fusion_segments_saved_total",
+                "segment dispatches eliminated per step by accepted chain "
+                "fusion (chain length − 1 per fused chain)",
+            ).inc(len(members) - 1)
             members_set = set(members)
             for sub, segs in self._segments_of.items():
                 if any(s in members_set for s in segs):
@@ -331,6 +372,19 @@ class StreamSystem:
     # -- execution -----------------------------------------------------------------
     def step(self) -> StepReport:
         report = self.backend.step()
+        mgr = self.manager
+        saved = mgr.submitted_task_count - mgr.running_task_count
+        if saved > 0 and report.live_tasks:
+            # Reuse-savings attribution in the paper's Fig. 3 cost units:
+            # each step, reuse avoided running `saved` tasks that Default
+            # would have stepped — modelled at this step's per-live-task
+            # cost. Accumulated here (where the step happens), mirrored out
+            # by the scrape.
+            self.backend.metrics.counter(
+                "repro_reuse_core_steps_avoided_total",
+                "modelled core-equivalent step cost avoided by reuse, "
+                "accumulated per step (per-live-task cost × tasks saved)",
+            ).inc(report.cost / report.live_tasks * saved)
         if (
             self.checkpoint_every
             and self.checkpoint_store is not None
@@ -353,10 +407,9 @@ class StreamSystem:
         Deterministic for a given system state (no wall-clock stamps — the
         envelope written by :class:`CheckpointStore` carries those), which
         is what makes ``payload → restore → payload`` a fixed point. The
-        keys are the reference's; ``step_mode`` is always ``"sync"`` and
-        ``max_workers`` always ``None`` here. ``state_encoder`` is forwarded
-        to the backend dump — the background checkpointer passes the
-        deferring marker encoder."""
+        keys are the reference's. ``state_encoder`` is forwarded to the
+        backend dump — the background checkpointer passes the deferring
+        marker encoder."""
         return {
             "backend": self.backend.name or type(self.backend).__name__,
             "backend_config": self.backend.spawn_config(),
@@ -369,8 +422,11 @@ class StreamSystem:
             "checkpoint_every": self.checkpoint_every,
             "checkpoint_keep_last": self.checkpoint_keep_last,
             "checkpoint_background": self.checkpoint_background,
-            "step_mode": SYNC,
-            "max_workers": None,
+            # Stepping-pipeline config rides along so a restore lands in the
+            # same mode by default; the segment dependency DAG itself is
+            # derived state and is rebuilt by redeploy, never persisted.
+            "step_mode": self.backend.step_mode,
+            "max_workers": self.backend.max_workers,
             "data": self.backend.dump_state(state_encoder),
         }
 
@@ -399,6 +455,7 @@ class StreamSystem:
             raise ValueError(
                 "no checkpoint_dir configured — pass one to checkpoint() or the constructor"
             )
+        self._wire_checkpoint_store(store)
         self.flush_checkpoints()
         return store.save(self.checkpoint_payload())
 
@@ -413,6 +470,8 @@ class StreamSystem:
         checkpoint_keep_last: Optional[int] = None,
         checkpoint_background: Optional[bool] = None,
         step_mode: Optional[str] = None,
+        max_workers: Optional[int] = None,
+        on_wave: Optional[Any] = None,
         journal_path: Optional[str] = None,
         check_invariants: bool = False,
     ) -> "StreamSystem":
@@ -424,10 +483,11 @@ class StreamSystem:
         other registered backend for a cross-backend restore. A payload of
         the reference's names its backend (``"inprocess"``) and restores
         here with ``backend="torch"``; its ``backend_config`` applies only
-        when the names match, and its ``max_workers`` is ignored.
-        ``device`` places a torch backend (the card by default)."""
-        _check_step_mode(step_mode)
-        _check_step_mode(payload.get("step_mode"))
+        when the names match. ``device`` places a torch backend (the card by
+        default). ``step_mode``/``max_workers`` override the checkpointed
+        stepping config — a checkpoint taken in either mode restores into
+        either mode (the segment dependency DAG is derived state, rebuilt
+        by the redeploy)."""
         mgr = ReuseManager.replay(
             payload["journal"],
             strategy=payload["strategy"],
@@ -467,7 +527,13 @@ class StreamSystem:
         )
         if system.checkpoint_store is not None:
             system.checkpoint_store.keep_last = system.checkpoint_keep_last
+        system.backend.configure_stepping(
+            step_mode=step_mode if step_mode is not None else payload.get("step_mode"),
+            max_workers=max_workers if max_workers is not None else payload.get("max_workers"),
+            on_wave=on_wave,
+        )
         system.manager = mgr
+        system.manager.tracer = system.backend.tracer  # replaced the wired one
         system.task_batch = {t: int(b) for t, b in payload["task_batch"].items()}
         system._seg_counter = int(payload["seg_counter"])
         system._segments_of = {n: list(s) for n, s in payload["segments_of"].items()}
@@ -487,6 +553,8 @@ class StreamSystem:
         checkpoint_keep_last: Optional[int] = None,
         checkpoint_background: Optional[bool] = None,
         step_mode: Optional[str] = None,
+        max_workers: Optional[int] = None,
+        on_wave: Optional[Any] = None,
         journal_path: Optional[str] = None,
         check_invariants: bool = False,
     ) -> "StreamSystem":
@@ -509,23 +577,34 @@ class StreamSystem:
             checkpoint_keep_last=checkpoint_keep_last,
             checkpoint_background=checkpoint_background,
             step_mode=step_mode,
+            max_workers=max_workers,
+            on_wave=on_wave,
             journal_path=journal_path,
             check_invariants=check_invariants,
         )
 
     def quiesce(self) -> None:
-        """Block until queued background checkpoints are durably on disk,
-        releasing nothing (the port steps on the caller's thread, so there
-        is no dispatch in flight to drain)."""
+        """Drain in-flight work without releasing anything.
+
+        Blocks until any concurrent dispatch in progress has finished (the
+        stepping pool is drained and dropped; it is re-created lazily on
+        the next concurrent step) and queued background checkpoints are
+        durably on disk, so a checkpoint written next can never race a
+        step.
+        """
         self.flush_checkpoints()
+        self.backend._reset_pool()
 
     def close(self) -> None:
-        """Flush and stop the background checkpoint writer. Idempotent; the
-        system stays usable (a later background checkpoint starts a new
-        writer)."""
+        """Release data-plane resources: flush queued background
+        checkpoints, then close the backend (its dispatch pool).
+
+        Idempotent; the system stays usable — stepping recreates what it
+        needs lazily."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.close()
             self._ckpt_writer = None
+        self.backend.close()
 
     # -- observability ----------------------------------------------------------------
     def sink_digests(self, sub_name: str) -> Dict[str, Dict[str, Any]]:
@@ -541,6 +620,140 @@ class StreamSystem:
                 "checksum": float(st["checksum"]),
             }
         return out
+
+    def segment_latency_ms(self) -> Dict[str, Dict[str, float]]:
+        """Canonical per-segment step-latency digest (mean/last/max/samples
+        in ms), from the same measured ``StepReport.segment_ms`` history
+        the fusion calibrator reads — see
+        :meth:`ExecutionBackend.segment_latency_stats`."""
+        return self.backend.segment_latency_stats()
+
+    # -- telemetry plane ---------------------------------------------------------
+    def _wire_checkpoint_store(self, store: CheckpointStore) -> None:
+        """Point a store at the backend's tracer/registry (encode/fsync
+        spans and the checkpoint counters live inside the store, so the
+        background writer thread is instrumented identically)."""
+        store.tracer = self.backend.tracer
+        store.metrics = self.backend.metrics
+
+    def _wire_collectors(self) -> None:
+        """Register the scrape-time collector on the backend's registry.
+
+        Idempotent per registry instance — :meth:`configure_obs` swaps the
+        registry, after which the next call re-registers on the new one.
+        """
+        registry = self.backend.metrics
+        if registry is self._obs_registry:
+            return
+        registry.add_collector(self._collect_obs)
+        self._obs_registry = registry
+
+    def _collect_obs(self) -> None:
+        """Mirror broker / compile-cache / reuse state into the registry.
+
+        Runs inside every registry snapshot, never on the stepping hot
+        path. Counters use ``set_total`` — the underlying sources are
+        already cumulative. The broker's counters go out under the
+        reference's transport names.
+        """
+        m = self.backend.metrics
+        broker = getattr(self.backend, "broker", None)
+        if broker is not None:
+            counters = broker.counters()
+            m.counter(
+                "repro_transport_publishes_total",
+                "event batches published onto boundary-stream topics",
+            ).set_total(counters["publishes"])
+            m.counter(
+                "repro_transport_bytes_published_total",
+                "payload bytes published onto boundary-stream topics",
+            ).set_total(counters["bytes_published"])
+            m.counter(
+                "repro_transport_fetches_total",
+                "boundary-stream fetches (plain, synced and zero-copy views)",
+            ).set_total(broker.fetch_count)
+        cache = self.backend.compile_cache_stats()
+        m.counter(
+            "repro_compile_cache_hits_total",
+            "structurally identical segments served from the compiled-segment cache",
+        ).set_total(cache.get("hits", 0))
+        m.counter(
+            "repro_compile_cache_misses_total",
+            "segment structures compiled because no cached executable matched",
+        ).set_total(cache.get("misses", 0))
+        m.counter(
+            "repro_compile_cache_evictions_total",
+            "compiled-segment cache LRU evictions",
+        ).set_total(cache.get("evictions", 0))
+        m.gauge(
+            "repro_compile_cache_entries",
+            "distinct segment structures currently cached",
+        ).set(cache.get("entries", 0))
+        mgr = self.manager
+        m.gauge(
+            "repro_reuse_tasks_saved",
+            "running tasks avoided right now by collaborative reuse "
+            "(submitted task count minus running task count)",
+        ).set(max(mgr.submitted_task_count - mgr.running_task_count, 0))
+        oc = mgr.op_counts
+        m.counter(
+            "repro_reuse_tasks_submitted_total",
+            "running tasks requested across all submissions (reused + created)",
+        ).set_total(oc["tasks_submitted"])
+        m.counter(
+            "repro_reuse_tasks_reused_total",
+            "requested tasks satisfied by an already-running task",
+        ).set_total(oc["tasks_reused"])
+        m.counter(
+            "repro_merge_events_total",
+            "submissions that merged into the running set reusing >=1 task",
+        ).set_total(oc["merge_events"])
+        m.counter(
+            "repro_unmerge_events_total",
+            "removals (each plans and applies one unmerge)",
+        ).set_total(oc["unmerge_events"])
+
+    def configure_obs(
+        self,
+        metrics: Optional[bool] = None,
+        trace: Optional[bool] = None,
+        sample_stride: Optional[int] = None,
+        trace_capacity: Optional[int] = None,
+    ) -> "StreamSystem":
+        """Reconfigure the telemetry plane and re-wire every consumer
+        (control plane, checkpoint store, collectors) onto the resulting
+        registry/tracer — the system-level twin of
+        :meth:`ExecutionBackend.configure_obs`."""
+        self.backend.configure_obs(
+            metrics=metrics,
+            trace=trace,
+            sample_stride=sample_stride,
+            trace_capacity=trace_capacity,
+        )
+        self.manager.tracer = self.backend.tracer
+        if self.checkpoint_store is not None:
+            self._wire_checkpoint_store(self.checkpoint_store)
+        self._wire_collectors()
+        return self
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """The registry snapshot, collectors included."""
+        return self.backend.metrics_snapshot()
+
+    def prometheus_text(self) -> str:
+        """The snapshot rendered as Prometheus text exposition 0.0.4."""
+        return render_prometheus(self.metrics_snapshot())
+
+    def drain_spans(self) -> List[Dict[str, Any]]:
+        """Drain buffered trace spans (destructive)."""
+        return self.backend.drain_spans()
+
+    def export_chrome_trace(self, path: str) -> int:
+        """Drain spans into a Chrome/Perfetto trace file; returns the
+        number of spans written."""
+        spans = self.drain_spans()
+        write_chrome_trace(path, spans)
+        return len(spans)
 
     @property
     def running_task_count(self) -> int:

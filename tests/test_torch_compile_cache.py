@@ -11,7 +11,9 @@ instead of a jitted executable. Held here on the CPU:
     ``inprocess`` backend's exactly on the scenarios of
     ``tests/test_fusion_optimizer.py::TestCompileCache``, on Fig. 1 and on
     a prefix of the OPMW rw1 trace (``rw_trace(seed=11)``), after every
-    event;
+    event, ``defragment()`` included;
+  * after ``defragment()`` the checkpoint payload's segment specs are the
+    reference's;
   * segments that hit the cache share the canonical operators, and their
     sink digests equal those of the segment that missed;
   * ``fuse()`` under ``checkpoint_background`` builds the reference's
@@ -266,7 +268,7 @@ def test_session_stats_surface():
 
 @pytest.mark.parametrize("strategy", ["signature", "none"])
 def test_fig1_counters_equal_the_references_after_every_event(strategy):
-    # submit, step after each; fuse; remove B and submit it again
+    # submit, step after each; fuse; remove B and submit it again; defragment
     port = ReuseSession(strategy=strategy, execute=True, device="cpu", base_batch=8)
     ref = RefSession(strategy=strategy, execute=True, backend="inprocess", base_batch=8)
     trail = {"port": [], "ref": []}
@@ -282,6 +284,9 @@ def test_fig1_counters_equal_the_references_after_every_event(strategy):
         session.remove("B")
         session.step()
         session.submit(flows[1])
+        session.step()
+        trail[key].append(_cache(session))
+        session.defragment()
         session.step()
         trail[key].append(_cache(session))
     assert trail["port"] == trail["ref"]
@@ -301,11 +306,34 @@ def test_rw1_prefix_counters_equal_the_references():
         for _ev, _receipt in replay(session, ds, events):
             session.step()
             trail.append(_cache(session))
+        session.defragment()
+        session.step()
+        trail.append(_cache(session))
         trails.append(trail)
-    assert len(trails[0]) == PREFIX
+    assert len(trails[0]) == PREFIX + 1
     assert trails[0] == trails[1]
     assert trails[0][-1]["misses"] > 0
     ref.close()
+
+
+def test_defragment_payload_specs_are_the_references():
+    # the defragment repair: the relaunched segments are not fusion-built,
+    # so their specs (and cache keys) are the reference's
+    specs = {}
+    for package, cls, fl, kw in (("port", StreamSystem, flow, {"device": "cpu"}),
+                                 ("ref", RefSystem, ref_flow, {"backend": "inprocess"})):
+        system = cls(strategy="signature", base_batch=8, **kw)
+        for df in _fig1(fl):
+            system.submit(df)
+        system.run(2)
+        system.remove("B")
+        system.defragment()
+        system.run(1)
+        specs[package] = [{k: v for k, v in rec.items() if k != "states"}
+                          for rec in system.checkpoint_payload()["data"]["segments"]]
+        system.close()
+    assert specs["port"] == specs["ref"]
+    assert specs["port"] and not any(rec["fused"] for rec in specs["port"])
 
 
 # -- fuse() under background checkpointing ---------------------------------------------

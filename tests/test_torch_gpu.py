@@ -785,14 +785,16 @@ def test_cuda_background_checkpoints_hold_the_state_of_their_step(cuda, tmp_path
 REMOVED = ("urban_etl", "taxi_pred_lr", "FA")  # chip_smoke.py's removals
 
 
-def _phase3(cuda, capture, fuse, batch=1024):
+def _phase3(cuda, capture, fuse, batch=1024, **stepping):
     """chip_smoke.py's phase-3 script: 3 steps, [fuse()], 3 steps, remove
-    three flows, 2 steps. Returns (digests, system)."""
+    three flows, 2 steps; ``stepping`` are StreamSystem's step_mode and
+    max_workers. Returns (digests, system)."""
     from repro_torch.runtime.executor import TorchBackend
     from repro_torch.runtime.system import StreamSystem
     from repro_torch.workloads import kernel_flows, riot_workload
 
-    system = StreamSystem(backend=TorchBackend(cuda, capture=capture), base_batch=batch)
+    system = StreamSystem(backend=TorchBackend(cuda, capture=capture), base_batch=batch,
+                          **stepping)
     flows = riot_workload() + kernel_flows()
     for df in flows:
         system.submit(df)
@@ -933,3 +935,150 @@ def test_a_failed_capture_names_the_segment_and_the_task(cuda):
         system.step()
     op.apply = inner
     torch.cuda.synchronize()
+
+
+# -- concurrent stepping: segments of a wave on several streams at once ---------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("capture", [True, False])
+def test_concurrent_step_is_bitwise_the_sync_step(cuda, capture, fuse):
+    # each wave's segments step on several streams at once (on the card
+    # issued from the stepping thread); digests and kernel launches are the
+    # sync run's, at any width
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    sync, _ = _phase3(cuda, capture=capture, fuse=fuse)
+    sync_launches = launch_counts()
+    for workers in (None, 4):
+        reset_launch_counts()
+        waves = []
+        conc, system = _phase3(cuda, capture=capture, fuse=fuse, step_mode="concurrent",
+                               max_workers=workers, on_wave=waves.append)
+        assert conc == sync
+        assert launch_counts() == sync_launches
+        assert max(len(e.segments) for e in waves) > 1
+        if capture:
+            for name, seg in system.backend.segments.items():
+                assert seg.graphs.graphs, f"segment {name} never replayed a graph"
+        system.close()
+
+
+def _with_gemm(apply):
+    """``apply`` whose output batch also carries a product of itself: the
+    batch as a (rows, 64) matrix, its (64, rows) by (rows, 64) product, a
+    shape cuBLAS may reduce split-K through its workspace. The output
+    moves by at most 1e-3, through a ratio of the product's sums."""
+
+    def wrapped(state, *x):
+        state, y = apply(state, *x)
+        if y is None or y.numel() % 64:
+            return state, y
+        a = y.reshape(-1, 64)
+        p = a.t() @ a
+        return state, y + p.trace() / (p.abs().sum() + 1.0) * 1e-3
+
+    return wrapped
+
+
+@pytest.mark.gpu
+def test_concurrent_replays_of_cublas_products_are_bitwise_the_sync_step(cuda):
+    # graphs of several segments, each with cuBLAS products, replayed at
+    # once on several streams: each graph holds a cuBLAS workspace of its
+    # own (runtime/graphs.py); one shared workspace would be raced on
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.runtime.system import StreamSystem
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    def run(**stepping):
+        system = StreamSystem(backend=TorchBackend(cuda), base_batch=16384, **stepping)
+        for df in riot_workload() + kernel_flows():
+            system.submit(df)
+        wrapped = {}
+        for seg in system.backend.segments.values():
+            for op in seg.operators.values():
+                if id(op) not in wrapped:
+                    wrapped[id(op)] = op
+                    op.apply = _with_gemm(op.apply)
+        system.run(6)
+        system.close()
+        return _sink_states(system), system.backend
+
+    sync, backend = run()
+    assert backend.capture_stats.graphs >= len(backend.segments)
+    for workers in (None, 4):
+        conc, backend = run(step_mode="concurrent", max_workers=workers)
+        assert max(len(w) for w in backend.segment_waves()) > 1
+        assert conc == sync
+
+
+@pytest.mark.gpu
+def test_launch_counts_equal_in_the_four_modes(cuda):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    counts = {}
+    for capture in (True, False):
+        for mode in ("sync", "concurrent"):
+            reset_launch_counts()
+            _, system = _phase3(cuda, capture=capture, fuse=True, batch=256, step_mode=mode)
+            counts[(capture, mode)] = launch_counts()
+            system.close()
+    first = next(iter(counts.values()))
+    assert all(c == first for c in counts.values()), counts
+    assert all(first[k] > 0 for k in ("rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["signature", "none"])
+def test_pause_resume_and_kill_in_concurrent_mode_keep_the_sync_digests(cuda, strategy):
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.runtime.system import StreamSystem
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    def run(step_mode):
+        system = StreamSystem(strategy=strategy, backend=TorchBackend(cuda), base_batch=256,
+                              step_mode=step_mode, max_workers=4)
+        for df in riot_workload() + kernel_flows():
+            system.submit(df)
+        system.run(3)
+        terminated = set()
+        for name in REMOVED:
+            terminated |= set(system.remove(name).terminated_tasks)
+        system.run(2)
+        if strategy == "signature":
+            system.backend.resume(terminated)
+        system.run(2)
+        system.close()
+        return _sink_states(system)
+
+    assert run("concurrent") == run("sync")
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_in_concurrent_mode_names_its_task(cuda):
+    import re
+
+    from repro_torch.runtime.graphs import CaptureError
+
+    system = _stream_system(cuda, step_mode="concurrent", max_workers=4)
+    system.run(1)  # the eager warm-ups
+    backend = system.backend
+    seg = next(s for s in backend.segments.values()
+               if any(backend.task_defs[t].type == "kalman" for t in s.spec.task_ids))
+    tid = next(t for t in seg.spec.task_ids if backend.task_defs[t].type == "kalman")
+    op = seg.operators[tid]  # shared by every segment of this structure
+    inner = op.apply
+    op.apply = lambda st, x: (float(x.sum()), inner(st, x))[1]
+    with pytest.raises(CaptureError) as info:
+        system.step()
+    op.apply = inner
+    torch.cuda.synchronize()
+    found = re.search(r"segment '([^']+)' failed in task '([^']+)' \(operator 'kalman'\)",
+                      str(info.value))
+    assert found, str(info.value)
+    name, task = found.groups()
+    assert task in backend.segments[name].spec.task_ids
+    assert backend.segments[name].operators[task] is op
+    system.close()

@@ -328,11 +328,17 @@ def test_restore_into_used_backend_raises(ckpt_dir):
 
 
 def test_concurrent_payload_raises(ckpt_dir):
+    # a payload taken in concurrent mode restores in it (or in sync mode on
+    # request); only a step mode neither package has raises
     system = _new("port", "torch")
     system.submit(_fig1(flow)["A"])
-    payload = dict(system.checkpoint_payload(), step_mode="concurrent")
-    with pytest.raises(NotImplementedError):
-        StreamSystem.from_payload(payload, device="cpu")
+    payload = dict(system.checkpoint_payload(), step_mode="concurrent", max_workers=2)
+    restored = StreamSystem.from_payload(payload, device="cpu")
+    assert (restored.backend.step_mode, restored.backend.max_workers) == ("concurrent", 2)
+    assert StreamSystem.from_payload(payload, device="cpu", step_mode="sync").backend.step_mode == "sync"
+    with pytest.raises(ValueError, match="step_mode"):
+        StreamSystem.from_payload(dict(payload, step_mode="warp"), device="cpu")
+    restored.close()
 
 
 def test_broker_buffers_and_counters_survive(ckpt_dir):

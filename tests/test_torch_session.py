@@ -6,7 +6,8 @@ with ``execute=True, backend="torch", device="cpu"``, the reference with
 exact; checksums are allclose at rtol 2e-5 (``torch.sum`` and ``jnp.sum``
 reduce in different orders: tests/test_torch_system.py). Within the port,
 ``defragment()`` keeps the digests, and fused and unfused runs stay
-bitwise equal after it.
+bitwise equal after it. ``defragment()`` builds its segments as the
+reference does: not fusion-built, so the peephole leaves them alone.
 """
 import numpy as np
 import pytest
@@ -114,7 +115,8 @@ def test_fig1_fused_equals_unfused_after_defragment(fig1_runs):
 
 def _kernel_flows_script(fuse, defrag):
     """The kernel flows behind the urban source: 3 steps, [fuse], 2 steps,
-    [defragment], 2 steps; returns (digests, the peephole's runs)."""
+    [defragment], 2 steps; returns (digests, the peephole's runs at the
+    end)."""
     session = ReuseSession(execute=True, device="cpu", base_batch=8)
     urban_kalman = next(df for df in riot_workload() if df.name == "urban_kalman")
     session.submit_many([urban_kalman] + kernel_flows())
@@ -126,7 +128,7 @@ def _kernel_flows_script(fuse, defrag):
         ev = session.defragment()
         segments = session._system.backend.segments.values()
         assert ev.segments_after == len(segments) == len(session.manager.running)
-        assert all(seg.spec.fused for seg in segments)
+        assert not any(seg.spec.fused for seg in segments)
     session.run(2)
     defs = session._system.backend.task_defs
     runs = sorted(
@@ -138,14 +140,16 @@ def _kernel_flows_script(fuse, defrag):
 
 
 def test_defragment_rebuilds_through_the_peephole_bitwise():
-    """After defragment() the multi-op kernels carry the senml runs again,
-    whether or not fuse() ran before it, and every digest equals the run
-    that was never fused nor defragmented."""
+    """defragment() rebuilds every segment as the reference does, not
+    fusion-built: the peephole leaves them alone, whether or not fuse() put
+    the senml runs on the multi-op kernels before it, and every digest
+    equals the run that was never fused nor defragmented."""
     plain, plain_runs = _kernel_flows_script(fuse=False, defrag=False)
     unfused, unfused_runs = _kernel_flows_script(fuse=False, defrag=True)
     fused, fused_runs = _kernel_flows_script(fuse=True, defrag=True)
-    assert plain_runs == []
-    assert fused_runs == unfused_runs and ("senml_parse", "senml_parse") in fused_runs
+    _, fused_only_runs = _kernel_flows_script(fuse=True, defrag=False)
+    assert plain_runs == fused_runs == unfused_runs == []
+    assert ("senml_parse", "senml_parse") in fused_only_runs
     assert fused == unfused == plain
 
 
@@ -229,7 +233,7 @@ def test_session_default_is_the_card(monkeypatch):
 
 @pytest.mark.parametrize("arg", [
     {"transport": "shm"}, {"workers": 2}, {"supervise": True}, {"autoscale": True},
-    {"max_workers": 4}, {"on_wave": print}, {"backend_options": {"x": 1}},
+    {"on_worker_event": print}, {"backend_options": {"x": 1}},
 ])
 def test_trimmed_planes_raise(arg):
     with pytest.raises(DataflowError, match="not in the port"):
@@ -237,8 +241,17 @@ def test_trimmed_planes_raise(arg):
 
 
 def test_concurrent_step_mode_raises():
-    with pytest.raises(NotImplementedError, match="launch order"):
-        ReuseSession(execute=True, device="cpu", step_mode="concurrent")
+    # concurrent stepping is the reference's: it needs a data plane, as
+    # there, and a mode neither package has raises
+    with pytest.raises(DataflowError, match="step_mode, max_workers"):
+        ReuseSession(step_mode="concurrent", max_workers=2)
+    with pytest.raises(ValueError, match="step_mode"):
+        ReuseSession(execute=True, device="cpu", step_mode="warp")
+    session = ReuseSession(execute=True, device="cpu", step_mode="concurrent", max_workers=2,
+                           on_wave=print)
+    assert (session._system.backend.step_mode, session._system.backend.max_workers) == (
+        "concurrent", 2)
+    session.close()
 
 
 # -- batched submission and traces ------------------------------------------------
