@@ -15,10 +15,12 @@ Phases, each fatal on failure:
      also in bf16, and K3 == K1 of K2's output at D = 128 and 5120; K4-K6
      at qwen3-4b's serving shapes, bf16 and f32; K7 at zamba2-2.7b's
      prefill of 2048 tokens, f32 and bf16, and at a ragged 1109; K5/K6
-     also at zamba2's head dim of 80, nemotron-4-340b's of 192 and an
-     unbuilt 96 (run zero-padded to 128), f32 and bf16, each beside its
-     library call; which K5 and K7 build each dtype
-     ran, and K7's launches per call, counted);
+     also at zamba2's head dim of 80, nemotron-4-340b's of 192, an
+     unbuilt 96 (run zero-padded to 128) and, on the pieces kernel, 256
+     and 320, f32 and bf16, each beside its library call; K7's tiled
+     build in f32 at chunk = N = P = 128 and at chunk 256, N 192, P 160 in
+     f32 and bf16; which K5 and K7 build each dtype and shape ran, and
+     K7's launches per call, counted);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -66,6 +68,16 @@ Phases, each fatal on failure:
      (``configure_obs(trace=True)``: spans counted by category, the
      Prometheus text, a Chrome trace that ``json`` loads), and rw1 in
      concurrent mode, sink counts equal to the dry run's after every event;
+     then (3c) the worker-process plane: the same stream script on
+     ``backend="multiproc"`` over shm, 2 workers in sync mode (an RPC a
+     segment) and 4 in concurrent mode with chain batching (an RPC a
+     worker), fuse() accepting every chain, with sink digests bitwise and
+     kernel launches summed over the workers equal to the in-process
+     captured run's; their steady step walls beside phase 3's, the
+     workers' own segment ms, MiB published and RPCs a step, spawn to the
+     first step, each worker's memory; a checkpoint taken on multiproc
+     restored on torch and the reverse (bitwise), a worker killed between
+     steps and recovered (digests unchanged), a short run over tcp;
   4. the dense serving path at full width: qwen3-4b (36 layers, bf16,
      random weights drawn on the card from a seeded generator) through
      ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
@@ -85,7 +97,8 @@ Phases, each fatal on failure:
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5, the session's and the concurrent ones included; each
+     of phases 3-5, the session's, the concurrent ones and the workers'
+     of phase 3c included; each
      must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -671,7 +684,65 @@ def hybrid_kernel_phase(dev, gen):
         del q, k, v, kc, vc
     head_dim_checks(dev, gen, 96, 8, 192)
     head_dim_checks(dev, gen, 32, 8, 96)
+    # above the built head dims: the pieces kernel, at Gemma-class 256 and
+    # at 320, which is no multiple of 64 (a ragged last piece)
+    head_dim_checks(dev, gen, 16, 8, 256)
+    head_dim_checks(dev, gen, 16, 8, 320)
+    ssd_route_checks(dev, gen)
     return [k7]
+
+
+# K7 where neither the SIMT nor the tensor-core build fits: f32 at
+# chunk = N = P = 128, and chunk 256 with N 192 and P 160 in f32 and bf16
+SSD_TILE_CASES = (("float32", 128, 128, 128), ("float32", 256, 192, 160),
+                  ("bfloat16", 256, 192, 160))
+
+
+def ssd_route_checks(dev, gen):
+    """K7's tiled build against its plain version, timed beside its bound
+    (bf16 inputs at the bf16 tensor-core rate, with the f32 rate's beside
+    it: the build runs f32 FMAs whatever its inputs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref, ssd
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    b, s, nh = 1, SERVE_PROMPT, 24
+    for dname, chunk, n, p in SSD_TILE_CASES:
+        dtype = getattr(torch, dname)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        xh = torch.randn((b, s, nh, p), generator=gen).to(dev, dtype)
+        dt = F.softplus(torch.randn((b, s, nh), generator=gen)).to(dev)
+        a = -torch.exp(0.5 * torch.randn((nh,), generator=gen)).to(dev)
+        bm = torch.randn((b, s, n), generator=gen).to(dev, dtype)
+        cm = torch.randn((b, s, n), generator=gen).to(dev, dtype)
+        h0 = torch.randn((b, nh, n, p), generator=gen).to(dev)
+
+        def k7():
+            return ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk, h0=h0)
+
+        reset_launch_counts()
+        got_y, got_h = k7()
+        per_call = launch_counts()["ssd_scan"]
+        want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk, h0)
+        err = max(check_rel(f"ssd_scan y {tag} chunk {chunk} N {n} P {p}", got_y, want_y, SSD_REL),
+                  check_rel(f"ssd_scan h {tag} chunk {chunk} N {n} P {p}", got_h, want_h, SSD_REL))
+        # the least time for the work: bf16 inputs at the bf16 tensor-core
+        # rate (the build itself issues f32 FMAs: the f32 rate's beside it)
+        bf16 = dtype == torch.bfloat16
+        bnd, by = ssd_bound(b, s, nh, p, n, chunk, xh.element_size(),
+                            BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        f32_bnd, f32_by = ssd_bound(b, s, nh, p, n, chunk, xh.element_size(), FP32_OPS_PER_S)
+        ms = device_ms(k7, per_graph=2, reps=5)
+        plain = device_ms(lambda: ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk, h0), per_graph=1, reps=3)
+        log(f"K7 ssd_scan xh ({b},{s},{nh},{p}) N {n} chunk {chunk} {tag}, with h0: max|err| "
+            f"{err:.3g} (limit {SSD_REL} of max |y|, |h|); kernel "
+            f"{ssd.kernel_name(dtype, chunk, n, p)}, {per_call} launch(es) per call; "
+            f"{ms * 1e3:.2f} us per call on the device, plain {plain * 1e3:.2f} us, bound "
+            f"{bnd * 1e3:.3f} us ({by}, {'bf16 tensor-core' if bf16 else 'f32'} rate; at the "
+            f"f32 rate {f32_bnd * 1e3:.3f} us, {f32_by}), library: none")
+        del xh, bm, cm, got_y, want_y
 
 
 # K5/K6 against F.scaled_dot_product_attention's output: the library rounds
@@ -679,6 +750,14 @@ def hybrid_kernel_phase(dev, gen):
 # cores in bf16, up to |v| * 2**-9 off), so its output is held at the bf16
 # tolerance, which a wrong row or head still misses by far
 LIB_TOL = BF16_TOL
+
+
+def decode_route(dtype, hd) -> str:
+    from repro_torch.kernels import flash_attention
+
+    if hd > flash_attention.HEAD_DIMS[-1]:
+        return flash_attention.PIECES_KERNEL
+    return "decode_split (splits merged in one launch)"
 
 
 def head_dim_checks(dev, gen, h, kv, hd):
@@ -694,7 +773,7 @@ def head_dim_checks(dev, gen, h, kv, hd):
     from repro_torch.kernels import decode_attention, flash_attention, ref
 
     s, s_cache = SERVE_PROMPT, 4096
-    width = flash_attention.padded_head_dim(hd)
+    width = hd if hd > flash_attention.HEAD_DIMS[-1] else flash_attention.padded_head_dim(hd)
     route = "" if width == hd else f", zero-padded to {width}"
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
         tag = ("bf16" if dtype == torch.bfloat16 else "f32") + route
@@ -721,7 +800,7 @@ def head_dim_checks(dev, gen, h, kv, hd):
                                                                enable_gqa=True), per_graph=3, reps=7)
         log(f"K5 flash_attention q (1,{s},{h},{hd}) kv {kv} causal {tag}: max|err| {err:.3g} "
             f"(tol {tol}), {lib_err:.3g} from the library's output (tol {LIB_TOL}); kernel "
-            f"{flash_attention.KERNELS[dtype]}; {ms * 1e3:.2f} us/launch on "
+            f"{flash_attention.route(dtype, hd)}; {ms * 1e3:.2f} us/launch on "
             f"the device, bound {bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
             f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
         del q, k, v, qt, kt, vt
@@ -743,7 +822,7 @@ def head_dim_checks(dev, gen, h, kv, hd):
         lib = device_ms(lambda: F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True))
         log(f"K6 decode_attention q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len {s} {tag}: "
             f"max|err| {err:.3g} (tol {tol}), {lib_err:.3g} from the library's output (tol "
-            f"{LIB_TOL}); {ms * 1e3:.2f} us/launch on the device, bound "
+            f"{LIB_TOL}); kernel {decode_route(dtype, hd)}; {ms * 1e3:.2f} us/launch on the device, bound "
             f"{bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
             f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
         del q1, kc, vc
@@ -751,18 +830,21 @@ def head_dim_checks(dev, gen, h, kv, hd):
 
 # -- phase 3: the main path ------------------------------------------------------------
 
-def run_script(base_batch, device, fuse, capture=True, waves=None, **stepping):
+def run_script(base_batch, device, fuse, capture=True, waves=None, backend=None,
+               fuse_kw=None, **stepping):
     """The stream path's script; returns (digests, per-step wall ms, system).
     ``capture=False`` steps eagerly on the card (no CUDA graphs);
     ``stepping`` are StreamSystem's step_mode and max_workers. With a list
     ``waves``, each wave event is appended to it with the waves and the
-    segments the backend had when it fired."""
+    segments the backend had when it fired. ``backend`` replaces the torch
+    backend (the multiproc one of phase 3c); ``fuse_kw`` goes to fuse()."""
     from repro_torch.runtime.executor import TorchBackend
     from repro_torch.runtime.system import StreamSystem
     from repro_torch.workloads import kernel_flows, riot_workload
 
-    system = StreamSystem(backend=TorchBackend(device, capture=capture), base_batch=base_batch,
-                          **stepping)
+    if backend is None:
+        backend = TorchBackend(device, capture=capture)
+    system = StreamSystem(backend=backend, base_batch=base_batch, **stepping)
     if waves is not None:
         def on_wave(event):
             backend = system.backend
@@ -774,7 +856,7 @@ def run_script(base_batch, device, fuse, capture=True, waves=None, **stepping):
     for df in flows:
         system.submit(df)
     walls = [r.wall_ms for r in system.run(3)]
-    fused = system.fuse() if fuse else {}
+    fused = system.fuse(**(fuse_kw or {})) if fuse else {}
     if fuse and not fused:
         raise AssertionError("fuse() fused no segment chain")
     walls += [r.wall_ms for r in system.run(3)]
@@ -989,8 +1071,13 @@ def main_path_phase(dev):
     log(f"median step wall ms at base_batch={MAIN_BATCH}: fused steps 4-8 "
         f"{statistics.median(walls[3:]):.3f}, eager {statistics.median(eager_walls[3:]):.3f}, "
         f"unfused steps 4-8 {statistics.median(unfused_walls[3:]):.3f}")
-    steps = len(walls)
-    return {name: n for name, n in launches.items()}, conc_launches, steps
+    phase3 = {
+        "digests": fused_digests,
+        "launches": dict(launches),
+        "verdicts": captured_verdicts,
+        "walls": {label: statistics.median(t[0]) for label, t in timing.items()},
+    }
+    return {name: n for name, n in launches.items()}, conc_launches, phase3
 
 
 # -- phase 3b: the session, its checkpoints and the OPMW rw1 replay ------------------
@@ -1263,6 +1350,162 @@ def concurrent_session(dev, card, tmp, sync_dir, digests, dags, events, dry_trai
         f"event ({card})")
     rw.close()
     return launches
+
+
+# -- phase 3c: the worker-process plane ------------------------------------------------
+
+# fuse() on the multiproc backend scores chains against its slots: a chain
+# whose members sit on two workers is consolidated only if that stretches
+# the modelled makespan by less than (members - 1) x overhead_ms. In process
+# (one slot) every chain is accepted; phase 3c accepts every chain too
+# (members migrate to one worker first), so both fuse the same segments.
+ACCEPT_ALL = {"overhead_ms": 1e9}
+WORKER_MODES = (("sync", 2, False), ("concurrent", 4, True))  # mode, workers, chain batching
+
+
+def rpc_total(backend) -> int:
+    """Coordinator-to-worker RPCs the backend completed so far (its counter,
+    read without a scrape: a scrape itself sends RPCs)."""
+    return int(sum(backend._m_rpcs._values.values()))
+
+
+def worker_phase(dev, phase3):
+    """Phase 3c: phase 3's script on backend="multiproc" over shm — 2 workers
+    in sync mode (one RPC per segment), 4 in concurrent mode with chain
+    batching (one step_chain RPC per worker per step) — with sink digests
+    bitwise and kernel launches (summed over the workers) equal to phase 3's
+    captured run; checkpoints across multiproc and torch on the card
+    (bitwise); a worker killed between steps and recovered (counts and
+    digests unchanged); a short run over tcp. Returns the launch counts of
+    the two script runs."""
+    import torch
+
+    from repro_torch.runtime.system import StreamSystem
+    from repro_torch.runtime.worker import MultiprocBackend
+
+    t_phase = time.perf_counter()
+    runs = {}
+    systems = {}
+    for mode, workers, chains in WORKER_MODES:
+        label = f"workers, {mode}"
+        backend = MultiprocBackend(workers=workers, transport="shm", chain_batching=chains,
+                                   device=str(dev))
+        t0 = time.perf_counter()
+        digests, walls, system = run_script(MAIN_BATCH, dev, fuse=True, backend=backend,
+                                            fuse_kw=ACCEPT_ALL, step_mode=mode,
+                                            max_workers=workers)
+        script_s = time.perf_counter() - t0
+        counts = backend.launch_counts()
+        runs[label] = counts
+        compare_digests(f"{label} vs phase 3's captured run", digests, phase3["digests"], 0)
+        if verdicts(system) != phase3["verdicts"]:
+            raise AssertionError(f"{label}: fusion verdicts {verdicts(system)} != phase 3's")
+        if counts != phase3["launches"]:
+            raise AssertionError(f"{label}: kernel launches over the workers {counts} != phase "
+                                 f"3's {phase3['launches']}")
+        placed = {}
+        for name, w in backend.device_of.items():
+            placed.setdefault(w, []).append(name)
+        log(f"{label} ({workers} workers over shm, chain batching {chains}): sink digests "
+            f"bitwise equal to phase 3's captured run, fusion verdicts equal, kernel launches "
+            f"summed over the workers equal ({counts}); segments per worker "
+            f"{ {w: len(v) for w, v in sorted(placed.items())} }; script {script_s:.2f} s, "
+            f"step wall ms {[round(w, 3) for w in walls]}")
+        # steady steps: wall, bytes published and RPCs per step
+        pub0, rpc0 = backend.transport.counters()["bytes_published"], rpc_total(backend)
+        reports = system.run(STEADY)
+        pub = (backend.transport.counters()["bytes_published"] - pub0) / STEADY
+        rpcs = (rpc_total(backend) - rpc0) / STEADY
+        walls_ = [r.wall_ms for r in reports]
+        # each segment's ms as its worker measured it (fetch, step, copies
+        # back, publish); their sum a step against the wall leaves the
+        # coordinator's share (the RPCs, the scheduling)
+        seg_sum = statistics.median(sum(r.segment_ms.values()) for r in reports)
+        log(f"steady fused step, {label}: worker-measured segment ms summed over a step median "
+            f"{seg_sum:.3f}, makespan_ms median "
+            f"{statistics.median(r.makespan_ms for r in reports):.3f}")
+        log(f"steady fused step, {label}: wall ms median {statistics.median(walls_):.3f} (min "
+            f"{min(walls_):.3f}, max {max(walls_):.3f}) over {STEADY} steps; phase 3 in process: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phase3["walls"].items())
+            + f"; {pub / 2**20:.2f} MiB published over the transport a step, {rpcs:.1f} RPCs a "
+            f"step; spawn to the end of the first step {backend.first_step_s:.2f} s")
+        for w, mem in backend.worker_memory().items():
+            ctx = mem["free_at_start"] - mem["free_after_first_step"]
+            log(f"  worker {w}: memory_reserved {mem['reserved'] / 2**20:.1f} MiB (peak "
+                f"{mem['max_reserved'] / 2**20:.1f}), {mem['graphs']} graphs, pools "
+                f"{mem['graph_pool_bytes'] / 2**20:.1f} MiB; device free {mem['free_at_start'] / 2**30:.2f}"
+                f" GiB at its start (its context made), {mem['free_after_first_step'] / 2**30:.2f} "
+                f"GiB after its first step ({ctx / 2**20:.1f} MiB taken by then, every process "
+                f"on the card counted)")
+        systems[mode] = system
+
+    # checkpoints across the planes, and a worker killed and recovered:
+    # multiproc (sync) -> torch on the card -> multiproc, each leg stepped
+    # beside the system it came from, digests bitwise equal
+    src = systems["sync"]
+    systems["concurrent"].close()
+    payload = src.checkpoint_payload()
+    on_torch = StreamSystem.from_payload(payload, backend="torch", device=dev)
+    backend = src.backend
+    backend.shadow_states = True  # post-step states ride each step reply
+    src.step()
+    victim = 0
+    proc = backend._procs[victim]
+    proc.terminate()
+    proc.join(timeout=30)
+    if proc.is_alive():
+        raise AssertionError("the killed worker is still alive")
+    record = backend.recover_worker(victim)
+    src.step()
+    on_torch.run(2)
+    want = {n: on_torch.sink_digests(n) for n in sorted(on_torch.manager.submitted)}
+    got = {n: src.sink_digests(n) for n in sorted(src.manager.submitted)}
+    compare_digests("multiproc checkpoint restored on torch (card), 2 steps", want, got, 0)
+    log(f"checkpoint taken on multiproc restored on torch on the card: 2 steps bitwise equal "
+        f"to the multiproc system's; worker {victim} killed between those steps and recovered "
+        f"in {record['ms']:.1f} ms ({len(record['segments'])} segments redeployed from their "
+        f"post-step states), counts and checksums unchanged")
+    health = src.worker_health()
+    if health["respawns"] != 1 or health["generations"][victim] != 1:
+        raise AssertionError(f"worker_health after the recovery: {health}")
+    back = StreamSystem.from_payload(on_torch.checkpoint_payload(), backend="multiproc",
+                                     workers=2, device=str(dev))
+    back.run(2)
+    on_torch.run(2)
+    compare_digests("torch checkpoint restored on multiproc, 2 steps",
+                    {n: back.sink_digests(n) for n in sorted(back.manager.submitted)},
+                    {n: on_torch.sink_digests(n) for n in sorted(on_torch.manager.submitted)}, 0)
+    log("checkpoint taken on torch (card) restored on multiproc: 2 steps bitwise equal to the "
+        "torch system's")
+    back.close()
+    src.close()
+    del on_torch
+
+    # a short run over tcp: the kernel flows and three RIoT flows, 3 steps,
+    # against the same on the torch backend
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.workloads import kernel_flows, riot_workload
+
+    flows = riot_workload()[:3] + kernel_flows()
+    out = {}
+    for label, backend in (("tcp", MultiprocBackend(workers=2, transport="tcp",
+                                                    device=str(dev))),
+                           ("torch", TorchBackend(dev))):
+        system = StreamSystem(backend=backend, base_batch=MAIN_BATCH)
+        for df in flows:
+            system.submit(df)
+        system.run(3)
+        out[label] = {df.name: system.sink_digests(df.name) for df in flows}
+        if label == "tcp":
+            tcp_bytes = backend.transport.counters()["bytes_published"]
+        system.close()
+    compare_digests("multiproc over tcp vs torch", out["tcp"], out["torch"], 0)
+    log(f"multiproc over tcp (2 workers, {len(flows)} flows, 3 steps, "
+        f"{tcp_bytes / 2**20:.1f} MiB published): sink digests bitwise equal to the torch "
+        f"backend's")
+    torch.cuda.synchronize()
+    log(f"worker phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
 
 
 # -- phase 4: the serving path at full width --------------------------------------
@@ -1623,9 +1866,10 @@ def main() -> int:
     kernels = kernel_phase(dev)
     if args.phase == "kernels":
         return 0
-    stream, stream_concurrent, _ = main_path_phase(dev)
+    stream, stream_concurrent, phase3 = main_path_phase(dev)
     runs = {"stream path": stream, "stream path, concurrent": stream_concurrent}
     runs["session"], runs["session, concurrent"] = session_phase(dev, card)
+    runs.update(worker_phase(dev, phase3))
     for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
         runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
                                               cut_limits)

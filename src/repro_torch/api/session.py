@@ -8,8 +8,11 @@ owns a full :class:`~repro_torch.runtime.system.StreamSystem` driving a
 pluggable :class:`~repro_torch.runtime.backend.ExecutionBackend`:
 ``backend="torch"`` (default — the data plane streams event batches
 through the port's operators and kernels, on the card unless
-``device="cpu"``) or ``"dryrun"`` (pure cost-model stepping — full OPMW
-trace sweeps in milliseconds).
+``device="cpu"``), ``"multiproc"`` (the same segments stepped inside
+persistent worker processes over a shared-memory or TCP stream transport —
+``workers=`` sizes the pool, ``transport=`` picks the wire,
+``backend_options=`` the rest) or ``"dryrun"`` (pure cost-model stepping —
+full OPMW trace sweeps in milliseconds).
 
     session = ReuseSession(strategy="signature", execute=True, device="cpu")
     session.on_merge(lambda ev: print("merged", ev.name, "→", ev.running_dag))
@@ -29,11 +32,10 @@ the same device or another.
 Concurrent stepping (``step_mode="concurrent"``, ``max_workers``,
 ``on_wave``) and the telemetry plane (``configure_obs``,
 ``metrics_snapshot``, ``prometheus_text``, ``drain_spans``,
-``export_chrome_trace``, ``segment_latency_ms``) are the reference's.
-Trimmed from the reference: the worker-process, sharded, supervision and
-autoscaling planes (``transport``, ``workers``, ``backend_options``,
-``supervise``, ``autoscale``, ``on_worker_event``, ``worker_health``).
-Passing one of those arguments raises.
+``export_chrome_trace``, ``segment_latency_ms``) and the worker plane's
+``on_worker_event`` and ``worker_health`` are the reference's. Not in the
+port yet: the worker supervisor and autoscaler (``supervise``,
+``autoscale``); passing either raises.
 """
 from __future__ import annotations
 
@@ -59,26 +61,6 @@ from .events import (
 Submittable = Union[Dataflow, DataflowBuilder]
 Hook = Callable[[Any], None]
 
-# The reference's session arguments for planes the port does not have.
-TRIMMED = (
-    "transport",
-    "workers",
-    "backend_options",
-    "supervise",
-    "autoscale",
-    "on_worker_event",
-)
-
-
-def _refuse_trimmed(trimmed: Dict[str, Any]) -> None:
-    """Raise on any argument of a trimmed plane that is passed (a ``None``
-    or ``False`` one is the reference's default and passes)."""
-    unknown = sorted(set(trimmed) - set(TRIMMED))
-    if unknown:
-        raise TypeError(f"unexpected keyword arguments: {', '.join(unknown)}")
-    names = ", ".join(sorted(k for k, v in trimmed.items() if v not in (None, False)))
-    if names:
-        raise DataflowError(f"{names}: not in the port (no worker-process or cluster plane)")
 
 
 class ReuseSession:
@@ -105,9 +87,13 @@ class ReuseSession:
         on_defrag: Optional[Hook] = None,
         on_step: Optional[Hook] = None,
         on_wave: Optional[Hook] = None,
-        **trimmed: Any,
+        transport: Optional[Any] = None,
+        workers: Optional[int] = None,
+        backend_options: Optional[Dict[str, Any]] = None,
+        supervise: Union[bool, Dict[str, Any]] = False,
+        autoscale: Optional[Union[bool, Dict[str, Any]]] = None,
+        on_worker_event: Optional[Hook] = None,
     ):
-        _refuse_trimmed(trimmed)
         self._hooks: Dict[str, List[Hook]] = {
             "merge": [],
             "unmerge": [],
@@ -138,6 +124,12 @@ class ReuseSession:
                 "checkpoint_every": checkpoint_every,
                 "checkpoint_keep_last": checkpoint_keep_last,
                 "checkpoint_background": checkpoint_background,
+                "transport": transport,
+                "workers": workers,
+                "backend_options": backend_options,
+                "supervise": supervise or None,
+                "autoscale": autoscale,
+                "on_worker_event": on_worker_event,
             }
             if any(v is not None for v in rebind.values()):
                 names = ", ".join(k for k, v in rebind.items() if v is not None)
@@ -172,6 +164,12 @@ class ReuseSession:
                 max_workers=max_workers,
                 on_wave=self._dispatch_wave,
                 report_history=report_history,
+                transport=transport,
+                workers=workers,
+                backend_options=backend_options,
+                supervise=supervise,
+                autoscale=autoscale,
+                on_worker_event=on_worker_event,
             )
             self.manager: ReuseManager = self._system.manager
         else:
@@ -184,6 +182,12 @@ class ReuseSession:
                 "step_mode": step_mode,
                 "max_workers": max_workers,
                 "report_history": report_history,
+                "transport": transport,
+                "workers": workers,
+                "backend_options": backend_options,
+                "supervise": supervise or None,
+                "autoscale": autoscale,
+                "on_worker_event": on_worker_event,
             }
             if any(v is not None for v in bad.values()):
                 names = ", ".join(k for k, v in bad.items() if v is not None)
@@ -231,7 +235,6 @@ class ReuseSession:
                 k: kwargs.pop(k, None)
                 for k in ("on_merge", "on_unmerge", "on_defrag", "on_step", "on_wave")
             }
-            _refuse_trimmed({k: kwargs.pop(k) for k in list(kwargs) if k in TRIMMED})
             system = StreamSystem.restore(path, **kwargs)
             return cls(system=system, **{k: v for k, v in hooks.items() if v})
         session = cls(**kwargs)
@@ -449,10 +452,11 @@ class ReuseSession:
 
     def close(self) -> None:
         """Release data-plane resources (the concurrent dispatch pool, the
-        background checkpoint writer).
+        background checkpoint writer; a multiproc backend's worker pool and
+        transport).
 
-        Idempotent and non-destructive — control-plane state survives and
-        stepping after close() re-creates the pool lazily."""
+        Idempotent — control-plane state survives; an in-process data plane
+        re-creates its pool lazily on the next step."""
         if self._system is not None:
             self._system.close()
 
@@ -503,6 +507,14 @@ class ReuseSession:
             compile_cache_evictions=cache.get("evictions", 0),
             compile_cache_entries=cache.get("entries", 0),
         )
+
+    def worker_health(self) -> Optional[Dict[str, Any]]:
+        """Cluster-plane health snapshot (worker liveness, respawns,
+        staleness marking). ``None`` for control-plane sessions and
+        in-process backends — only a worker-pool backend can be sick."""
+        if self._system is None:
+            return None
+        return self._system.worker_health()
 
     # -- telemetry plane (repro_torch.obs) -------------------------------------
     def configure_obs(

@@ -70,6 +70,12 @@ _SIGNATURES = {
     "rt_ssd_scan": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
     ),
+    "rt_flash_attention_pieces": (_P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_attention_pieces_rows": (_I,),
+    "rt_decode_attention_pieces": (_P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "rt_ssd_scan_tiles": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+    ),
     "rt_ssd_scan_smem": (_I, _I, _I, _I),
     "rt_ssd_blocks_per_sm": (_I, _I, _I),
 }

@@ -45,7 +45,11 @@
 // cache_len = 0 gives a zero row. Head dims 16, 32, 64, 80, 128 and 192; q
 // heads per KV head in groups of GB = 8, 4, 2 or 1 (the largest that
 // divides G; at most 4 at hd 192, where the block's partials of 8 q heads
-// would pass the 48 KB of static shared memory).
+// would pass the 48 KB of static shared memory). Head dims above 192: the
+// pieces kernel (attention_pieces.cuh), one block per (batch, KV head,
+// group of q heads) over all the valid positions, no splits
+// (rt_decode_attention_pieces).
+#include "attention_pieces.cuh"
 #include "common.cuh"
 
 namespace {
@@ -390,4 +394,26 @@ extern "C" int rt_decode_attention(const void* q, const void* k, const void* v, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_hd<__nv_bfloat16>(a, batch, hd, s)
                  : dispatch_hd<float>(a, batch, hd, s);
+}
+
+// Head dims above the built ones (any hd): the pieces kernel, f32 or bf16,
+// up to 32 q heads of one KV head per block, positions [lo, hi). strides as
+// rt_decode_attention's. cudaErrorInvalidValue where one row does not fit.
+extern "C" int rt_decode_attention_pieces(const void* q, const void* k, const void* v, void* o,
+                                          const int64_t* strides, int batch, int kv,
+                                          int groups, int hd, int lo, int hi, float scale,
+                                          int is_bf16, void* stream) {
+  if (batch == 0 || kv == 0 || groups == 0) return cudaSuccess;
+  const int fit = pieces::rows_for(hd);
+  const int rows = fit < groups ? fit : groups;
+  if (hd < 1 || rows < 1) return cudaErrorInvalidValue;
+  // q and o: (batch, head) strides; their seq stride is never read
+  pieces::Args a{q, k, v, o,
+                 strides[0], 0, strides[1], strides[2], strides[3], strides[4],
+                 strides[5], strides[6], strides[7], strides[8], 0, strides[9],
+                 1, hi, groups * kv, kv, hd, scale, 0, 0, lo, hi, groups, rows};
+  const dim3 grid((groups + rows - 1) / rows, kv, batch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? pieces::launch<__nv_bfloat16, true>(a, grid, s)
+                 : pieces::launch<float, true>(a, grid, s);
 }

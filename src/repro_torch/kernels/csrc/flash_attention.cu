@@ -52,10 +52,15 @@
 //   memory. The tensor cores take f32 only as TF32 (10-bit mantissa),
 //   which the f32 tolerance of 2e-5 does not admit.
 //
+// * any head dim above 192, f32 or bf16: attention_pieces
+//   (attention_pieces.cuh), which walks the head dim in pieces of 64 columns
+//   with O in shared memory (rt_flash_attention_pieces).
+//
 // Both kernels mask scores with -inf, so a row with no visible key gets
 // zeros (the plain version gives it the mean of V); that cannot happen on
 // the serving path, where every row sees its own key. l is clamped at
 // 1e-30; the default scale hd^-0.5 is applied by the caller.
+#include "attention_pieces.cuh"
 #include "common.cuh"
 
 namespace {
@@ -665,3 +670,26 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
     default: return cudaErrorInvalidValue;
   }
 }
+
+// Head dims above the built ones (any hd): the pieces kernel, f32 or bf16,
+// `rows` query positions of one q head per block. strides as
+// rt_flash_attention's. cudaErrorInvalidValue where one row does not fit.
+extern "C" int rt_flash_attention_pieces(const void* q, const void* k, const void* v, void* o,
+                                         const int64_t* strides, int batch, int sq, int sk,
+                                         int h, int kv, int hd, float scale, int causal,
+                                         int window, int is_bf16, void* stream) {
+  if (batch == 0 || sq == 0 || h == 0) return cudaSuccess;
+  const int rows = pieces::rows_for(hd);
+  if (kv <= 0 || h % kv != 0 || hd < 1 || rows < 1) return cudaErrorInvalidValue;
+  pieces::Args a{q, k, v, o,
+                 strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+                 strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
+                 sq, sk, h, kv, hd, scale, causal, window, 0, 0, 0, rows};
+  const dim3 grid((sq + rows - 1) / rows, h, batch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? pieces::launch<__nv_bfloat16, false>(a, grid, s)
+                 : pieces::launch<float, false>(a, grid, s);
+}
+
+// Query rows per block of the pieces kernel at head dim hd (0: none fits).
+extern "C" int rt_attention_pieces_rows(int hd) { return pieces::rows_for(hd); }

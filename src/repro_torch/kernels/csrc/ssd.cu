@@ -71,7 +71,18 @@
 // columns of P and head; one block of 8 warps per SM runs C (C.B^T in f32
 // takes 70 KB of shared memory).
 //
-// L, N and P above 128 are refused (the wrapper raises before the launch).
+// Any other shape: the tiled build (ssd_chunk_tiles), f32 or bf16 inputs,
+// for L, N or P above 128 and for f32 where the SIMT build does not fit
+// (L = N = P = 128). One block per (batch, head) walks the chunks as the
+// SIMT build does, but holds no whole matrix: every product runs over 32 x
+// 32 tiles staged in shared memory (13 KB, whatever the shape), the state
+// lives in the output h itself (global, updated in place after each
+// chunk's outputs are written), y is accumulated in place in the output
+// (each element owned by one thread), and the chunk's cumsum, exp(cum) and
+// decay-to-end weights go through a per-block slice of a scratch buffer
+// (4 L floats). C.B^T is formed tile by tile inside W's tiles (j <= i
+// only). A simple, correct route: it re-reads C, B and x from L2 once per
+// tile of the other operand, and runs B x nh blocks only.
 #include "common.cuh"
 
 namespace {
@@ -357,6 +368,194 @@ cudaError_t dispatch_p(const SsdArgs& a, int batch, cudaStream_t stream) {
   if (a.p <= 2 * kGrid) return launch_ssd<T, 2>(a, batch, stream);
   if (a.p <= 4 * kGrid) return launch_ssd<T, 4>(a, batch, stream);
   return launch_ssd<T, 8>(a, batch, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The tiled build (any L, N, P; f32 or bf16 inputs).
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 32;  // rows and columns of every staged tile
+constexpr int kTileRows = kTile / (kThreads / kTile);  // 4 rows a thread
+
+// Thread (ty, tx) of a 8 x 32 grid owns rows ty + 8u (u < 4), column tx of
+// each 32 x 32 output tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_chunk_tiles(SsdArgs a, float* work) {
+  __shared__ float ta[kTile][kTile + 1];
+  __shared__ float tb[kTile][kTile + 1];
+  __shared__ float tw[kTile][kTile + 1];
+  const int L = a.chunk, N = a.n, P = a.p;
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, ty = tid / kTile, tx = tid % kTile;
+  constexpr int kStep = kThreads / kTile;  // 8
+  const float decay = a.a[head];
+  const int64_t bh = static_cast<int64_t>(b) * a.nh + head;
+  float* cum = work + bh * 4 * L;  // [L] inclusive cumsum of dt * a
+  float* dts = cum + L;            // [L] dt, 0 past S
+  float* ecum = dts + L;           // [L] exp(cum)
+  float* wend = ecum + L;          // [L] exp(cum_last - cum) * dt
+
+  const T* xb = static_cast<const T*>(a.x) + b * a.x_sb + head * a.x_sh;
+  const float* dtb = a.dt + b * a.dt_sb + head * a.dt_sh;
+  const T* bb = static_cast<const T*>(a.bm) + b * a.b_sb;
+  const T* cb = static_cast<const T*>(a.cm) + b * a.c_sb;
+  float* yb = a.y + static_cast<int64_t>(b) * a.s * a.nh * P + static_cast<int64_t>(head) * P;
+  const int64_t y_ss = static_cast<int64_t>(a.nh) * P;
+  float* hb = a.h + bh * N * P;  // the state, updated in place
+
+  for (int i = tid; i < N * P; i += kThreads) hb[i] = a.h0 ? a.h0[bh * N * P + i] : 0.0f;
+
+  for (int c0 = 0; c0 < a.s; c0 += L) {
+    __syncthreads();  // the previous chunk's state update is done
+    for (int t = tid; t < L; t += kThreads) dts[t] = c0 + t < a.s ? dtb[(c0 + t) * a.dt_ss] : 0.0f;
+    __syncthreads();
+    if (tid < 32) {
+      // each lane sums a run of consecutive positions, then a warp scan of
+      // the runs' totals gives each run its offset
+      const int lane = tid, per = (L + 31) / 32;
+      float run = 0.0f;
+      for (int k = 0; k < per; ++k) {
+        const int t = lane * per + k;
+        if (t < L) {
+          run += dts[t] * decay;
+          cum[t] = run;
+        }
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      float off = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) off = 0.0f;
+      for (int k = 0; k < per; ++k) {
+        const int t = lane * per + k;
+        if (t < L) cum[t] = off + cum[t];
+      }
+    }
+    __syncthreads();
+    const float last = cum[L - 1];
+    for (int t = tid; t < L; t += kThreads) {
+      ecum[t] = expf(cum[t]);
+      wend[t] = expf(last - cum[t]) * dts[t];
+    }
+    __syncthreads();
+
+    for (int i0 = 0; i0 < L; i0 += kTile) {
+      // y rows [i0, i0 + 32) = exp(cum_i) C_i . h, over P and N in tiles
+      for (int p0 = 0; p0 < P; p0 += kTile) {
+        float acc[kTileRows] = {};
+        for (int n0 = 0; n0 < N; n0 += kTile) {
+          __syncthreads();
+          for (int r = ty; r < kTile; r += kStep) {
+            const int i = i0 + r, t = c0 + i, col = n0 + tx;
+            ta[r][tx] = i < L && t < a.s && col < N ? rt::load_f32(cb + t * a.c_ss + col) : 0.0f;
+            const int n = n0 + r, p = p0 + tx;
+            tb[r][tx] = n < N && p < P ? hb[n * P + p] : 0.0f;
+          }
+          __syncthreads();
+#pragma unroll 8
+          for (int k = 0; k < kTile; ++k) {
+            const float hv = tb[k][tx];
+#pragma unroll
+            for (int u = 0; u < kTileRows; ++u) acc[u] = fmaf(ta[ty + kStep * u][k], hv, acc[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kTileRows; ++u) {
+          const int i = i0 + ty + kStep * u, t = c0 + i, p = p0 + tx;
+          if (i < L && t < a.s && p < P) yb[t * y_ss + p] = acc[u] * ecum[i];
+        }
+      }
+      // y += W x over the key tiles j0 <= i0 (W is zero above the diagonal)
+      for (int j0 = 0; j0 <= i0 && j0 < L; j0 += kTile) {
+        float g[kTileRows] = {};
+        for (int n0 = 0; n0 < N; n0 += kTile) {
+          __syncthreads();
+          for (int r = ty; r < kTile; r += kStep) {
+            const int col = n0 + tx;
+            const int i = i0 + r, ti = c0 + i;
+            ta[r][tx] = i < L && ti < a.s && col < N ? rt::load_f32(cb + ti * a.c_ss + col) : 0.0f;
+            const int j = j0 + r, tj = c0 + j;
+            tb[r][tx] = j < L && tj < a.s && col < N ? rt::load_f32(bb + tj * a.b_ss + col) : 0.0f;
+          }
+          __syncthreads();
+#pragma unroll 8
+          for (int k = 0; k < kTile; ++k) {
+            const float bv = tb[tx][k];
+#pragma unroll
+            for (int u = 0; u < kTileRows; ++u) g[u] = fmaf(ta[ty + kStep * u][k], bv, g[u]);
+          }
+        }
+        {
+          const int j = j0 + tx;
+#pragma unroll
+          for (int u = 0; u < kTileRows; ++u) {
+            const int r = ty + kStep * u, i = i0 + r;
+            tw[r][tx] = i < L && j < L && j <= i ? expf(cum[i] - cum[j]) * g[u] * dts[j] : 0.0f;
+          }
+        }
+        for (int p0 = 0; p0 < P; p0 += kTile) {
+          __syncthreads();  // tw written; the previous x tile consumed
+          for (int r = ty; r < kTile; r += kStep) {
+            const int j = j0 + r, t = c0 + j, p = p0 + tx;
+            tb[r][tx] = j < L && t < a.s && p < P ? rt::load_f32(xb + t * a.x_ss + p) : 0.0f;
+          }
+          __syncthreads();
+          float acc[kTileRows] = {};
+#pragma unroll 8
+          for (int k = 0; k < kTile; ++k) {
+            const float xv = tb[k][tx];
+#pragma unroll
+            for (int u = 0; u < kTileRows; ++u) acc[u] = fmaf(tw[ty + kStep * u][k], xv, acc[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kTileRows; ++u) {
+            const int i = i0 + ty + kStep * u, t = c0 + i, p = p0 + tx;
+            if (i < L && t < a.s && p < P) yb[t * y_ss + p] += acc[u];
+          }
+        }
+      }
+    }
+    __syncthreads();  // every read of the state before this chunk is done
+
+    // h <- exp(cum_last) h + B^T (x * wend), over N and P in tiles
+    const float el = ecum[L - 1];
+    for (int n0 = 0; n0 < N; n0 += kTile) {
+      for (int p0 = 0; p0 < P; p0 += kTile) {
+        float acc[kTileRows] = {};
+        for (int j0 = 0; j0 < L; j0 += kTile) {
+          __syncthreads();
+          for (int r = ty; r < kTile; r += kStep) {
+            const int j = j0 + r, t = c0 + j;
+            const bool in = j < L && t < a.s;
+            const int col = n0 + tx, p = p0 + tx;
+            ta[r][tx] = in && col < N ? rt::load_f32(bb + t * a.b_ss + col) : 0.0f;
+            tb[r][tx] = in && p < P ? rt::load_f32(xb + t * a.x_ss + p) * wend[j] : 0.0f;
+          }
+          __syncthreads();
+#pragma unroll 8
+          for (int k = 0; k < kTile; ++k) {
+            const float xv = tb[k][tx];
+#pragma unroll
+            for (int u = 0; u < kTileRows; ++u) acc[u] = fmaf(ta[k][ty + kStep * u], xv, acc[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kTileRows; ++u) {
+          const int n = n0 + ty + kStep * u, p = p0 + tx;
+          if (n < N && p < P) hb[n * P + p] = el * hb[n * P + p] + acc[u];
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_tiles(const SsdArgs& a, int batch, float* work, cudaStream_t stream) {
+  ssd_chunk_tiles<T><<<dim3(a.nh, batch), kThreads, 0, stream>>>(a, work);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -952,4 +1151,21 @@ extern "C" int rt_ssd_scan(const void* x, const float* dt, const float* a, const
                strides[6], strides[7], strides[8], strides[9],
                s, nh, p, n, chunk, (s + chunk - 1) / chunk, group, vec ? 1 : 0};
   return launch_mma(args, batch, st);
+}
+
+// The tiled build, any chunk, N and P, f32 or bf16 inputs; strides as
+// rt_ssd_scan's; `work`: batch * nh * 4 * chunk floats of scratch.
+extern "C" int rt_ssd_scan_tiles(const void* x, const float* dt, const float* a, const void* bm,
+                                 const void* cm, const float* h0, float* y, float* h,
+                                 const int64_t* strides, int batch, int s, int nh, int p, int n,
+                                 int chunk, float* work, int is_bf16, void* stream) {
+  if (batch == 0 || nh == 0) return cudaSuccess;
+  if (chunk < 1 || n < 1 || p < 1 || s < 0 || !work) return cudaErrorInvalidValue;
+  SsdArgs args{x, dt, a, bm, cm, h0, y, h,
+               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+               strides[6], strides[7], strides[8], strides[9],
+               s, nh, p, n, chunk, 1};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_tiles<bf16>(args, batch, work, st)
+                 : launch_tiles<float>(args, batch, work, st);
 }

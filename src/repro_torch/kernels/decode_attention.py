@@ -11,7 +11,10 @@ the last block to finish, so a batch-1 decode fills the card. Port of the
 Pallas kernel ``repro/kernels/decode_attention.py:decode_attention``. The
 plain version is :func:`repro_torch.kernels.ref.decode_attention_ref`. A
 head dim the kernel is not built for runs zero-padded to the next built
-one, as K5's does (:func:`repro_torch.kernels.flash_attention.padded_head_dim`).
+one, as K5's does (:func:`repro_torch.kernels.flash_attention.padded_head_dim`);
+one above the largest built runs K5's pieces kernel in its decode form
+(``csrc/attention_pieces.cuh``): a block per (batch, KV head, group of up
+to 32 q heads) over every valid position, no splits.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from . import build
 from ._launch import stream_ptr
-from .flash_attention import COPY_BYTES, check_heads, pad_head_dim, padded_head_dim
+from .flash_attention import COPY_BYTES, HEAD_DIMS, check_heads, pad_head_dim, padded_head_dim
 
 TILE = 64  # cache positions per tile: splits start on tile boundaries
 MIN_TILES = 2  # tiles per split at least, so a block keeps loads in flight
@@ -80,6 +83,8 @@ def decode_attention(
     b, one, h, hd = q.shape
     if one != 1:
         raise ValueError(f"decode_attention takes one query token, got q {tuple(q.shape)}")
+    if hd > HEAD_DIMS[-1]:
+        return _decode_pieces(q, k_cache, v_cache, int(cache_len), window, scale)
     width = padded_head_dim(hd)
     if width != hd:
         q, k_cache, v_cache = pad_head_dim((q, k_cache, v_cache), width)
@@ -116,6 +121,31 @@ def decode_attention(
         part.data_ptr(), counters.data_ptr(), strides,
         b, kv, groups, hd, lo, hi, lo // TILE * TILE, chunk, splits, scale,
         int(q.dtype == torch.bfloat16), stream,
+    )
+    build.check(err, "decode_attention")
+    build.count_launch("decode_attention")
+    return o
+
+
+def _decode_pieces(q, k_cache, v_cache, hi, window, scale) -> torch.Tensor:
+    """K6 above the built head dims: the pieces kernel over positions
+    [max(0, hi - window), hi), f32 or bf16, any strides with inner stride 1."""
+    b, _, h, hd = q.shape
+    s_max, kv = k_cache.shape[1], k_cache.shape[2]
+    if not 0 <= hi <= s_max:
+        raise ValueError(f"cache_len {hi} outside [0, {s_max}]")
+    lo = max(0, hi - window) if window else 0
+    o = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
+    strides = build.strides_arg([
+        q.stride(0), q.stride(2),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        o.stride(0), o.stride(2),
+    ])
+    err = build.library().rt_decode_attention_pieces(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(), strides,
+        b, kv, h // kv, hd, lo, hi, float(scale if scale is not None else hd ** -0.5),
+        int(q.dtype == torch.bfloat16), stream_ptr(q),
     )
     build.check(err, "decode_attention")
     build.count_launch("decode_attention")

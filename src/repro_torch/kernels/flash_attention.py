@@ -21,7 +21,10 @@ dim up to the largest runs at the next built one (:func:`padded_head_dim`):
 q, k and v are zero-padded along the head dim, the softmax scale stays
 that of the true head dim, and the output's padded columns, which are 0,
 are sliced off. Zero columns add nothing to q·kᵀ. A built head dim takes
-no copy.
+no copy. A head dim above the largest, in f32 or bf16, runs the pieces
+kernel (``csrc/attention_pieces.cuh``, :data:`PIECES_KERNEL`), which walks
+the head dim in pieces of 64 columns and takes any head dim: :func:`route`
+names the kernel a call takes.
 """
 from __future__ import annotations
 
@@ -42,6 +45,13 @@ KERNELS = {
     torch.bfloat16: "flash_fwd_wg (wgmma m64n64k16 / m64nHDk16 bf16, cp.async K/V ring, heavy-first)",
     torch.float32: "flash_fwd_simt (f32 FMAs from shared memory)",
 }
+PIECES_KERNEL = "attention_pieces (SIMT f32 FMAs, head dim in pieces of 64, O in shared memory)"
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel K5 runs for ``dtype`` at head dim ``hd``: the pieces kernel
+    above the largest built head dim, else the build of the dtype."""
+    return PIECES_KERNEL if hd > HEAD_DIMS[-1] else KERNELS[dtype]
 
 
 def tile_plan(sq: int, sk: int, causal: bool, window: int,
@@ -115,8 +125,7 @@ def pad_head_dim(tensors: Sequence[torch.Tensor], width: int) -> Tuple[torch.Ten
 
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
     """q (B, ·, H, hd) against k/v (B, S, KV, hd): one CUDA device, one
-    float32/bfloat16 dtype, H a multiple of KV, a head dim up to the
-    largest built one, inner stride 1."""
+    float32/bfloat16 dtype, H a multiple of KV, inner stride 1."""
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_cuda:
             raise ValueError(f"{name}: {n} must be a CUDA tensor, got one on {t.device}")
@@ -133,9 +142,6 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) ->
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{name}: {h} q heads are not a multiple of {k.shape[2]} kv heads")
-    if hd > HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {hd} is above {HEAD_DIMS[-1]}, the largest the "
-                         f"kernels are built for")
 
 
 def flash_attention(
@@ -149,6 +155,8 @@ def flash_attention(
 ) -> torch.Tensor:
     check_heads(q, k, v, "flash_attention")
     b, sq, h, hd = q.shape
+    if hd > HEAD_DIMS[-1]:
+        return _flash_pieces(q, k, v, causal, window, scale)
     width = padded_head_dim(hd)
     if width != hd:
         q, k, v = pad_head_dim((q, k, v), width)
@@ -163,6 +171,25 @@ def flash_attention(
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     err = build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), plan,
+        build.strides_arg(strides + list(o.stride()[:3])),
+        b, sq, sk, h, kv, hd, scale, int(causal), int(window),
+        int(q.dtype == torch.bfloat16), stream_ptr(q),
+    )
+    build.check(err, "flash_attention")
+    build.count_launch("flash_attention")
+    return o
+
+
+def _flash_pieces(q, k, v, causal, window, scale) -> torch.Tensor:
+    """K5 above the built head dims: the pieces kernel, f32 or bf16, any
+    strides with inner stride 1."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    scale = float(scale if scale is not None else hd ** -0.5)
+    err = build.library().rt_flash_attention_pieces(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         build.strides_arg(strides + list(o.stride()[:3])),
         b, sq, sk, h, kv, hd, scale, int(causal), int(window),
         int(q.dtype == torch.bfloat16), stream_ptr(q),

@@ -7,16 +7,21 @@ copy), inner stride 1. Returns y (B, S, nh, P) and the final state
 (B, nh, N, P), both float32; ``h0`` (B, nh, N, P) seeds the state. S need
 not be a multiple of ``chunk``: the ragged last chunk is masked (dt = 0,
 x = B = C = 0 past S), which leaves y and the state exactly as a shorter
-chunk would; chunk, N and P above 128 are refused.
+chunk would.
 
-Two builds, by dtype (:data:`KERNELS`). bfloat16, the serving path's: the
+Three builds (:func:`route`). bfloat16, the serving path's: the
 chunks in parallel on tensor cores, in three launches (each chunk's own
 state, the state pass over the chunks, the outputs; each launch counts,
 :func:`launches`), with blocks over
 (batch, chunk, group of :func:`head_group` heads) and the per-chunk states
 in a scratch buffer cached per (device, stream). float32, for the checks:
 the SIMT build, one block per (batch, head) walking the chunks, with W in
-row tiles where it does not fit whole (:func:`row_tile`). Port of the
+row tiles where it does not fit whole (:func:`row_tile`). Any other shape
+(chunk, N or P above 128 in either dtype, and float32 where even a row
+tile of one does not fit, as at chunk = N = P = 128) runs the tiled build:
+one block per (batch, head), every product over 32 x 32 tiles, the state
+kept in the output ``h`` and a (B, nh, 4, chunk) float32 scratch made per
+call. Port of the
 Pallas kernel ``repro/kernels/ssd.py:ssd_scan``. The plain version is
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.
 """
@@ -31,11 +36,12 @@ from . import build
 from ._launch import stream_ptr
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
-MAX_DIM = 128  # chunk, N and P: the kernel's register tiles
+REG_DIM = 128  # chunk, N and P of the SIMT and tensor-core builds' register tiles
 
-# the build each input dtype runs
+# the build each input dtype runs where its shape fits (see route)
 KERNELS = {torch.float32: "ssd_chunk_scan (SIMT f32)",
            torch.bfloat16: "ssd_chunk_state + ssd_state_pass + ssd_chunk_out (mma.sync bf16)"}
+TILES_KERNEL = "ssd_chunk_tiles (SIMT f32 FMAs over 32 x 32 tiles)"
 
 # (device, stream) -> (per-chunk states, the states split into bf16 hi + lo,
 # per-chunk decays), float32; grown, never shrunk. Every launch writes the
@@ -65,13 +71,29 @@ def _plan(device: torch.device, batch: int, chunks: int, nh: int, chunk: int, n:
     return head_group(batch, chunks, nh, slots)
 
 
-def launches(b: int, s: int, nh: int, bf16: bool) -> int:
-    """Kernels one call launches: the SIMT build one; the bf16 build the
-    state pass, and the chunk states and the outputs where there are
-    positions. None for an empty batch."""
+def launches(b: int, s: int, nh: int, bf16: bool, tiles: bool = False) -> int:
+    """Kernels one call launches: the SIMT and tiled builds one; the bf16
+    tensor-core build the state pass, and the chunk states and the outputs
+    where there are positions. None for an empty batch."""
     if b == 0 or nh == 0:
         return 0
-    return 1 if not bf16 or s == 0 else 3
+    return 1 if tiles or not bf16 or s == 0 else 3
+
+
+def route(dtype: torch.dtype, chunk: int, n: int, p: int) -> str:
+    """The build a call runs: ``"mma"`` (bf16, chunk, N and P up to 128),
+    ``"simt"`` (f32 where its tiles fit, :func:`row_tile`) or ``"tiles"``
+    (the rest). Asks the kernel library for the SIMT build's shared memory."""
+    if max(chunk, n, p) > REG_DIM:
+        return "tiles"
+    if dtype == torch.bfloat16:
+        return "mma"
+    return "simt" if row_tile(chunk, n, p) else "tiles"
+
+
+def kernel_name(dtype: torch.dtype, chunk: int, n: int, p: int) -> str:
+    """The kernels :func:`route` picks, by name."""
+    return TILES_KERNEL if route(dtype, chunk, n, p) == "tiles" else KERNELS[dtype]
 
 
 def _scratch_for(device: torch.device, stream: int, n_states: int, n_el: int):
@@ -88,12 +110,12 @@ def _scratch_for(device: torch.device, stream: int, n_states: int, n_el: int):
 @functools.lru_cache(maxsize=None)
 def row_tile(chunk: int, n: int, p: int) -> int:
     """Rows of W per tile of the SIMT build: the whole chunk, halved until
-    the block fits."""
+    the block fits; 0 where a tile of one row does not fit."""
     smem = build.library().rt_ssd_scan_smem
     wi = chunk
     while smem(chunk, n, p, wi) > MAX_SMEM:
         if wi == 1:
-            raise ValueError(f"ssd_scan: chunk {chunk}, N {n}, P {p} do not fit in shared memory")
+            return 0
         wi = -(-wi // 2)
     return wi
 
@@ -136,8 +158,8 @@ def ssd_scan(
         if t.device != xh.device:
             raise ValueError(f"ssd_scan: inputs on {xh.device} and {t.device}")
     for name, v in (("chunk", chunk), ("N", n), ("P", p)):
-        if not 1 <= v <= MAX_DIM:
-            raise ValueError(f"ssd_scan: {name} = {v} outside [1, {MAX_DIM}]")
+        if v < 1:
+            raise ValueError(f"ssd_scan: {name} = {v} must be at least 1")
     y = torch.empty((b, s, nh, p), dtype=torch.float32, device=xh.device)
     h = torch.empty((b, nh, n, p), dtype=torch.float32, device=xh.device)
     a = a.contiguous()
@@ -149,6 +171,17 @@ def ssd_scan(
     ])
     stream = stream_ptr(xh)
     bf16 = xh.dtype == torch.bfloat16
+    if route(xh.dtype, int(chunk), n, p) == "tiles":
+        work = torch.empty((b, nh, 4, chunk), dtype=torch.float32, device=xh.device)
+        err = build.library().rt_ssd_scan_tiles(
+            xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_ssm.data_ptr(), C_ssm.data_ptr(),
+            h0.data_ptr() if h0 is not None else None, y.data_ptr(), h.data_ptr(), strides,
+            b, s, nh, p, n, int(chunk), work.data_ptr(), int(bf16), stream,
+        )
+        build.check(err, "ssd_scan")
+        for _ in range(launches(b, s, nh, bf16, tiles=True)):
+            build.count_launch("ssd_scan")
+        return y, h
     wi, group, states, hsplit, el = 1, 0, None, None, None
     if bf16:
         chunks = -(-s // chunk)

@@ -7,10 +7,13 @@ path uses: :class:`StreamSystem` drives a backend through the verbs
   sink_state / fuse_segments / defragment / dump_state / restore_state``
 
 and backends plug in by name through :func:`register_backend` /
-:func:`resolve_backend`. The port ships two: ``"torch"``
-(:class:`repro_torch.runtime.executor.TorchBackend`, the data plane) and
-``"dryrun"`` (:class:`repro_torch.runtime.dryrun.DryRunBackend`, the
-cost model). Stepping runs in the reference's two modes
+:func:`resolve_backend`. The port ships three: ``"torch"``
+(:class:`repro_torch.runtime.executor.TorchBackend`, the data plane in
+this process), ``"multiproc"``
+(:class:`repro_torch.runtime.worker.MultiprocBackend`, the same segments
+stepped inside worker processes, boundary streams on a shared-memory or
+tcp transport) and ``"dryrun"``
+(:class:`repro_torch.runtime.dryrun.DryRunBackend`, the cost model). Stepping runs in the reference's two modes
 (:meth:`ExecutionBackend.configure_stepping`): ``"sync"``, one segment
 after another in launch order, or ``"concurrent"``, a dependency-aware
 ready-queue dispatch over a persistent thread pool
@@ -25,9 +28,9 @@ fusion planner read, the straggler EWMAs, the telemetry instruments
 (:mod:`repro_torch.obs`) and the durable ``dump_state``/``restore_state``
 payload, whose layout is the reference's, so checkpoints cross between
 the packages. Pause flags are host bools, so accounting never waits for
-the card. The reference's cluster-plane hooks (worker events and health,
-in-step recovery) belong to the worker-process plane, which the port does
-not have yet.
+the card. The cluster-plane hooks (worker events and health, in-step
+recovery) are the reference's: every backend accepts them, and only the
+multiproc backend emits or recovers.
 """
 from __future__ import annotations
 
@@ -209,12 +212,15 @@ class ExecutionBackend:
         # changes and on close().
         self._pool: Optional[ThreadPoolExecutor] = None
         self.on_wave: Optional[Callable[[WaveEvent], None]] = None
+        # cluster-plane health surface: every backend accepts the hook, the
+        # single-process backends just never emit (worker_health() -> None)
+        self.worker_events: List[Any] = []
+        self.on_worker_event: Optional[Callable[[Any], None]] = None
         # opt-in StepReport ring buffer: bounds self.reports in memory AND
         # persists the tail in checkpoints (None = unbounded, not persisted)
         self.history_limit: Optional[int] = None
-        # straggler tracking: per-segment step-time EWMAs, and the
-        # reference's log of segments it moved, which the port (one card,
-        # no spare host) only carries from a payload to the next
+        # straggler tracking: per-segment step-time EWMAs, and the log of
+        # segments a placed backend moved to another slot
         self.ewma_ms: Dict[str, float] = {}
         self.redispatches: List[Tuple[int, str]] = []
         self.reports: List[StepReport] = []
@@ -440,6 +446,7 @@ class ExecutionBackend:
         order = {n: s.spec.created_at for n, s in self.segments.items()}
         return run_ready_queue(
             self.seg_deps, self._step_named, self.max_workers, order, pool=self._pool,
+            recover=self._step_recover,
         )
 
     def _reset_pool(self) -> None:
@@ -449,6 +456,36 @@ class ExecutionBackend:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+
+    # -- cluster-plane hooks (overridden by the multiproc backend) --------------
+    def _step_recover(self, name: str, exc: BaseException) -> bool:
+        """Attempt to recover from a failed segment step so the dispatch
+        loop can re-queue the item instead of erroring the step. Backends
+        without a self-healing worker pool decline."""
+        return False
+
+    def worker_health(self) -> Optional[Dict[str, Any]]:
+        """Worker-pool health snapshot; ``None`` for in-process backends."""
+        return None
+
+    def _emit_worker_event(self, kind: str, worker: Optional[int] = None,
+                           detail: str = "", ms: float = 0.0) -> None:
+        """Record a cluster-plane event and forward it to the user hook.
+
+        A failing user hook must never break recovery, so hook exceptions
+        are swallowed after the event is recorded."""
+        from repro_torch.cluster.events import WorkerEvent
+
+        event = WorkerEvent(kind=kind, worker=worker, step=self.step_count,
+                            detail=detail, ms=ms)
+        self.worker_events.append(event)
+        if len(self.worker_events) > 256:
+            del self.worker_events[:-256]
+        if self.on_worker_event is not None:
+            try:
+                self.on_worker_event(event)
+            except Exception:  # pragma: no cover - user-hook safety
+                pass
 
     def close(self) -> None:
         """Release stepping resources (the persistent dispatch pool).
@@ -741,10 +778,8 @@ class ExecutionBackend:
     def _update_stragglers(self, seg_ms: Dict[str, float]) -> List[str]:
         """Fold this step's segment_ms into the EWMAs and flag the segments
         whose EWMA exceeds ``STRAGGLER_FACTOR`` times the median, as the
-        reference does. The reference's placement plane then moves a flagged
-        segment to another device and logs it in ``redispatches``; the port
-        has no such plane yet, so a flag only resets the segment's EWMA (it
-        is judged afresh) and goes into the step's report."""
+        reference does; each flag goes to :meth:`_straggler` and into the
+        step's report."""
         flagged: List[str] = []
         for name, ms in seg_ms.items():
             prev = self.ewma_ms.get(name)
@@ -761,8 +796,16 @@ class ExecutionBackend:
             for name, ew in list(self.ewma_ms.items()):
                 if median > STRAGGLER_MIN_MEDIAN_MS and ew > STRAGGLER_FACTOR * median:
                     flagged.append(name)
-                    del self.ewma_ms[name]
+                    self._straggler(name)
         return flagged
+
+    def _straggler(self, segment_name: str) -> None:
+        """A flagged straggler. In process there is nowhere to move it: its
+        EWMA is reset (judged afresh). A placed backend (the multiproc
+        workers, :class:`~repro_torch.runtime.scheduler.PlacedBackendMixin`)
+        asks its placement policy and moves it, and logs the move in
+        ``redispatches``."""
+        del self.ewma_ms[segment_name]
 
     # -- defragmentation and fusion (enactment; planning in repro_torch.core.defrag)
     def defragment(
@@ -823,6 +866,7 @@ _BACKENDS: Dict[str, Type[ExecutionBackend]] = {}
 _LAZY_BUILTINS: Dict[str, Tuple[str, str]] = {
     "torch": ("repro_torch.runtime.executor", "TorchBackend"),
     "dryrun": ("repro_torch.runtime.dryrun", "DryRunBackend"),
+    "multiproc": ("repro_torch.runtime.worker", "MultiprocBackend"),
 }
 
 

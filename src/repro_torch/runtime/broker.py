@@ -33,14 +33,22 @@ import threading
 from typing import Any, Dict, Optional
 
 
-class TopicDropped(KeyError):
-    """The topic carries no data: never published, or dropped mid-wait."""
+class TransportError(RuntimeError):
+    """Base of every boundary-stream failure (broker or transport)."""
+
+
+class TopicDropped(TransportError, KeyError):
+    """The topic carries no data: never published, or dropped mid-wait.
+
+    Subclasses ``KeyError`` so handlers written against the plain broker
+    (``except KeyError``) keep working, and ``TransportError`` so a caller
+    can classify any transport stall with one ``except TransportError``."""
 
     def __str__(self) -> str:
         return RuntimeError.__str__(self)
 
 
-class TopicTimeout(TimeoutError):
+class TransportTimeout(TransportError, TimeoutError):
     """A bounded wait (``fetch_synced``) expired before its condition."""
 
 
@@ -85,7 +93,7 @@ class Broker:
             return st
 
     def publish(self, topic: str, batch: Any) -> None:
-        nbytes = batch.numel() * batch.element_size()
+        nbytes = batch.nbytes  # a torch tensor, or a numpy array behind a tcp broker
         with self._lock:
             st = self._topics.get(topic)
             if st is None:
@@ -110,7 +118,7 @@ class Broker:
         with st.lock:
             if st.buffer is None:
                 raise TopicDropped(f"no data published on topic {topic!r}")
-            return st.buffer.clone() if copy else st.buffer
+            return _private(st.buffer) if copy else st.buffer
 
     def fetch_synced(
         self, topic: str, min_seq: int, timeout: float = 60.0, copy: bool = False
@@ -134,11 +142,11 @@ class Broker:
             if st.dropped or st.buffer is None:
                 raise TopicDropped(f"topic {topic!r} dropped while awaited")
             if not ok:  # pragma: no cover - defensive
-                raise TopicTimeout(
+                raise TransportTimeout(
                     f"topic {topic!r} never reached sequence {min_seq} "
                     f"(at {st.seq}) within {timeout}s"
                 )
-            return st.buffer.clone() if copy else st.buffer
+            return _private(st.buffer) if copy else st.buffer
 
     def _count_fetch(self) -> None:
         with self._lock:
@@ -193,3 +201,9 @@ class Broker:
     def __len__(self) -> int:
         with self._lock:
             return sum(1 for st in self._topics.values() if st.buffer is not None)
+
+
+def _private(batch: Any) -> Any:
+    """A private copy of a batch: ``clone`` for a torch tensor, ``copy`` for
+    a numpy array."""
+    return batch.clone() if hasattr(batch, "clone") else batch.copy()

@@ -40,11 +40,19 @@ state into the registry at scrape time (``metrics_snapshot``,
 ``prometheus_text``, ``drain_spans``, ``export_chrome_trace``), under the
 reference's metric and span names.
 
-The port's copy of ``repro.runtime.system``, trimmed to the paper's main
-path: no worker-process, sharded or cluster plane (``transport``,
-``workers``, ``backend_options``, ``supervise``, ``autoscale``,
-``on_worker_event``, ``worker_health``, ``placement``). The data plane
-runs on the card unless the caller passes ``device="cpu"``.
+Worker processes (the reference's multiproc plane): ``backend="multiproc"``
+steps the segments inside ``workers`` spawned processes on the card (or
+the CPU with ``device="cpu"``), boundary streams over ``transport``
+(``"shm"`` or ``"tcp"``); ``backend_options`` carries the backend's other
+knobs (placement, step batching, launcher, worker plane), ``on_worker_event``
+observes the cluster plane's events and :meth:`StreamSystem.worker_health`
+reports the pool. A checkpoint records the pool (workers, transport,
+placement) and a restore onto ``"multiproc"`` re-spawns it.
+
+The port's copy of ``repro.runtime.system``, without the reference's
+sharded plane and, so far, its worker supervisor and autoscaler
+(``supervise=``, ``autoscale=`` raise). The data plane runs on the card
+unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -69,6 +77,18 @@ from .backend import ExecutionBackend, SegmentSpec, StepReport, compute_batches,
 from .checkpoint import BackgroundCheckpointWriter, CheckpointStore, deferred_encoder
 
 
+def _refuse_cluster_plane(supervise: Any, autoscale: Any) -> None:
+    """The reference's worker supervisor and autoscaler are the next slice
+    of the port; asking for either raises."""
+    names = [n for n, v in (("supervise", supervise), ("autoscale", autoscale)) if v]
+    if names:
+        raise ValueError(
+            f"{', '.join(names)}: the worker supervisor and autoscaler "
+            "(repro.cluster.supervisor, repro.cluster.autoscaler) are not in the port yet; "
+            "MultiprocBackend.recover_worker and resize_pool are"
+        )
+
+
 class StreamSystem:
     def __init__(
         self,
@@ -86,16 +106,37 @@ class StreamSystem:
         max_workers: Optional[int] = None,
         on_wave: Optional[Any] = None,
         report_history: Optional[int] = None,
+        transport: Optional[Any] = None,
+        workers: Optional[int] = None,
+        backend_options: Optional[Dict[str, Any]] = None,
+        supervise: Union[bool, Dict[str, Any]] = False,
+        autoscale: Optional[Union[bool, Dict[str, Any]]] = None,
+        on_worker_event: Optional[Any] = None,
     ):
+        _refuse_cluster_plane(supervise, autoscale)
         self.manager = ReuseManager(
             strategy=strategy, check_invariants=check_invariants, journal_path=journal_path
         )
-        if device is not None and isinstance(backend, ExecutionBackend):
+        # Backend construction knobs: `transport=` picks the stream
+        # transport ("shm"/"tcp"), `workers=` sizes the multiproc worker
+        # pool, `device=` places the data plane; anything else rides in
+        # backend_options. They apply when the backend is named (or a
+        # class) — a pre-built instance already made those choices.
+        options: Dict[str, Any] = dict(backend_options or {})
+        if transport is not None:
+            options["transport"] = transport
+        if workers is not None:
+            options["workers"] = workers
+        if device is not None:
+            options["device"] = device
+        if options and isinstance(backend, ExecutionBackend):
             raise ValueError(
-                "device= needs a backend name or class: a backend instance "
-                "already has its device"
+                "device=/transport=/workers=/backend_options= need a backend name or "
+                "class: a backend instance is already constructed"
             )
-        self.backend = resolve_backend(backend, **({} if device is None else {"device": device}))
+        self.backend = resolve_backend(backend, **options)
+        if on_worker_event is not None:
+            self.backend.on_worker_event = on_worker_event
         self.backend.configure_stepping(
             step_mode=step_mode,
             max_workers=max_workers,
@@ -286,8 +327,32 @@ class StreamSystem:
                 )
             seg_ms[name] = model.segment_ms(units)
         return score_fusion_plan(
-            plan, backend.seg_deps, seg_ms, slot_of=None, n_slots=1, overhead_ms=overhead_ms
+            plan,
+            backend.seg_deps,
+            seg_ms,
+            slot_of=getattr(backend, "device_of", None),
+            n_slots=backend._n_slots() if hasattr(backend, "_n_slots") else 1,
+            overhead_ms=overhead_ms,
         )
+
+    def _migrate_chain(self, members: List[str], target: int) -> None:
+        """Consolidate a chain's members onto one slot before fusing.
+
+        Cross-worker chains must be worker-local before the fused segment
+        is built (it lives on exactly one worker); the straggler-migration
+        machinery moves them — states RPC, kill, redeploy with carried
+        states and re-applied pauses. Backends without placement have
+        nothing to do.
+        """
+        device_of = getattr(self.backend, "device_of", None)
+        if device_of is None:
+            return
+        for m in members:
+            cur = device_of.get(m)
+            if cur is None or cur == target:
+                continue
+            self.backend._move_segment(self.backend.segments[m], cur, target)
+            device_of[m] = target
 
     def fuse(self, min_length: int = 2, overhead_ms: float = 0.25) -> Dict[str, List[str]]:
         """Fuse linear same-DAG segment chains into single fused segments.
@@ -317,6 +382,7 @@ class StreamSystem:
             members = chain.members
             if any(m not in self.backend.segments for m in members):
                 continue  # stale plan entry: never fuse over a dead segment
+            self._migrate_chain(members, decision.target_slot)
             specs = [self.backend.segments[m].spec for m in members]
             # Chain order is upstream→downstream and member task_ids are
             # topological, so concatenation is topological for the union.
@@ -348,6 +414,11 @@ class StreamSystem:
                 # fused step does not donate, and the payload says so
                 fused=not self.checkpoint_background,
             )
+            # Deploy the fused segment where its members were consolidated —
+            # placed backends consult the pin before their placement policy.
+            pins = getattr(self.backend, "_pin_slot", None)
+            if pins is not None:
+                pins[spec.name] = decision.target_slot
             self.backend.fuse_segments(spec, df, members)
             # Reuse-savings attribution, recorded where the decision lands:
             # every accepted chain dispatches one segment where it used to
@@ -474,6 +545,12 @@ class StreamSystem:
         on_wave: Optional[Any] = None,
         journal_path: Optional[str] = None,
         check_invariants: bool = False,
+        transport: Optional[Any] = None,
+        workers: Optional[int] = None,
+        backend_options: Optional[Dict[str, Any]] = None,
+        supervise: Union[bool, Dict[str, Any]] = False,
+        autoscale: Optional[Union[bool, Dict[str, Any]]] = None,
+        on_worker_event: Optional[Any] = None,
     ) -> "StreamSystem":
         """Reconstruct a full system from a checkpoint payload.
 
@@ -483,7 +560,11 @@ class StreamSystem:
         other registered backend for a cross-backend restore. A payload of
         the reference's names its backend (``"inprocess"``) and restores
         here with ``backend="torch"``; its ``backend_config`` applies only
-        when the names match. ``device`` places a torch backend (the card by
+        when the names match: a ``"multiproc"`` payload re-spawns its worker
+        pool (workers, transport, placement; the reference's ``"jit"``
+        worker plane is the port's ``"torch"``), and explicit
+        ``transport=``/``workers=``/``backend_options=`` override it.
+        ``device`` places a torch or multiproc backend (the card by
         default). ``step_mode``/``max_workers`` override the checkpointed
         stepping config — a checkpoint taken in either mode restores into
         either mode (the segment dependency DAG is derived state, rebuilt
@@ -494,18 +575,28 @@ class StreamSystem:
             journal_path=journal_path,
         )
         mgr.check_invariants = check_invariants
+        _refuse_cluster_plane(supervise, autoscale)
         target = backend if backend is not None else payload["backend"]
         options: Dict[str, Any] = {}
         if isinstance(target, str) and target == payload.get("backend"):
             options.update(payload.get("backend_config") or {})
+        if backend_options:
+            options.update(backend_options)
+        if transport is not None:
+            options["transport"] = transport
+        if workers is not None:
+            options["workers"] = workers
         if device is not None:
             options["device"] = device
         if options and isinstance(target, ExecutionBackend):
-            raise ValueError("device= needs a backend name: a backend instance already has its device")
+            raise ValueError(
+                "device=/transport=/workers=/backend_options= need a backend name: "
+                "a backend instance is already constructed")
         system = cls(
             strategy=payload["strategy"],
             base_batch=int(payload["base_batch"]),
             backend=resolve_backend(target, **options),
+            on_worker_event=on_worker_event,
             checkpoint_dir=checkpoint_dir,
             checkpoint_background=(
                 checkpoint_background
@@ -557,6 +648,12 @@ class StreamSystem:
         on_wave: Optional[Any] = None,
         journal_path: Optional[str] = None,
         check_invariants: bool = False,
+        transport: Optional[Any] = None,
+        workers: Optional[int] = None,
+        backend_options: Optional[Dict[str, Any]] = None,
+        supervise: Union[bool, Dict[str, Any]] = False,
+        autoscale: Optional[Union[bool, Dict[str, Any]]] = None,
+        on_worker_event: Optional[Any] = None,
     ) -> "StreamSystem":
         """Restore from ``path`` — a checkpoint directory (newest valid
         checkpoint wins; torn last checkpoints are skipped) or one concrete
@@ -581,6 +678,12 @@ class StreamSystem:
             on_wave=on_wave,
             journal_path=journal_path,
             check_invariants=check_invariants,
+            transport=transport,
+            workers=workers,
+            backend_options=backend_options,
+            supervise=supervise,
+            autoscale=autoscale,
+            on_worker_event=on_worker_event,
         )
 
     def quiesce(self) -> None:
@@ -597,14 +700,21 @@ class StreamSystem:
 
     def close(self) -> None:
         """Release data-plane resources: flush queued background
-        checkpoints, then close the backend (its dispatch pool).
+        checkpoints, then close the backend (its dispatch pool; for the
+        multiproc backend also the worker pool and the transport).
 
-        Idempotent; the system stays usable — stepping recreates what it
-        needs lazily."""
+        Idempotent; single-process systems stay usable — stepping
+        recreates what they need lazily."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.close()
             self._ckpt_writer = None
         self.backend.close()
+
+    def worker_health(self) -> Optional[Dict[str, Any]]:
+        """Cluster-plane health: worker liveness, respawn history, recent
+        events. ``None`` for in-process backends (there is no worker pool
+        to be unhealthy)."""
+        return self.backend.worker_health()
 
     # -- observability ----------------------------------------------------------------
     def sink_digests(self, sub_name: str) -> Dict[str, Dict[str, Any]]:
@@ -657,7 +767,10 @@ class StreamSystem:
         reference's transport names.
         """
         m = self.backend.metrics
-        broker = getattr(self.backend, "broker", None)
+        # the multiproc backend's transport, or the torch backend's broker
+        broker = getattr(self.backend, "transport", None)
+        if broker is None:
+            broker = getattr(self.backend, "broker", None)
         if broker is not None:
             counters = broker.counters()
             m.counter(

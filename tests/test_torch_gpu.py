@@ -392,16 +392,39 @@ def test_cuda_ssd_scan_one_stage_layout(cuda):
 @pytest.mark.gpu
 def test_cuda_ssd_scan_refuses_f32_where_it_does_not_fit(cuda):
     # L = N = P = 128 in f32: the SIMT build's tiles need more shared memory
-    # than a block has even with W in row tiles of one row; the wrapper
-    # raises before any launch
+    # than a block has even with W in row tiles of one row: the wrapper no
+    # longer refuses the shape, it runs the tiled build (one launch)
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
 
     g = torch.Generator().manual_seed(15)
     xh, dt, a, bm, cm, h0 = _ssd_case(g, 1, 200, 2, 128, 128, cuda, torch.float32, True)
+    assert ssd.route(torch.float32, 128, 128, 128) == "tiles"
     reset_launch_counts()
-    with pytest.raises(ValueError, match="do not fit in shared memory"):
-        ssd.ssd_scan(xh, dt, a, bm, cm, chunk=128, h0=h0)
-    assert launch_counts()["ssd_scan"] == 0
+    got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=128, h0=h0)
+    assert launch_counts()["ssd_scan"] == 1
+    want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, 128, h0)
+    _assert_rel(got_y, want_y)
+    _assert_rel(got_h, want_h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,p,n,chunk,with_h0", [
+    (1, 512, 2, 128, 128, 128, True),   # f32: the SIMT build does not fit
+    (1, 512, 2, 160, 192, 256, True),   # chunk, N and P above 128
+    (2, 300, 3, 129, 130, 131, False),  # ragged everywhere: S, the 32-wide tiles
+    (1, 64, 2, 200, 8, 16, True),       # P alone above 128
+])
+def test_cuda_ssd_scan_tiled_build(cuda, dtype, b, s, nh, p, n, chunk, with_h0):
+    g = torch.Generator().manual_seed(21)
+    xh, dt, a, bm, cm, h0 = _ssd_case(g, b, s, nh, p, n, cuda, dtype, with_h0)
+    if max(chunk, n, p) > 128:
+        assert ssd.route(dtype, chunk, n, p) == "tiles"
+    got_y, got_h = ssd.ssd_scan(xh, dt, a, bm, cm, chunk=chunk, h0=h0)
+    want_y, want_h = ref.ssd_scan_ref(xh, dt, a, bm, cm, chunk, h0)
+    assert got_y.dtype == got_h.dtype == torch.float32
+    _assert_rel(got_y, want_y)
+    _assert_rel(got_h, want_h)
 
 
 @pytest.mark.gpu
@@ -651,6 +674,55 @@ def test_nemotron_width_cut_on_the_card_matches_cpu(cuda):
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
 
 
+# -- K5/K6 above the built head dims: the pieces kernel -------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [256, 320])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", [
+    (1, 300, 300, 8, 2, True, 0),
+    (2, 129, 129, 4, 4, True, 64),
+    (1, 127, 200, 6, 1, False, 0),
+])
+def test_cuda_flash_attention_above_the_built_head_dims(cuda, dtype, hd, b, sq, sk, h, kv,
+                                                        causal, window):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(hd + sq)
+    q = _randn(g, (b, sq, h, hd), cuda, dtype)
+    k, v = _randn(g, (b, sk, kv, hd), cuda, dtype), _randn(g, (b, sk, kv, hd), cuda, dtype)
+    assert flash_attention.route(dtype, hd) == flash_attention.PIECES_KERNEL
+    reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    assert launch_counts()["flash_attention"] == 1 and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [256, 320])
+@pytest.mark.parametrize("b,smax,clen,h,kv,window", [
+    (1, 512, 500, 16, 8, 0),
+    (2, 300, 257, 40, 1, 0),     # 40 q heads of one KV head: two blocks of rows
+    (1, 512, 300, 8, 8, 128),
+    (1, 64, 0, 4, 2, 0),         # an empty cache: zeros
+])
+def test_cuda_decode_attention_above_the_built_head_dims(cuda, dtype, hd, b, smax, clen, h, kv,
+                                                         window):
+    g = torch.Generator().manual_seed(hd + clen)
+    q = _randn(g, (b, 1, h, hd), cuda, dtype)
+    kc = _randn(g, (2, b, smax, kv, hd), cuda, dtype)[1]  # a strided view, as a layer's cache
+    vc = _randn(g, (2, b, smax, kv, hd), cuda, dtype)[1]
+    got = decode_attention.decode_attention(q, kc, vc, clen, window=window)
+    if clen == 0:
+        assert not got.any()
+        return
+    want = ref.decode_attention_ref(q, kc, vc, clen, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
 # -- K5/K6 at head dims the kernels are not built for ------------------------------------
 
 
@@ -687,7 +759,9 @@ def _stream_system(device, **kw):
     from repro_torch.runtime.system import StreamSystem
     from repro_torch.workloads import kernel_flows, riot_workload
 
-    system = StreamSystem(base_batch=256, device=device, **kw)
+    if device is not None:
+        kw["device"] = device
+    system = StreamSystem(base_batch=256, **kw)
     for df in riot_workload() + kernel_flows():
         system.submit(df)
     return system
@@ -1082,3 +1156,38 @@ def test_a_failed_capture_in_concurrent_mode_names_its_task(cuda):
     assert task in backend.segments[name].spec.task_ids
     assert backend.segments[name].operators[task] is op
     system.close()
+
+
+# -- the worker-process plane on the card ---------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step_mode,workers,chains", [("sync", 2, False), ("concurrent", 3, True)])
+def test_multiproc_workers_on_the_card_are_bitwise_the_torch_backend(cuda, step_mode, workers,
+                                                                    chains):
+    # the RIoT and kernel flows at base_batch 256: 3 steps, fuse() (every
+    # chain accepted, so both fuse the same segments), 2 steps; the workers
+    # step through CUDA graphs on the card, boundary batches over shm
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.runtime.worker import MultiprocBackend
+
+    runs = {}
+    for plane in ("torch", "multiproc"):
+        reset_launch_counts()
+        if plane == "torch":
+            system = _stream_system(cuda, step_mode=step_mode)
+        else:
+            backend = MultiprocBackend(workers=workers, chain_batching=chains, device=str(cuda))
+            system = _stream_system(None, backend=backend, step_mode=step_mode)
+        system.run(3)
+        assert system.fuse(overhead_ms=1e9)
+        system.run(2)
+        counts = launch_counts() if plane == "torch" else system.backend.launch_counts()
+        runs[plane] = (_digests(system), counts)
+        if plane == "multiproc":
+            memory = system.backend.worker_memory()
+            assert sorted(memory) == list(range(workers))
+            assert all(m["graphs"] > 0 and m["reserved"] > 0 for m in memory.values())
+        system.close()
+    assert runs["multiproc"] == runs["torch"]
+    assert runs["torch"][1]["kalman_scan"] > 0 and runs["torch"][1]["affine_rmsnorm"] > 0

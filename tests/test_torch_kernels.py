@@ -229,6 +229,37 @@ def test_attention_plain_at_unbuilt_head_dims_matches_pallas(hd, dtype):
     np.testing.assert_allclose(_np(padded[..., :hd]), _np(got), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [256, 320])
+def test_attention_plain_above_the_built_head_dims_matches_pallas(hd, dtype):
+    """The plain versions at head dims 256 (Gemma-class) and 320 (no
+    multiple of 64: the pieces kernel's last piece is ragged), which the
+    CUDA wrappers run through the pieces kernel unpadded, against the Pallas
+    kernels in interpret mode: causal, a window, GQA, and decode with and
+    without a window."""
+    from repro.kernels.decode_attention import decode_attention as pallas_decode
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+    from repro_torch.kernels.flash_attention import PIECES_KERNEL, route
+
+    assert route(getattr(torch, dtype), hd) == PIECES_KERNEL
+    g = np.random.default_rng(hd + 1)
+    b, s, h, kv = 1, 128, 2, 1
+    qj, qt = _attn_pair(g, (b, s, h, hd), dtype)
+    kj, kt = _attn_pair(g, (b, s, kv, hd), dtype)
+    vj, vt = _attn_pair(g, (b, s, kv, hd), dtype)
+    kr, vr = jnp.repeat(kj, h // kv, axis=2), jnp.repeat(vj, h // kv, axis=2)
+    for window in (0, 48):
+        got = ops.flash_attention(qt, kt, vt, causal=True, window=window)
+        pal = pallas_flash(qj, kr, vr, causal=True, window=window, block_q=64, block_k=64,
+                           interpret=True)
+        np.testing.assert_allclose(_np(got), _np(pal), **_tol(dtype))
+        clen = 100
+        got = ops.decode_attention(qt[:, :1], kt, vt, clen, window=window)
+        pal = pallas_decode(qj[:, :1], kj, vj, jnp.asarray(clen, jnp.int32), block_s=64,
+                            window=window, interpret=True)
+        np.testing.assert_allclose(_np(got), _np(pal), **_tol(dtype))
+
+
 def test_built_head_dims_take_no_padding_copy():
     from repro_torch.kernels.flash_attention import HEAD_DIMS, pad_head_dim, padded_head_dim
 
@@ -237,5 +268,7 @@ def test_built_head_dims_take_no_padding_copy():
         ts = tuple(torch.zeros((1, 2, 1, hd)) for _ in range(3))
         assert all(a is b for a, b in zip(pad_head_dim(ts, hd), ts))
     assert [padded_head_dim(hd) for hd in (1, 17, 65, 81, 129, 191)] == [16, 32, 80, 128, 192, 192]
+    # above the largest built head dim no padding applies: the wrappers take
+    # the pieces kernel there (test_attention_plain_above_the_built_head_dims...)
     with pytest.raises(ValueError, match="above 192"):
         padded_head_dim(193)

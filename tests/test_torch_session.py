@@ -233,11 +233,27 @@ def test_session_default_is_the_card(monkeypatch):
 
 @pytest.mark.parametrize("arg", [
     {"transport": "shm"}, {"workers": 2}, {"supervise": True}, {"autoscale": True},
-    {"on_worker_event": print}, {"backend_options": {"x": 1}},
+    {"on_worker_event": print}, {"backend_options": {"placement": "least_loaded"}},
 ])
 def test_trimmed_planes_raise(arg):
-    with pytest.raises(DataflowError, match="not in the port"):
-        ReuseSession(execute=True, device="cpu", **arg)
+    # the worker-process plane is ported: its arguments reach a multiproc
+    # backend (nothing spawns before a deploy); the supervisor and the
+    # autoscaler are not, and asking for either raises
+    if "supervise" in arg or "autoscale" in arg:
+        with pytest.raises(ValueError, match="supervisor and autoscaler"):
+            ReuseSession(execute=True, device="cpu", backend="multiproc", **arg)
+        return
+    session = ReuseSession(execute=True, device="cpu", backend="multiproc", **arg)
+    try:
+        backend = session._system.backend
+        assert session.backend_name == "multiproc" and backend.device == "cpu"
+        assert backend.transport.name == arg.get("transport", "shm")
+        assert backend.n_workers == arg.get("workers", 2)
+        assert backend.policy.name == arg.get("backend_options", {}).get("placement", "round_robin")
+        assert backend.on_worker_event is arg.get("on_worker_event")
+        assert session.worker_health()["workers"] == backend.n_workers
+    finally:
+        session.close()
 
 
 def test_concurrent_step_mode_raises():

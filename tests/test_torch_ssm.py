@@ -102,6 +102,22 @@ def test_ssd_scan_plain_matches_pallas_and_reference(b, s, nh, p, n, chunk, dtyp
         np.testing.assert_allclose(_np(got_h), _np(want_h), **BF16_REF_TOL)
 
 
+@pytest.mark.parametrize("dtype,chunk,n,p", [
+    ("float32", 128, 128, 128),   # the SIMT build does not fit: the tiled build on the card
+    ("float32", 256, 192, 160),   # chunk, N and P above 128: the tiled build
+    ("bfloat16", 256, 192, 160),  # beyond the tensor-core build's tiles: the tiled build
+])
+def test_ssd_scan_plain_at_the_tiled_builds_shapes_matches_pallas(dtype, chunk, n, p):
+    """K7's plain version at the shapes only the tiled build takes on the
+    card, against the Pallas kernel in interpret mode (whose only limit is
+    S % chunk == 0): B 1, 2 heads, S 512."""
+    d = _ssd_inputs(1, 512, 2, p, n, seed=chunk + n)
+    got_y, got_h = ref.ssd_scan_ref(*_torch_args(d, dtype), chunk)
+    pal_y, pal_h = pallas_ssd(*_jax_args(d, dtype), chunk=chunk, interpret=True)
+    _assert_rel(got_y, pal_y)
+    _assert_rel(got_h, pal_h)
+
+
 @pytest.mark.parametrize("s,chunk", [(37, 8), (100, 32), (7, 16), (1, 8)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_chunked_masks_a_ragged_chunk(s, chunk, with_h0):
