@@ -78,6 +78,29 @@ Phases, each fatal on failure:
      first step, each worker's memory; a checkpoint taken on multiproc
      restored on torch and the reverse (bitwise), a worker killed between
      steps and recovered (digests unchanged), a short run over tcp;
+     then (3d) the in-process backend over the host transports and the
+     sharded backend: the same script on ``backend="torch"`` over shm and
+     tcp (boundary batches through pinned host staging) and on
+     ``backend="sharded"`` (every card, then two slots of cuda:0), sync
+     and concurrent, digests bitwise and launches equal to phase 3's, the
+     step walls and MiB published a step beside phase 3's, segments per
+     slot; (3e) supervision and autoscaling: two pools of 2 workers, one
+     supervised (spill snapshots, heartbeats), stepped in turns for the
+     supervision overhead and the workers' spill ms a step, a worker
+     SIGKILLed between steps (recovered inside the next step), another
+     while idle (recovered by the heartbeat), the pool grown by one and
+     shrunk back by the autoscaler at thresholds set from the measured
+     pressure, digests bitwise the unsupervised pool's after each, the
+     respawn and resize ms and the events printed; (3f) the trace CLI in
+     subprocesses: riot/rw1 on the card cut and resumed with --restore
+     (stitched series equal to the uninterrupted run's), riot/seq on a
+     supervised, autoscaled pool with a worker killed at event 6 (exit 0,
+     a respawn, sink counts of the un-killed run); (3g) the front end:
+     ``ServeFrontend`` over ``ReuseSession(backend="torch",
+     base_batch=16384)``, alice's 21 RIoT flows and bob's tenant copies (0
+     slots), digests bitwise a direct session's, the socket verbs, a stop
+     with a checkpoint restored on the card (ledgers equal), and the daemon
+     (start/submit/status/stop) in a subprocess;
   4. the dense serving path at full width: qwen3-4b (36 layers, bf16,
      random weights drawn on the card from a seeded generator) through
      ``ServeEngine(slots=4, max_len=4096)``, 8 greedy requests of 16 new
@@ -97,8 +120,8 @@ Phases, each fatal on failure:
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5, the session's, the concurrent ones and the workers'
-     of phase 3c included; each
+     of phases 3-5, the session's, the concurrent ones, the workers' of
+     phases 3c and 3e and the in-process runs of 3d and 3g included; each
      must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1508,6 +1531,477 @@ def worker_phase(dev, phase3):
     return runs
 
 
+# -- phase 3d: the in-process backend over the host transports, and sharded -------------
+
+
+def mib_a_step(transport, steps, before):
+    return (transport.counters()["bytes_published"] - before) / steps / 2**20
+
+
+def transport_sharded_phase(dev, phase3):
+    """Phase 3d: phase 3's script on ``backend="torch"`` over shm and tcp
+    (each boundary batch across the host through pinned staging) and on
+    ``backend="sharded"`` (every card, then two slots of cuda:0), in sync
+    and concurrent mode: digests bitwise and kernel launches equal to phase
+    3's captured run. Returns each run's launch counts."""
+    import collections
+
+    import torch
+
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.runtime.executor import TorchBackend
+    from repro_torch.runtime.sharded import ShardedBackend
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for transport in ("shm", "tcp"):
+        label = f"torch over {transport}"
+        reset_launch_counts()
+        backend = TorchBackend(dev, transport=transport)
+        digests, walls, system = run_script(MAIN_BATCH, dev, fuse=True, backend=backend)
+        counts = launch_counts()
+        runs[label] = counts
+        compare_digests(f"{label} vs phase 3's captured run", digests, phase3["digests"], 0)
+        if counts != phase3["launches"]:
+            raise AssertionError(f"{label}: kernel launches {counts} != phase 3's")
+        before = backend.transport.counters()["bytes_published"]
+        walls_, _ = steady(system)
+        log(f"{label}: sink digests bitwise equal to phase 3's captured run, kernel launches "
+            f"equal; steady fused step wall ms median {statistics.median(walls_):.3f} (min "
+            f"{min(walls_):.3f}, max {max(walls_):.3f}) over {STEADY} steps against phase 3's "
+            f"inproc sync {phase3['walls']['sync']:.3f}; "
+            f"{mib_a_step(backend.transport, STEADY, before):.2f} MiB published a step")
+        system.close()
+        del system, backend
+    for devices in (None, [dev] * 2):
+        for mode in ("sync", "concurrent"):
+            label = f"sharded, devices={devices and [str(d) for d in devices]}, {mode}"
+            reset_launch_counts()
+            backend = ShardedBackend(devices=devices, step_mode=mode)
+            # fuse() scores chains against the slots, as on a worker pool
+            digests, walls, system = run_script(MAIN_BATCH, dev, fuse=True, backend=backend,
+                                                fuse_kw=ACCEPT_ALL)
+            counts = launch_counts()
+            runs[label] = counts
+            compare_digests(f"{label} vs phase 3's captured run", digests, phase3["digests"], 0)
+            if verdicts(system) != phase3["verdicts"]:
+                raise AssertionError(f"{label}: fusion verdicts {verdicts(system)} != phase 3's")
+            if counts != phase3["launches"]:
+                raise AssertionError(f"{label}: kernel launches {counts} != phase 3's")
+            for name, seg in backend.segments.items():
+                if not seg.graphs.graphs:
+                    raise AssertionError(f"{label}: segment {name} never stepped through a graph")
+            per_slot = collections.Counter(backend.device_of.values())
+            log(f"{label}: device_count {torch.cuda.device_count()}, {len(backend.devices)} "
+                f"slot(s) on {sorted({str(d) for d in backend.devices})}; sink digests bitwise "
+                f"equal to phase 3's captured run, fusion verdicts and kernel launches equal "
+                f"(fuse() accepting every chain); segments per slot "
+                f"{dict(sorted(per_slot.items()))}; step wall ms {[round(w, 3) for w in walls]}")
+            system.close()
+            del system, backend
+    torch.cuda.synchronize()
+    log(f"transport and sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+# -- phase 3e: supervision and autoscaling of the worker pool ----------------------------
+
+HEARTBEAT_S = 2.0  # the supervised pool's heartbeat; the in-step kill steps at once
+INERT_SCALE = {"min_workers": 2, "max_workers": 3, "high_ms": 1e9, "low_ms": 1e-9,
+               "patience": 1, "cooldown": 0}
+
+
+def cluster_phase(dev, phase3):
+    """Phase 3e: phase 3's script on two pools of 2 workers over shm in sync
+    mode with the backend's default chain batching (a step_chain RPC a
+    worker), one supervised (spill snapshots, heartbeats) with autoscale=
+    armed, one not, stepped in turns; a worker killed between two steps (the next step's RPC fails
+    and recovers it), another killed while idle (the heartbeat recovers
+    it), the pool grown by one and shrunk back by the autoscaler, each
+    followed by steps whose digests are bitwise the unsupervised pool's.
+    Returns each pool's launch counts."""
+    import signal
+
+    import torch
+
+    from repro_torch.cluster import AutoscalePolicy
+    from repro_torch.cluster.events import HEARTBEAT_MISSED
+    from repro_torch.runtime.worker import MultiprocBackend
+
+    t_phase = time.perf_counter()
+    pools = {}
+    for label, supervise in (("unsupervised", False), ("supervised", True)):
+        backend = MultiprocBackend(workers=2, transport="shm", device=str(dev))
+        # autoscale= armed with thresholds no pressure reaches; they are
+        # set from the measured pressure further down
+        extra = {"supervise": {"heartbeat_interval": HEARTBEAT_S},
+                 "autoscale": dict(INERT_SCALE)} if supervise else {}
+        digests, walls, system = run_script(MAIN_BATCH, dev, fuse=True, backend=backend,
+                                            fuse_kw=ACCEPT_ALL, step_mode="sync", **extra)
+        compare_digests(f"cluster, {label} pool vs phase 3's captured run", digests,
+                        phase3["digests"], 0)
+        if backend.launch_counts() != phase3["launches"]:
+            raise AssertionError(f"{label} pool: kernel launches {backend.launch_counts()}")
+        if supervise and backend.snapshot_mode != "spill":
+            raise AssertionError(f"supervised pool snapshots by {backend.snapshot_mode}")
+        log(f"cluster, {label} pool (2 workers over shm, sync, chain batching {backend.chain_batching}"
+            f"): sink digests bitwise equal to "
+            f"phase 3's captured run, kernel launches equal; spawn to the end of the first step "
+            f"{backend.first_step_s:.2f} s")
+        pools[label] = system
+    sup, plain = pools["supervised"], pools["unsupervised"]
+    be = sup.backend
+
+    def lockstep(label, steps=1):
+        for system in (sup, plain):
+            system.run(steps)
+        compare_digests(f"cluster, {label}", {n: sup.sink_digests(n) for n in
+                                              sorted(sup.manager.submitted)},
+                        {n: plain.sink_digests(n) for n in sorted(plain.manager.submitted)}, 0)
+
+    # the supervision overhead: both pools' steady steps, in turns
+    walls = {"unsupervised": [], "supervised": []}
+    for rnd in range(4):
+        for label in (("unsupervised", "supervised") if rnd % 2 == 0
+                      else ("supervised", "unsupervised")):
+            torch.cuda.synchronize()
+            walls[label] += [r.wall_ms for r in pools[label].run(STEADY // 4)]
+    compare_digests("cluster, after the steady steps", {n: sup.sink_digests(n) for n in
+                                                        sorted(sup.manager.submitted)},
+                    {n: plain.sink_digests(n) for n in sorted(plain.manager.submitted)}, 0)
+    # read before the kills: a killed worker's counts go with it
+    runs = {f"cluster, {label}": pools[label].backend.launch_counts() for label in pools}
+    health = sup.worker_health()
+    scaler = sup._autoscaler
+    pressure = scaler.pressure()
+    if pressure <= 0:
+        raise AssertionError(f"no pressure measured on the supervised pool: {pressure}")
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"cluster: steady fused step wall ms median supervised {med['supervised']:.3f} (min "
+        f"{min(walls['supervised']):.3f}, max {max(walls['supervised']):.3f}), unsupervised "
+        f"{med['unsupervised']:.3f} (min {min(walls['unsupervised']):.3f}, max "
+        f"{max(walls['unsupervised']):.3f}), {STEADY} steps each in turns of {STEADY // 4}: "
+        f"supervised / unsupervised {med['supervised'] / med['unsupervised']:.4f}; the workers' "
+        f"spill ms a step {health['spill_ms_per_step']}, snapshot mode {health['snapshot_mode']}")
+
+    # a worker killed between two steps: the next step's RPC to it fails
+    # and the in-step path (_step_recover) respawns it and redeploys its
+    # segments from its spill file; the re-dispatched step runs once
+    n_events = len(be.worker_events)
+    os.kill(be._procs[1].pid, signal.SIGKILL)
+    lockstep("in-step recovery of worker 1, 1 step, bitwise the unsupervised pool")
+    if len(be.respawns) != 1:
+        raise AssertionError(f"in-step recovery: respawns {be.respawns}")
+    kinds = [e.kind for e in be.worker_events[n_events:]]
+    if HEARTBEAT_MISSED in kinds:
+        raise AssertionError(f"the heartbeat, not the step, recovered worker 1: {kinds}")
+    log(f"cluster: worker 1 SIGKILLed between two steps, recovered inside the next step in "
+        f"{be.respawns[-1]['ms']:.1f} ms ({len(be.respawns[-1]['segments'])} segments "
+        f"redeployed from spill); events {kinds}; digests bitwise the unsupervised pool's")
+    lockstep("after the in-step recovery, 2 more steps", 2)
+
+    # a worker killed while idle: the heartbeat finds it and recovers it
+    n_events = len(be.worker_events)
+    os.kill(be._procs[0].pid, signal.SIGKILL)
+    t0 = time.perf_counter()
+    while len(be.respawns) < 2:
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError("the heartbeat never recovered the idle worker")
+        time.sleep(0.05)
+    kinds = [e.kind for e in be.worker_events[n_events:]]
+    if HEARTBEAT_MISSED not in kinds:
+        raise AssertionError(f"idle kill: events {kinds}")
+    log(f"cluster: worker 0 SIGKILLed while idle, the heartbeat ({HEARTBEAT_S} s) recovered it "
+        f"{time.perf_counter() - t0:.2f} s after the kill, the respawn {be.respawns[-1]['ms']:.1f} "
+        f"ms; events {kinds}")
+    lockstep("after the heartbeat's recovery, 2 steps, bitwise the unsupervised pool", 2)
+
+    # the autoscaler (autoscale=, observing after every step), thresholds
+    # set from the measured pressure: grow by one, then shrink back
+    if scaler.actions:
+        raise AssertionError(f"the inert autoscaler acted: {scaler.actions}")
+    scaler.policy = AutoscalePolicy(**{**INERT_SCALE, "high_ms": pressure / 2,
+                                       "low_ms": pressure / 4})
+    n_events = len(be.worker_events)
+    for _ in range(3):
+        lockstep("autoscale grow")
+        if be.n_workers == 3:
+            break
+    if be.n_workers != 3:
+        raise AssertionError(f"the autoscaler did not grow the pool: {scaler.state()}")
+    lockstep("grown pool, 2 steps", 2)
+    grown_pressure = scaler.pressure()
+    scaler.policy = AutoscalePolicy(**{**INERT_SCALE, "high_ms": grown_pressure * 100,
+                                       "low_ms": grown_pressure * 10})
+    lockstep("autoscale shrink")
+    if be.n_workers != 2:
+        raise AssertionError(f"the autoscaler did not shrink the pool: {scaler.state()}")
+    lockstep("shrunk pool, 2 steps, bitwise the unsupervised pool", 2)
+    if sup.worker_health()["autoscale"]["workers"] != 2:
+        raise AssertionError(f"worker_health's autoscale section: {sup.worker_health()}")
+    events = be.worker_events[n_events:]
+    log(f"cluster: autoscaler at measured pressure {pressure:.3f} ms a worker grew the pool 2 -> "
+        f"3 and shrank it 3 -> 2 (pressure then {grown_pressure:.3f}); events "
+        + ", ".join(f"{e.kind} {e.ms:.1f} ms" if e.ms else e.kind for e in events)
+        + f"; actions {[(a['from'], a['to']) for a in scaler.actions]}")
+    for system in (sup, plain):
+        system.close()
+    if sup._supervisor.running:
+        raise AssertionError("close() left the supervisor running")
+    torch.cuda.synchronize()
+    log(f"cluster phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+# -- phase 3f: the trace-replay CLI --------------------------------------------------------
+
+TRACE_CUT = 40  # the event the interrupted rw1 run stops at
+
+
+def run_cli(args, timeout=900):
+    """``python -m <args>`` from this checkout; fails on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(root, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                          timeout=timeout, env=env, cwd=root)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def trace_cli_phase(dev):
+    """Phase 3f: ``python -m repro_torch.launch.dryrun`` in subprocesses on the
+    card: riot/rw1 interrupted at TRACE_CUT and resumed with --restore gives
+    the uninterrupted series; riot/seq on a supervised, autoscaled pool of 2
+    workers with one killed at event 6 exits 0 with a respawn and the sink
+    counts of the same events on the in-process backend."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="trace-", dir=root)
+    series = ("live_tasks", "paused_tasks", "cores")
+    cli = ("repro_torch.launch.dryrun", "--trace")
+    try:
+        rec = {}
+        for name, extra in (
+            ("full", []),
+            ("part", ["--checkpoint-dir", os.path.join(tmp, "ckpt"), "--max-events",
+                      str(TRACE_CUT)]),
+            ("rest", ["--checkpoint-dir", os.path.join(tmp, "ckpt"), "--restore"]),
+        ):
+            path = os.path.join(tmp, f"{name}.json")
+            t0 = time.perf_counter()
+            backend = [] if name == "rest" else ["--backend", "torch"]
+            run_cli([*cli, "riot/rw1", *backend, "--json", path, *extra])
+            rec[name] = json.load(open(path))
+            rec[name]["process_s"] = time.perf_counter() - t0
+        if rec["rest"]["resumed_at_event"] != TRACE_CUT or rec["rest"]["backend"] != "torch":
+            raise AssertionError(f"resume record {rec['rest']['resumed_at_event']}, "
+                                 f"{rec['rest']['backend']}")
+        stitched = {k: rec["part"]["series"][k] + rec["rest"]["series"][k] for k in series}
+        if stitched != {k: rec["full"]["series"][k] for k in series}:
+            raise AssertionError("riot/rw1: the stitched series differ from the uninterrupted run")
+        log(f"trace CLI riot/rw1 on the card: {rec['full']['events']} events; cut at "
+            f"{TRACE_CUT} and resumed with --restore, the stitched series equal the "
+            f"uninterrupted run's; replay wall s full {rec['full']['wall_s']}, part "
+            f"{rec['part']['wall_s']}, rest {rec['rest']['wall_s']} (processes "
+            + ", ".join(f"{rec[k]['process_s']:.1f}" for k in ("full", "part", "rest")) + " s)")
+
+        chaos = os.path.join(tmp, "chaos.json")
+        calm = os.path.join(tmp, "calm.json")
+        t0 = time.perf_counter()
+        run_cli([*cli, "riot/seq", "--backend", "multiproc", "--workers", "2", "--supervise",
+                 "--autoscale", "1:3", "--kill-worker-at", "6", "--max-events", "12",
+                 "--json", chaos])
+        chaos_s = time.perf_counter() - t0
+        run_cli([*cli, "riot/seq", "--backend", "torch", "--max-events", "12", "--json", calm])
+        got, want = json.load(open(chaos)), json.load(open(calm))
+        health = got["worker_health"]
+        if health["respawns"] < 1:
+            raise AssertionError(f"riot/seq chaos run: no respawn in {health}")
+        if got["sink_counts"] != want["sink_counts"] or not got["sink_counts"]:
+            raise AssertionError("riot/seq chaos run: sink counts differ from the un-killed run")
+        if {k: got["series"][k] for k in series} != {k: want["series"][k] for k in series}:
+            raise AssertionError("riot/seq chaos run: series differ from the un-killed run")
+        log(f"trace CLI riot/seq on a supervised pool (2 workers, autoscale 1:3), worker killed "
+            f"after event 6: exit 0, {health['respawns']} respawn(s), "
+            f"{sum(len(v) for v in got['sink_counts'].values())} sinks' counts equal to the "
+            f"in-process run's; autoscale actions "
+            f"{[(a['from'], a['to']) for a in health['autoscale']['actions']]}; events "
+            f"{[e['kind'] for e in health['events']]}; {chaos_s:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"trace CLI phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 3g: the multi-tenant front end ----------------------------------------------------
+
+
+def session_sinks(session, names):
+    return {n: session.sink_digests(n) for n in names}
+
+
+def frontend_phase(dev):
+    """Phase 3g: ``ServeFrontend`` over ``ReuseSession(execute=True,
+    backend="torch", base_batch=MAIN_BATCH)`` on the card: alice submits the
+    21 RIoT flows, bob tenant copies of them (0 slots each); after steps the
+    digests are bitwise those of a direct session with the same
+    submissions; then over the socket (submit, status, stats, metrics, stop
+    with a checkpoint) and ``ServeFrontend.restore`` on the card with equal
+    ledgers; then the daemon in a subprocess. Returns the launch counts of
+    the in-process runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import ReuseSession
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeClient, ServeFrontend, TenantQuota
+    from repro_torch.workloads import riot_workload, tenant_copy
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="frontend-", dir=root)
+    steps = 3
+    try:
+        flows = riot_workload()
+        reset_launch_counts()
+        fe = ServeFrontend(slots=256, backend="torch", base_batch=MAIN_BATCH,
+                           default_quota=TenantQuota(max_slots=256),
+                           checkpoint_dir=os.path.join(tmp, "ckpt"))
+        submit_ms = {"alice": [], "bob": []}
+        for tenant in ("alice", "bob"):
+            for df in flows:
+                sub = df.copy() if tenant == "alice" else tenant_copy(df, tenant)
+                t0 = time.perf_counter()
+                r = fe.submit(tenant, sub)
+                submit_ms[tenant].append((time.perf_counter() - t0) * 1e3)
+                if r.status != "ADMITTED":
+                    raise AssertionError(f"{tenant} {sub.name}: {r.to_json()}")
+                if tenant == "bob" and r.slots_charged != 0:
+                    raise AssertionError(f"bob's {sub.name} charged {r.slots_charged} slots")
+        torch.cuda.synchronize()
+        step_ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            fe.step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        names = sorted(fe.session.manager.submitted)
+        got = session_sinks(fe.session, names)
+        direct = ReuseSession(execute=True, backend="torch", base_batch=MAIN_BATCH)
+        for df in flows:
+            direct.submit(df.copy())
+        for df in flows:
+            direct.submit(tenant_copy(df, "bob"))
+        direct.run(steps)
+        compare_digests("front end vs a direct session", got, session_sinks(direct, names), 0)
+        direct.close()
+        counts = launch_counts()
+        stats = fe.stats()
+        led = stats["ledgers"]
+        log(f"front end on the card: alice's {len(flows)} RIoT flows held "
+            f"{led['alice']['slots_held']} slots, bob's tenant copies 0 (slots saved "
+            f"{led['bob']['slots_saved']}), effective capacity {stats['effective_capacity']:.2f}; "
+            f"sink digests of {len(names)} dataflows after {steps} steps bitwise equal to a "
+            f"direct session's; submit ms median alice {statistics.median(submit_ms['alice']):.3f}"
+            f", bob {statistics.median(submit_ms['bob']):.3f}; step ms "
+            f"{[round(w, 3) for w in step_ms]}")
+
+        host, port = fe.start()
+        with ServeClient((host, port)) as client:
+            extra = tenant_copy(flows[0], "carol")
+            r = client.submit("carol", extra)
+            if r["status"] != "ADMITTED" or r["slots_charged"] != 0:
+                raise AssertionError(f"carol over the socket: {r}")
+            if client.status()["dataflows"] != len(names) + 1:
+                raise AssertionError("status over the socket")
+            wire_stats = client.stats()
+            if "repro_serve" not in client.metrics()["text"]:
+                raise AssertionError("metrics over the socket")
+            client.step(1)
+            before = client.stats()["ledgers"]
+            digests = session_sinks(fe.session, sorted(fe.session.manager.submitted))
+            out = client.shutdown(checkpoint=True)
+        t0 = time.perf_counter()
+        while fe._sock is not None and time.perf_counter() - t0 < 30:
+            time.sleep(0.02)
+        fe.close()
+        if not out.get("ok"):
+            raise AssertionError(f"shutdown over the socket: {out}")
+        restored = ServeFrontend.restore(os.path.join(tmp, "ckpt"), slots=256,
+                                         default_quota=TenantQuota(max_slots=256))
+        if restored.stats()["ledgers"] != before:
+            raise AssertionError("restored ledgers differ")
+        compare_digests("front end restored on the card", session_sinks(
+            restored.session, sorted(digests)), digests, 0)
+        if restored.session.backend_name != "torch":
+            raise AssertionError(f"restored on {restored.session.backend_name}")
+        restored.close()
+        log(f"front end over the socket: carol's copy admitted for 0 slots, status, stats "
+            f"(effective capacity {wire_stats['effective_capacity']:.2f}), metrics, one step, "
+            f"stop with a checkpoint; ServeFrontend.restore on the card: ledgers equal, sink "
+            f"digests bitwise")
+
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    daemon_check()
+    torch.cuda.synchronize()
+    log(f"front end phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"front end": counts}
+
+
+def daemon_check():
+    """``python -m repro_torch.launch.serve start --backend torch`` in a
+    subprocess, driven by the submit, status and stop subcommands."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    errors = os.path.join(os.path.dirname(src), "build", "daemon.log")
+    os.makedirs(os.path.dirname(errors), exist_ok=True)
+    t0 = time.perf_counter()
+    with open(errors, "w") as err:
+        daemon = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "start", "--backend", "torch",
+             "--port", str(port)], stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+            cwd=os.path.dirname(src))
+    try:
+        line = daemon.stdout.readline()
+        if not line.startswith("serving on"):
+            daemon.wait(timeout=60)
+            raise AssertionError(f"daemon: {line!r} {open(errors).read()[-2000:]}")
+        cli = ("repro_torch.launch.serve",)
+        for tenant in ("alice", "bob"):
+            run_cli([*cli, "submit", "--port", str(port), "--tenant", tenant, "--workload",
+                     "riot", "--count", "5"])
+        status = json.loads(run_cli([*cli, "status", "--port", str(port), "--stats"]).stdout)
+        run_cli([*cli, "stop", "--port", str(port), "--no-checkpoint"])
+        daemon.wait(timeout=60)
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+    if daemon.returncode != 0 or status["backend"] != "torch":
+        raise AssertionError(f"daemon exited {daemon.returncode}, status {status}")
+    led = status["ledgers"]
+    if not led["bob"]["slots_held"] < led["alice"]["slots_held"]:
+        raise AssertionError(f"daemon ledgers {led}")
+    log(f"daemon (python -m repro_torch.launch.serve start --backend torch): 5 RIoT flows "
+        f"each from alice and bob, bob holding {led['bob']['slots_held']} slots against "
+        f"alice's {led['alice']['slots_held']}; stopped cleanly, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # -- phase 4: the serving path at full width --------------------------------------
 
 SERVE_ARCH = "qwen3-4b"
@@ -1870,6 +2364,10 @@ def main() -> int:
     runs = {"stream path": stream, "stream path, concurrent": stream_concurrent}
     runs["session"], runs["session, concurrent"] = session_phase(dev, card)
     runs.update(worker_phase(dev, phase3))
+    runs.update(transport_sharded_phase(dev, phase3))
+    runs.update(cluster_phase(dev, phase3))
+    trace_cli_phase(dev)
+    runs.update(frontend_phase(dev))
     for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
         runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
                                               cut_limits)

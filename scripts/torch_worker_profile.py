@@ -10,7 +10,16 @@ one system each, then ``--steps`` steady steps:
   * ``mpN-sync``: ``backend="multiproc"`` over shm with N workers in sync
     mode, one RPC a segment; ``mpN-sync-chain`` the same with one
     ``step_chain`` RPC a worker; ``mpN-concurrent-chain`` concurrent mode
-    with chain batching (one RPC a worker).
+    with chain batching (one RPC a worker); a ``-supervised`` suffix
+    (``mp2-sync-supervised``) arms the worker supervisor (``supervise=True``:
+    spill snapshots each step, heartbeats) and reports the workers' spill
+    ms a step.
+
+With ``--turns N`` every configuration is built first and their steady
+steps are taken in N rounds of ``--steps`` steps, the order reversed each
+round, so two configurations (``--configs mp2-sync,mp2-sync-supervised``)
+are compared in one call with less drift between them; the turns' walls
+are reported beside each configuration's own window.
 
 For each: the steady step wall (median, min, max); for the multiproc
 ones also the workers' own segment ms summed over a step, the RPCs and
@@ -59,13 +68,14 @@ def build_system(config: str, batch: int):
         return StreamSystem(base_batch=batch, device=dev, step_mode=config.split("-")[1])
     name, mode, *rest = config.split("-")
     workers = int(name[2:])
-    backend = MultiprocBackend(workers=workers, transport="shm", chain_batching=bool(rest),
+    backend = MultiprocBackend(workers=workers, transport="shm", chain_batching="chain" in rest,
                                device=str(dev))
     return StreamSystem(backend=backend, base_batch=batch, step_mode=mode,
-                        max_workers=max(workers, 2))
+                        max_workers=max(workers, 2), supervise="supervised" in rest)
 
 
-def profile(config: str, batch: int, steps: int) -> dict:
+def prepare(config: str, batch: int):
+    """The configuration's system after the stream script."""
     import torch
 
     from repro_torch.workloads import kernel_flows, riot_workload
@@ -77,6 +87,14 @@ def profile(config: str, batch: int, steps: int) -> dict:
     system.fuse(overhead_ms=1e9)  # every chain, as the in-process backend accepts
     system.run(2)
     torch.cuda.synchronize()
+    return system
+
+
+def summary(walls) -> dict:
+    return {"median": statistics.median(walls), "min": min(walls), "max": max(walls)}
+
+
+def profile(config: str, system, steps: int) -> dict:
     backend = system.backend
     multiproc = hasattr(backend, "transport")
     if multiproc:
@@ -84,8 +102,10 @@ def profile(config: str, batch: int, steps: int) -> dict:
         rpc0 = sum(backend._m_rpcs._values.values())
     reports = system.run(steps)
     walls = [r.wall_ms for r in reports]
-    out = {"config": config, "segments": len(backend.segments),
-           "wall_ms": {"median": statistics.median(walls), "min": min(walls), "max": max(walls)}}
+    out = {"config": config, "segments": len(backend.segments), "wall_ms": summary(walls)}
+    health = system.worker_health()
+    if health and health.get("supervised"):
+        out["spill_ms_per_step"] = health["spill_ms_per_step"]
     if multiproc:
         out["worker_segment_ms"] = statistics.median(sum(r.segment_ms.values()) for r in reports)
         out["mib_published"] = (backend.transport.counters()["bytes_published"] - pub0) / steps / 2**20
@@ -113,6 +133,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--configs", default="torch-sync,torch-concurrent,mp1-sync,mp2-sync,"
                                              "mp2-sync-chain,mp4-concurrent-chain")
+    parser.add_argument("--turns", type=int, default=0,
+                        help="build every configuration, then step them in this many rounds")
     parser.add_argument("--out", default="chiprun_out/torch_worker_profile.json")
     args = parser.parse_args()
 
@@ -123,15 +145,33 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "..", "src"))
     card = card_line()
+    configs = args.configs.split(",")
+    systems, turns = {}, {}
+    if args.turns:
+        for config in configs:
+            systems[config] = prepare(config, args.batch)
+            turns[config] = []
+        for rnd in range(args.turns):
+            for config in (configs if rnd % 2 == 0 else configs[::-1]):
+                torch.cuda.synchronize()
+                turns[config] += [r.wall_ms for r in systems[config].run(args.steps)]
     results = []
-    for config in args.configs.split(","):
+    for config in configs:
         t0 = time.perf_counter()
-        r = profile(config, args.batch, args.steps)
+        system = systems.pop(config) if config in systems else prepare(config, args.batch)
+        r = profile(config, system, args.steps)
         r["seconds"] = time.perf_counter() - t0
         results.append(r)
         line = (f"{config} ({card}): {r['segments']} segments, steady step wall ms median "
                 f"{r['wall_ms']['median']:.3f} (min {r['wall_ms']['min']:.3f}, max "
                 f"{r['wall_ms']['max']:.3f})")
+        if config in turns:
+            r["turns_wall_ms"] = summary(turns[config])
+            line += (f"; in {args.turns} turns of {args.steps} steps median "
+                     f"{r['turns_wall_ms']['median']:.3f} (min {r['turns_wall_ms']['min']:.3f}, "
+                     f"max {r['turns_wall_ms']['max']:.3f})")
+        if "spill_ms_per_step" in r:
+            line += f"; the workers' spill ms a step {r['spill_ms_per_step']}"
         if "rpcs" in r:
             per = r["worker_segment_ms"] / r["segments"]
             line += (f"; workers' segment ms summed {r['worker_segment_ms']:.3f} a step ({per:.3f} a "
@@ -143,8 +183,8 @@ def main() -> int:
         print(line, flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"card": card, "batch": args.batch, "steps": args.steps, "results": results},
-                  f, indent=1)
+        json.dump({"card": card, "batch": args.batch, "steps": args.steps, "turns": args.turns,
+                   "results": results}, f, indent=1)
     return 0
 
 

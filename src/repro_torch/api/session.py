@@ -33,9 +33,11 @@ Concurrent stepping (``step_mode="concurrent"``, ``max_workers``,
 ``on_wave``) and the telemetry plane (``configure_obs``,
 ``metrics_snapshot``, ``prometheus_text``, ``drain_spans``,
 ``export_chrome_trace``, ``segment_latency_ms``) and the worker plane's
-``on_worker_event`` and ``worker_health`` are the reference's. Not in the
-port yet: the worker supervisor and autoscaler (``supervise``,
-``autoscale``); passing either raises.
+``on_worker_event`` and ``worker_health`` are the reference's, and so is
+the cluster plane: ``supervise=`` (a worker supervisor that recovers a
+lost worker) and ``autoscale=`` (the pool resized on its pressure), on
+``backend="multiproc"``; any other backend raises the reference's
+``ValueError``. ``backend="sharded"`` places segments across devices.
 """
 from __future__ import annotations
 

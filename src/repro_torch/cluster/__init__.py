@@ -1,16 +1,13 @@
-"""Cluster plane of the port: worker events and pluggable worker launchers
-over the multiproc data plane.
+"""Cluster plane: worker supervision, crash recovery, elastic autoscaling
+and pluggable worker launchers over the multiproc data plane.
 
-The port's copy of ``repro.cluster``. Its supervisor (heartbeats,
-self-healing) and autoscaler are not ported yet; the recovery and
-resize verbs they drive live on the multiproc backend
-(:meth:`repro_torch.runtime.worker.MultiprocBackend.recover_worker`,
-:meth:`~repro_torch.runtime.worker.MultiprocBackend.resize_pool`).
+The port's copy of ``repro.cluster``.
 
 Imports resolve lazily (PEP 562) because :mod:`repro_torch.runtime.worker`
-imports :mod:`repro_torch.cluster.events` at module load, and the
-launcher imports the worker's entry point. :mod:`~repro_torch.cluster.events`
-itself is dependency-free and safe to import from anywhere.
+imports :mod:`repro_torch.cluster.events` at module load — an eager
+``from .supervisor import WorkerSupervisor`` here would close that loop.
+:mod:`~repro_torch.cluster.events` itself is dependency-free and safe to import
+from anywhere.
 """
 from __future__ import annotations
 
@@ -22,6 +19,9 @@ from .events import EVENT_KINDS, WorkerEvent
 # name -> (module, attribute); resolved on first access to avoid the
 # worker.py <-> cluster import cycle and keep `import repro_torch.cluster` light.
 _LAZY = {
+    "WorkerSupervisor": ("repro_torch.cluster.supervisor", "WorkerSupervisor"),
+    "Autoscaler": ("repro_torch.cluster.autoscaler", "Autoscaler"),
+    "AutoscalePolicy": ("repro_torch.cluster.autoscaler", "AutoscalePolicy"),
     "WorkerHandle": ("repro_torch.cluster.launcher", "WorkerHandle"),
     "LocalProcessLauncher": ("repro_torch.cluster.launcher", "LocalProcessLauncher"),
     "SubprocessLauncher": ("repro_torch.cluster.launcher", "SubprocessLauncher"),
@@ -29,19 +29,24 @@ _LAZY = {
 }
 
 if TYPE_CHECKING:  # pragma: no cover - static imports for type checkers
+    from .autoscaler import Autoscaler, AutoscalePolicy
     from .launcher import (
         LocalProcessLauncher,
         SubprocessLauncher,
         WorkerHandle,
         resolve_launcher,
     )
+    from .supervisor import WorkerSupervisor
 
 __all__ = [
+    "Autoscaler",
+    "AutoscalePolicy",
     "EVENT_KINDS",
     "LocalProcessLauncher",
     "SubprocessLauncher",
     "WorkerEvent",
     "WorkerHandle",
+    "WorkerSupervisor",
     "resolve_launcher",
 ]
 

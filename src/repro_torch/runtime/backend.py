@@ -7,9 +7,10 @@ path uses: :class:`StreamSystem` drives a backend through the verbs
   sink_state / fuse_segments / defragment / dump_state / restore_state``
 
 and backends plug in by name through :func:`register_backend` /
-:func:`resolve_backend`. The port ships three: ``"torch"``
+:func:`resolve_backend`. The port ships four: ``"torch"``
 (:class:`repro_torch.runtime.executor.TorchBackend`, the data plane in
-this process), ``"multiproc"``
+this process), ``"sharded"`` (:class:`repro_torch.runtime.sharded.ShardedBackend`,
+the same plane with segments placed across devices), ``"multiproc"``
 (:class:`repro_torch.runtime.worker.MultiprocBackend`, the same segments
 stepped inside worker processes, boundary streams on a shared-memory or
 tcp transport) and ``"dryrun"``
@@ -145,6 +146,7 @@ class BackendSnapshot:
     live_tasks: int
     paused_tasks: int
     cost: float
+    device_of: Dict[str, Any] = field(default_factory=dict)  # placed backends only
 
 
 def compute_batches(
@@ -558,6 +560,10 @@ class ExecutionBackend:
         return live, paused_n, cost / CORE_CALIBRATION
 
     @property
+    def live_task_count(self) -> int:
+        return sum(len(s.live_task_ids()) for s in self.segments.values())
+
+    @property
     def deployed_task_count(self) -> int:
         return sum(len(s.spec.task_ids) for s in self.segments.values())
 
@@ -577,6 +583,7 @@ class ExecutionBackend:
             live_tasks=live,
             paused_tasks=paused_n,
             cost=cost,
+            device_of=dict(getattr(self, "device_of", {})),
         )
 
     def spawn_config(self) -> Dict[str, Any]:
@@ -867,6 +874,7 @@ _LAZY_BUILTINS: Dict[str, Tuple[str, str]] = {
     "torch": ("repro_torch.runtime.executor", "TorchBackend"),
     "dryrun": ("repro_torch.runtime.dryrun", "DryRunBackend"),
     "multiproc": ("repro_torch.runtime.worker", "MultiprocBackend"),
+    "sharded": ("repro_torch.runtime.sharded", "ShardedBackend"),
 }
 
 

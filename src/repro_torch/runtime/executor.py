@@ -25,6 +25,15 @@ segment's step ends by waiting for its stream, where the reference calls
 ``jax.block_until_ready``, so that ``segment_ms`` measures compute rather
 than enqueueing.
 
+Boundary streams ride a pluggable transport (``transport=``, as the
+reference's): the default ``"inproc"`` broker passes tensors by
+reference, so nothing leaves the device; over ``"shm"`` or ``"tcp"``
+each boundary batch crosses the host as a numpy array, through the
+segment's :class:`~repro_torch.runtime.staging.HostStaging` (the route
+the worker processes take), and a captured step still copies it into its
+static input buffers. ``self.broker`` is the reference's alias of the
+transport.
+
 Checkpoints carry no device: decoded states become tensors on this
 backend's device, so a checkpoint taken on the card restores on the CPU,
 and the other way round, and payloads of the reference's ``inprocess``
@@ -45,6 +54,8 @@ from .checkpoint import decode_pytree
 from .compile_cache import CompileCache
 from .graphs import CapturedStep, CaptureStats, map_leaves
 from .segment import Segment, build_segment
+from .staging import HostStaging
+from .transport import Transport, resolve_transport
 
 
 def resolve_device(device: Optional[Any]) -> torch.device:
@@ -70,7 +81,8 @@ class TorchBackend(ExecutionBackend):
     (``compile_cache``) either way. ``step_mode`` and ``max_workers`` are
     the reference's; on the card ``max_workers`` is the number of streams
     a concurrent step issues its waves onto (None: the widest wave's
-    width)."""
+    width). ``transport``/``transport_options`` pick the boundary-stream
+    transport, as the reference's ``transport=`` does."""
 
     name = "torch"
 
@@ -80,20 +92,30 @@ class TorchBackend(ExecutionBackend):
         capture: bool = True,
         step_mode: str = "sync",
         max_workers: Optional[int] = None,
+        transport: Any = "inproc",
+        transport_options: Optional[Dict[str, Any]] = None,
     ):
         super().__init__(step_mode=step_mode, max_workers=max_workers)
         self.device = resolve_device(device)
-        self.broker = Broker()
+        self.transport: Transport = resolve_transport(transport, **(transport_options or {}))
+        self.broker = self.transport  # the reference's alias
+        # segment name -> its host staging, where the transport carries
+        # numpy arrays (shm, tcp); None for the in-process broker
+        self._staging: Optional[Dict[str, HostStaging]] = (
+            None if isinstance(self.transport, Broker) else {})
         self.compile_cache = CompileCache(self.device)
         self.compile_cache.tracer = self.tracer
+        # one step cache per device (a placed backend's other devices add
+        # theirs as segments land there)
+        self._caches: Dict[torch.device, CompileCache] = {self.device: self.compile_cache}
         self.capture = bool(capture) and self.device.type == "cuda"
         self.capture_stats = CaptureStats()
-        self._capture_stream: Optional[torch.cuda.Stream] = (
-            torch.cuda.Stream(self.device) if self.capture else None)
-        # the streams a concurrent step on the card issues its waves onto,
-        # made as a wider step first needs them, and each segment's pair of
-        # timing events there (see _issue_waves)
-        self._wave_streams: List[torch.cuda.Stream] = []
+        # per device: the stream graphs are captured on, and the streams a
+        # concurrent step on the card issues its waves onto, made as a
+        # wider step first needs them; each segment's pair of timing events
+        # there (see _issue_waves)
+        self._capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._wave_streams: Dict[torch.device, List[torch.cuda.Stream]] = {}
         self._seg_events: Dict[str, Tuple[torch.cuda.Event, torch.cuda.Event]] = {}
         # Per-topic sequence targets for the concurrent step in flight
         # (None outside one): each forwarding task publishes exactly once
@@ -110,17 +132,46 @@ class TorchBackend(ExecutionBackend):
         dataflow: Dataflow,
         init_states: Optional[Dict[str, PyTree]],
     ) -> Segment:
-        seg = build_segment(
-            spec, dataflow, init_states=init_states, cache=self.compile_cache, device=self.device
-        )
+        return self._build_on(spec, dataflow, init_states, self.device)
+
+    def _build_on(
+        self,
+        spec: SegmentSpec,
+        dataflow: Dataflow,
+        init_states: Optional[Dict[str, PyTree]],
+        device: torch.device,
+    ) -> Segment:
+        cache = self._caches.get(device)
+        if cache is None:
+            cache = self._caches[device] = CompileCache(device)
+            cache.tracer = self.tracer
+        seg = build_segment(spec, dataflow, init_states=init_states, cache=cache, device=device)
         if self.capture:
-            seg.graphs = CapturedStep(self._capture_stream, self.capture_stats)
+            seg.graphs = CapturedStep(self._capture_stream(device), self.capture_stats)
         return seg
+
+    def _device_of_segment(self, name: str) -> torch.device:
+        """The device a segment's states and step live on."""
+        return self.device
+
+    def _capture_stream(self, device: torch.device) -> torch.cuda.Stream:
+        stream = self._capture_streams.get(device)
+        if stream is None:
+            stream = self._capture_streams[device] = torch.cuda.Stream(device)
+        return stream
+
+    def compile_cache_stats(self) -> Dict[str, int]:
+        """The reference's four counters, summed over the devices' caches
+        (one cache where every segment is on one device)."""
+        stats = [cache.stats() for cache in self._caches.values()]
+        return {k: sum(st[k] for st in stats) for k in stats[0]}
 
     def kill(self, segment_name: str) -> None:
         seg = self.segments[segment_name]
         super().kill(segment_name)
         self._seg_events.pop(segment_name, None)
+        if self._staging is not None:
+            self._staging.pop(segment_name, None)
         if seg.graphs is not None:
             seg.graphs.release()
 
@@ -135,15 +186,28 @@ class TorchBackend(ExecutionBackend):
         producer's publish of this step (per-topic sequencing) — the
         ready-queue already dispatched producers first, so the wait is a
         cheap verification, but it guarantees deterministic inputs even
-        under a looser dispatch.
+        under a looser dispatch. Over a numpy transport each input comes
+        through the segment's host staging, as a tensor on its device.
         """
         targets = self._topic_target
+        if self._staging is not None:
+            staging = self._staging_of(seg.name)
+            return {
+                t: staging.fetch(self.transport, t, targets.get(t) if targets else None)
+                for t in seg.boundary_topics
+            }
         if targets is None:
             return {t: self.broker.fetch(t) for t in seg.boundary_topics}
         return {
             t: self.broker.fetch_synced(t, targets[t]) if t in targets else self.broker.fetch(t)
             for t in seg.boundary_topics
         }
+
+    def _staging_of(self, name: str) -> HostStaging:
+        staging = self._staging.get(name)
+        if staging is None:
+            staging = self._staging[name] = HostStaging(self._device_of_segment(name))
+        return staging
 
     def _begin_concurrent_step(self) -> None:
         seqs = self.broker.sequences()
@@ -181,19 +245,24 @@ class TorchBackend(ExecutionBackend):
         originals) are held here until the end.
         """
         waves = self.segment_waves()
-        streams = self._streams(self.max_workers or max((len(w) for w in waves), default=1))
-        current = torch.cuda.current_stream(self.device)
-        start = torch.cuda.Event()
-        start.record(current)
-        for stream in streams:
-            stream.wait_event(start)
+        width = self.max_workers or max((len(w) for w in waves), default=1)
+        device_of = {name: self._device_of_segment(name) for wave in waves for name in wave}
+        streams: Dict[torch.device, List[torch.cuda.Stream]] = {}
+        current: Dict[torch.device, torch.cuda.Stream] = {}
+        for device in set(device_of.values()) or {self.device}:
+            streams[device] = self._streams(device, width)
+            current[device] = torch.cuda.current_stream(device)
+            start = torch.cuda.Event()
+            start.record(current[device])
+            for stream in streams[device]:
+                stream.wait_event(start)
         done: Dict[str, torch.cuda.Event] = {}
         held: List[Any] = []
         try:
             for wave in waves:
                 for i, name in enumerate(wave):
                     seg = self.segments[name]
-                    stream = streams[i % len(streams)]
+                    stream = streams[device_of[name]][i % width]
                     for producer in self.seg_deps[name]:
                         stream.wait_event(done[producer])
                     begin, end = self._events_of(name)
@@ -208,26 +277,29 @@ class TorchBackend(ExecutionBackend):
                         end.record(stream)
                     done[name] = end
         finally:
-            for stream in streams:
-                current.wait_stream(stream)
-            current.synchronize()
+            for device, stream_list in streams.items():
+                for stream in stream_list:
+                    current[device].wait_stream(stream)
+                current[device].synchronize()
             del held
         seg_ms = {name: self._seg_events[name][0].elapsed_time(end) for name, end in done.items()}
         for ms in seg_ms.values():
             self._m_seg_ms.observe(ms)
         return seg_ms
 
-    def _streams(self, n: int) -> List[torch.cuda.Stream]:
-        """The first ``n`` wave streams. PyTorch hands streams out
-        round-robin from a pool of 32, so one equal to the capture stream
-        is passed over."""
-        while len(self._wave_streams) < n:
-            stream = torch.cuda.Stream(self.device)
+    def _streams(self, device: torch.device, n: int) -> List[torch.cuda.Stream]:
+        """The first ``n`` wave streams of ``device``. PyTorch hands streams
+        out round-robin from a pool of 32 per device, so one equal to the
+        device's capture stream is passed over."""
+        made = self._wave_streams.setdefault(device, [])
+        capture = self._capture_streams.get(device)
+        while len(made) < n:
+            stream = torch.cuda.Stream(device)
             # compared with ``==``: torch.cuda.Stream defines only __eq__,
             # and ``stream != None`` (no capture stream) is false
-            if not stream == self._capture_stream:
-                self._wave_streams.append(stream)
-        return self._wave_streams[:n]
+            if not stream == capture:
+                made.append(stream)
+        return made[:n]
 
     def _events_of(self, name: str) -> Tuple[torch.cuda.Event, torch.cuda.Event]:
         events = self._seg_events.get(name)
@@ -237,11 +309,15 @@ class TorchBackend(ExecutionBackend):
         return events
 
     def _step_one(self, seg: Segment) -> None:
-        self._run(seg)
-        # The Storm worker finishes its batch before acking: wait for the
-        # card so segment_ms measures compute, not enqueueing.
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        device = self._device_of_segment(seg.name)
+        if device.type != "cuda":
+            self._run(seg)
+            return
+        with torch.cuda.device(device):
+            self._run(seg)
+            # The Storm worker finishes its batch before acking: wait for
+            # the card so segment_ms measures compute, not enqueueing.
+            torch.cuda.current_stream(device).synchronize()
 
     def _run(self, seg: Segment) -> None:
         """Fetch, step and publish ``seg`` on the current stream, without
@@ -266,9 +342,12 @@ class TorchBackend(ExecutionBackend):
         seg.steps_run += 1
 
     def _publish(self, seg: Segment, outputs: Dict[str, Any]) -> None:
-        for tid in self.forwarding[seg.name]:
-            if tid in outputs:
-                self.broker.publish(topic_for(tid), outputs[tid])
+        tids = [tid for tid in self.forwarding[seg.name] if tid in outputs]
+        if self._staging is not None:
+            # on the card this waits for the segment's stream
+            outputs = self._staging_of(seg.name).to_host(outputs, tids)
+        for tid in tids:
+            self.broker.publish(topic_for(tid), outputs[tid])
 
     # -- durability hooks ---------------------------------------------------------
     def dump_state(self, state_encoder: Optional[Callable[..., Any]] = None) -> Dict[str, Any]:
@@ -283,7 +362,9 @@ class TorchBackend(ExecutionBackend):
         defer = state_encoder
 
         def copy_and_defer(value: Any) -> Any:
-            return defer(map_leaves(lambda t: t.clone(), value), ready=ready)
+            # a numpy transport's topics are private host copies already
+            return defer(map_leaves(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                                    value), ready=ready)
 
         state = super().dump_state(copy_and_defer)
         ready.record(torch.cuda.current_stream(self.device))
@@ -313,7 +394,7 @@ class TorchBackend(ExecutionBackend):
         return out
 
     def _dump_extra(self) -> Dict[str, Any]:
-        """Broker topic buffers + publish counters (the reference's keys).
+        """Transport topic buffers + publish counters (the reference's keys).
 
         Strictly, buffers are reconstructible (launch order is topological,
         so every boundary topic is re-published upstream within the first
@@ -332,12 +413,18 @@ class TorchBackend(ExecutionBackend):
 
     def _restore_extra(self, extra: Dict[str, Any]) -> None:
         for topic, enc in extra.get("broker", {}).items():
-            self.broker.publish(topic, torch.as_tensor(decode_pytree(enc)).to(self.device))
+            batch = np.asarray(decode_pytree(enc))
+            if self._staging is None:
+                batch = torch.as_tensor(batch).to(self.device)
+            self.broker.publish(topic, batch)
         # publish() above bumped the counters; restore the checkpointed view
         self.broker.restore_counters(
             int(extra.get("broker_bytes_published", 0)),
             int(extra.get("broker_publishes", 0)),
         )
+
+    def spawn_config(self) -> Dict[str, Any]:
+        return {"transport": self.transport.name}
 
 
 def _conform_state(value: Any, template: Any, fallbacks: List[int]) -> Any:

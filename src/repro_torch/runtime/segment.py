@@ -59,6 +59,9 @@ class Segment:
     def name(self) -> str:
         return self.spec.name
 
+    def live_task_ids(self) -> List[str]:
+        return [t for t in self.spec.task_ids if self.active[t]]
+
     def pause(self, task_ids: Set[str]) -> None:
         for tid in task_ids:
             if tid in self.active:

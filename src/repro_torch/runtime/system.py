@@ -46,13 +46,17 @@ the CPU with ``device="cpu"``), boundary streams over ``transport``
 (``"shm"`` or ``"tcp"``); ``backend_options`` carries the backend's other
 knobs (placement, step batching, launcher, worker plane), ``on_worker_event``
 observes the cluster plane's events and :meth:`StreamSystem.worker_health`
-reports the pool. A checkpoint records the pool (workers, transport,
-placement) and a restore onto ``"multiproc"`` re-spawns it.
+reports the pool. ``supervise=`` arms the worker supervisor
+(:class:`repro_torch.cluster.WorkerSupervisor`: heartbeats, in-step
+recovery of a lost worker from spill or wire snapshots) and
+``autoscale=`` the autoscaler (:class:`repro_torch.cluster.Autoscaler`,
+fed one observation after every step). A checkpoint records the pool
+(workers, transport, placement) and a restore onto ``"multiproc"``
+re-spawns it. ``backend="sharded"`` places the segments across devices
+(:class:`repro_torch.runtime.sharded.ShardedBackend`).
 
-The port's copy of ``repro.runtime.system``, without the reference's
-sharded plane and, so far, its worker supervisor and autoscaler
-(``supervise=``, ``autoscale=`` raise). The data plane runs on the card
-unless the caller passes ``device="cpu"``.
+The port's copy of ``repro.runtime.system``. The data plane runs on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -75,18 +79,11 @@ from repro_torch.obs import render_prometheus, write_chrome_trace
 
 from .backend import ExecutionBackend, SegmentSpec, StepReport, compute_batches, resolve_backend
 from .checkpoint import BackgroundCheckpointWriter, CheckpointStore, deferred_encoder
+from .scheduler import Placement, place_round_robin
 
-
-def _refuse_cluster_plane(supervise: Any, autoscale: Any) -> None:
-    """The reference's worker supervisor and autoscaler are the next slice
-    of the port; asking for either raises."""
-    names = [n for n, v in (("supervise", supervise), ("autoscale", autoscale)) if v]
-    if names:
-        raise ValueError(
-            f"{', '.join(names)}: the worker supervisor and autoscaler "
-            "(repro.cluster.supervisor, repro.cluster.autoscaler) are not in the port yet; "
-            "MultiprocBackend.recover_worker and resize_pool are"
-        )
+# the reference's in-process backend is the port's torch backend: a payload
+# of the one restores on the other with its backend_config (the transport)
+_PORT_BACKEND = {"inprocess": "torch"}
 
 
 class StreamSystem:
@@ -113,7 +110,6 @@ class StreamSystem:
         autoscale: Optional[Union[bool, Dict[str, Any]]] = None,
         on_worker_event: Optional[Any] = None,
     ):
-        _refuse_cluster_plane(supervise, autoscale)
         self.manager = ReuseManager(
             strategy=strategy, check_invariants=check_invariants, journal_path=journal_path
         )
@@ -169,6 +165,23 @@ class StreamSystem:
         # checkpoint_every=1 does not pause stepping.
         self.checkpoint_background = bool(checkpoint_background)
         self._ckpt_writer: Optional[BackgroundCheckpointWriter] = None
+        # Cluster plane (multiproc only): `supervise=` arms self-healing —
+        # a heartbeat thread plus in-step recovery respawn dead/hung
+        # workers and redeploy their segments from shadow snapshots;
+        # `autoscale=` resizes the worker pool on the EWMA pressure signal
+        # after every step. Both accept True or a dict of knobs.
+        self._supervisor = None
+        self._autoscaler = None
+        if supervise:
+            from repro_torch.cluster import WorkerSupervisor
+
+            sup_kwargs = supervise if isinstance(supervise, dict) else {}
+            self._supervisor = WorkerSupervisor(self.backend, **sup_kwargs).start()
+        if autoscale:
+            from repro_torch.cluster import Autoscaler
+
+            scale_kwargs = autoscale if isinstance(autoscale, dict) else {}
+            self._autoscaler = Autoscaler(self.backend, **scale_kwargs)
         # Telemetry plane: the backend owns the registry and tracer; the
         # system wires the control plane and durability layer into them
         # and contributes a snapshot-time collector mirroring broker /
@@ -179,6 +192,15 @@ class StreamSystem:
             self._wire_checkpoint_store(self.checkpoint_store)
         self._obs_registry: Optional[Any] = None
         self._wire_collectors()
+
+    @property
+    def executor(self) -> ExecutionBackend:
+        """The reference's alias of the data plane."""
+        return self.backend
+
+    @property
+    def strategy(self) -> str:
+        return self.manager.strategy
 
     @property
     def reuses(self) -> bool:
@@ -465,6 +487,8 @@ class StreamSystem:
                 self._checkpoint_async()
             else:
                 self.checkpoint()
+        if self._autoscaler is not None:
+            self._autoscaler.observe(report)
         return report
 
     def run(self, steps: int) -> List[StepReport]:
@@ -575,10 +599,10 @@ class StreamSystem:
             journal_path=journal_path,
         )
         mgr.check_invariants = check_invariants
-        _refuse_cluster_plane(supervise, autoscale)
         target = backend if backend is not None else payload["backend"]
         options: Dict[str, Any] = {}
-        if isinstance(target, str) and target == payload.get("backend"):
+        saved = payload.get("backend")
+        if isinstance(target, str) and target == _PORT_BACKEND.get(saved, saved):
             options.update(payload.get("backend_config") or {})
         if backend_options:
             options.update(backend_options)
@@ -596,6 +620,8 @@ class StreamSystem:
             strategy=payload["strategy"],
             base_batch=int(payload["base_batch"]),
             backend=resolve_backend(target, **options),
+            supervise=supervise,
+            autoscale=autoscale,
             on_worker_event=on_worker_event,
             checkpoint_dir=checkpoint_dir,
             checkpoint_background=(
@@ -705,6 +731,8 @@ class StreamSystem:
 
         Idempotent; single-process systems stay usable — stepping
         recreates what they need lazily."""
+        if self._supervisor is not None:
+            self._supervisor.stop()
         if self._ckpt_writer is not None:
             self._ckpt_writer.close()
             self._ckpt_writer = None
@@ -712,9 +740,22 @@ class StreamSystem:
 
     def worker_health(self) -> Optional[Dict[str, Any]]:
         """Cluster-plane health: worker liveness, respawn history, recent
-        events. ``None`` for in-process backends (there is no worker pool
-        to be unhealthy)."""
-        return self.backend.worker_health()
+        events, autoscaler state. ``None`` for in-process backends (there
+        is no worker pool to be unhealthy)."""
+        health = self.backend.worker_health()
+        if health is None:
+            return None
+        if self._supervisor is not None:
+            health["heartbeat_interval"] = self._supervisor.heartbeat_interval
+            health["heartbeat_running"] = self._supervisor.running
+        if self._autoscaler is not None:
+            health["autoscale"] = self._autoscaler.state()
+        return health
+
+    def placement(self) -> Placement:
+        return place_round_robin(
+            {name: len(seg.spec.task_ids) for name, seg in self.backend.segments.items()}
+        )
 
     # -- observability ----------------------------------------------------------------
     def sink_digests(self, sub_name: str) -> Dict[str, Dict[str, Any]]:
@@ -767,10 +808,7 @@ class StreamSystem:
         reference's transport names.
         """
         m = self.backend.metrics
-        # the multiproc backend's transport, or the torch backend's broker
         broker = getattr(self.backend, "transport", None)
-        if broker is None:
-            broker = getattr(self.backend, "broker", None)
         if broker is not None:
             counters = broker.counters()
             m.counter(

@@ -186,10 +186,12 @@ class _TorchSegmentRunner:
     (:mod:`repro_torch.runtime.graphs`): a captured step reads its
     boundary inputs from static buffers, into which each step copies the
     fetched batches. Boundary batches arrive as numpy arrays from the
-    transport and leave as numpy arrays: on the card each input goes
-    through a pinned host staging buffer to the device, each forwarded
-    output back through a pinned buffer, with one synchronize before the
-    publishes. No tensor of the card crosses the process boundary."""
+    transport and leave as numpy arrays through the segment's
+    :class:`~repro_torch.runtime.staging.HostStaging`: on the card each
+    input goes through a pinned host staging buffer to the device, each
+    forwarded output back through a pinned buffer, with one synchronize
+    before the publishes. No tensor of the card crosses the process
+    boundary."""
 
     def __init__(self, spec: SegmentSpec, dataflow: Dataflow,
                  init_states: Optional[Dict[str, Any]], device: Any,
@@ -199,6 +201,7 @@ class _TorchSegmentRunner:
         from .compile_cache import process_compile_cache
         from .executor import _conform_state
         from .segment import build_segment
+        from .staging import HostStaging
 
         self.device = device
         if init_states:
@@ -225,8 +228,7 @@ class _TorchSegmentRunner:
         if capture is not None:
             self.seg.graphs = capture()
         self.spec = spec
-        self._stage: Dict[str, Any] = {}  # topic -> pinned input staging buffer
-        self._host: Dict[str, Any] = {}  # task id -> pinned output buffer
+        self._staging = HostStaging(device)
 
     @property
     def boundary_topics(self) -> List[str]:
@@ -247,43 +249,9 @@ class _TorchSegmentRunner:
         if self.seg.graphs is not None:
             self.seg.graphs.release()
 
-    def _fetch(self, transport: Transport, topic: str, target: Optional[int]) -> Any:
-        """One boundary input as a tensor on the worker's device.
-
-        On the CPU a private copy (the shm ring's seqlock validates it), so
-        no state (a sink's retained batch) ever aliases the ring. On the
-        card, a view-capable transport hands back a read-only view of the
-        ring and its sequence token: the view is copied into a pinned
-        staging buffer, the token is validated after that copy, and a
-        lapped view is fetched again as a private copy — exactly-once
-        either way. The staged batch then goes to the card."""
-        import numpy as np
-        import torch
-
-        if self.device.type != "cuda":
-            arr = (transport.fetch_synced(topic, target, copy=True) if target is not None
-                   else transport.fetch(topic, copy=True))
-            return torch.from_numpy(arr)
-        views = getattr(transport, "fetch_view", None)
-        if views is not None:
-            arr, token = views(topic, min_seq=target)
-        elif target is not None:
-            arr, token = transport.fetch_synced(topic, target), None
-        else:
-            arr, token = transport.fetch(topic), None
-        stage = self._stage.get(topic)
-        if stage is None or tuple(stage.shape) != arr.shape or stage.numpy().dtype != arr.dtype:
-            stage = self._stage[topic] = torch.from_numpy(np.empty_like(arr)).pin_memory()
-        np.copyto(stage.numpy(), arr)
-        if token is not None and not transport.view_valid(topic, token):
-            np.copyto(stage.numpy(), transport.fetch(topic, copy=True))
-        return stage.to(self.device, non_blocking=True)
-
     def step(self, transport: Transport, forward: List[str],
              targets: Optional[Dict[str, int]],
              local: Optional[Dict[str, Any]] = None) -> None:
-        import torch
-
         # with the worker's tracer armed, the step's phases as spans: its
         # fetches, its step (on the card: issued), the wait for the card
         # and the copies back, its publishes
@@ -297,7 +265,7 @@ class _TorchSegmentRunner:
                     # locally (the producer's tensor), no transport round-trip
                     inputs[topic] = local[topic]
                 else:
-                    inputs[topic] = self._fetch(
+                    inputs[topic] = self._staging.fetch(
                         transport, topic, targets.get(topic) if targets else None)
         with tracer.span("step", "segment", segment=seg.name):
             if seg.graphs is not None:
@@ -307,26 +275,16 @@ class _TorchSegmentRunner:
                 new_states, outputs = seg.step_fn(seg.states, seg.active, inputs)
                 seg.states = new_states
         out = [tid for tid in forward if tid in outputs]
-        cuda = self.device.type == "cuda"
-        if cuda:
+        if self.device.type == "cuda":
             with tracer.span("wait", "segment", segment=seg.name):
-                for tid in out:
-                    src = outputs[tid]
-                    host = self._host.get(tid)
-                    if host is None or host.shape != src.shape or host.dtype != src.dtype:
-                        host = self._host[tid] = torch.empty(
-                            src.shape, dtype=src.dtype, pin_memory=True)
-                    host.copy_(src, non_blocking=True)
-                # the Storm worker finishes its batch before acking: the
-                # step's work and its copies to the host are done before
-                # any publish
-                torch.cuda.current_stream(self.device).synchronize()
+                host = self._staging.to_host(outputs, out)
+        else:
+            host = self._staging.to_host(outputs, out)
         with tracer.span("publish", "transport", segment=seg.name):
             for tid in out:
                 if local is not None:
                     local[topic_for(tid)] = outputs[tid]
-                transport.publish(topic_for(tid),
-                                  (self._host[tid] if cuda else outputs[tid]).numpy())
+                transport.publish(topic_for(tid), host[tid])
         seg.steps_run += 1
 
 
@@ -937,6 +895,9 @@ class MultiprocBackend(PlacedBackendMixin, ExecutionBackend):
         self._worker_spans: List[Dict[str, Any]] = []  # harvested, undrained
         self._obs_msg: Optional[Dict[str, Any]] = None  # replayed to (re)spawns
         self._last_ok: Dict[int, float] = {}  # worker -> monotonic of last good RPC
+        # worker -> the incarnation that sent its last reply: a worker whose
+        # current incarnation has not replied yet is still spawning
+        self._replied_gen: Dict[int, int] = {}
         # worker_health(): a worker whose last good RPC is older than this
         # is marked stale (supervision surfaces it through serving status)
         self.stale_after_ms = 5000.0
@@ -1029,6 +990,7 @@ class MultiprocBackend(PlacedBackendMixin, ExecutionBackend):
         # alive, so the health staleness clock resets here
         self._m_rpcs.inc(op=str(op))
         self._last_ok[worker] = time.monotonic()
+        self._replied_gen[worker] = gen
         if "error" in reply:
             raise WorkerError(
                 f"worker {worker} failed {msg.get('op')!r}: {reply['error']}\n"
@@ -1041,6 +1003,13 @@ class MultiprocBackend(PlacedBackendMixin, ExecutionBackend):
         if not self._spawned or worker >= len(self._procs):
             return False
         return self._procs[worker].is_alive()
+
+    def worker_ready(self, worker: int) -> bool:
+        """The worker's current incarnation has answered an RPC: it has
+        finished spawning (imported torch, and on its first deploy made
+        its device context), so a slow reply from it means a hang."""
+        return (worker < len(self._gen)
+                and self._replied_gen.get(worker) == self._gen[worker])
 
     def ping_worker(self, worker: int, timeout: float = 5.0) -> bool:
         """Active liveness probe: a ``ping`` RPC bounded by ``timeout``.
@@ -1271,6 +1240,7 @@ class MultiprocBackend(PlacedBackendMixin, ExecutionBackend):
                     handle.terminate()
                 self._conn_locks.pop(i)
                 self._gen.pop(i)
+                self._replied_gen.pop(i, None)
                 self._ewma_residual.pop(i, None)
             shrunk = self.n_workers - n
             self.n_workers = n

@@ -1191,3 +1191,92 @@ def test_multiproc_workers_on_the_card_are_bitwise_the_torch_backend(cuda, step_
         system.close()
     assert runs["multiproc"] == runs["torch"]
     assert runs["torch"][1]["kalman_scan"] > 0 and runs["torch"][1]["affine_rmsnorm"] > 0
+
+
+# -- the cluster plane, the host transports and the sharded backend on the card --------------
+
+
+def _riot_script(system, fuse_overhead=None):
+    """The RIoT and kernel flows at base_batch 256: 3 steps, fuse(), 2 steps."""
+    system.run(3)
+    assert system.fuse() if fuse_overhead is None else system.fuse(overhead_ms=fuse_overhead)
+    system.run(2)
+    return _digests(system)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transport", ["shm", "tcp"])
+def test_torch_backend_over_host_transports_is_bitwise_inproc(cuda, transport):
+    # each boundary batch crosses the host through pinned staging; the
+    # captured graphs still read it from their static input buffers
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    runs = {}
+    for t in ("inproc", transport):
+        reset_launch_counts()
+        system = _stream_system(cuda, transport=t)
+        runs[t] = (_riot_script(system), launch_counts())
+        assert system.backend.capture_stats.graphs > 0
+        system.close()
+    assert runs[transport] == runs["inproc"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step_mode", ["sync", "concurrent"])
+def test_sharded_over_two_slots_of_one_card_is_bitwise_torch(cuda, step_mode):
+    from repro_torch.runtime.sharded import ShardedBackend
+
+    want = _riot_script(_stream_system(cuda, step_mode=step_mode))
+    backend = ShardedBackend(devices=[cuda, cuda], step_mode=step_mode)
+    system = _stream_system(None, backend=backend)
+    assert _riot_script(system) == want
+    assert set(backend.device_of.values()) == {0, 1}
+    # a move between two slots of one card keeps the captured graphs
+    name = next(iter(backend.segments))
+    seg = backend.segments[name]
+    graphs = seg.graphs
+    old = backend.device_of[name]
+    backend._move_segment(seg, old, 1 - old)
+    backend.device_of[name] = 1 - old
+    assert seg.graphs is graphs
+    system.run(1)
+    system.close()
+
+
+@pytest.mark.gpu
+def test_sharded_without_devices_takes_every_card(cuda):
+    from repro_torch.runtime.sharded import ShardedBackend
+
+    backend = ShardedBackend()
+    assert backend.devices == [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("snapshot_mode", ["spill", "wire"])
+def test_supervised_pool_on_the_card_survives_a_kill_bitwise(cuda, snapshot_mode):
+    # a worker killed between two steps: the next step's RPC fails and the
+    # in-step path respawns it and redeploys its segments from the spill
+    # file (or the wire snapshot); the digests are the uninterrupted run's
+    import os
+    import signal
+
+    from repro_torch.cluster.events import WORKER_RESPAWNED
+    from repro_torch.runtime.worker import MultiprocBackend
+
+    runs = {}
+    for kill in (False, True):
+        backend = MultiprocBackend(workers=2, device=str(cuda))
+        system = _stream_system(None, backend=backend,
+                                supervise={"heartbeat_interval": 30.0,
+                                           "snapshot_mode": snapshot_mode})
+        system.run(3)
+        assert system.fuse(overhead_ms=1e9)
+        system.run(1)
+        if kill:
+            os.kill(backend._procs[1].pid, signal.SIGKILL)
+        system.run(2)
+        runs[kill] = _digests(system)
+        if kill:
+            assert backend.respawns and WORKER_RESPAWNED in [e.kind for e in backend.worker_events]
+        system.close()
+    assert runs[True] == runs[False]

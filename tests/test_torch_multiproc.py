@@ -161,10 +161,14 @@ class TestCoordinatorPlumbing:
             assert system.worker_health()["workers"] == 1
         finally:
             system.close()
-        with pytest.raises(ValueError, match="supervisor and autoscaler"):
-            StreamSystem(backend="multiproc", device="cpu", supervise=True)
-        with pytest.raises(ValueError, match="supervisor and autoscaler"):
-            ReuseSession(execute=True, backend="multiproc", device="cpu", autoscale={"max": 3})
+        system = StreamSystem(backend="multiproc", device="cpu", supervise=True)
+        assert system.backend.self_heal and system.worker_health()["heartbeat_running"]
+        system.close()
+        with ReuseSession(execute=True, backend="multiproc", device="cpu",
+                          autoscale={"max_workers": 3}) as session:
+            assert session.worker_health()["autoscale"]["max_workers"] == 3
+        with pytest.raises(ValueError, match="worker-pool backend"):
+            StreamSystem(device="cpu", supervise=True)
         assert StreamSystem(device="cpu").worker_health() is None
 
     def test_errors_name_the_log_close_ends_the_workers_and_they_import_no_jax(self, tmp_path):

@@ -236,16 +236,18 @@ def test_session_default_is_the_card(monkeypatch):
     {"on_worker_event": print}, {"backend_options": {"placement": "least_loaded"}},
 ])
 def test_trimmed_planes_raise(arg):
-    # the worker-process plane is ported: its arguments reach a multiproc
-    # backend (nothing spawns before a deploy); the supervisor and the
-    # autoscaler are not, and asking for either raises
+    # the worker-process and cluster planes are ported: their arguments
+    # reach a multiproc backend (nothing spawns before a deploy); the
+    # supervisor and the autoscaler on a backend without a worker pool
+    # raise the reference's ValueError
     if "supervise" in arg or "autoscale" in arg:
-        with pytest.raises(ValueError, match="supervisor and autoscaler"):
-            ReuseSession(execute=True, device="cpu", backend="multiproc", **arg)
-        return
+        with pytest.raises(ValueError, match="worker-pool backend|resizable worker pool"):
+            ReuseSession(execute=True, device="cpu", **arg)
     session = ReuseSession(execute=True, device="cpu", backend="multiproc", **arg)
     try:
         backend = session._system.backend
+        assert backend.self_heal == ("supervise" in arg)
+        assert ("autoscale" in session.worker_health()) == ("autoscale" in arg)
         assert session.backend_name == "multiproc" and backend.device == "cpu"
         assert backend.transport.name == arg.get("transport", "shm")
         assert backend.n_workers == arg.get("workers", 2)

@@ -261,6 +261,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30
+    # the cluster plane, the trace CLI, the sharded backend and the front end
+    for module in ("cluster/supervisor.py", "cluster/autoscaler.py", "launch/dryrun.py",
+                   "launch/serve.py", "runtime/sharded.py", "runtime/staging.py",
+                   "serve/frontend.py", "serve/protocol.py", "serve/client.py",
+                   "workloads/tenants.py"):
+        assert os.path.join(ROOT, "src", "repro_torch", module) in paths, module
     bad = []
     for path in paths:
         for mod in _imports(path):

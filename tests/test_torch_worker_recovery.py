@@ -1,9 +1,9 @@
 """The port's worker-process plane under a lost worker and a resized pool:
 ``MultiprocBackend.recover_worker`` (from the shadow snapshots that ride
 each step reply, and from the workers' spill files) and ``resize_pool``,
-called directly as the reference's supervisor and autoscaler would (those
-are not in the port yet), each with sink digests bitwise those of the
-port's in-process ``torch`` backend; and what the coordinator reads of
+called directly, as the supervisor and the autoscaler call them
+(``tests/test_torch_cluster.py`` drives those), each with sink digests
+bitwise those of the port's in-process ``torch`` backend; and what the coordinator reads of
 its workers (kernel launches, device memory, compile-cache counters, the
 intra-op thread count it hands them). Workers run on the CPU.
 """
