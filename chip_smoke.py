@@ -20,7 +20,9 @@ Phases, each fatal on failure:
      and 320, f32 and bf16, each beside its library call; K7's tiled
      build in f32 at chunk = N = P = 128 and at chunk 256, N 192, P 160 in
      f32 and bf16; which K5 and K7 build each dtype and shape ran, and
-     K7's launches per call, counted);
+     K7's launches per call, counted; K5/K6 at mixtral-8x22b's 48 heads
+     over 8 of 128 under its window of 4096 and under a window of 1024
+     that masks, f32 and bf16);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -116,11 +118,29 @@ Phases, each fatal on failure:
      K5, K6 and K7 > 0 and K7 called 54 times per prefill (3 launches
      each); bf16 checks on a second weight seed too; its card against CPU
      cut is 6 layers (one group, the shared block included);
+  5b. the moe family the same way: mixtral-8x22b at full width (d_model
+     6144, 48 heads over 8 of 128, 8 experts of 16384, top-2, window 4096,
+     bf16) cut to 8 of its 56 layers (one card holds about 41 GB of them),
+     with K1, K4, K5, K6 > 0, the tokens dropped by capacity at a prefill
+     and the launches per decoded token printed; prefill/decode consistency
+     at a capacity that drops no token (f32 at 4 layers, bf16 on seeds 0
+     and 1); the card against the CPU at 1 layer, with the experts each
+     token chose compared call by call (a differing choice only at a
+     near-tie of the router's probabilities, named);
+  5c. LM reuse-serving at full width: ``ReuseServing(backend="torch")``,
+     6 tenants over urban/meter/taxi, 4 stages of 9 blocks at d_model 2560
+     (3 shared), base_batch 256: 5 steps, tenant1 removed, 3 steps, with
+     launch counts reset just before and read just after (K1, K4 > 0); the
+     weights deployed against the no-reuse sum, step walls and the card's
+     busy ms; strategy "none" gives each tenant bitwise the same sink
+     digests; one tenant at 1 stage of 2 blocks on the card against the
+     CPU; ``python -m repro_torch.launch.serve --reuse`` prints the
+     reference's line;
   6. nemotron-4-340b cut in width (NEMOTRON_CUT: head dim 192, 12 q heads
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5, the session's, the concurrent ones, the workers' of
+     of phases 3-5c, the session's, the concurrent ones, the workers' of
      phases 3c and 3e and the in-process runs of 3d and 3g included; each
      must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
@@ -130,6 +150,8 @@ Phases, each fatal on failure:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -380,6 +402,7 @@ def kernel_phase(dev):
         + (f"{clock / 1e9:.3f} GHz: {floor * 1e3:.2f} us" if clock else "clock: not read"))
     out += model_kernel_phase(dev, gen)
     out += hybrid_kernel_phase(dev, gen)
+    mixtral_attention_checks(dev, gen)
     for k in out:
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us/launch on the device "
             f"({k['call_ms'] * 1e3:.2f} us per call from the host), plain {k['plain_ms'] * 1e3:.2f} us, "
@@ -851,6 +874,95 @@ def head_dim_checks(dev, gen, h, kv, hd):
         del q1, kc, vc
 
 
+MIXTRAL_HEADS = (48, 8, 128)  # q heads over KV heads (a GQA group of 6), head dim
+MIXTRAL_WINDOW, MASKING_WINDOW = 4096, 1024
+MASKED_CACHE_LEN = 3000  # K6's cache length under the masking window
+
+
+def visible_pairs(sq, window) -> int:
+    """(q, k) pairs a causal attention over ``sq`` positions sees under a
+    window of ``window`` keys: min(i + 1, window) for row i."""
+    w = min(window, sq)
+    return w * (w + 1) // 2 + (sq - w) * w
+
+
+def mixtral_attention_checks(dev, gen):
+    """K5 and K6 at mixtral-8x22b's attention (MIXTRAL_HEADS), f32 and bf16,
+    each against its plain version: K5 on a causal prefill of SERVE_PROMPT
+    tokens under mixtral's window (which does not mask at that length; timed
+    beside F.scaled_dot_product_attention, whose output it is also held to)
+    and under MASKING_WINDOW (which does); K6 for one token against a
+    4096-slot ring holding SERVE_PROMPT under mixtral's window (timed beside
+    the library) and holding MASKED_CACHE_LEN under MASKING_WINDOW."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+
+    h, kv, hd = MIXTRAL_HEADS
+    s, s_cache = SERVE_PROMPT, 4096
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        el = torch.finfo(dtype).bits // 8
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        q = torch.randn((1, s, h, hd), generator=gen).to(dev, dtype)
+        k = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+        v = torch.randn((1, s, kv, hd), generator=gen).to(dev, dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        for window in (MIXTRAL_WINDOW, MASKING_WINDOW):
+            def k5():
+                return flash_attention.flash_attention(q, k, v, causal=True, window=window)
+
+            err = check_close(f"flash_attention mixtral window {window} {tag}", k5(),
+                              ref.flash_attention_ref(q, k, v, causal=True, window=window), tol)
+            bnd, by = bound_ms((2 * s * h + 2 * s * kv) * hd * el,
+                               4 * h * hd * visible_pairs(s, window), ops_rate)
+            ms = device_ms(k5, per_graph=3, reps=7)
+            plain = device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
+                              per_graph=1, reps=3)
+            lib = ""
+            if window >= s:  # the window does not mask: the library's causal call
+                lib_err = check_close(
+                    f"flash_attention mixtral {tag} vs the library", k5(),
+                    F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True).transpose(1, 2), LIB_TOL)
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), per_graph=3, reps=7)
+                lib = (f", {lib_err:.3g} from the library's output (tol {LIB_TOL}); library "
+                       f"F.scaled_dot_product_attention {lib_ms * 1e3:.2f} us")
+            log(f"K5 flash_attention mixtral q (1,{s},{h},{hd}) kv {kv} causal window {window} "
+                f"{tag}: max|err| {err:.3g} (tol {tol}); kernel {flash_attention.route(dtype, hd)}; "
+                f"{ms * 1e3:.2f} us/launch on the device, bound {bnd * 1e3:.3f} us ({by}), plain "
+                f"{plain * 1e3:.2f} us{lib}")
+        del q, k, v, qt, kt, vt
+        q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
+        kc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+        vc = torch.randn((1, s_cache, kv, hd), generator=gen).to(dev, dtype)
+        for clen, window in ((s, MIXTRAL_WINDOW), (MASKED_CACHE_LEN, MASKING_WINDOW)):
+            def k6():
+                return decode_attention.decode_attention(q1, kc, vc, clen, window=window)
+
+            err = check_close(f"decode_attention mixtral len {clen} window {window} {tag}", k6(),
+                              ref.decode_attention_ref(q1, kc, vc, clen, window=window), tol)
+            seen = min(clen, window)
+            bnd, by = bound_ms((2 * seen * kv + 2 * h) * hd * el, 4 * h * hd * seen, ops_rate)
+            ms, host = device_ms(k6), call_ms(k6)
+            plain = device_ms(lambda: ref.decode_attention_ref(q1, kc, vc, clen, window=window))
+            lib = ""
+            if window >= clen:
+                q1t, kct, vct = (q1.transpose(1, 2), kc[:, :clen].transpose(1, 2),
+                                 vc[:, :clen].transpose(1, 2))
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q1t, kct, vct,
+                                                                          enable_gqa=True))
+                lib = f", library F.scaled_dot_product_attention {lib_ms * 1e3:.2f} us"
+            log(f"K6 decode_attention mixtral q (1,1,{h},{hd}) cache (1,{s_cache},{kv},{hd}) len "
+                f"{clen} window {window} {tag}: max|err| {err:.3g} (tol {tol}); kernel "
+                f"{decode_route(dtype, hd)}; {ms * 1e3:.2f} us/launch on the device ({host * 1e3:.2f} "
+                f"us per call from the host), bound {bnd * 1e3:.3f} us ({by}), plain "
+                f"{plain * 1e3:.2f} us{lib}")
+        del q1, kc, vc
+
+
 # -- phase 3: the main path ------------------------------------------------------------
 
 def run_script(base_batch, device, fuse, capture=True, waves=None, backend=None,
@@ -900,12 +1012,18 @@ def step_launches(system):
     """One more step of ``system`` under torch.profiler: (host launch calls,
     of them graph launches, operations the card ran: kernels, copies and
     fills)."""
+    return fn_launches(system.step)
+
+
+def fn_launches(fn):
+    """One call of ``fn`` under torch.profiler, as :func:`step_launches`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        system.step()
+        fn()
+        torch.cuda.synchronize()
     calls = graphs = on_card = 0
     for ev in prof.events():
         if "CUDA" in str(ev.device_type):
@@ -2006,6 +2124,7 @@ def daemon_check():
 
 SERVE_ARCH = "qwen3-4b"
 HYBRID_ARCH = "zamba2-2.7b"
+MOE_ARCH = "mixtral-8x22b"
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4096
 DENSE_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention")
 WITNESS_PROMPT, WITNESS_STEPS = 160, 3  # one full chunk of 128 and a ragged one of 32
@@ -2016,9 +2135,15 @@ WITNESS_PROMPT, WITNESS_STEPS = 160, 3  # one full chunk of 128 and a ragged one
 # (max|diff| over the largest logit, cosine, same greedy token): at full
 # depth, then at the cut's depth (see below)
 SERVE_PHASES = (
-    (SERVE_ARCH, 2, DENSE_KERNELS, (0,), (5e-2, 0.999, True), (2e-2, 0.9998, True)),
+    (SERVE_ARCH, 2, DENSE_KERNELS, (0,), (5e-2, 0.999, True), (2e-2, 0.9998, True), {}),
     (HYBRID_ARCH, 6, DENSE_KERNELS + ("ssd_scan",), (0, 1), (0.15, 0.995, False),
-     (0.2, 0.97, False)),
+     (0.2, 0.97, False), {}),
+    # mixtral-8x22b at full width cut to MOE_DEPTH of its 56 layers (about 5.0
+    # GB of bf16 weights a layer: 8 layers and the embeddings are about 41
+    # GB); its card-vs-CPU cut is one layer (10.8 GB of float32 weights on
+    # each side), drawn on the card; the routing of every token is compared
+    (MOE_ARCH, 1, DENSE_KERNELS, (0, 1), (5e-2, 0.999, True), (2e-2, 0.9998, True),
+     dict(depth=8, f32_depth=4, cut_on_card=True, routes=True)),
 )
 # The checks of each serving phase after its engine run:
 #  * prefill/decode consistency at full width and depth: prefill(prompt)
@@ -2055,7 +2180,19 @@ SERVE_PHASES = (
 #    qwen3-4b, and to 0.2 and cosine 0.97 for zamba2-2.7b, whose sound runs
 #    may swap a near-equal top logit (one seed of four did). The readings:
 #    scripts/torch_bf16_witness.py, on the tree and on a copy with the fault.
+#  * mixtral-8x22b: the bf16 limits are qwen3-4b's (the same dense attention
+#    blocks, 8 of them, an MoE FFN of two experts in place of the MLP); its
+#    f32 consistency runs at f32_depth = 4 layers, since 8 layers of float32
+#    weights (about 80 GB) do not fit the card beside anything else. The
+#    routing is part of the result: on the card and on the CPU each token
+#    must choose the same experts, except where its k-th and (k+1)-th router
+#    probabilities are within ROUTE_GAP_F32 in float32; in bf16, where the
+#    router's input differs between the devices by the roundings above, the
+#    two probabilities may be no further apart than twice the token's largest
+#    card-vs-CPU probability difference (the flip is then that difference's).
+#    Every differing token is named.
 CONSISTENCY_F32, CONSISTENCY_F32_COS = 1e-4, 0.99999
+ROUTE_GAP_F32 = 1e-6
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)  # card vs CPU in f32: 2560- and 151936-wide sums
 
 
@@ -2108,19 +2245,96 @@ def limits_text(limits) -> str:
     return f"(limits {lim_rel}, cosine {lim_cos}{', same greedy token' if same_token else ''})"
 
 
-def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
-    """``arch`` at full width and depth in bf16 through ServeEngine; returns
-    the launch counts of the engine run."""
+class RouteLog:
+    """Records, per device type, the router's probabilities and chosen
+    experts at every moe_layer call while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+
+        self._mlp, self._route, self.calls = mlp, mlp._route, {}
+
+        def route(p, xt, k):
+            out = self._route(p, xt, k)
+            self.calls.setdefault(xt.device.type, []).append(
+                (out[0].detach().float().cpu(), out[2].cpu()))
+            return out
+
+        mlp._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mlp._route = self._route
+
+
+def check_routes(label, log, k, f32):
+    """The card's expert choices against the CPU's, token by token, call by
+    call (see the mixtral notes above); returns the number of tokens routed
+    and the differing ones as (call, token, gap, largest probability
+    difference)."""
+    import torch
+
+    cpu, card = log.calls.get("cpu", []), log.calls.get("cuda", [])
+    if len(cpu) != len(card) or not cpu:
+        raise AssertionError(f"{label}: {len(cpu)} router calls on the cpu, {len(card)} on the card")
+    tokens, differ = 0, []
+    for c, ((pc, ic), (pg, ig)) in enumerate(zip(cpu, card)):
+        tokens += ic.shape[0]
+        for t in torch.nonzero((ic.sort(-1).values != ig.sort(-1).values).any(-1)).flatten():
+            t = int(t)
+            top = torch.sort(pc[t], descending=True).values
+            gap, dp = float(top[k - 1] - top[k]), float((pc[t] - pg[t]).abs().max())
+            limit = ROUTE_GAP_F32 if f32 else max(ROUTE_GAP_F32, 2 * dp)
+            if gap > limit:
+                raise AssertionError(f"{label}: call {c} token {t} chose experts "
+                                     f"{ig[t].tolist()} on the card, {ic[t].tolist()} on the "
+                                     f"cpu; its k-th and (k+1)-th probabilities are {gap:.3g} "
+                                     f"apart (limit {limit:.3g})")
+            differ.append((c, t, gap, dp))
+    return tokens, differ
+
+
+def routes_text(tokens, differ) -> str:
+    named = "; ".join(f"call {c} token {t}: gap {g:.3g}, largest probability difference {d:.3g}"
+                      for c, t, g, d in differ)
+    return f"experts chosen differ for {len(differ)} of {tokens} tokens" + (
+        f" ({named})" if differ else "")
+
+
+def no_drops(cfg):
+    """``cfg`` with an MoE capacity that holds every token (capacity factor
+    E / top_k): prefill of S tokens and prefill of S - 1 plus a decode step
+    route the same tokens only when no expert is full, since capacity drops
+    depend on how many tokens compete (in the reference too)."""
+    if cfg.family != "moe":
+        return cfg
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k))
+
+
+def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, depth=None,
+                f32_depth=None, cut_on_card=False, routes=False):
+    """``arch`` at full width in bf16 through ServeEngine, at full depth or
+    cut to ``depth`` layers (``f32_depth`` for the float32 consistency check);
+    the card-vs-CPU cut's weights drawn on the card when ``cut_on_card``;
+    with ``routes`` the experts each token chose on the card and the CPU are
+    compared. Returns the launch counts of the engine run."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models import decode_step, init_cache, init_params, mlp, prefill
     from repro_torch.models.transformer import tree_map
     from repro_torch.serve.engine import Request, ServeEngine
 
+    t_phase = time.perf_counter()
     cfg = configs.get_config(arch)
+    if depth:
+        log(f"{cfg.name}: depth cut from {cfg.n_layers} to {depth} layers, full width "
+            f"(one card holds {depth} layers of bf16 weights beside the embeddings and caches)")
+        cfg = cfg.replace(n_layers=depth)
+    f32_depth = f32_depth or cfg.n_layers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2174,21 +2388,46 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         log(f"prefill {n} tokens: {statistics.median(times):.2f} ms (median of 3; {times})")
+    if cfg.family == "moe":
+        dropped = []
+        dispatch = mlp.dispatch
+
+        def counted(c, idx):
+            slot, keep = dispatch(c, idx)
+            dropped.append(int((~keep).sum()))
+            return slot, keep
+
+        mlp.dispatch = counted
+        try:
+            toks = torch.from_numpy(prompts[-1]).long()[None].to(dev)
+            prefill(params, cfg, toks, cache)
+        finally:
+            mlp.dispatch = dispatch
+        log(f"tokens dropped by capacity at the prefill of a {toks.shape[1]}-token prompt "
+            f"(C = {mlp.capacity(cfg, toks.shape[1])} slots an expert): {sum(dropped)} of "
+            f"{toks.shape[1] * cfg.moe.top_k * cfg.n_layers} (token, expert) choices, per layer "
+            f"{dropped}")
     tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
     times = []
+    reset_launch_counts()
     for _ in range(SERVE_NEW):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         decode_step(params, cfg, tok, cache)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    per_token = {k: v / SERVE_NEW for k, v in launch_counts().items() if v}
+    host_calls, _, on_card = fn_launches(lambda: decode_step(params, cfg, tok, cache))
     log(f"decode at {SERVE_PROMPT}+ cached positions, batch 1: "
-        f"{statistics.median(times):.2f} ms/token (median of {len(times)})")
+        f"{statistics.median(times):.2f} ms/token (median of {len(times)}); per decoded token "
+        f"{host_calls} host launch calls, {on_card} operations on the card, port kernels "
+        f"{per_token}")
 
     # prefill/decode consistency on one prompt, in bf16 and in float32
     prompt = torch.from_numpy(prompts[0]).long()[None].to(dev)
 
     def both_paths(p, c):
+        c = no_drops(c)
         full, _ = prefill(p, c, prompt, init_cache(c, 1, SERVE_MAX_LEN, device=dev))
         cache = init_cache(c, 1, SERVE_MAX_LEN, device=dev)
         prefill(p, c, prompt[:, :-1], cache)
@@ -2205,7 +2444,7 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
         bf16[seed] = both_paths(params, cfg)
         del params
     torch.cuda.empty_cache()
-    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32", n_layers=f32_depth)
     params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(seeds[0]))
     if not torch.equal(params32["embed"][:8].to(embed_rows.dtype), embed_rows):
         raise AssertionError("the bf16 weights are not the float32 ones rounded")
@@ -2215,7 +2454,8 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
 
     n = prompt.shape[1]
     rel, cos, am, bm = agree(*f32)
-    log(f"prefill/decode consistency, f32, seed {seeds[0]} ({n} tokens): max|diff|/max|logit| "
+    log(f"prefill/decode consistency, f32 ({f32_depth} layers), seed {seeds[0]} ({n} tokens): "
+        f"max|diff|/max|logit| "
         f"{rel:.3g} (limit {CONSISTENCY_F32}), cosine {cos:.7f} (limit {CONSISTENCY_F32_COS}), "
         f"argmax {am} vs {bm}")
     if rel > CONSISTENCY_F32 or cos < CONSISTENCY_F32_COS or am != bm:
@@ -2223,7 +2463,7 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
     for seed in seeds:
         rel, cos, am, bm = agree(*bf16[seed])
         drift = ""
-        if seed == seeds[0]:
+        if seed == seeds[0] and f32_depth == cfg.n_layers:
             d = [agree(f32[0], x)[:2] for x in bf16[seed]]
             drift = (f"; from the f32 prefill: prefill {d[0][0]:.3g} (cosine {d[0][1]:.6f}), "
                      f"prefill + decode {d[1][0]:.3g} (cosine {d[1][1]:.6f})")
@@ -2236,10 +2476,48 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
     # card against CPU: the same configuration cut to a few layers, float32
     cut = cfg.replace(n_layers=cut_layers, dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
-    cpu_params = init_params(cut, torch.Generator().manual_seed(0))
-    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
-    log(f"{cut.name} cut to {cut_layers} layers, float32: parameters drawn on the CPU in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if cut_on_card:
+        dev_params = init_params(cut, torch.Generator(device=dev).manual_seed(0))
+        cpu_params = tree_map(lambda t: t.cpu(), dev_params)
+    else:
+        cpu_params = init_params(cut, torch.Generator().manual_seed(0))
+        dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    log(f"{cut.name} cut to {cut_layers} layers, float32: parameters drawn on the "
+        f"{'card' if cut_on_card else 'CPU'} in {time.perf_counter() - t0:.1f} s")
+    route_log = RouteLog() if routes else contextlib.nullcontext()
+    with route_log:
+        worst = cut_parity(dev, cfg, cut, cpu_params, dev_params, rng)
+    log(f"{cfg.name} card vs cpu ({cut_layers} layers, f32, prompts 64 and 256, prefill + 4 "
+        f"decode steps): max|err| {worst:.3g} (tol {PARITY_TOL}), greedy tokens equal"
+        + (f"; {routes_text(*check_routes('f32 card vs cpu', route_log, cfg.moe.top_k, True))}"
+           if routes else ""))
+    del cpu_params, dev_params
+    cut16 = cfg.replace(n_layers=cut_layers)
+    for seed in seeds:
+        params = init_params(cut16, torch.Generator(device=dev).manual_seed(seed))
+        route_log = RouteLog() if routes else contextlib.nullcontext()
+        with route_log:
+            reading = bf16_witness(dev, cut16, params, prompts[0][:WITNESS_PROMPT])
+        del params
+        log(f"{cfg.name} card vs cpu ({cut_layers} layers, bf16, seed {seed}; forward at "
+            f"{WITNESS_PROMPT} positions, prefill + {WITNESS_STEPS} decode steps): max|diff|/"
+            f"max|logit| {reading[0]:.3g}, cosine {reading[1]:.6f}, greedy tokens "
+            f"{'equal' if reading[2] else 'differ'} {limits_text(cut_limits)}"
+            + (f"; {routes_text(*check_routes(f'bf16 card vs cpu, seed {seed}', route_log, cfg.moe.top_k, False))}"
+               if routes else ""))
+        if not check_limits(reading, cut_limits):
+            raise AssertionError(f"bf16 on the card departs from bf16 on the cpu, seed {seed}")
+    log(f"{cfg.name} serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def cut_parity(dev, cfg, cut, cpu_params, dev_params, rng):
+    """The cut on the card against the CPU in float32: prefill of 64 and 256
+    tokens, then 4 decode steps fed the CPU's greedy token; the worst max|err|."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
     worst = 0.0
     for n in (64, 256):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=n)).long()[None]
@@ -2258,21 +2536,214 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits):
                 break
             tok = torch.tensor([[nxt["cpu"]]])
             logits = {d: decode_step(ps[d], cut, tok.to(d), caches[d])[0] for d in caches}
-    log(f"{cfg.name} card vs cpu ({cut_layers} layers, f32, prompts 64 and 256, prefill + 4 "
-        f"decode steps): max|err| {worst:.3g} (tol {PARITY_TOL}), greedy tokens equal")
-    del cpu_params, dev_params
-    cut16 = cfg.replace(n_layers=cut_layers)
-    for seed in seeds:
-        params = init_params(cut16, torch.Generator(device=dev).manual_seed(seed))
-        reading = bf16_witness(dev, cut16, params, prompts[0][:WITNESS_PROMPT])
-        del params
-        log(f"{cfg.name} card vs cpu ({cut_layers} layers, bf16, seed {seed}; forward at "
-            f"{WITNESS_PROMPT} positions, prefill + {WITNESS_STEPS} decode steps): max|diff|/"
-            f"max|logit| {reading[0]:.3g}, cosine {reading[1]:.6f}, greedy tokens "
-            f"{'equal' if reading[2] else 'differ'} {limits_text(cut_limits)}")
-        if not check_limits(reading, cut_limits):
-            raise AssertionError(f"bf16 on the card departs from bf16 on the cpu, seed {seed}")
-    return launches
+    return worst
+
+
+# -- phase 5c: LM reuse-serving at full width -------------------------------------------
+
+# ReuseServing at qwen3-4b's width: 6 tenants over urban/meter/taxi as
+# serve_reuse makes them, 4 stages of 9 blocks (36 blocks, qwen3-4b's depth)
+# of which the lower 3 are the shared backbone
+REUSE_D, REUSE_BATCH, REUSE_TENANTS = 2560, 256, 6
+REUSE_STAGES, REUSE_SHARED, REUSE_BLOCKS = 4, 3, 9
+REUSE_STEPS, REUSE_AFTER = 5, 3  # steps before and after tenant1 is removed
+# the reference's --reuse line (python -m repro.launch.serve --reuse on the CPU)
+REUSE_CLI_LINE = "tenants=6 running_tasks=33 deployed_cost=65.7"
+
+
+def reuse_pipes(d=REUSE_D, n_stages=REUSE_STAGES, blocks=REUSE_BLOCKS, tenants=REUSE_TENANTS):
+    from repro_torch.serve import TenantPipeline
+
+    return [TenantPipeline(tenant=f"tenant{i}", stream=("urban", "meter", "taxi")[i % 3],
+                           shared_stages=min(REUSE_SHARED, n_stages), n_stages=n_stages, d=d,
+                           layers_per_stage=blocks) for i in range(tenants)]
+
+
+def weight_bytes(dataflows) -> int:
+    """float32 weight bytes of the lm_* tasks of ``dataflows``: a block is
+    w1 (d, 2d) and w2 (2d, d), 16·d² bytes; the embed 8·d, the head d² + 8·d
+    values."""
+    total = 0
+    for df in dataflows:
+        for t in df.tasks.values():
+            cfg = json.loads(t.config) if t.config.startswith("{") else {}
+            d = int(cfg.get("d", 0))
+            if t.type == "lm_stage":
+                lo, hi = (int(v) for v in cfg["layers"].split("-"))
+                total += (hi - lo + 1) * 16 * d * d
+            elif t.type == "lm_embed":
+                total += 8 * d * 4
+            elif t.type == "lm_head":
+                total += (d * d + 8 * d) * 4
+    return total
+
+
+def busy_ms(fn):
+    """One call of ``fn`` under torch.profiler: the union of the card's
+    operation intervals in ms, and the call's wall ms (profiled)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if "CUDA" in str(ev.device_type) and not ev.name.startswith("op::"))
+    union_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            union_us += end - max(start, reach)
+            reach = end
+    return union_us / 1e3, wall
+
+
+def sink_last(rs, receipt):
+    """The last batch a tenant's sink took (its state), on the CPU."""
+    (tid,) = receipt.sink_map.values()
+    for seg in rs.system.backend.segments.values():
+        if tid in seg.states:
+            return seg.states[tid]["last"].cpu()
+    raise KeyError(tid)
+
+
+def reuse_run(dev, strategy, pipes, steps=REUSE_STEPS, after=REUSE_AFTER, profile_step=True):
+    """ReuseServing on ``dev``: the pipelines added, ``steps`` steps (the
+    last under the profiler when ``profile_step``), tenant1 removed when
+    ``after`` steps follow; returns what it observed."""
+    import torch
+
+    from repro_torch.serve import ReuseServing
+
+    rs = ReuseServing(strategy=strategy, base_batch=REUSE_BATCH, device=dev)
+    t0 = time.perf_counter()
+    receipts = [rs.add_tenant(p) for p in pipes]
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    sync()
+    on_card = torch.device(dev).type == "cuda"
+    out = {"deploy_s": time.perf_counter() - t0, "walls": [], "busy": None,
+           "allocated": torch.cuda.memory_allocated(dev) if on_card else 0}
+    out["stats"] = rs.stats()
+    out["weights"] = weight_bytes(rs.system.manager.running.values())
+    for i in range(steps):
+        if profile_step and i == steps - 1:
+            out["busy"], wall = busy_ms(rs.step)
+        else:
+            t0 = time.perf_counter()
+            rs.step()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        out["walls"].append(wall)
+    out["before"] = {t: rs.tenant_output(t) for t in sorted(rs.tenants)}
+    out["last"] = sink_last(rs, receipts[0])
+    if not after:
+        rs.system.close()
+        return out
+    rs.remove_tenant("tenant1")
+    out["stats_after"] = rs.stats()
+    for _ in range(after):
+        t0 = time.perf_counter()
+        rs.step()
+        sync()
+        out["walls"].append((time.perf_counter() - t0) * 1e3)
+    out["after"] = {t: rs.tenant_output(t) for t in sorted(rs.tenants)}
+    backend = rs.system.backend
+    out["graphs"] = getattr(backend, "capture_stats", None)
+    rs.system.close()
+    return out
+
+
+def reuse_serving_phase(dev):
+    """LM reuse-serving on the card at full width (REUSE_D = qwen3-4b's
+    d_model; REUSE_STAGES stages of REUSE_BLOCKS blocks, 36 in all, the lower
+    REUSE_SHARED shared), REUSE_TENANTS tenants at base_batch REUSE_BATCH:
+    REUSE_STEPS steps, tenant1 removed, REUSE_AFTER steps, with the launch
+    counts reset just before and read just after. The same run with
+    strategy="none" (every tenant its own copy) gives each tenant bitwise
+    the same sink digests; one tenant cut to 1 stage of 2 blocks at the same
+    width and batch on the card against the CPU within PARITY_TOL; the
+    --reuse CLI on the card prints the reference's line. Returns the launch
+    counts of the signature run."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    run = reuse_run(dev, "signature", reuse_pipes())
+    counts = launch_counts()
+    if counts["rmsnorm"] <= 0 or counts["rmsnorm_residual"] <= 0:
+        raise AssertionError(f"reuse-serving launched no K1/K4: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    nope = reuse_run(dev, "none", reuse_pipes())
+    st, st_none = run["stats"], nope["stats"]
+    log(f"reuse-serving at d_model {REUSE_D}, {REUSE_STAGES} stages x {REUSE_BLOCKS} blocks "
+        f"({REUSE_SHARED} shared), {REUSE_TENANTS} tenants, base_batch {REUSE_BATCH}: "
+        f"{st['running_tasks']} running tasks ({st_none['running_tasks']} without reuse), "
+        f"{st['deployed_tasks']} deployed, deployed_cost {st['deployed_cost']:.1f} "
+        f"({st_none['deployed_cost']:.1f} without reuse); after removing tenant1 "
+        f"{run['stats_after']['running_tasks']} running, deployed_cost "
+        f"{run['stats_after']['deployed_cost']:.1f}")
+    log(f"reuse-serving weights deployed: {run['weights'] / 1e9:.3f} GB of float32 blocks "
+        f"against {nope['weights'] / 1e9:.3f} GB without reuse "
+        f"({run['weights'] / nope['weights']:.4f}); memory_allocated after the deploys "
+        f"{run['allocated'] / 2**30:.2f} GiB against {nope['allocated'] / 2**30:.2f} GiB; "
+        f"deployed in {run['deploy_s']:.1f} s and {nope['deploy_s']:.1f} s")
+    for label, r in (("signature", run), ("none", nope)):
+        w = r["walls"]
+        log(f"reuse-serving step wall ms, {label}: {', '.join(f'{x:.3f}' for x in w)} (steps 1-2 "
+            f"eager and capture, {REUSE_STEPS} profiled, tenant1 removed before step "
+            f"{REUSE_STEPS + 1}); steady median {statistics.median(w[2:REUSE_STEPS - 1]):.3f}; "
+            f"the card busy {r['busy']:.3f} ms of the profiled step's {w[REUSE_STEPS - 1]:.3f}")
+    log(f"reuse-serving kernel launches (signature run): {counts}")
+    for key in ("before", "after"):
+        if run[key] != nope[key]:
+            raise AssertionError(f"reuse-serving: strategy signature and none differ ({key} the "
+                                 f"removal): {run[key]} vs {nope[key]}")
+    for t, sinks in run["after"].items():
+        n = sinks[f"{t}/sink"]["count"] - run["before"][t][f"{t}/sink"]["count"]
+        if n != REUSE_AFTER:
+            raise AssertionError(f"reuse-serving: {t} answered {n} batches across the removal")
+    log(f"reuse-serving: strategy signature == none sink digests (bitwise) for all "
+        f"{REUSE_TENANTS} tenants before the removal and the {REUSE_TENANTS - 1} after it; "
+        f"the survivors' counts grew by {REUSE_AFTER}")
+    del run, nope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: one tenant, one stage of 2 blocks, full width
+    one = reuse_pipes(n_stages=1, blocks=2, tenants=1)
+    t0 = time.perf_counter()
+    outs = {d: reuse_run(d, "signature", one, steps=3, after=0, profile_step=False)
+            for d in (dev, "cpu")}
+    sink = outs["cpu"]["before"]["tenant0"]["tenant0/sink"]
+    got = outs[dev]["before"]["tenant0"]["tenant0/sink"]
+    err = check_close("reuse-serving card vs cpu, the sink's last batch", outs[dev]["last"],
+                      outs["cpu"]["last"], PARITY_TOL)
+    if got["count"] != sink["count"] or not math.isclose(
+            got["checksum"], sink["checksum"], rel_tol=PARITY_TOL["rtol"],
+            abs_tol=PARITY_TOL["atol"]):
+        raise AssertionError(f"reuse-serving card vs cpu: {got} vs {sink} (tol {PARITY_TOL})")
+    log(f"reuse-serving card vs cpu (1 tenant, 1 stage of 2 blocks, d_model {REUSE_D}, batch "
+        f"{REUSE_BATCH}, 3 steps): counts {got['count']} equal, the last batch's max|err| "
+        f"{err:.3g}, checksum {got['checksum']:.6f} vs {sink['checksum']:.6f} (tol "
+        f"{PARITY_TOL}); {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    proc = run_cli(["repro_torch.launch.serve", "--reuse"], timeout=300)
+    lines = proc.stdout.splitlines()
+    if not lines or lines[0] != REUSE_CLI_LINE or len(lines) != REUSE_TENANTS + 1:
+        raise AssertionError(f"python -m repro_torch.launch.serve --reuse printed {lines}")
+    log(f"python -m repro_torch.launch.serve --reuse on the card: {lines[0]!r} (the reference's "
+        f"line), {len(lines) - 1} tenants' digests, {time.perf_counter() - t0:.1f} s")
+    log(f"reuse-serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 # nemotron-4-340b cut in width and depth for the card-vs-CPU check: its head
@@ -2368,9 +2839,10 @@ def main() -> int:
     runs.update(cluster_phase(dev, phase3))
     trace_cli_phase(dev)
     runs.update(frontend_phase(dev))
-    for arch, cut_layers, needed, seeds, bf16_limits, cut_limits in SERVE_PHASES:
+    for arch, cut_layers, needed, seeds, bf16_limits, cut_limits, extra in SERVE_PHASES:
         runs[f"{arch} serving"] = serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits,
-                                              cut_limits)
+                                              cut_limits, **extra)
+    runs["reuse serving"] = reuse_serving_phase(dev)
     nemotron_cut_phase(dev)
     log("launches: " + "; ".join(f"{name} {counts}" for name, counts in runs.items()))
     for k in kernels:

@@ -18,12 +18,22 @@ Model mode (no subcommand; the reference's ``serve_model``):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu
 
-Any architecture of the dense family (granite, nemotron, qwen1.5, qwen3)
-or the hybrid family (zamba2) serves; the others raise. Random weights
-from a seeded ``torch.Generator`` on the serving device, prompts of 4–11
-tokens from ``numpy.random.default_rng(0)``. Without ``--device cpu`` it
-needs a CUDA device and raises when there is none. The reference's
-``--reuse`` mode is not ported yet.
+Any architecture of the dense family (granite, nemotron, qwen1.5, qwen3),
+the moe family without MLA (mixtral) or the hybrid family (zamba2)
+serves; the others raise. Random weights from a seeded
+``torch.Generator`` on the serving device, prompts of 4–11 tokens from
+``numpy.random.default_rng(0)``. Without ``--device cpu`` it needs a CUDA
+device and raises when there is none.
+
+Reuse mode (the reference's ``serve_reuse``): ``--tenants`` LM pipelines
+over the ``urban``/``meter``/``taxi`` request streams through
+:class:`~repro_torch.serve.ReuseServing` on the ``torch`` backend, each
+sharing 3 of 4 backbone stages with the tenants of its stream, run for
+``--ticks`` steps; it prints the reference's ``tenants=... running_tasks=...
+deployed_cost=...`` line and each tenant's sink digests:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reuse --tenants 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --reuse --device cpu
 """
 from __future__ import annotations
 
@@ -65,16 +75,46 @@ def serve_model(args) -> int:
     return 0
 
 
+def serve_reuse(args) -> int:
+    from repro_torch.serve import ReuseServing, TenantPipeline
+
+    rs = ReuseServing(strategy="signature", base_batch=args.slots,
+                      device=serving_device(args.device))
+    for i in range(args.tenants):
+        rs.add_tenant(
+            TenantPipeline(
+                tenant=f"tenant{i}",
+                stream=("urban", "meter", "taxi")[i % 3],
+                shared_stages=3,
+                n_stages=4,
+                d=64,
+                layers_per_stage=4,
+            )
+        )
+    rs.run(args.ticks)
+    s = rs.stats()
+    print(f"tenants={s['tenants']} running_tasks={s['running_tasks']} "
+          f"deployed_cost={s['deployed_cost']:.1f}")
+    for t in list(rs.tenants):
+        print(t, rs.tenant_output(t))
+    rs.system.close()
+    return 0
+
+
 def model_main(argv) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true", help="the reduced config of --arch")
+    ap.add_argument("--reuse", action="store_true", help="multi-tenant reuse-serving")
+    ap.add_argument("--tenants", type=int, default=6)
+    ap.add_argument("--ticks", type=int, default=5)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return serve_model(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    return serve_reuse(args) if args.reuse else serve_model(args)
 
 
 # -- front-end daemon mode -------------------------------------------------------

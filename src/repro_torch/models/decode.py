@@ -1,10 +1,13 @@
-"""Serving path of the dense and hybrid families: cache layouts, prefill
+"""Serving path of the dense, moe and hybrid families: cache layouts, prefill
 (fills the cache, returns last-token logits) and single-token decode (port
-of the dense and hybrid parts of ``repro/models/decode.py``, its default
-``"scan"`` cache layout).
+of the dense, moe and hybrid parts of ``repro/models/decode.py``, its
+default ``"scan"`` cache layout).
 
 The caches keep the reference's layouts, stacked per layer:
   * dense: ``{"len": int, "layers": {"k": (L, B, M, KV, hd), "v": ...}}``;
+  * moe: the same, with the ``first_k_dense`` dense layers' stack first
+    under ``"dense_layers"`` (when there are any) and the MoE layers'
+    under ``"layers"``;
   * hybrid: ``{"len": int, "mamba": {"conv": (L, B, d_conv - 1, di + 2N),
     "h": (L, B, nh, N, P) float32}, "shared": {"k": (L / every, B, M, KV,
     hd), "v": ...}}``, one KV stack entry per application of the shared
@@ -29,7 +32,15 @@ from .attention import attn_out, chunked_attention, gqa_decode, gqa_project_qkv
 from .common import add_norm
 from .config import ModelConfig
 from .ssm import _mamba_seq, mamba_decode, mamba_init_cache
-from .transformer import _dt, _mlp_seam, lm_head, require_supported, run_blocks, run_hybrid
+from .transformer import (
+    _dt,
+    _mlp_seam,
+    block_stacks,
+    lm_head,
+    require_supported,
+    run_blocks,
+    run_hybrid,
+)
 
 PyTree = Any
 
@@ -47,8 +58,11 @@ def init_cache(
     """Empty cache for a serving session of ≤ max_len absolute positions."""
     require_supported(cfg)
     m = _ring(cfg, max_len)
-    if cfg.family == "dense":
-        return {"len": 0, "layers": _kv_stack(cfg, cfg.n_layers, batch, m, device)}
+    if cfg.family in ("dense", "moe"):
+        cache = {"len": 0}
+        for _, key, n in block_stacks(cfg):
+            cache[key] = _kv_stack(cfg, n, batch, m, device)
+        return cache
     one = mamba_init_cache(cfg, batch, _dt(cfg), device)
     cache = {"len": 0, "mamba": {
         k: torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype, device=device)
@@ -105,7 +119,9 @@ def _gqa_prefill_layer(bp, h, a_in, positions, cfg, cl, next_norm, last_only: bo
     _write(cfg, cl["k"], k)
     _write(cfg, cl["v"], v)
     y = attn_out(out, bp["attn"]["wo"])
-    if last_only:  # nothing after the last layer reads the other positions
+    # nothing after the last layer reads the other positions; an MoE layer
+    # still routes them all, since they compete for its experts' capacity
+    if last_only and "moe" not in bp:
         y, h = y[:, -1:], h[:, -1:]
     m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
     return _mlp_seam(bp, h, m_in, cfg, next_norm)
@@ -114,6 +130,16 @@ def _gqa_prefill_layer(bp, h, a_in, positions, cfg, cl, next_norm, last_only: bo
 def _cache_layer(cache: PyTree, i: int, stack: str = "layers") -> Dict[str, torch.Tensor]:
     """Layer ``i`` of one of the cache's stacks, as views."""
     return {k: t[i] for k, t in cache[stack].items()}
+
+
+def _block_cache(cache: PyTree, cfg: ModelConfig, i: int) -> Dict[str, torch.Tensor]:
+    """The cache layer of attention block ``i``, counted over every stack of
+    :func:`~repro_torch.models.transformer.block_stacks`."""
+    for _, key, n in block_stacks(cfg):
+        if i < n:
+            return _cache_layer(cache, i, key)
+        i -= n
+    raise IndexError(f"block {i} past the last layer")
 
 
 # ==================================================== hybrid-family prefill
@@ -156,7 +182,8 @@ def prefill(
         _, normed = run_blocks(
             params, cfg, h,
             lambda i, bp, h, a_in, nxt: _gqa_prefill_layer(
-                bp, h, a_in, positions, cfg, _cache_layer(cache, i), nxt, last_only=i == last),
+                bp, h, a_in, positions, cfg, _block_cache(cache, cfg, i), nxt,
+                last_only=i == last),
         )
     cache["len"] = S
     return (normed[:, -1:] @ lm_head(params, cfg))[:, 0], cache
@@ -186,7 +213,8 @@ def decode_step(
     else:
         _, normed = run_blocks(
             params, cfg, h,
-            lambda i, bp, h, a_in, nxt: attn_mlp(bp, h, a_in, nxt, _cache_layer(cache, i)),
+            lambda i, bp, h, a_in, nxt: attn_mlp(bp, h, a_in, nxt,
+                                                 _block_cache(cache, cfg, i)),
         )
     cache["len"] = pos + 1
     return (normed @ lm_head(params, cfg))[:, 0], cache

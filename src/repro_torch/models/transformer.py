@@ -1,5 +1,5 @@
-"""Model assembly for the dense and hybrid families: parameter init and the
-teacher-forcing forward (port of the dense and hybrid parts of
+"""Model assembly for the dense, moe and hybrid families: parameter init and
+the teacher-forcing forward (port of the dense, moe and hybrid parts of
 ``repro/models/transformer.py``).
 
 Parameters are a plain dictionary of tensors in the reference's layout:
@@ -13,8 +13,11 @@ eagerly; there is no ``scan`` to lower).
 Each residual seam is one K4 pass: in a dense block ``h + attn`` feeds the
 MLP norm, and ``h + mlp`` feeds the next layer's attention norm (the final
 norm after the last layer); only layer 0's attention norm is a K1 pass of
-its own. The hybrid family (zamba2) runs Mamba2 layers, ``h + mixer(norm(
-h))``, with the shared attention + MLP block after every
+its own. The moe family (mixtral; deepseek-v2's layout without MLA) runs
+the same blocks with ``moe_layer`` in place of the MLP from layer
+``first_k_dense`` on (``dense_blocks`` then ``blocks``). The hybrid family
+(zamba2) runs Mamba2 layers, ``h + mixer(norm(h))``, with the shared
+attention + MLP block after every
 ``shared_attn_every``-th: each ``h + mixer`` seam feeds the next Mamba
 norm, the shared block's attention norm or the final norm, and the shared
 block's own two seams are a dense block's; K1 runs the first Mamba norm
@@ -23,32 +26,38 @@ block's own two seams are a dense block's; K1 runs the first Mamba norm
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .attention import gqa_attention, gqa_params
 from .common import add_norm, apply_norm, dense_init, embed_init, norm_params
 from .config import ModelConfig
-from .mlp import mlp, mlp_params
+from .mlp import mlp, mlp_params, moe_layer, moe_params
 from .ssm import mamba_block, mamba_params
 
 PyTree = Any
 
-# the slice of the port (ROADMAP) that brings each family the port lacks
+# the slice of the port (ROADMAP queue 1) that brings each family or
+# feature the port lacks
 FAMILY_SLICE = {
-    "moe": "the moe/MLA slice (mixtral, deepseek-v2)",
-    "vlm": "the vlm slice (llama-3.2-vision cross-attention)",
-    "audio": "the audio slice (seamless encoder-decoder)",
-    "ssm": "the ssm slice (xlstm)",
+    "mla": "the MLA slice (deepseek-v2, ROADMAP item 14)",
+    "vlm": "the vlm slice (llama-3.2-vision cross-attention, ROADMAP item 15)",
+    "audio": "the audio slice (seamless encoder-decoder, ROADMAP item 16)",
+    "ssm": "the ssm slice (xlstm, ROADMAP item 17)",
 }
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family == "moe" and cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the moe family with grouped-query attention; "
+            f"multi-head latent attention comes with {FAMILY_SLICE['mla']}"
+        )
+    if cfg.family not in ("dense", "moe", "hybrid"):
         slice_ = FAMILY_SLICE.get(cfg.family, "a later slice")
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and hybrid families only; family "
+            f"{cfg.name}: the port runs the dense, moe and hybrid families only; family "
             f"{cfg.family!r} comes with {slice_}"
         )
 
@@ -78,6 +87,11 @@ def init_params(
         params["head"] = dense_init(generator, (D, V), dtype)
     if cfg.family == "dense":
         params["blocks"] = _dense_layers(generator, cfg, dtype, L)
+    elif cfg.family == "moe":
+        k = cfg.moe.first_k_dense
+        if k:
+            params["dense_blocks"] = _dense_layers(generator, cfg, dtype, k, cfg.moe.dense_ff)
+        params["blocks"] = _moe_layers(generator, cfg, dtype, L - k)
     else:
         params["mamba_blocks"] = {
             "norm": norm_params(cfg.norm, (L, D), dtype, dev),
@@ -91,14 +105,28 @@ def init_params(
     return params
 
 
-def _dense_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int) -> PyTree:
+def _dense_layers(
+    gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int,
+    d_ff: Optional[int] = None,
+) -> PyTree:
     """``n`` attn + MLP layers' weights, stacked on a leading axis."""
     D = cfg.d_model
     return {
         "attn_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
         "attn": gqa_params(gen, cfg, dtype, n),
         "mlp_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
-        "mlp": mlp_params(gen, D, cfg.d_ff, cfg.activation, dtype, n),
+        "mlp": mlp_params(gen, D, d_ff or cfg.d_ff, cfg.activation, dtype, n),
+    }
+
+
+def _moe_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int) -> PyTree:
+    """``n`` attn + MoE layers' weights, stacked on a leading axis."""
+    D = cfg.d_model
+    return {
+        "attn_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
+        "attn": gqa_params(gen, cfg, dtype, n),
+        "mlp_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
+        "moe": moe_params(gen, cfg, dtype, n),
     }
 
 
@@ -137,16 +165,29 @@ def _dense_block(
 
 
 def _mlp_seam(bp, h, m_in, cfg: ModelConfig, next_norm):
-    """h + mlp(m_in), normed for what comes next: returns (h, normed)."""
-    y = mlp(bp["mlp"], m_in, cfg.activation)
+    """h + mlp(m_in) (``moe_layer`` in an MoE block), normed for what comes
+    next: returns (h, normed)."""
+    if "moe" in bp:
+        y = moe_layer(bp["moe"], m_in, cfg)
+    else:
+        y = mlp(bp["mlp"], m_in, cfg.activation)
     normed, h = add_norm(y, h, next_norm, cfg.norm)
     return h, normed
 
 
+def block_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
+    """The stacks of attention blocks in order, as (params key, cache key,
+    layers): an moe model's ``first_k_dense`` dense blocks come first."""
+    k = cfg.moe.first_k_dense if cfg.family == "moe" else 0
+    stacks = [("dense_blocks", "dense_layers", k)] if k else []
+    return stacks + [("blocks", "layers", cfg.n_layers - k)]
+
+
 def run_blocks(params: PyTree, cfg: ModelConfig, h: torch.Tensor, layer_fn):
     """Drive ``layer_fn(i, bp, h, a_in, next_norm) -> (h, a_in)`` over the
-    layers; returns the stream and its final-normed version."""
-    blocks = layers(params["blocks"], cfg.n_layers)
+    layers (``i`` counts every stack of :func:`block_stacks`); returns the
+    stream and its final-normed version."""
+    blocks = [bp for key, _, n in block_stacks(cfg) for bp in layers(params[key], n)]
     a_in = apply_norm(h, blocks[0]["attn_norm"], cfg.norm)
     for i, bp in enumerate(blocks):
         nxt = blocks[i + 1]["attn_norm"] if i + 1 < len(blocks) else params["final_norm"]

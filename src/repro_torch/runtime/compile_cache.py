@@ -29,9 +29,14 @@ Where the reference's artifact is a traced XLA executable, the port's is
 the canonical torch step; on the card each segment captures that step into
 CUDA graphs of its own (:mod:`repro_torch.runtime.graphs`), because a graph
 bakes in the addresses of one segment's buffers. A cache belongs to one
-backend, and so to one device. A miss is traced as the reference's
-``compile_miss`` span (category ``compile``) when the owning backend's
-tracer is on.
+backend and serves every device that backend places segments on, as the
+reference's one cache serves every device of its ``sharded`` backend: the
+counters count a structure once for all devices. Beneath each key the
+cache keeps one canonical step per device, because a step's operators hold
+tensors of their device; building a known structure on another device
+counts as the hit it is in the reference. A miss is traced as the
+reference's ``compile_miss`` span (category ``compile``) when the owning
+backend's tracer is on.
 
 The cache takes no lock: segments are built only by ``deploy``, which runs
 between steps on the caller's thread, never on a dispatch thread of
@@ -174,13 +179,16 @@ class _RenamedStepFn:
 
 
 class CompileCache:
-    """LRU cache of canonical segment steps on one device.
+    """LRU cache of canonical segment steps, keyed by structure.
 
-    ``capacity`` bounds the number of distinct structures held; eviction
-    is least-recently-used (the evicted step stays alive only while
-    segments still reference it). Counters are cumulative for the cache's
-    lifetime — ``stats()`` is the surface ``session.stats()`` aggregates,
-    with the reference's keys.
+    ``device`` is where segments are built unless :meth:`step_fn_for` is
+    given another; each key holds one canonical step per device it was
+    built on. ``capacity`` bounds the number of distinct structures held;
+    eviction is least-recently-used and drops the structure on every
+    device (an evicted step stays alive only while segments still
+    reference it). Counters are cumulative for the cache's lifetime —
+    ``stats()`` is the surface ``session.stats()`` aggregates, with the
+    reference's keys.
     """
 
     def __init__(self, device: torch.device | str, capacity: int = 128):
@@ -188,7 +196,7 @@ class CompileCache:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.device = torch.device(device)
         self.capacity = int(capacity)
-        self._entries: "OrderedDict[str, _Canonical]" = OrderedDict()
+        self._entries: "OrderedDict[str, Dict[torch.device, _Canonical]]" = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -207,32 +215,49 @@ class CompileCache:
             "entries": len(self._entries),
         }
 
-    def step_fn_for(self, spec: SegmentSpec, dataflow: Dataflow) -> _RenamedStepFn:
-        """The (shared, canonical) step function for a spec, adapter-wrapped.
+    def step_fn_for(
+        self,
+        spec: SegmentSpec,
+        dataflow: Dataflow,
+        device: Optional[torch.device | str] = None,
+        count: bool = True,
+    ) -> _RenamedStepFn:
+        """The (shared, canonical) step function for a spec on ``device``
+        (default the cache's), adapter-wrapped.
 
-        On a miss the canonical twin is built uncached on the cache's
-        device; its step function and operators are the cached artifact.
+        A structure the cache holds is a hit, on whichever device it was
+        built; a new one is a miss. The canonical twin is built uncached
+        on ``device`` where that device has none yet. ``count=False`` (a
+        segment moved to another device, which the reference's cache never
+        sees) counts nothing, leaves the LRU order alone, and adds no
+        structure the cache does not hold.
         """
+        device = self.device if device is None else torch.device(device)
         key = structural_signature(spec, dataflow)
-        canon = self._entries.get(key)
+        per_device = self._entries.get(key)
         canon_spec, canon_df, tid_map, ext_map = _canonicalize(spec, dataflow)
-        if canon is not None:
-            self.hits += 1
-            self._entries.move_to_end(key)
-        else:
-            self.misses += 1
+        if count:
+            if per_device is not None:
+                self.hits += 1
+                self._entries.move_to_end(key)
+            else:
+                self.misses += 1
+                per_device = self._entries[key] = {}
+                if len(self._entries) > self.capacity:
+                    self._entries.popitem(last=False)
+                    self.evictions += 1
+        canon = per_device.get(device) if per_device is not None else None
+        if canon is None:
             tracer = self.tracer
-            if tracer is not None and tracer.enabled:
+            if count and tracer is not None and tracer.enabled and not per_device:
                 with tracer.span("compile_miss", "compile", signature=key[:12],
                                  tasks=len(spec.task_ids), fused=bool(spec.fused)):
-                    seg = build_segment(canon_spec, canon_df, device=self.device)
+                    seg = build_segment(canon_spec, canon_df, device=device)
             else:
-                seg = build_segment(canon_spec, canon_df, device=self.device)
+                seg = build_segment(canon_spec, canon_df, device=device)
             canon = _Canonical(seg.step_fn, seg.operators, seg.fused_runs)
-            self._entries[key] = canon
-            if len(self._entries) > self.capacity:
-                self._entries.popitem(last=False)
-                self.evictions += 1
+            if per_device is not None:
+                per_device[device] = canon
         topic_map = {topic_for(p): topic_for(c) for p, c in ext_map.items()}
         return _RenamedStepFn(canon, tid_map, topic_map)
 

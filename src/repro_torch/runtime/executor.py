@@ -103,11 +103,10 @@ class TorchBackend(ExecutionBackend):
         # numpy arrays (shm, tcp); None for the in-process broker
         self._staging: Optional[Dict[str, HostStaging]] = (
             None if isinstance(self.transport, Broker) else {})
+        # one step cache for every device the backend builds segments on
+        # (a placed backend's too), as the reference's
         self.compile_cache = CompileCache(self.device)
         self.compile_cache.tracer = self.tracer
-        # one step cache per device (a placed backend's other devices add
-        # theirs as segments land there)
-        self._caches: Dict[torch.device, CompileCache] = {self.device: self.compile_cache}
         self.capture = bool(capture) and self.device.type == "cuda"
         self.capture_stats = CaptureStats()
         # per device: the stream graphs are captured on, and the streams a
@@ -140,12 +139,10 @@ class TorchBackend(ExecutionBackend):
         dataflow: Dataflow,
         init_states: Optional[Dict[str, PyTree]],
         device: torch.device,
+        count: bool = True,
     ) -> Segment:
-        cache = self._caches.get(device)
-        if cache is None:
-            cache = self._caches[device] = CompileCache(device)
-            cache.tracer = self.tracer
-        seg = build_segment(spec, dataflow, init_states=init_states, cache=cache, device=device)
+        seg = build_segment(spec, dataflow, init_states=init_states, cache=self.compile_cache,
+                            device=device, count=count)
         if self.capture:
             seg.graphs = CapturedStep(self._capture_stream(device), self.capture_stats)
         return seg
@@ -159,12 +156,6 @@ class TorchBackend(ExecutionBackend):
         if stream is None:
             stream = self._capture_streams[device] = torch.cuda.Stream(device)
         return stream
-
-    def compile_cache_stats(self) -> Dict[str, int]:
-        """The reference's four counters, summed over the devices' caches
-        (one cache where every segment is on one device)."""
-        stats = [cache.stats() for cache in self._caches.values()]
-        return {k: sum(st[k] for st in stats) for k in stats[0]}
 
     def kill(self, segment_name: str) -> None:
         seg = self.segments[segment_name]

@@ -142,15 +142,21 @@ def _peephole_fused_kernels(
     return runs
 
 
-def _output_shape(task, batch: int) -> Tuple[Tuple[int, ...], torch.dtype]:
-    """Shape and dtype of a task's output batch, from a ``meta``-device run.
+def _output_shape(
+    task, batch: int, x_shape: Tuple[int, ...], dtype: torch.dtype
+) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """Shape and dtype of a task's output batch for an input of ``x_shape``
+    and ``dtype``, from a ``meta``-device run (the reference's
+    ``jax.eval_shape`` of the operator on its real input).
 
-    Operators may change the event width, so a paused task's zeros take the
-    operator's output shape, not its input's. Meta tensors carry shapes
-    only: the probe computes nothing and launches no kernel.
+    Operators may change the event width (``lm_embed`` lifts (B, 8) to (B,
+    d), and the stages after it take (B, d)), so a paused task's zeros take
+    the operator's output shape for the input it would have been given.
+    Meta tensors carry shapes only: the probe computes nothing and launches
+    no kernel.
     """
     op = operator_for_task(task, batch=batch, device="meta")
-    x = torch.empty((batch, EVENT_WIDTH), dtype=torch.float32, device="meta")
+    x = torch.empty(x_shape, dtype=dtype, device="meta")
     _, y = op.apply(op.init_state(batch), x)
     return tuple(y.shape), y.dtype
 
@@ -162,20 +168,20 @@ def build_segment(
     cache: Any = None,
     *,
     device: torch.device | str,
+    count: bool = True,
 ) -> Segment:
     """Build a segment: its operators on ``device`` and one step function.
 
-    With a ``cache`` (a :class:`repro_torch.runtime.compile_cache.CompileCache`
-    on the same device), the step function and operators are looked up by
-    the spec's structural signature: a structurally identical segment built
-    earlier shares them, and this segment steps through the cache's
-    renaming adapter.
+    With a ``cache`` (a :class:`repro_torch.runtime.compile_cache.CompileCache`),
+    the step function and operators are looked up by the spec's structural
+    signature: a structurally identical segment built earlier on ``device``
+    shares them, and this segment steps through the cache's renaming
+    adapter. ``count=False`` keeps the lookup out of the cache's counters
+    (a segment moved to another device).
     """
     device = torch.device(device)
     if cache is not None:
-        if cache.device != device:
-            raise ValueError(f"the compile cache is on {cache.device}, the segment on {device}")
-        step_fn = cache.step_fn_for(spec, dataflow)
+        step_fn = cache.step_fn_for(spec, dataflow, device=device, count=count)
         operators, fused_runs = step_fn.operators, step_fn.fused_runs
     else:
         operators, step_fn, fused_runs = _compile(spec, dataflow, device)
@@ -218,11 +224,22 @@ def _compile(
     task_ids = list(spec.task_ids)
     parents = {t: list(spec.parents[t]) for t in task_ids}
     batch_of = dict(spec.batch_of)
-    out_shape = {
-        tid: _output_shape(dataflow.tasks[tid], batch_of[tid])
-        for tid in task_ids
-        if not (operators[tid].is_source or operators[tid].is_sink)
-    }
+    # (task, input shape, dtype) -> the task's output shape and dtype, noted
+    # at its live steps; a paused task's zeros take it. Only a task paused
+    # before it ever stepped live is probed (on the meta device), which a
+    # segment's first, eager step does: never inside a CUDA-graph capture.
+    Shape = Tuple[Tuple[int, ...], torch.dtype]
+    out_shape: Dict[Tuple[str, Tuple[int, ...], torch.dtype], Shape] = {}
+
+    def shape_key(tid: str, xs: List[torch.Tensor]):
+        return tid, (sum(x.shape[0] for x in xs), *xs[0].shape[1:]), xs[0].dtype
+
+    def paused_output(tid: str, xs: List[torch.Tensor]) -> torch.Tensor:
+        key = shape_key(tid, xs)
+        if key not in out_shape:
+            out_shape[key] = _output_shape(dataflow.tasks[tid], batch_of[tid], *key[1:])
+        shape, dtype = out_shape[key]
+        return torch.zeros(shape, dtype=dtype, device=device)
     fused_runs = _peephole_fused_kernels(spec, dataflow, operators, parents, device=device)
 
     def step_fn(
@@ -241,14 +258,16 @@ def _compile(
                     if op.is_source:
                         y = torch.zeros((batch_of[tid], EVENT_WIDTH), dtype=torch.float32, device=device)
                     elif not op.is_sink:
-                        shape, dtype = out_shape[tid]
-                        y = torch.zeros(shape, dtype=dtype, device=device)
+                        y = paused_output(tid, [outputs[p] if p in outputs
+                                                else inputs[topic_for(p)] for p in parents[tid]])
                 elif op.is_source:
                     st2, y = op.apply(st)
                 else:
                     xs = [outputs[p] if p in outputs else inputs[topic_for(p)] for p in parents[tid]]
                     x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
                     st2, y = op.apply(st, x)
+                    if y is not None:
+                        out_shape.setdefault(shape_key(tid, xs), (tuple(y.shape), y.dtype))
             except Exception as err:
                 # the position names the task under any renaming (a cached
                 # step runs under canonical ids): graphs.py reports it

@@ -18,10 +18,11 @@ every CUDA device of the machine; the tests pass ``devices=["cpu"] * 3``,
 as the reference's pass its one host device three times. Slots may name
 one device more than once. Where two slots share a device, a move between
 them keeps the segment as it is; a move to another device carries the
-states over and rebuilds the segment's step there, from that device's
-step cache (a first structure there is a cache miss), and drops its
-captured graphs, whose static buffers live at fixed addresses of the old
-device — the next step runs eager and captures anew.
+states over and rebuilds the segment's step there, from the backend's one
+step cache (its canonical step on that device; the move counts nothing,
+as the reference's ``device_put`` of the states counts nothing), and
+drops its captured graphs, whose static buffers live at fixed addresses
+of the old device — the next step runs eager and captures anew.
 """
 from __future__ import annotations
 
@@ -101,7 +102,7 @@ class ShardedBackend(PlacedBackendMixin, TorchBackend):
         for tid in seg.spec.task_ids:
             df.add_task(self.task_defs[tid])
         states = map_leaves(lambda t: t.to(device), seg.states)
-        moved = self._build_on(seg.spec, df, states, device)
+        moved = self._build_on(seg.spec, df, states, device, count=False)
         if seg.graphs is not None:
             seg.graphs.release()
         seg.operators, seg.step_fn, seg.states = moved.operators, moved.step_fn, moved.states

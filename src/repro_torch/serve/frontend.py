@@ -267,6 +267,9 @@ class ServeFrontend:
         # set by the conn loop once a SHUTDOWN reply is on the wire, so the
         # stop thread doesn't close the socket under the in-flight response
         self._stop_ack: Optional[threading.Event] = None
+        # one stop() at a time: the SHUTDOWN helper's and a close() that
+        # serve_forever()'s return set off
+        self._stop_lock = threading.Lock()
 
     # -- quota / ledger helpers ------------------------------------------------
     def quota_for(self, tenant: str) -> TenantQuota:
@@ -849,14 +852,25 @@ class ServeFrontend:
         return host, port
 
     def serve_forever(self) -> None:
-        """Block until a shutdown request (or :meth:`stop`) arrives."""
+        """Block until a shutdown request (or :meth:`stop`) arrives.
+
+        After a SHUTDOWN request this returns only once the reply is on the
+        wire: a helper thread waits for the connection's thread to send it
+        (at most 2 s), then runs :meth:`stop`, which sets the event this
+        waits on. A caller's :meth:`close` after the return (the daemon's)
+        waits for that :meth:`stop` and finds the server stopped."""
         if self._sock is None:
             self.start()
         self._shutdown_event.wait()
 
     def stop(self) -> None:
         """Close the listener and all live connections; joins the accept
-        thread. Idempotent."""
+        thread. Idempotent, and one caller at a time: a second caller
+        waits for the first to finish."""
+        with self._stop_lock:
+            self._stop()
+
+    def _stop(self) -> None:
         self.stop_metrics_http()
         if self._sock is None:
             return
@@ -972,7 +986,9 @@ class ServeFrontend:
             # Stop from a helper thread, but only after the conn loop has
             # flushed this response (it sets _stop_ack) — otherwise stop()
             # can close the socket under the reply and the client sees
-            # ConnectionError instead of {"ok": true}.
+            # ConnectionError instead of {"ok": true}. The shutdown event
+            # is set by that stop(), not here: serve_forever() returning
+            # early would let its caller's close() race the reply too.
             ack = threading.Event()
             self._stop_ack = ack
 
@@ -981,6 +997,5 @@ class ServeFrontend:
                 self.stop()
 
             threading.Thread(target=_stop_after_reply, daemon=True).start()
-            self._shutdown_event.set()
             return out
         raise DataflowError(f"unknown op {op!r} (expected one of {sorted(protocol.VERBS)})")

@@ -243,12 +243,21 @@ def test_lru_eviction_at_capacity_one():
 
 
 def test_a_cache_serves_one_device():
+    """Each device gets a canonical step of its own beneath one structural
+    key, counted once, as the reference's one cache counts a structure for
+    every device; an uncounted build (a move) counts nothing."""
     df = Dataflow("d")
     df.add_task(Task.make("t", "kalman", {"q": 0.1}))
     spec = SegmentSpec(name="s", dag_name="d", task_ids=["t"], parents={"t": ["x"]},
                        publish=set(), batch_of={"t": 8})
-    with pytest.raises(ValueError, match="compile cache is on meta"):
-        build_segment(spec, df, cache=CompileCache("meta"), device="cpu")
+    cache = CompileCache("meta")
+    on_meta = build_segment(spec, df, cache=cache, device="meta")
+    on_cpu = build_segment(spec, df, cache=cache, device="cpu")
+    again = build_segment(spec, df, cache=cache, device="cpu", count=False)
+    assert cache.stats() == {"hits": 1, "misses": 1, "evictions": 0, "entries": 1}
+    assert on_meta.step_fn._fn is not on_cpu.step_fn._fn
+    assert again.step_fn._fn is on_cpu.step_fn._fn
+    assert on_cpu.states["t"]["p"].device.type == "cpu"
 
 
 def test_session_stats_surface():

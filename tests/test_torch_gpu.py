@@ -1280,3 +1280,141 @@ def test_supervised_pool_on_the_card_survives_a_kill_bitwise(cuda, snapshot_mode
             assert backend.respawns and WORKER_RESPAWNED in [e.kind for e in backend.worker_events]
         system.close()
     assert runs[True] == runs[False]
+
+
+# -- the moe family and LM reuse-serving on the card -------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_at_mixtrals_layout_with_a_window_that_masks(cuda, dtype):
+    # mixtral-8x22b's heads (48 over 8 KV heads of 128: a GQA group of 6)
+    # with a window of 1024, which masks at a prompt of 2048 and a cache
+    # holding 3000 (mixtral's own 4096 window never bites at 2048)
+    g = torch.Generator().manual_seed(11)
+    q = _randn(g, (1, 2048, 48, 128), cuda, dtype)
+    k, v = _randn(g, (1, 2048, 8, 128), cuda, dtype), _randn(g, (1, 2048, 8, 128), cuda, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=1024)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=1024)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+    q1 = _randn(g, (1, 1, 48, 128), cuda, dtype)
+    kc = _randn(g, (2, 1, 4096, 8, 128), cuda, dtype)[1]
+    vc = _randn(g, (2, 1, 4096, 8, 128), cuda, dtype)[1]
+    got = decode_attention.decode_attention(q1, kc, vc, 3000, window=1024)
+    want = ref.decode_attention_ref(q1, kc, vc, 3000, window=1024)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+def _moe_cfg():
+    from repro_torch import configs
+    from repro_torch.models import MoEConfig
+
+    return configs.get_smoke_config("mixtral-8x22b").replace(
+        d_model=256, n_heads=8, n_kv_heads=2,
+        moe=MoEConfig(num_experts=8, top_k=2, expert_ff=512, capacity_factor=1.25))
+
+
+@pytest.mark.gpu
+def test_moe_layer_on_the_card_matches_cpu_with_drops(cuda):
+    from repro_torch.models import mlp
+    from repro_torch.models.transformer import tree_map
+
+    cfg = _moe_cfg()
+    g = torch.Generator().manual_seed(5)
+    p = tree_map(lambda t: t[0], mlp.moe_params(g, cfg, torch.float32, 1))
+    # inputs and a router that send most tokens to experts 0 and 1, so the
+    # capacity of C = 2·T/8·1.25 slots drops tokens
+    v = torch.randn((cfg.d_model,), generator=g)
+    v /= v.norm()
+    x = torch.randn((2, 96, cfg.d_model), generator=g) + 2.0 * v
+    p["router"][:, 0] += 4.0 * v
+    p["router"][:, 1] += 3.2 * v
+    on_card = tree_map(lambda t: t.to(cuda), p)
+    want = mlp.moe_layer(p, x, cfg)
+    got = mlp.moe_layer(on_card, x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    routes = {}
+    for name, params, xs in (("cpu", p, x), ("cuda", on_card, x.to(cuda))):
+        _, _, idx = mlp._route(params, xs.reshape(-1, cfg.d_model), cfg.moe.top_k)
+        routes[name] = (idx.cpu(), mlp.dispatch(cfg, idx)[1].cpu())
+    assert torch.equal(routes["cpu"][0], routes["cuda"][0])
+    assert torch.equal(routes["cpu"][1], routes["cuda"][1]) and not routes["cpu"][1].all()
+
+
+@pytest.mark.gpu
+def test_moe_serving_path_on_the_card_matches_cpu(cuda):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    cfg = _moe_cfg().replace(swa_window=16)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    caches = {"cpu": init_cache(cfg, 1, 64), "cuda": init_cache(cfg, 1, 64, device=cuda)}
+    want, _ = prefill(params, cfg, toks, caches["cpu"])
+    got, _ = prefill(on_card, cfg, toks.to(cuda), caches["cuda"])
+    for _ in range(3):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok = want.argmax(-1)[:, None]
+        want, _ = decode_step(params, cfg, tok, caches["cpu"])
+        got, _ = decode_step(on_card, cfg, tok.to(cuda), caches["cuda"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    counts = launch_counts()
+    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention"):
+        assert counts[name] > 0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("type_name,cfg,width", [
+    ("lm_embed", {"model": "m", "d": 256}, 8),
+    ("lm_stage", {"model": "m", "layers": "0-3", "d": 256}, 256),
+    ("lm_head", {"model": "m", "adapter": "a", "d": 256}, 256),
+])
+def test_lm_operators_on_the_card_match_cpu(cuda, type_name, cfg, width):
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.ops.base import make_operator
+    from repro_torch.serve import model_ops  # noqa: F401 — registers the lm_* types
+
+    x = torch.randn((64, width), generator=torch.Generator().manual_seed(6))
+    ops = {d: make_operator(type_name, cfg, d) for d in ("cpu", cuda)}
+    assert ops[cuda].type == type_name
+    reset_launch_counts()
+    _, got = ops[cuda].apply((), x.to(cuda))
+    _, want = ops["cpu"].apply((), x)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    counts = launch_counts()
+    assert counts["rmsnorm"] > 0
+    if type_name != "lm_embed":  # the residual adds that feed a norm run K4
+        assert counts["rmsnorm_residual"] == (3 if type_name == "lm_stage" else 1)
+
+
+@pytest.mark.gpu
+def test_reuse_serving_on_the_card_is_bitwise_across_strategies(cuda):
+    from repro_torch.serve import ReuseServing, TenantPipeline
+
+    runs = {}
+    for strategy in ("none", "signature"):
+        rs = ReuseServing(strategy=strategy, base_batch=32, device=cuda)
+        for i in range(4):
+            rs.add_tenant(TenantPipeline(tenant=f"t{i}", stream=("urban", "meter")[i % 2],
+                                         shared_stages=2, n_stages=3, d=256,
+                                         layers_per_stage=2))
+        rs.run(3)
+        rs.remove_tenant("t1")
+        rs.run(2)
+        runs[strategy] = {t: rs.tenant_output(t) for t in sorted(rs.tenants)}
+        rs.system.close()
+    assert runs["none"] == runs["signature"]
+    cpu = ReuseServing(strategy="signature", base_batch=32, device="cpu")
+    for i in range(4):
+        cpu.add_tenant(TenantPipeline(tenant=f"t{i}", stream=("urban", "meter")[i % 2],
+                                      shared_stages=2, n_stages=3, d=256, layers_per_stage=2))
+    cpu.run(3)
+    cpu.remove_tenant("t1")
+    cpu.run(2)
+    for t, sinks in runs["signature"].items():
+        for sink, dg in cpu.tenant_output(t).items():
+            assert sinks[sink]["count"] == dg["count"]
+            assert abs(sinks[sink]["checksum"] - dg["checksum"]) <= 1e-4 * max(1.0, abs(dg["checksum"]))
+    cpu.system.close()

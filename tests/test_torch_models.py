@@ -32,8 +32,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 STATE_REL = 2e-5
 DENSE = ["granite_20b", "nemotron_4_340b", "qwen15_110b", "qwen3_4b"]
 SERVED = DENSE + ["zamba2_2_7b"]
-OTHER = ["deepseek_v2_236b", "mixtral_8x22b", "llama32_vision_90b", "xlstm_1_3b",
-         "seamless_m4t_medium"]
+# the families the port does not run yet (deepseek-v2: its MLA); mixtral
+# runs since the moe slice (tests/test_torch_moe.py)
+OTHER = ["deepseek_v2_236b", "llama32_vision_90b", "xlstm_1_3b", "seamless_m4t_medium"]
 
 
 def _configs(arch, swa=0):

@@ -114,7 +114,7 @@ def test_engine_temperature_sampling_runs_in_range():
     assert all(0 <= t < tcfg.padded_vocab for toks in a.values() for t in toks)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b", "mixtral-8x22b"])
 def test_serve_cli_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(

@@ -11,8 +11,9 @@ the port's ``torch`` backend and the reference's ``ShardedBackend``:
     ``device_of`` carried), sticky placement re-pinning every segment;
   * an injected straggler moves to the other slot (``ewma_aware``) and the
     digests stay bitwise; a move to another device (``cpu`` and ``cpu:0``
-    are two devices to torch) rebuilds the segment's step there, from that
-    device's cache, digests unchanged;
+    are two devices to torch) rebuilds the segment's step there, digests
+    unchanged; across the two devices the one step cache counts what the
+    reference's counts, a move included (nothing);
   * without ``devices=`` and without a card the backend raises.
 """
 from __future__ import annotations
@@ -225,22 +226,49 @@ def test_injected_straggler_migrates_and_keeps_the_digests(step_mode):
     assert got == want
 
 
+def _ref_chains(strategy, qs, steps=3, move=False):
+    """The reference's ``sharded`` over two slots of its host device: the
+    chains submitted, ``steps`` steps, optionally slot 0's first segment
+    moved to slot 1 and 5 more steps; its cache counters after each part."""
+    cpu = jax.devices()[0]
+    be = RefSharded(devices=[cpu, cpu])
+    system = RefSystem(strategy=strategy, backend=be, base_batch=BATCH)
+    for i, q in enumerate(qs):
+        system.submit(_chain(ref_flow, f"S{i}", q))
+    system.run(steps)
+    stats = [be.compile_cache_stats()]
+    if move:
+        name = next(n for n, slot in be.device_of.items() if slot == 0)
+        be._move_segment(be.segments[name], 0, 1)
+        be.device_of[name] = 1
+        stats.append(be.compile_cache_stats())
+        system.run(5)
+        stats.append(be.compile_cache_stats())
+    system.close()
+    return stats
+
+
 def test_a_move_to_another_device_rebuilds_the_segment_there():
     want, _ = _run_straggler(resolve_backend("torch", device="cpu"), slow=False)
+    ref_stats = _ref_chains("signature", [float(i) for i in range(4)], move=True)
     be = ShardedBackend(devices=["cpu", "cpu:0"])
     system = StreamSystem(strategy="signature", backend=be, base_batch=BATCH)
     for i in range(4):
         system.submit(_chain(flow, f"S{i}", float(i)))
     system.run(3)
+    stats = [be.compile_cache_stats()]
     name = next(n for n, slot in be.device_of.items() if slot == 0)
     seg = be.segments[name]
     step_before = seg.step_fn
-    misses = be._caches[torch.device("cpu:0")].stats()["misses"]
     be._move_segment(seg, 0, 1)
     be.device_of[name] = 1
     assert seg.step_fn is not step_before
-    assert be._caches[torch.device("cpu:0")].stats()["misses"] >= misses
+    stats.append(be.compile_cache_stats())
     system.run(5)
+    stats.append(be.compile_cache_stats())
+    # one cache for both devices, counted as the reference's: the move
+    # counts nothing
+    assert stats == ref_stats
     assert _digests(system) == want
     # between two slots of one device nothing is rebuilt
     same = ShardedBackend(devices=["cpu", "cpu"])
@@ -252,3 +280,29 @@ def test_a_move_to_another_device_rebuilds_the_segment_there():
     assert seg.step_fn is fn
     system.close()
     s2.close()
+
+
+def test_a_structure_built_on_another_device_is_a_hit():
+    """Two copies of one chain (strategy "none") land on ``cpu`` and
+    ``cpu:0``: a miss, then a hit, as in the reference's one cache; each
+    device steps its own canonical operators."""
+    qs = [0.5, 0.5, 2.0]
+    ref_stats = _ref_chains("none", qs)
+    be = ShardedBackend(devices=["cpu", "cpu:0"])
+    system = StreamSystem(strategy="none", backend=be, base_batch=BATCH)
+    for i, q in enumerate(qs):
+        system.submit(_chain(flow, f"S{i}", q))
+    system.run(3)
+    assert [be.compile_cache_stats()] == ref_stats
+    assert sorted(set(be.device_of.values())) == [0, 1]
+    twins = [be.segments[n] for n in sorted(be.segments)[:2]]  # S0's and S1's
+    assert [be.device_of[seg.spec.name] for seg in twins] == [0, 1]
+    assert twins[0].step_fn._fn is not twins[1].step_fn._fn
+    want = StreamSystem(strategy="none", backend=resolve_backend("torch", device="cpu"),
+                        base_batch=BATCH)
+    for i, q in enumerate(qs):
+        want.submit(_chain(flow, f"S{i}", q))
+    want.run(3)
+    assert _digests(system) == _digests(want)
+    system.close()
+    want.close()

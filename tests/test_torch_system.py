@@ -256,16 +256,18 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "multi_tenant_serving_torch.py")]
     paths += glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))
     for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 30
-    # the cluster plane, the trace CLI, the sharded backend and the front end
+    # the cluster plane, the trace CLI, the sharded backend, the front end
+    # and LM reuse-serving
     for module in ("cluster/supervisor.py", "cluster/autoscaler.py", "launch/dryrun.py",
                    "launch/serve.py", "runtime/sharded.py", "runtime/staging.py",
                    "serve/frontend.py", "serve/protocol.py", "serve/client.py",
-                   "workloads/tenants.py"):
+                   "workloads/tenants.py", "serve/model_ops.py", "serve/reuse_serving.py"):
         assert os.path.join(ROOT, "src", "repro_torch", module) in paths, module
     bad = []
     for path in paths:
