@@ -22,7 +22,13 @@ Phases, each fatal on failure:
      f32 and bf16; which K5 and K7 build each dtype and shape ran, and
      K7's launches per call, counted; K5/K6 at mixtral-8x22b's 48 heads
      over 8 of 128 under its window of 4096 and under a window of 1024
-     that masks, f32 and bf16);
+     that masks, f32 and bf16; K5 on the routes of the MLA, vlm and audio
+     families: (a) deepseek-v2's MLA prefill, q/k (1, 2048, 128, 192)
+     against v of 128, v zero-padded and the output sliced, (b) the
+     seamless encoder's (1, 1024, 16, 64) without a mask, (c) llama's
+     cross-attention without a mask, q (1, 2048 and 159, 64, 128) against
+     (1, 1024, 8, 128); K6 for one token against that memory, cache_len
+     1024; f32 and bf16, each beside F.scaled_dot_product_attention);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -136,11 +142,25 @@ Phases, each fatal on failure:
      digests; one tenant at 1 stage of 2 blocks on the card against the
      CPU; ``python -m repro_torch.launch.serve --reuse`` prints the
      reference's line;
+  5d-5f. the MLA, vlm and audio families as phase 5b, each ServeEngine
+     run with K5 > 0, K6 > 0 but for MLA's absorbed decode, and K1, K4 > 0
+     for the first two:
+     deepseek-v2-236b at full width (MLA: ranks 1536/512, q/k head dim
+     128 + 64, v 128; 160 experts of 1536, top-6, 2 shared) cut from 60 to
+     6 layers (1 dense + 5 MoE), its dropped tokens and experts chosen as
+     mixtral's; llama-3.2-vision-90b (64 over 8 KV heads of 128, gated
+     cross-attention every 5th layer to 1024 image tokens) cut from 100 to
+     10 layers, its gates opened (0 at init); seamless-m4t-medium whole (12
+     + 12 layers, 1024 frames, prompts of 128-1024 tokens), and its CLI on
+     the card. A vlm or audio request carries a memory drawn with numpy,
+     and the logits with it must differ from those with a zero memory; the
+     card-vs-CPU cuts are 2 layers (1 dense + 1 MoE; 1 self + 1 cross at
+     cross_attn_every 2; 2 + 2 encoder/decoder layers);
   6. nemotron-4-340b cut in width (NEMOTRON_CUT: head dim 192, 12 q heads
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5c, the session's, the concurrent ones, the workers' of
+     of phases 3-5f, the session's, the concurrent ones, the workers' of
      phases 3c and 3e and the in-process runs of 3d and 3g included; each
      must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
@@ -403,6 +423,7 @@ def kernel_phase(dev):
     out += model_kernel_phase(dev, gen)
     out += hybrid_kernel_phase(dev, gen)
     mixtral_attention_checks(dev, gen)
+    attention_family_checks(dev, gen)
     for k in out:
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us/launch on the device "
             f"({k['call_ms'] * 1e3:.2f} us per call from the host), plain {k['plain_ms'] * 1e3:.2f} us, "
@@ -960,6 +981,97 @@ def mixtral_attention_checks(dev, gen):
                 f"{decode_route(dtype, hd)}; {ms * 1e3:.2f} us/launch on the device ({host * 1e3:.2f} "
                 f"us per call from the host), bound {bnd * 1e3:.3f} us ({by}), plain "
                 f"{plain * 1e3:.2f} us{lib}")
+        del q1, kc, vc
+
+
+# K5's routes on the MLA, vlm and audio serving paths, each (label, Sq, Sk, q
+# heads, KV heads, q/k head dim, v head dim, causal): (a) deepseek-v2's MLA
+# prefill, q/k head dim nope 128 + rope 64 against v's 128 (v zero-padded to
+# 192, the output sliced); (b) the seamless encoder's self-attention without a
+# mask; (c) llama-3.2-vision's cross-attention at prefill, a prompt against its
+# 1024 image tokens without a mask, at 2048 and at a ragged 159 tokens
+ATTN_FAMILY_K5 = (
+    ("(a) deepseek-v2 MLA", SERVE_PROMPT, SERVE_PROMPT, 128, 128, 192, 128, True),
+    ("(b) seamless encoder", 1024, 1024, 16, 16, 64, 64, False),
+    ("(c) llama-3.2-vision cross", SERVE_PROMPT, 1024, 64, 8, 128, 128, False),
+    ("(c) llama-3.2-vision cross", 159, 1024, 64, 8, 128, 128, False),
+)
+CROSS_K6 = (64, 8, 128, 1024)  # a decoded token's cross-attention: q heads, KV heads, hd, memory
+
+
+def attention_family_checks(dev, gen):
+    """K5 on routes (a)-(c) (ATTN_FAMILY_K5) and K6 on a decoded token's
+    cross-attention (CROSS_K6: one query against the whole memory,
+    cache_len = Sm), f32 and bf16, each against its plain version and
+    F.scaled_dot_product_attention's output, timed beside that library call;
+    the bound counts the visible (q, k) pairs at the operation rate of the
+    dtype (K5) and the bytes (K6)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        el = torch.finfo(dtype).bits // 8
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        for label, sq, sk, h, kv, hd, hd_v, causal in ATTN_FAMILY_K5:
+            q = torch.randn((1, sq, h, hd), generator=gen).to(dev, dtype)
+            k = torch.randn((1, sk, kv, hd), generator=gen).to(dev, dtype)
+            v = torch.randn((1, sk, kv, hd_v), generator=gen).to(dev, dtype)
+            scale = hd ** -0.5  # MLA's (nope + rope)^-0.5, passed as the model passes it
+
+            def k5():
+                return flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
+
+            err = check_close(f"flash_attention {label} {tag}", k5(),
+                              ref.flash_attention_ref(q, k, v, causal=causal, scale=scale), tol)
+            pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            bnd, by = bound_ms((sq * h * (hd + hd_v) + sk * kv * (hd + hd_v)) * el,
+                               2 * h * (hd + hd_v) * pairs, ops_rate)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def lib_call():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                                      enable_gqa=kv < h)
+
+            lib_err = check_close(f"flash_attention {label} {tag} vs the library", k5(),
+                                  lib_call().transpose(1, 2), LIB_TOL)
+            ms = device_ms(k5, per_graph=3, reps=7)
+            plain = device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, scale=scale),
+                              per_graph=1, reps=3)
+            lib = device_ms(lib_call, per_graph=3, reps=7)
+            log(f"K5 flash_attention {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv}) v head dim "
+                f"{hd_v} {'causal' if causal else 'no mask'} {tag}: max|err| {err:.3g} (tol {tol}), "
+                f"{lib_err:.3g} from the library's output (tol {LIB_TOL}); kernel "
+                f"{flash_attention.route(dtype, hd, hd_v)}; {ms * 1e3:.2f} us/launch on the "
+                f"device, bound {bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
+                f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
+            del q, k, v, qt, kt, vt
+        h, kv, hd, sm = CROSS_K6
+        q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
+        kc = torch.randn((1, sm, kv, hd), generator=gen).to(dev, dtype)
+        vc = torch.randn((1, sm, kv, hd), generator=gen).to(dev, dtype)
+
+        def k6():
+            return decode_attention.decode_attention(q1, kc, vc, sm)
+
+        err = check_close(f"decode_attention cross {tag}", k6(),
+                          ref.decode_attention_ref(q1, kc, vc, sm), tol)
+        bnd, by = bound_ms((2 * sm * kv + 2 * h) * hd * el, 4 * h * hd * sm, ops_rate)
+        q1t, kct, vct = q1.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        lib_err = check_close(
+            f"decode_attention cross {tag} vs the library", k6(),
+            F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True).transpose(1, 2), LIB_TOL)
+        ms, host = device_ms(k6), call_ms(k6)
+        plain = device_ms(lambda: ref.decode_attention_ref(q1, kc, vc, sm))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(q1t, kct, vct, enable_gqa=True))
+        log(f"K6 decode_attention llama-3.2-vision cross q (1,1,{h},{hd}) memory (1,{sm},{kv},{hd}) "
+            f"len {sm} {tag}: max|err| {err:.3g} (tol {tol}), {lib_err:.3g} from the library's "
+            f"output (tol {LIB_TOL}); kernel {decode_route(dtype, hd)}; {ms * 1e3:.2f} us/launch "
+            f"on the device ({host * 1e3:.2f} us per call from the host), bound {bnd * 1e3:.3f} us "
+            f"({by}), plain {plain * 1e3:.2f} us, library F.scaled_dot_product_attention "
+            f"{lib * 1e3:.2f} us")
         del q1, kc, vc
 
 
@@ -2125,6 +2237,9 @@ def daemon_check():
 SERVE_ARCH = "qwen3-4b"
 HYBRID_ARCH = "zamba2-2.7b"
 MOE_ARCH = "mixtral-8x22b"
+MLA_ARCH, VLM_ARCH, AUDIO_ARCH = "deepseek-v2-236b", "llama-3.2-vision-90b", "seamless-m4t-medium"
+MEMORY_SEED = 1  # the numpy seed of the vlm/audio memories and the vlm gates
+ZERO_MEMORY_REL = 1e-2  # least max|diff|/max|logit| between a drawn and a zero memory
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4096
 DENSE_KERNELS = ("rmsnorm", "rmsnorm_residual", "flash_attention", "decode_attention")
 WITNESS_PROMPT, WITNESS_STEPS = 160, 3  # one full chunk of 128 and a ragged one of 32
@@ -2144,6 +2259,34 @@ SERVE_PHASES = (
     # each side), drawn on the card; the routing of every token is compared
     (MOE_ARCH, 1, DENSE_KERNELS, (0, 1), (5e-2, 0.999, True), (2e-2, 0.9998, True),
      dict(depth=8, f32_depth=4, cut_on_card=True, routes=True)),
+    # 5d: deepseek-v2-236b (MLA, 160 experts top-6 and 2 shared) cut from 60
+    # to 6 layers, first_k_dense 1 + 5 MoE (about 7.9 GB of bf16 weights a MoE
+    # layer with its MLA: 42.5 GB with the embeddings); the f32 consistency
+    # check at 2 layers and the card-vs-CPU cut at 2 (1 dense + 1 MoE, 21 GB
+    # of float32 weights each side). No K6: MLA's decode is the reference's
+    # absorbed form, matrix products over the latent cache, which the
+    # reference leaves to XLA outside any Pallas kernel. The bf16 witness
+    # runs the first layer alone (MLA and the dense FFN: every port kernel of
+    # the path, no router): with top-6 of 160 experts a bf16 near-tie flips
+    # a token's experts (10 of 323 tokens over 2 layers, each within twice
+    # its card-vs-CPU probability difference), and through the capacity,
+    # which drops by token order, other tokens' outputs with it (the 2-layer
+    # reading was 0.077, cosine 0.9962; f32 at 2 layers chose the same
+    # experts for every token)
+    (MLA_ARCH, 2, DENSE_KERNELS[:3], (0, 1), (5e-2, 0.999, True), (2e-2, 0.9998, True),
+     dict(depth=6, f32_depth=2, cut_on_card=True, routes=True, witness_layers=1)),
+    # 5e: llama-3.2-vision-90b cut from 100 to 10 layers, 8 self + 2 gated
+    # cross (about 1.71 GB a layer, 21.3 GB with the embeddings); f32
+    # consistency at 5 (one group); the card-vs-CPU cut at 2 layers, one self
+    # and one cross block (cross_attn_every 2)
+    (VLM_ARCH, 2, DENSE_KERNELS, (0, 1), (5e-2, 0.999, True), (2e-2, 0.9998, True),
+     dict(depth=10, f32_depth=5, cut_on_card=True, cut=dict(cross_attn_every=2))),
+    # 5f: seamless-m4t-medium whole (12 encoder + 12 decoder layers, about 2.0
+    # GB); LayerNorm, so no K1/K4 but the memory's k_input_norm; prompts up
+    # to 1024; the card-vs-CPU cut at 2 + 2 layers; the CLI on the card
+    (AUDIO_ARCH, 2, ("flash_attention", "decode_attention"), (0, 1), (5e-2, 0.999, True),
+     (2e-2, 0.9998, True),
+     dict(cut_on_card=True, cut=dict(n_encoder_layers=2), max_prompt=1024, cli=True)),
 )
 # The checks of each serving phase after its engine run:
 #  * prefill/decode consistency at full width and depth: prefill(prompt)
@@ -2205,24 +2348,28 @@ def agree(a, b):
     return rel, cos, int(a.argmax()), int(b.argmax())
 
 
-def bf16_witness(dev, cfg, params, prompt):
+def bf16_witness(dev, cfg, params, prompt, memory=None):
     """A bf16 model on the card against the same weights on the CPU: the
     logits of ``forward`` at every position of ``prompt``, then prefill and
-    WITNESS_STEPS decode steps fed the CPU's greedy token. Returns the
-    worst max|diff| over the largest logit, the least cosine, and whether
-    the greedy tokens of the prefill and decode steps agreed."""
+    WITNESS_STEPS decode steps fed the CPU's greedy token (vlm/audio: over
+    ``memory``, (1, Sm, D) float32). Returns the worst max|diff| over the
+    largest logit, the least cosine, and whether the greedy tokens of the
+    prefill and decode steps agreed."""
     import torch
 
     from repro_torch.models import decode_step, forward, init_cache, prefill
     from repro_torch.models.transformer import tree_map
 
     ps = {"cpu": tree_map(lambda t: t.cpu(), params), dev: params}
+    mem = {d: None if memory is None else memory.to(d) for d in ps}
+    ml = 0 if memory is None else memory.shape[1]
     n = len(prompt)
     toks = torch.from_numpy(prompt).long()[None]
-    worst_rel, worst_cos, _, _ = agree(forward(ps["cpu"], cfg, toks)[0].float(),
-                                       forward(params, cfg, toks.to(dev))[0].float().cpu())
-    caches = {d: init_cache(cfg, 1, n + WITNESS_STEPS + 1, device=d) for d in ps}
-    logits = {d: prefill(ps[d], cfg, toks.to(d), caches[d])[0] for d in ps}
+    worst_rel, worst_cos, _, _ = agree(
+        forward(ps["cpu"], cfg, toks, memory=mem["cpu"])[0].float(),
+        forward(params, cfg, toks.to(dev), memory=mem[dev])[0].float().cpu())
+    caches = {d: init_cache(cfg, 1, n + WITNESS_STEPS + 1, memory_len=ml, device=d) for d in ps}
+    logits = {d: prefill(ps[d], cfg, toks.to(d), caches[d], memory=mem[d])[0] for d in ps}
     same = True
     for i in range(WITNESS_STEPS + 1):
         rel, cos, am, bm = agree(logits["cpu"].float(), logits[dev].float().cpu())
@@ -2301,6 +2448,35 @@ def routes_text(tokens, differ) -> str:
         f" ({named})" if differ else "")
 
 
+def memory_len(cfg) -> int:
+    return {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(cfg.family, 0)
+
+
+def draw_memory(cfg, rng):
+    """A standard normal memory (1, Sm, D) float32 on the CPU for the vlm
+    and audio families (image tokens, frames), None for the others."""
+    import torch
+
+    ml = memory_len(cfg)
+    return torch.from_numpy(rng.standard_normal((1, ml, cfg.d_model)).astype("float32")) if ml else None
+
+
+def open_gates(params, cfg):
+    """A vlm model's gates, 0 at init (tanh(0)·y drops every cross-attention
+    output, so a check with them would hold nothing of it), set to values in
+    [0.5, 1) from numpy's generator at MEMORY_SEED: the same on every device
+    and in every weight draw."""
+    import numpy as np
+    import torch
+
+    if cfg.family != "vlm":
+        return params
+    gate = params["cross_blocks"]["attn"]["gate"]
+    vals = np.random.default_rng(MEMORY_SEED).uniform(0.5, 1.0, gate.shape[0])
+    gate.copy_(torch.from_numpy(vals).to(gate.dtype))
+    return params
+
+
 def no_drops(cfg):
     """``cfg`` with an MoE capacity that holds every token (capacity factor
     E / top_k): prefill of S tokens and prefill of S - 1 plus a decode step
@@ -2313,12 +2489,19 @@ def no_drops(cfg):
 
 
 def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, depth=None,
-                f32_depth=None, cut_on_card=False, routes=False):
+                f32_depth=None, cut_on_card=False, routes=False, cut=None,
+                max_prompt=SERVE_PROMPT, cli=False, witness_layers=None):
     """``arch`` at full width in bf16 through ServeEngine, at full depth or
     cut to ``depth`` layers (``f32_depth`` for the float32 consistency check);
-    the card-vs-CPU cut's weights drawn on the card when ``cut_on_card``;
-    with ``routes`` the experts each token chose on the card and the CPU are
-    compared. Returns the launch counts of the engine run."""
+    the card-vs-CPU cut's weights drawn on the card when ``cut_on_card``,
+    ``cut`` its other changes to the configuration (the bf16 witness at
+    ``witness_layers`` when given); with ``routes`` the experts each token
+    chose on the card and the CPU are compared. Prompts
+    of 128 to ``max_prompt`` tokens; a vlm or audio request carries a memory
+    drawn with numpy at MEMORY_SEED, a vlm model's gates are opened
+    (open_gates), and a drawn memory must move the logits away from a zero
+    one. With ``cli``, ``python -m repro_torch.launch.serve --arch`` runs on
+    the card. Returns the launch counts of the engine run."""
     import numpy as np
     import torch
 
@@ -2331,14 +2514,21 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
     t_phase = time.perf_counter()
     cfg = configs.get_config(arch)
     if depth:
-        log(f"{cfg.name}: depth cut from {cfg.n_layers} to {depth} layers, full width "
+        parts = ""
+        if cfg.family == "moe" and cfg.moe.first_k_dense:
+            parts = f" ({cfg.moe.first_k_dense} dense + {depth - cfg.moe.first_k_dense} MoE)"
+        elif cfg.family == "vlm":
+            n_cross = depth // cfg.cross_attn_every
+            parts = f" ({depth - n_cross} self + {n_cross} gated cross)"
+        log(f"{cfg.name}: depth cut from {cfg.n_layers} to {depth} layers{parts}, full width "
             f"(one card holds {depth} layers of bf16 weights beside the embeddings and caches)")
         cfg = cfg.replace(n_layers=depth)
     f32_depth = f32_depth or cfg.n_layers
+    ml = memory_len(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = open_gates(init_params(cfg, torch.Generator(device=dev).manual_seed(0)), cfg)
     torch.cuda.synchronize()
     sizes = []
     tree_map(lambda t: sizes.append(t.numel()), params)
@@ -2347,14 +2537,17 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
         f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s ({cfg.param_dtype})")
 
     rng = np.random.default_rng(0)
-    lens = rng.integers(128, SERVE_PROMPT + 1, size=SERVE_REQUESTS)
+    mem_rng = np.random.default_rng(MEMORY_SEED)
+    lens = rng.integers(128, max_prompt + 1, size=SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    memories = [draw_memory(cfg, mem_rng) for _ in prompts]
     engine = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    for rid, prompt in enumerate(prompts):
-        engine.submit(Request(rid, prompt, max_new=SERVE_NEW))
+    for rid, (prompt, mem) in enumerate(zip(prompts, memories)):
+        engine.submit(Request(rid, prompt, max_new=SERVE_NEW,
+                              memory=None if mem is None else mem[0].numpy()))
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2370,21 +2563,25 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
     if cfg.family == "hybrid" and launches["ssd_scan"] != K7_LAUNCHES * cfg.n_layers * SERVE_REQUESTS:
         raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} kernels for "
                              f"{SERVE_REQUESTS} prefills of {cfg.n_layers} Mamba layers")
-    log(f"served {len(results)} requests x {SERVE_NEW} tokens, prompts {sorted(lens.tolist())}, "
-        f"slots {SERVE_SLOTS}, max_len {SERVE_MAX_LEN}: {wall:.2f} s, "
+    log(f"served {len(results)} requests x {SERVE_NEW} tokens, prompts {sorted(lens.tolist())}"
+        + (f", each with a memory of {ml} positions" if ml else "")
+        + f", slots {SERVE_SLOTS}, max_len {SERVE_MAX_LEN}: {wall:.2f} s, "
         f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} generated tokens/s; launches {launches}")
     log(f"first tokens: {[r.tokens[:4] for r in sorted(results, key=lambda r: r.rid)]}")
     del engine
 
     # prefill ms per prompt length and decode ms per token at batch 1
-    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=dev)
+    mem = None if memories[0] is None else memories[0].to(dev)
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, memory_len=ml, device=dev)
     for n in (128, 512, 1024, SERVE_PROMPT):
+        if n > max_prompt:
+            continue
         toks = torch.from_numpy(prompts[0][:1].repeat(n)).long()[None].to(dev)
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            prefill(params, cfg, toks, cache)
+            prefill(params, cfg, toks, cache, memory=mem)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         log(f"prefill {n} tokens: {statistics.median(times):.2f} ms (median of 3; {times})")
@@ -2405,8 +2602,8 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
             mlp.dispatch = dispatch
         log(f"tokens dropped by capacity at the prefill of a {toks.shape[1]}-token prompt "
             f"(C = {mlp.capacity(cfg, toks.shape[1])} slots an expert): {sum(dropped)} of "
-            f"{toks.shape[1] * cfg.moe.top_k * cfg.n_layers} (token, expert) choices, per layer "
-            f"{dropped}")
+            f"{toks.shape[1] * cfg.moe.top_k * len(dropped)} (token, expert) choices, per MoE "
+            f"layer {dropped}")
     tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
     times = []
     reset_launch_counts()
@@ -2418,7 +2615,7 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
         times.append((time.perf_counter() - t0) * 1e3)
     per_token = {k: v / SERVE_NEW for k, v in launch_counts().items() if v}
     host_calls, _, on_card = fn_launches(lambda: decode_step(params, cfg, tok, cache))
-    log(f"decode at {SERVE_PROMPT}+ cached positions, batch 1: "
+    log(f"decode at {cache['len'] - SERVE_NEW - 1}+ cached positions, batch 1: "
         f"{statistics.median(times):.2f} ms/token (median of {len(times)}); per decoded token "
         f"{host_calls} host launch calls, {on_card} operations on the card, port kernels "
         f"{per_token}")
@@ -2428,24 +2625,36 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
 
     def both_paths(p, c):
         c = no_drops(c)
-        full, _ = prefill(p, c, prompt, init_cache(c, 1, SERVE_MAX_LEN, device=dev))
-        cache = init_cache(c, 1, SERVE_MAX_LEN, device=dev)
-        prefill(p, c, prompt[:, :-1], cache)
+        full, _ = prefill(p, c, prompt, init_cache(c, 1, SERVE_MAX_LEN, memory_len=ml, device=dev),
+                          memory=mem)
+        cache = init_cache(c, 1, SERVE_MAX_LEN, memory_len=ml, device=dev)
+        prefill(p, c, prompt[:, :-1], cache, memory=mem)
         step, _ = decode_step(p, c, prompt[:, -1:], cache)
         return full.float(), step.float()
 
     bf16 = {seeds[0]: both_paths(params, cfg)}
+    if ml:  # the memory reaches the logits: against a zero memory of the same shape
+        zero, _ = prefill(params, cfg, prompt, init_cache(cfg, 1, SERVE_MAX_LEN, memory_len=ml,
+                                                          device=dev), memory=torch.zeros_like(mem))
+        rel = agree(bf16[seeds[0]][0], zero.float())[0]
+        log(f"{cfg.name}: the drawn memory against a zero one moves the last logits by "
+            f"max|diff|/max|logit| {rel:.3g} (least {ZERO_MEMORY_REL}"
+            + (", gates opened to tanh(g), g in [0.5, 1)" if cfg.family == "vlm" else "") + ")")
+        if rel < ZERO_MEMORY_REL:
+            raise AssertionError(f"{cfg.name}: the memory does not reach the logits")
+        del zero
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"peak device memory (max_memory_allocated): {peak:.2f} GiB")
     embed_rows = params["embed"][:8].clone()
     del params, cache
     for seed in seeds[1:]:
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        params = open_gates(init_params(cfg, torch.Generator(device=dev).manual_seed(seed)), cfg)
         bf16[seed] = both_paths(params, cfg)
         del params
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32", n_layers=f32_depth)
-    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(seeds[0]))
+    params32 = open_gates(init_params(cfg32, torch.Generator(device=dev).manual_seed(seeds[0])),
+                          cfg32)
     if not torch.equal(params32["embed"][:8].to(embed_rows.dtype), embed_rows):
         raise AssertionError("the bf16 weights are not the float32 ones rounded")
     f32 = both_paths(params32, cfg32)
@@ -2474,32 +2683,38 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
                                  f"seed {seed}")
 
     # card against CPU: the same configuration cut to a few layers, float32
-    cut = cfg.replace(n_layers=cut_layers, dtype="float32", param_dtype="float32")
+    cut = cut or {}
+    cut32 = cfg.replace(n_layers=cut_layers, dtype="float32", param_dtype="float32", **cut)
+    cut_text = ", ".join([f"{cut_layers} layers"] + [f"{k} {v}" for k, v in cut.items()])
     t0 = time.perf_counter()
     if cut_on_card:
-        dev_params = init_params(cut, torch.Generator(device=dev).manual_seed(0))
+        dev_params = open_gates(init_params(cut32, torch.Generator(device=dev).manual_seed(0)), cut32)
         cpu_params = tree_map(lambda t: t.cpu(), dev_params)
     else:
-        cpu_params = init_params(cut, torch.Generator().manual_seed(0))
+        cpu_params = init_params(cut32, torch.Generator().manual_seed(0))
         dev_params = tree_map(lambda t: t.to(dev), cpu_params)
-    log(f"{cut.name} cut to {cut_layers} layers, float32: parameters drawn on the "
+    log(f"{cut32.name} cut to {cut_text}, float32: parameters drawn on the "
         f"{'card' if cut_on_card else 'CPU'} in {time.perf_counter() - t0:.1f} s")
+    cut_mem = draw_memory(cut32, mem_rng)
     route_log = RouteLog() if routes else contextlib.nullcontext()
     with route_log:
-        worst = cut_parity(dev, cfg, cut, cpu_params, dev_params, rng)
-    log(f"{cfg.name} card vs cpu ({cut_layers} layers, f32, prompts 64 and 256, prefill + 4 "
+        worst = cut_parity(dev, cfg, cut32, cpu_params, dev_params, rng, cut_mem)
+    log(f"{cfg.name} card vs cpu ({cut_text}, f32, prompts 64 and 256, prefill + 4 "
         f"decode steps): max|err| {worst:.3g} (tol {PARITY_TOL}), greedy tokens equal"
         + (f"; {routes_text(*check_routes('f32 card vs cpu', route_log, cfg.moe.top_k, True))}"
            if routes else ""))
     del cpu_params, dev_params
-    cut16 = cfg.replace(n_layers=cut_layers)
+    cut16 = cfg.replace(n_layers=witness_layers or cut_layers, **cut)
+    if witness_layers:
+        cut_text = ", ".join([f"{witness_layers} layers"] + [f"{k} {v}" for k, v in cut.items()])
+    routes = routes and cut16.n_layers > cut16.moe.first_k_dense  # a router in the witness
     for seed in seeds:
-        params = init_params(cut16, torch.Generator(device=dev).manual_seed(seed))
+        params = open_gates(init_params(cut16, torch.Generator(device=dev).manual_seed(seed)), cut16)
         route_log = RouteLog() if routes else contextlib.nullcontext()
         with route_log:
-            reading = bf16_witness(dev, cut16, params, prompts[0][:WITNESS_PROMPT])
+            reading = bf16_witness(dev, cut16, params, prompts[0][:WITNESS_PROMPT], cut_mem)
         del params
-        log(f"{cfg.name} card vs cpu ({cut_layers} layers, bf16, seed {seed}; forward at "
+        log(f"{cfg.name} card vs cpu ({cut_text}, bf16, seed {seed}; forward at "
             f"{WITNESS_PROMPT} positions, prefill + {WITNESS_STEPS} decode steps): max|diff|/"
             f"max|logit| {reading[0]:.3g}, cosine {reading[1]:.6f}, greedy tokens "
             f"{'equal' if reading[2] else 'differ'} {limits_text(cut_limits)}"
@@ -2507,23 +2722,35 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
                if routes else ""))
         if not check_limits(reading, cut_limits):
             raise AssertionError(f"bf16 on the card departs from bf16 on the cpu, seed {seed}")
+    if cli:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = run_cli(["repro_torch.launch.serve", "--arch", arch], timeout=600)
+        lines = proc.stdout.splitlines()
+        if not lines or lines[-1] != f"served {SERVE_REQUESTS} requests":
+            raise AssertionError(f"python -m repro_torch.launch.serve --arch {arch} printed {lines}")
+        log(f"python -m repro_torch.launch.serve --arch {arch} on the card: {lines[-1]!r} "
+            f"({lines[0]!r} first), {time.perf_counter() - t0:.1f} s")
     log(f"{cfg.name} serving phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
-def cut_parity(dev, cfg, cut, cpu_params, dev_params, rng):
+def cut_parity(dev, cfg, cut, cpu_params, dev_params, rng, memory=None):
     """The cut on the card against the CPU in float32: prefill of 64 and 256
-    tokens, then 4 decode steps fed the CPU's greedy token; the worst max|err|."""
+    tokens (over ``memory`` for vlm/audio), then 4 decode steps fed the
+    CPU's greedy token; the worst max|err|."""
     import torch
 
     from repro_torch.models import decode_step, init_cache, prefill
 
     worst = 0.0
+    ml = 0 if memory is None else memory.shape[1]
     for n in (64, 256):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=n)).long()[None]
-        caches = {d: init_cache(cut, 1, n + 8, device=d) for d in ("cpu", dev)}
+        caches = {d: init_cache(cut, 1, n + 8, memory_len=ml, device=d) for d in ("cpu", dev)}
         ps = {"cpu": cpu_params, dev: dev_params}
-        logits = {d: prefill(ps[d], cut, toks.to(d), caches[d])[0] for d in caches}
+        mem = {d: None if memory is None else memory.to(d) for d in caches}
+        logits = {d: prefill(ps[d], cut, toks.to(d), caches[d], memory=mem[d])[0] for d in caches}
         for i in range(5):
             got, want = logits[dev].cpu(), logits["cpu"]
             worst = max(worst, check_close(f"card vs cpu, prompt {n}, step {i}", got, want,

@@ -11,7 +11,12 @@ The serving path's state is the model's parameters and the KV cache. The
 port keeps the reference's layouts (per-layer leading axis, ``wq (D, H,
 hd)``, ``wo (H, hd, D)``, the cache as ``(L, B, S, KV, hd)``), so
 :func:`params_from_jax` and :func:`cache_from_jax` move arrays and
-re-lay nothing out.
+re-lay nothing out. That holds for every family's tree: MLA's weights
+(``w_dq``, ``w_uq``, ``w_dkv``, ``w_krope``, ``w_uk``, ``w_uv``) and its
+latent cache (``c_kv (L, B, S, r)``, ``k_rope (L, B, S, rope_hd)``), the
+cross blocks' ``k_input_norm`` and the gated blocks' ``gate`` (stacked as
+``(L,)``, a 0-d scalar per layer), the ``cross`` cache stack ``(L, B,
+memory_len, KV, hd)`` and the audio encoder's stacks.
 """
 from __future__ import annotations
 

@@ -25,6 +25,14 @@ no copy. A head dim above the largest, in f32 or bf16, runs the pieces
 kernel (``csrc/attention_pieces.cuh``, :data:`PIECES_KERNEL`), which walks
 the head dim in pieces of 64 columns and takes any head dim: :func:`route`
 names the kernel a call takes.
+
+A v head dim below q's and k's (MLA's 128 against 192) takes route (a),
+:func:`attend_padded_value`: v is zero-padded to q's head dim, the built
+kernel of that head dim runs with the scale of q's head dim (or the one
+given), and the output keeps its first ``hd_v`` columns. The zero columns
+of v add nothing to P·V; they cost (hd - hd_v) / hd_v more V bytes read and
+O bytes written (50% at MLA's shape). A build with its own v head dim is
+work for a later change.
 """
 from __future__ import annotations
 
@@ -48,10 +56,14 @@ KERNELS = {
 PIECES_KERNEL = "attention_pieces (SIMT f32 FMAs, head dim in pieces of 64, O in shared memory)"
 
 
-def route(dtype: torch.dtype, hd: int) -> str:
+def route(dtype: torch.dtype, hd: int, hd_v: Optional[int] = None) -> str:
     """The kernel K5 runs for ``dtype`` at head dim ``hd``: the pieces kernel
-    above the largest built head dim, else the build of the dtype."""
-    return PIECES_KERNEL if hd > HEAD_DIMS[-1] else KERNELS[dtype]
+    above the largest built head dim, else the build of the dtype; with a
+    smaller v head dim ``hd_v``, through route (a)."""
+    name = PIECES_KERNEL if hd > HEAD_DIMS[-1] else KERNELS[dtype]
+    if hd_v is not None and hd_v != hd:
+        name += f", route (a): v zero-padded from {hd_v} to {hd}, output sliced"
+    return name
 
 
 def tile_plan(sq: int, sk: int, causal: bool, window: int,
@@ -144,6 +156,20 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) ->
         raise ValueError(f"{name}: {h} q heads are not a multiple of {k.shape[2]} kv heads")
 
 
+def attend_padded_value(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: Optional[float] = None, **kw) -> torch.Tensor:
+    """Route (a): attention whose v head dim is below q's and k's, through
+    ``attend``, which takes one head dim for q, k and v: v zero-padded to
+    q's head dim, the scale that of q's head dim unless one is given, the
+    first ``hd_v`` columns of the output kept."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if hd_v > hd:
+        raise ValueError(f"flash_attention: v head dim {hd_v} above q's {hd}")
+    (vp,) = pad_head_dim((v,), hd)
+    o = attend(q, k, vp, scale=hd ** -0.5 if scale is None else scale, **kw)
+    return o[..., :hd_v].contiguous()
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -153,6 +179,9 @@ def flash_attention(
     window: int = 0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
+    if v.shape[-1] != q.shape[-1]:
+        return attend_padded_value(flash_attention, q, k, v, causal=causal, window=window,
+                                   scale=scale)
     check_heads(q, k, v, "flash_attention")
     b, sq, h, hd = q.shape
     if hd > HEAD_DIMS[-1]:

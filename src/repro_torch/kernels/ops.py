@@ -50,7 +50,8 @@ def flash_attention(
     window: int = 0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd): KV heads are taken natively."""
+    """q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) with hd_v <=
+    hd: KV heads are taken natively."""
     if q.is_cuda:
         from .flash_attention import flash_attention as _cuda
 

@@ -50,15 +50,17 @@ def flash_attention_ref(
     window: int = 0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Masked softmax attention in float32, q (B, Sq, H, hd), k/v (B, Sk, KV, hd).
+    """Masked softmax attention in float32, q (B, Sq, H, hd), k (B, Sk, KV,
+    hd), v (B, Sk, KV, hd_v); the output is (B, Sq, H, hd_v).
 
     Query head h reads KV head h // (H // KV) (q is regrouped, K/V are not
     repeated). Key j is visible to query i when j <= i (causal) and
     j > i - window (window > 0); masked scores are -1e30, the row sum is
     clamped at 1e-30. The kernel takes the same softmax online over tiles.
+    v's head dim may differ from q's and k's (MLA: 128 against 192).
     """
     b, sq, h, hd = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    sk, kv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     g = h // kv
     scale = scale if scale is not None else hd ** -0.5
     qf = q.float().reshape(b, sq, kv, g, hd) * scale
@@ -74,7 +76,7 @@ def flash_attention_ref(
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]  # (B, Sq, KV, G, 1)
-    return (out / torch.clamp(l, min=1e-30)).reshape(b, sq, h, hd).to(q.dtype)
+    return (out / torch.clamp(l, min=1e-30)).reshape(b, sq, h, hd_v).to(q.dtype)
 
 
 def decode_attention_ref(

@@ -17,12 +17,17 @@ Model mode (no subcommand; the reference's ``serve_model``):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium
 
 Any architecture of the dense family (granite, nemotron, qwen1.5, qwen3),
-the moe family without MLA (mixtral) or the hybrid family (zamba2)
-serves; the others raise. Random weights from a seeded
-``torch.Generator`` on the serving device, prompts of 4–11 tokens from
-``numpy.random.default_rng(0)``. Without ``--device cpu`` it needs a CUDA
+the moe family (mixtral; deepseek-v2 with MLA), the vlm family
+(llama-3.2-vision), the hybrid family (zamba2) or the audio family
+(seamless) serves; xlstm (ssm) raises. Random weights from a seeded
+``torch.Generator`` on the serving device; from
+``numpy.random.default_rng(0)`` in the reference's order, per request, a
+prompt length of 4–11, the prompt and, for vlm and audio, a standard
+normal memory of ``num_image_tokens`` or ``encoder_seq`` positions, so the
+requests are the reference CLI's. Without ``--device cpu`` it needs a CUDA
 device and raises when there is none.
 
 Reuse mode (the reference's ``serve_reuse``): ``--tenants`` LM pipelines
@@ -67,7 +72,9 @@ def serve_model(args) -> int:
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12)).astype(np.int32)
-        eng.submit(Request(rid, prompt, max_new=args.max_new))
+        mem = (rng.standard_normal((eng.mem_len, cfg.d_model)).astype(np.float32)
+               if eng.mem_len else None)
+        eng.submit(Request(rid, prompt, max_new=args.max_new, memory=mem))
     results = eng.run()
     for r in sorted(results, key=lambda r: r.rid):
         print(f"req {r.rid}: prompt[{r.prompt_len}] → {r.tokens}")

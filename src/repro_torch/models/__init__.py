@@ -1,13 +1,15 @@
 """Model zoo of the port: the dense family (granite, nemotron, qwen1.5,
-qwen3), the moe family with grouped-query attention (mixtral-8x22b: 8
-experts, top-2, sliding-window attention) and the hybrid family (zamba2:
-Mamba2 with a shared attention block) on the kernels of
+qwen3), the moe family (mixtral-8x22b with grouped-query attention and a
+sliding window; deepseek-v2 with multi-head latent attention), the vlm
+family (llama-3.2-vision: gated cross-attention to image tokens), the
+hybrid family (zamba2: Mamba2 with a shared attention block) and the audio
+family (seamless: an encoder-decoder) on the kernels of
 :mod:`repro_torch.kernels`. The configuration dataclasses cover all ten
-architectures; the other families, and MLA (deepseek-v2), raise
-``NotImplementedError`` naming their slice of the port (ROADMAP)."""
+architectures; the ssm family (xlstm) raises ``NotImplementedError``
+naming its slice of the port (ROADMAP)."""
 from .config import MLAConfig, MoEConfig, ModelConfig, SSMConfig, XLSTMConfig
 from .transformer import forward, init_params
-from .decode import decode_step, init_cache, prefill
+from .decode import decode_step, encode, init_cache, prefill
 
 __all__ = [
     "MLAConfig",
@@ -16,6 +18,7 @@ __all__ = [
     "SSMConfig",
     "XLSTMConfig",
     "decode_step",
+    "encode",
     "forward",
     "init_cache",
     "init_params",

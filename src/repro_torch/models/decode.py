@@ -1,13 +1,20 @@
-"""Serving path of the dense, moe and hybrid families: cache layouts, prefill
-(fills the cache, returns last-token logits) and single-token decode (port
-of the dense, moe and hybrid parts of ``repro/models/decode.py``, its
-default ``"scan"`` cache layout).
+"""Serving path of the dense, moe, vlm, hybrid and audio families: cache
+layouts, prefill (fills the cache, returns last-token logits), the encoder
+and single-token decode (port of ``repro/models/decode.py`` but its ssm
+family, with its default ``"scan"`` cache layout).
 
 The caches keep the reference's layouts, stacked per layer:
   * dense: ``{"len": int, "layers": {"k": (L, B, M, KV, hd), "v": ...}}``;
   * moe: the same, with the ``first_k_dense`` dense layers' stack first
     under ``"dense_layers"`` (when there are any) and the MoE layers'
-    under ``"layers"``;
+    under ``"layers"``; with MLA (deepseek-v2) each stack holds the latent
+    pair instead, ``{"c_kv": (L, B, M, kv_lora_rank), "k_rope": (L, B, M,
+    qk_rope_head_dim)}``;
+  * vlm: the self blocks' ``"layers"`` (``L - L / every`` of them) and
+    ``"cross": {"k": (L / every, B, memory_len, KV, hd), "v": ...}``, the
+    image tokens' K/V per cross block;
+  * audio: the decoder's ``"layers"`` (L) and its ``"cross"`` stack (L),
+    the encoder states' K/V per layer;
   * hybrid: ``{"len": int, "mamba": {"conv": (L, B, d_conv - 1, di + 2N),
     "h": (L, B, nh, N, P) float32}, "shared": {"k": (L / every, B, M, KV,
     hd), "v": ...}}``, one KV stack entry per application of the shared
@@ -18,17 +25,35 @@ Unlike the reference, whose functions return new arrays, :func:`prefill`
 and :func:`decode_step` write the cache IN PLACE and return the same dict
 (with ``len`` advanced): a full-width cache is hundreds of MB per slot, and
 a copy per token would double the bytes a decode step moves. Prefill
-overwrites every Mamba layer's conv tail and state and positions ``[0, S)``
-of the KV cache, and attention reads only positions below ``len``, so
-setting ``len`` to 0 empties a cache.
+overwrites every Mamba layer's conv tail and state, positions ``[0, S)``
+of the KV (or latent) cache and the whole ``cross`` stack, and attention
+reads only positions below ``len``, so setting ``len`` to 0 empties a
+cache. The reference's ``CACHE_LAYOUT = "carry"`` variant
+(``_gqa_decode_carry``, ``_mla_decode_carry``, ``_attn_decode_carry``) is
+a way to lay XLA's buffers out for a scan that carries the cache; writing
+in place gives one layout for both, so it has no counterpart here.
+
+A decoded token's cross-attention is K6 over all ``memory_len`` positions
+of its block's ``cross`` entry; MLA's decode is the reference's absorbed
+form (:func:`repro_torch.models.attention.mla_decode`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .attention import attn_out, chunked_attention, gqa_decode, gqa_project_qkv
+from .attention import (
+    attn_out,
+    chunked_attention,
+    cross_attend,
+    cross_kv,
+    gqa_decode,
+    gqa_project_qkv,
+    mla_decode,
+    mla_qkv,
+    mla_scale,
+)
 from .common import add_norm
 from .config import ModelConfig
 from .ssm import _mamba_seq, mamba_decode, mamba_init_cache
@@ -36,7 +61,9 @@ from .transformer import (
     _dt,
     _mlp_seam,
     block_stacks,
+    encode,  # noqa: F401 — the reference keeps encode in this module
     lm_head,
+    memory_states,
     require_supported,
     run_blocks,
     run_hybrid,
@@ -53,25 +80,45 @@ def _ring(cfg: ModelConfig, max_len: int) -> int:
 # ===================================================================== caches
 
 def init_cache(
-    cfg: ModelConfig, batch: int, max_len: int, *, device: torch.device | str = "cpu"
+    cfg: ModelConfig, batch: int, max_len: int, *, memory_len: int = 0,
+    device: torch.device | str = "cpu",
 ) -> PyTree:
-    """Empty cache for a serving session of ≤ max_len absolute positions."""
+    """Empty cache for a serving session of ≤ max_len absolute positions;
+    ``memory_len`` is the length of the memory (image tokens, encoder
+    frames) the vlm and audio families attend to."""
     require_supported(cfg)
     m = _ring(cfg, max_len)
-    if cfg.family in ("dense", "moe"):
-        cache = {"len": 0}
+    fam = cfg.family
+    cache: Dict[str, Any] = {"len": 0}
+    if fam in ("dense", "moe"):
         for _, key, n in block_stacks(cfg):
-            cache[key] = _kv_stack(cfg, n, batch, m, device)
-        return cache
-    one = mamba_init_cache(cfg, batch, _dt(cfg), device)
-    cache = {"len": 0, "mamba": {
-        k: torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype, device=device)
-        for k, t in one.items()
-    }}
-    if cfg.shared_attn_every:
-        n_shared = cfg.n_layers // cfg.shared_attn_every
-        cache["shared"] = _kv_stack(cfg, n_shared, batch, m, device)
+            cache[key] = _attn_stack(cfg, n, batch, m, device)
+    elif fam in ("vlm", "audio"):
+        n_cross = cfg.n_layers // cfg.cross_attn_every if fam == "vlm" else cfg.n_layers
+        n_self = cfg.n_layers - n_cross if fam == "vlm" else cfg.n_layers
+        cache["layers"] = _attn_stack(cfg, n_self, batch, m, device)
+        cache["cross"] = _kv_stack(cfg, n_cross, batch, memory_len, device)
+    else:
+        one = mamba_init_cache(cfg, batch, _dt(cfg), device)
+        cache["mamba"] = {
+            k: torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype, device=device)
+            for k, t in one.items()
+        }
+        if cfg.shared_attn_every:
+            n_shared = cfg.n_layers // cfg.shared_attn_every
+            cache["shared"] = _kv_stack(cfg, n_shared, batch, m, device)
     return cache
+
+
+def _attn_stack(cfg: ModelConfig, n: int, batch: int, m: int, device) -> Dict[str, torch.Tensor]:
+    """A self-attention stack: K/V, or MLA's latent pair."""
+    if cfg.mla is None:
+        return _kv_stack(cfg, n, batch, m, device)
+    a = cfg.mla
+    return {
+        "c_kv": torch.zeros((n, batch, m, a.kv_lora_rank), dtype=_dt(cfg), device=device),
+        "k_rope": torch.zeros((n, batch, m, a.qk_rope_head_dim), dtype=_dt(cfg), device=device),
+    }
 
 
 def _kv_stack(cfg: ModelConfig, n: int, batch: int, m: int, device) -> Dict[str, torch.Tensor]:
@@ -108,17 +155,25 @@ def _write(cfg: ModelConfig, cache_arr: torch.Tensor, new: torch.Tensor) -> torc
     return _write_ring(cache_arr, new) if cfg.swa_window else _write_linear(cache_arr, new)
 
 
-# ==================================================== dense-family prefill
+# ============================================================ prefill layers
 
-def _gqa_prefill_layer(bp, h, a_in, positions, cfg, cl, next_norm, last_only: bool = False):
+def _attn_prefill_layer(bp, h, a_in, positions, cfg, cl, next_norm, last_only: bool = False):
     """One attn + ffn layer that also fills its cache layer ``cl`` (views
-    of the stacked cache). Returns ``(h, next_norm(h))``; with
-    ``last_only`` (the last layer) only the last position goes on."""
-    q, k, v = gqa_project_qkv(bp["attn"], a_in, positions, cfg)
-    out = chunked_attention(q, k, v, causal=True, window=cfg.swa_window)
-    _write(cfg, cl["k"], k)
-    _write(cfg, cl["v"], v)
-    y = attn_out(out, bp["attn"]["wo"])
+    of the stacked cache): K/V, or for MLA the latent pair. Returns ``(h,
+    next_norm(h))``; with ``last_only`` (the last layer) only the last
+    position goes on."""
+    p = bp["attn"]
+    if "w_dq" in p:
+        q, k, v, c_kv, k_rope = mla_qkv(p, a_in, positions, cfg)
+        out = chunked_attention(q, k, v, causal=True, scale=mla_scale(cfg))
+        _write(cfg, cl["c_kv"], c_kv)
+        _write(cfg, cl["k_rope"], k_rope[:, :, 0])
+    else:
+        q, k, v = gqa_project_qkv(p, a_in, positions, cfg)
+        out = chunked_attention(q, k, v, causal=True, window=cfg.swa_window)
+        _write(cfg, cl["k"], k)
+        _write(cfg, cl["v"], v)
+    y = attn_out(out, p["wo"])
     # nothing after the last layer reads the other positions; an MoE layer
     # still routes them all, since they compete for its experts' capacity
     if last_only and "moe" not in bp:
@@ -127,19 +182,32 @@ def _gqa_prefill_layer(bp, h, a_in, positions, cfg, cl, next_norm, last_only: bo
     return _mlp_seam(bp, h, m_in, cfg, next_norm)
 
 
+def _cross_prefill_layer(bp, h, a_in, memory, cfg, cl, next_norm, last_only: bool = False):
+    """One cross-attention + MLP layer that writes the memory's K/V into
+    its ``cross`` entry ``cl`` whole. Returns ``(h, next_norm(h))``; with
+    ``last_only`` only the last position is computed and goes on (each
+    position's cross-attention reads the memory alone)."""
+    k, v = cross_kv(bp["attn"], memory, cfg)
+    if k.shape != cl["k"].shape:
+        raise ValueError(f"memory of {memory.shape[1]} positions for a cache made with "
+                         f"memory_len {cl['k'].shape[1]}")
+    cl["k"].copy_(k)
+    cl["v"].copy_(v)
+    if last_only:
+        a_in, h = a_in[:, -1:], h[:, -1:]
+    return _cross_seams(bp, h, a_in, cl, cfg, next_norm)
+
+
+def _cross_seams(bp, h, a_in, cl, cfg, next_norm):
+    """A cross block over the K/V of ``cl``: returns ``(h, next_norm(h))``."""
+    y = cross_attend(bp["attn"], a_in, cl["k"], cl["v"], cfg)
+    m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
+    return _mlp_seam(bp, h, m_in, cfg, next_norm)
+
+
 def _cache_layer(cache: PyTree, i: int, stack: str = "layers") -> Dict[str, torch.Tensor]:
     """Layer ``i`` of one of the cache's stacks, as views."""
     return {k: t[i] for k, t in cache[stack].items()}
-
-
-def _block_cache(cache: PyTree, cfg: ModelConfig, i: int) -> Dict[str, torch.Tensor]:
-    """The cache layer of attention block ``i``, counted over every stack of
-    :func:`~repro_torch.models.transformer.block_stacks`."""
-    for _, key, n in block_stacks(cfg):
-        if i < n:
-            return _cache_layer(cache, i, key)
-        i -= n
-    raise IndexError(f"block {i} past the last layer")
 
 
 # ==================================================== hybrid-family prefill
@@ -161,7 +229,8 @@ def _mamba_prefill(p, x, cfg, cl) -> torch.Tensor:
 
 
 def prefill(
-    params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache: PyTree
+    params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache: PyTree, *,
+    memory: Optional[torch.Tensor] = None,  # vlm image tokens / audio frames (B, Sm, D)
 ) -> Tuple[torch.Tensor, PyTree]:
     """Process a fresh prompt (B, S); returns (last-token logits (B, V), cache)."""
     require_supported(cfg)
@@ -173,18 +242,20 @@ def prefill(
         _, normed = run_hybrid(
             params, cfg, h,
             lambda i, mp, x: _mamba_prefill(mp, x, cfg, _cache_layer(cache, i, "mamba")),
-            lambda g, sp, h, a_in, nxt: _gqa_prefill_layer(
+            lambda g, sp, h, a_in, nxt: _attn_prefill_layer(
                 sp, h, a_in, positions, cfg, _cache_layer(cache, g, "shared"), nxt,
                 last_only=(g + 1) * every == cfg.n_layers),
         )
     else:
-        last = cfg.n_layers - 1
-        _, normed = run_blocks(
-            params, cfg, h,
-            lambda i, bp, h, a_in, nxt: _gqa_prefill_layer(
-                bp, h, a_in, positions, cfg, _block_cache(cache, cfg, i), nxt,
-                last_only=i == last),
-        )
+        mem = memory_states(params, cfg, memory)
+
+        def layer(b, bp, h, a_in, nxt):
+            cl = _cache_layer(cache, b.index, b.cache_key)
+            if b.cache_key == "cross":
+                return _cross_prefill_layer(bp, h, a_in, mem, cfg, cl, nxt, last_only=b.last)
+            return _attn_prefill_layer(bp, h, a_in, positions, cfg, cl, nxt, last_only=b.last)
+
+        _, normed = run_blocks(params, cfg, h, layer)
     cache["len"] = S
     return (normed[:, -1:] @ lm_head(params, cfg))[:, 0], cache
 
@@ -200,7 +271,8 @@ def decode_step(
     h = params["embed"][tokens].to(_dt(cfg))
 
     def attn_mlp(bp, h, a_in, nxt, cl):
-        y, _ = gqa_decode(bp["attn"], a_in, {**cl, "len": pos}, cfg)
+        dec = mla_decode if "w_dq" in bp["attn"] else gqa_decode
+        y, _ = dec(bp["attn"], a_in, {**cl, "len": pos}, cfg)
         m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
         return _mlp_seam(bp, h, m_in, cfg, nxt)
 
@@ -211,10 +283,12 @@ def decode_step(
             lambda g, sp, h, a_in, nxt: attn_mlp(sp, h, a_in, nxt, _cache_layer(cache, g, "shared")),
         )
     else:
-        _, normed = run_blocks(
-            params, cfg, h,
-            lambda i, bp, h, a_in, nxt: attn_mlp(bp, h, a_in, nxt,
-                                                 _block_cache(cache, cfg, i)),
-        )
+        def layer(b, bp, h, a_in, nxt):
+            cl = _cache_layer(cache, b.index, b.cache_key)
+            if b.cache_key == "cross":
+                return _cross_seams(bp, h, a_in, cl, cfg, nxt)
+            return attn_mlp(bp, h, a_in, nxt, cl)
+
+        _, normed = run_blocks(params, cfg, h, layer)
     cache["len"] = pos + 1
     return (normed @ lm_head(params, cfg))[:, 0], cache

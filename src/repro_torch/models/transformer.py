@@ -1,36 +1,51 @@
-"""Model assembly for the dense, moe and hybrid families: parameter init and
-the teacher-forcing forward (port of the dense, moe and hybrid parts of
-``repro/models/transformer.py``).
+"""Model assembly for the dense, moe, vlm, hybrid and audio families:
+parameter init, the encoder and the teacher-forcing forward (port of
+``repro/models/transformer.py`` but its ssm family).
 
 Parameters are a plain dictionary of tensors in the reference's layout:
 the per-layer weights stacked on a leading ``L`` axis (``wq (L, D, H, hd)``,
-``wo (L, H, hd, D)``, ``mamba_blocks.mixer.w_in (L, D, E)``, …), and the
-hybrid family's one shared attention block unstacked, so
-:func:`repro_torch.convert.params_from_jax` moves arrays without re-laying
-them out. Layers run in a Python loop over views of the stack (PyTorch runs
-eagerly; there is no ``scan`` to lower).
+``wo (L, H, hd, D)``, ``mamba_blocks.mixer.w_in (L, D, E)``, a gated cross
+block's ``gate (L,)``, …), and the hybrid family's one shared attention
+block unstacked, so :func:`repro_torch.convert.params_from_jax` moves
+arrays without re-laying them out. Layers run in a Python loop over views
+of the stack (PyTorch runs eagerly; there is no ``scan`` to lower).
 
-Each residual seam is one K4 pass: in a dense block ``h + attn`` feeds the
-MLP norm, and ``h + mlp`` feeds the next layer's attention norm (the final
-norm after the last layer); only layer 0's attention norm is a K1 pass of
-its own. The moe family (mixtral; deepseek-v2's layout without MLA) runs
-the same blocks with ``moe_layer`` in place of the MLP from layer
-``first_k_dense`` on (``dense_blocks`` then ``blocks``). The hybrid family
-(zamba2) runs Mamba2 layers, ``h + mixer(norm(h))``, with the shared
-attention + MLP block after every
+Each residual seam is one K4 pass: in a block ``h + attn`` feeds the MLP
+norm, and ``h + mlp`` feeds the next block's attention norm (the final
+norm after the last block); only the first block's attention norm is a K1
+pass of its own. :func:`block_plan` gives the decoder's blocks in order:
+  * dense: attn + MLP blocks (GQA);
+  * moe: the same with ``moe_layer`` in place of the MLP from layer
+    ``first_k_dense`` on (``dense_blocks`` then ``blocks``): mixtral with
+    GQA, deepseek-v2 with MLA in every block (``"w_dq" in bp["attn"]``);
+  * vlm (llama-3.2-vision): ``cross_attn_every - 1`` self blocks, then a
+    gated cross-attention block over the image tokens, repeated;
+  * audio (seamless): each decoder layer a self block and a cross block
+    over the encoder's states; the encoder (:func:`encode`) is a stack of
+    non-causal attn + MLP blocks over the frames, between two norms.
+The hybrid family (zamba2) runs Mamba2 layers, ``h + mixer(norm(h))``,
+with the shared attention + MLP block after every
 ``shared_attn_every``-th: each ``h + mixer`` seam feeds the next Mamba
 norm, the shared block's attention norm or the final norm, and the shared
 block's own two seams are a dense block's; K1 runs the first Mamba norm
-(and, inside the mixer, the gated ``out_norm``). Other families raise
-``NotImplementedError`` naming the slice of the port that brings them.
+(and, inside the mixer, the gated ``out_norm``). The ssm family (xlstm)
+raises ``NotImplementedError`` naming the slice of the port that brings it.
+LayerNorm seams (nemotron, seamless) are plain torch, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from .attention import gqa_attention, gqa_params
+from .attention import (
+    cross_attention,
+    cross_attn_params,
+    gqa_attention,
+    gqa_params,
+    mla_attention,
+    mla_params,
+)
 from .common import add_norm, apply_norm, dense_init, embed_init, norm_params
 from .config import ModelConfig
 from .mlp import mlp, mlp_params, moe_layer, moe_params
@@ -38,27 +53,18 @@ from .ssm import mamba_block, mamba_params
 
 PyTree = Any
 
-# the slice of the port (ROADMAP queue 1) that brings each family or
-# feature the port lacks
+# the slice of the port (ROADMAP queue 1) that brings each family the
+# port lacks
 FAMILY_SLICE = {
-    "mla": "the MLA slice (deepseek-v2, ROADMAP item 14)",
-    "vlm": "the vlm slice (llama-3.2-vision cross-attention, ROADMAP item 15)",
-    "audio": "the audio slice (seamless encoder-decoder, ROADMAP item 16)",
     "ssm": "the ssm slice (xlstm, ROADMAP item 17)",
 }
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "moe" and cfg.mla is not None:
+    if cfg.family in FAMILY_SLICE:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the moe family with grouped-query attention; "
-            f"multi-head latent attention comes with {FAMILY_SLICE['mla']}"
-        )
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        slice_ = FAMILY_SLICE.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, moe and hybrid families only; family "
-            f"{cfg.family!r} comes with {slice_}"
+            f"{cfg.name}: the port runs the dense, moe, vlm, hybrid and audio families; "
+            f"family {cfg.family!r} comes with {FAMILY_SLICE[cfg.family]}"
         )
 
 
@@ -85,13 +91,28 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (D, V), dtype)
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         params["blocks"] = _dense_layers(generator, cfg, dtype, L)
-    elif cfg.family == "moe":
+    elif fam == "moe":
         k = cfg.moe.first_k_dense
         if k:
-            params["dense_blocks"] = _dense_layers(generator, cfg, dtype, k, cfg.moe.dense_ff)
+            params["dense_blocks"] = _dense_layers(generator, cfg, dtype, k, cfg.moe.dense_ff,
+                                                   use_mla=cfg.mla is not None)
         params["blocks"] = _moe_layers(generator, cfg, dtype, L - k)
+    elif fam == "vlm":
+        n_cross = L // cfg.cross_attn_every
+        if (L - n_cross) % n_cross:
+            raise ValueError(f"{cfg.name}: {L} layers do not split into groups of "
+                             f"{cfg.cross_attn_every} ending in a cross-attention layer")
+        params["blocks"] = _dense_layers(generator, cfg, dtype, L - n_cross)
+        params["cross_blocks"] = _cross_layers(generator, cfg, dtype, n_cross, gated=True)
+    elif fam == "audio":
+        params["enc_embed_norm"] = norm_params(cfg.norm, D, dtype, dev)
+        params["encoder"] = _dense_layers(generator, cfg, dtype, cfg.n_encoder_layers)
+        params["enc_final_norm"] = norm_params(cfg.norm, D, dtype, dev)
+        params["blocks"] = _dense_layers(generator, cfg, dtype, L)
+        params["cross_blocks"] = _cross_layers(generator, cfg, dtype, L, gated=False)
     else:
         params["mamba_blocks"] = {
             "norm": norm_params(cfg.norm, (L, D), dtype, dev),
@@ -105,15 +126,20 @@ def init_params(
     return params
 
 
+def _attn_params(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int,
+                 use_mla: bool) -> PyTree:
+    return mla_params(gen, cfg, dtype, n) if use_mla else gqa_params(gen, cfg, dtype, n)
+
+
 def _dense_layers(
     gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int,
-    d_ff: Optional[int] = None,
+    d_ff: Optional[int] = None, use_mla: bool = False,
 ) -> PyTree:
     """``n`` attn + MLP layers' weights, stacked on a leading axis."""
     D = cfg.d_model
     return {
         "attn_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
-        "attn": gqa_params(gen, cfg, dtype, n),
+        "attn": _attn_params(gen, cfg, dtype, n, use_mla),
         "mlp_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
         "mlp": mlp_params(gen, D, d_ff or cfg.d_ff, cfg.activation, dtype, n),
     }
@@ -124,9 +150,21 @@ def _moe_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: i
     D = cfg.d_model
     return {
         "attn_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
-        "attn": gqa_params(gen, cfg, dtype, n),
+        "attn": _attn_params(gen, cfg, dtype, n, cfg.mla is not None),
         "mlp_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
         "moe": moe_params(gen, cfg, dtype, n),
+    }
+
+
+def _cross_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype, n: int,
+                  gated: bool) -> PyTree:
+    """``n`` cross-attention + MLP layers' weights, stacked on a leading axis."""
+    D = cfg.d_model
+    return {
+        "attn_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
+        "attn": cross_attn_params(gen, cfg, dtype, n, gated=gated),
+        "mlp_norm": norm_params(cfg.norm, (n, D), dtype, gen.device),
+        "mlp": mlp_params(gen, D, cfg.d_ff, cfg.activation, dtype, n),
     }
 
 
@@ -158,8 +196,20 @@ def _dense_block(
     causal: bool = True,
 ):
     """One attn + MLP layer on the stream ``h`` whose attention input
-    ``a_in = attn_norm(h)`` is given; returns ``(h, next_norm(h))``."""
-    y = gqa_attention(bp["attn"], a_in, positions, cfg, causal=causal)
+    ``a_in = attn_norm(h)`` is given; returns ``(h, next_norm(h))``. The
+    attention is MLA where the block has its weights (deepseek-v2)."""
+    if "w_dq" in bp["attn"]:
+        y = mla_attention(bp["attn"], a_in, positions, cfg)
+    else:
+        y = gqa_attention(bp["attn"], a_in, positions, cfg, causal=causal)
+    m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
+    return _mlp_seam(bp, h, m_in, cfg, next_norm)
+
+
+def _cross_block(bp, h, a_in, memory, cfg: ModelConfig, next_norm):
+    """One cross-attention + MLP layer over ``memory`` (B, Sm, D); returns
+    ``(h, next_norm(h))``."""
+    y = cross_attention(bp["attn"], a_in, memory, cfg)
     m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
     return _mlp_seam(bp, h, m_in, cfg, next_norm)
 
@@ -183,15 +233,44 @@ def block_stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
     return stacks + [("blocks", "layers", cfg.n_layers - k)]
 
 
+class Block(NamedTuple):
+    """A block of the decoder: its stack of parameters, its stack of the
+    cache (``"cross"`` for a cross-attention block), its index in both, and
+    whether it is the last block."""
+    params_key: str
+    cache_key: str
+    index: int
+    last: bool
+
+
+def block_plan(cfg: ModelConfig) -> List[Block]:
+    """The decoder's blocks in order: the stacks of :func:`block_stacks`
+    one after the other; for vlm a gated cross block after every
+    ``cross_attn_every - 1`` self blocks; for audio a self block then a
+    cross block per layer."""
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every - 1
+        entries = [e for g in range(cfg.n_layers // cfg.cross_attn_every)
+                   for e in [("blocks", "layers", g * per + j) for j in range(per)]
+                   + [("cross_blocks", "cross", g)]]
+    elif cfg.family == "audio":
+        entries = [e for i in range(cfg.n_layers)
+                   for e in (("blocks", "layers", i), ("cross_blocks", "cross", i))]
+    else:
+        entries = [(key, ckey, i) for key, ckey, n in block_stacks(cfg) for i in range(n)]
+    return [Block(*e, last=n + 1 == len(entries)) for n, e in enumerate(entries)]
+
+
 def run_blocks(params: PyTree, cfg: ModelConfig, h: torch.Tensor, layer_fn):
-    """Drive ``layer_fn(i, bp, h, a_in, next_norm) -> (h, a_in)`` over the
-    layers (``i`` counts every stack of :func:`block_stacks`); returns the
-    stream and its final-normed version."""
-    blocks = [bp for key, _, n in block_stacks(cfg) for bp in layers(params[key], n)]
+    """Drive ``layer_fn(block, bp, h, a_in, next_norm) -> (h, a_in)`` over
+    the blocks of :func:`block_plan`; returns the stream and its
+    final-normed version."""
+    plan = block_plan(cfg)
+    blocks = [tree_map(lambda t, i=b.index: t[i], params[b.params_key]) for b in plan]
     a_in = apply_norm(h, blocks[0]["attn_norm"], cfg.norm)
-    for i, bp in enumerate(blocks):
+    for i, (b, bp) in enumerate(zip(plan, blocks)):
         nxt = blocks[i + 1]["attn_norm"] if i + 1 < len(blocks) else params["final_norm"]
-        h, a_in = layer_fn(i, bp, h, a_in, nxt)
+        h, a_in = layer_fn(b, bp, h, a_in, nxt)
     return h, a_in
 
 
@@ -218,7 +297,35 @@ def run_hybrid(params: PyTree, cfg: ModelConfig, h: torch.Tensor, mamba_fn, shar
 
 # ======================================================================== forward
 
-def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Audio/enc-dec encoder over stub frame embeddings (B, Sm, D) → memory
+    states: its input norm, non-causal attn + MLP blocks (K5 without a
+    mask), its final norm."""
+    mem = apply_norm(frames.to(_dt(cfg)), params["enc_embed_norm"], cfg.norm)
+    positions = torch.arange(mem.shape[1], device=mem.device)[None, :]
+    blocks = layers(params["encoder"], cfg.n_encoder_layers)
+    a_in = apply_norm(mem, blocks[0]["attn_norm"], cfg.norm)
+    for i, bp in enumerate(blocks):
+        nxt = blocks[i + 1]["attn_norm"] if i + 1 < len(blocks) else params["enc_final_norm"]
+        mem, a_in = _dense_block(bp, mem, a_in, positions, cfg, nxt, causal=False)
+    return a_in
+
+
+def memory_states(params: PyTree, cfg: ModelConfig, memory: Optional[torch.Tensor]):
+    """What the cross blocks attend to: the image tokens (vlm) in the
+    activation type, the encoder's states over the frames (audio); None for
+    the families without cross-attention."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    if memory is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs memory (B, Sm, D)")
+    return memory.to(_dt(cfg)) if cfg.family == "vlm" else encode(params, cfg, memory)
+
+
+def forward(
+    params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+    memory: Optional[torch.Tensor] = None,  # vlm vision / audio frames (B, Sm, D)
+) -> torch.Tensor:
     """Teacher-forcing forward → logits (B, S, V)."""
     require_supported(cfg)
     S = tokens.shape[1]
@@ -231,8 +338,12 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Ten
             lambda g, sp, h, a_in, nxt: _dense_block(sp, h, a_in, positions, cfg, nxt),
         )
     else:
-        _, normed = run_blocks(
-            params, cfg, h,
-            lambda i, bp, h, a_in, nxt: _dense_block(bp, h, a_in, positions, cfg, nxt),
-        )
+        mem = memory_states(params, cfg, memory)
+
+        def layer(b, bp, h, a_in, nxt):
+            if b.cache_key == "cross":
+                return _cross_block(bp, h, a_in, mem, cfg, nxt)
+            return _dense_block(bp, h, a_in, positions, cfg, nxt)
+
+        _, normed = run_blocks(params, cfg, h, layer)
     return normed @ lm_head(params, cfg)

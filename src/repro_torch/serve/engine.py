@@ -9,12 +9,17 @@ Gumbel-max draw of :mod:`repro_torch.random`, keyed from the logits as the
 reference keys it, so with float32 logits it draws what ``jax.random``
 draws. Caches live where the parameters live and are reused on refill:
 setting ``len`` to 0 empties one, since prefill overwrites positions
-``[0, S)`` and attention reads only positions below ``len``.
+``[0, S)`` (and the whole ``cross`` stack) and attention reads only
+positions below ``len``. The vlm and audio families take a memory with
+each request (``Request.memory``, (Sm, D): image tokens or encoder
+frames, ``mem_len`` = ``num_image_tokens`` or ``encoder_seq`` positions),
+handed to prefill as (1, Sm, D) float32 and cast there, as in the
+reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,6 +37,7 @@ class Request:
     prompt: np.ndarray          # (S,) int32
     max_new: int = 16
     temperature: float = 0.0    # 0 = greedy
+    memory: Optional[np.ndarray] = None  # (Sm, D): vlm image tokens / audio frames
 
 
 @dataclass
@@ -56,6 +62,7 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.device = params["embed"].device
+        self.mem_len = {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(cfg.family, 0)
         self._queue: List[Request] = []
         self._active: Dict[int, Request] = {}        # slot -> request
         self._generated: Dict[int, List[int]] = {}
@@ -64,7 +71,8 @@ class ServeEngine:
 
         # one cache per slot (batch=1) — refilled in place
         self._caches: List[PyTree] = [
-            init_cache(cfg, 1, max_len, device=self.device) for _ in range(slots)
+            init_cache(cfg, 1, max_len, memory_len=self.mem_len, device=self.device)
+            for _ in range(slots)
         ]
         self._next_tok = np.zeros((slots, 1), np.int64)
         self._live = np.zeros((slots,), bool)
@@ -104,7 +112,11 @@ class ServeEngine:
             cache["len"] = 0
             toks = torch.as_tensor(np.asarray(req.prompt)[None, :], dtype=torch.int64,
                                    device=self.device)
-            logits, self._caches[s] = prefill(self.params, self.cfg, toks, cache)
+            mem = None
+            if self.mem_len:
+                mem = torch.as_tensor(np.asarray(req.memory)[None], dtype=torch.float32,
+                                      device=self.device)
+            logits, self._caches[s] = prefill(self.params, self.cfg, toks, cache, memory=mem)
             nxt = self._sample(logits, req.temperature)
             self._active[s] = req
             self._generated[s] = []

@@ -1418,3 +1418,96 @@ def test_reuse_serving_on_the_card_is_bitwise_across_strategies(cuda):
             assert sinks[sink]["count"] == dg["count"]
             assert abs(sinks[sink]["checksum"] - dg["checksum"]) <= 1e-4 * max(1.0, abs(dg["checksum"]))
     cpu.system.close()
+
+
+# -- the MLA, vlm and audio families: K5's routes (a)-(c), K6's cross decode -----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,h,hd,hd_v", [
+    (300, 8, 192, 128),    # MLA's head dims (deepseek-v2: 128 heads)
+    (129, 4, 24, 16),      # the SMOKE config's: v padded to 24, then all to 32
+    (2047, 16, 192, 128),
+])
+def test_cuda_flash_attention_route_a_smaller_v_head_dim(cuda, dtype, sq, h, hd, hd_v):
+    g = torch.Generator().manual_seed(sq)
+    q = _randn(g, (1, sq, h, hd), cuda, dtype)
+    k = _randn(g, (1, sq, h, hd), cuda, dtype)
+    v = _randn(g, (1, sq, h, hd_v), cuda, dtype)
+    scale = hd ** -0.5 * 0.9  # passed, as MLA passes (nope + rope)^-0.5
+    got = flash_attention.flash_attention(q, k, v, causal=True, scale=scale)
+    assert got.shape == (1, sq, h, hd_v)
+    want = ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,h,kv,hd", [
+    (1024, 1024, 16, 16, 64),  # (b) the seamless encoder, no mask
+    (300, 1000, 4, 4, 64),     # (c) Sk not a multiple of 64, a ragged q tile
+    (159, 1024, 64, 8, 128),   # (c) llama's cross-attention, a 159-token prompt
+    (2048, 1024, 16, 2, 128),
+    (1000, 77, 8, 8, 64),      # more queries than keys, a ragged K/V tile
+])
+def test_cuda_flash_attention_without_a_mask(cuda, dtype, sq, sk, h, kv, hd):
+    g = torch.Generator().manual_seed(sq + sk)
+    q = _randn(g, (1, sq, h, hd), cuda, dtype)
+    k, v = _randn(g, (1, sk, kv, hd), cuda, dtype), _randn(g, (1, sk, kv, hd), cuda, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sm,h,kv,hd", [(1024, 64, 8, 128), (1000, 16, 16, 64), (16, 4, 2, 16)])
+def test_cuda_decode_attention_over_a_cross_memory(cuda, dtype, sm, h, kv, hd):
+    # one decoded token against the whole memory: cache_len = Sm
+    g = torch.Generator().manual_seed(sm)
+    q = _randn(g, (1, 1, h, hd), cuda, dtype)
+    kc, vc = _randn(g, (1, sm, kv, hd), cuda, dtype), _randn(g, (1, sm, kv, hd), cuda, dtype)
+    got = decode_attention.decode_attention(q, kc, vc, sm)
+    want = ref.decode_attention_ref(q, kc, vc, sm)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+    lib = ref.flash_attention_ref(q, kc, vc, causal=False)  # the same function
+    torch.testing.assert_close(got.float(), lib.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama-3.2-vision-90b", "seamless-m4t-medium"])
+def test_attention_families_on_the_card_match_cpu(cuda, arch):
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    cfg = configs.get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    if cfg.family == "vlm":  # 0 at init: the cross blocks would add nothing
+        params["cross_blocks"]["attn"]["gate"].fill_(0.8)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    ml = {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(cfg.family, 0)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 40))).long()
+    mem = torch.from_numpy(rng.standard_normal((1, ml, cfg.d_model)).astype(np.float32)) if ml else None
+    reset_launch_counts()
+    caches = {d: init_cache(cfg, 1, 64, memory_len=ml, device=d) for d in ("cpu", cuda)}
+    want, _ = prefill(params, cfg, toks, caches["cpu"], memory=mem)
+    got, _ = prefill(on_card, cfg, toks.to(cuda), caches[cuda],
+                     memory=None if mem is None else mem.to(cuda))
+    for _ in range(3):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok = want.argmax(-1)[:, None]
+        want, _ = decode_step(params, cfg, tok, caches["cpu"])
+        got, _ = decode_step(on_card, cfg, tok.to(cuda), caches[cuda])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    counts = launch_counts()
+    # MLA decodes in the absorbed form, plain products over the latent
+    # cache: no K6 on its path
+    needed = ("flash_attention",) + (("decode_attention",) if cfg.mla is None else ()) + (
+        ("rmsnorm", "rmsnorm_residual") if cfg.norm == "rmsnorm" else ())
+    for name in needed:
+        assert counts[name] > 0, name

@@ -32,9 +32,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 STATE_REL = 2e-5
 DENSE = ["granite_20b", "nemotron_4_340b", "qwen15_110b", "qwen3_4b"]
 SERVED = DENSE + ["zamba2_2_7b"]
-# the families the port does not run yet (deepseek-v2: its MLA); mixtral
-# runs since the moe slice (tests/test_torch_moe.py)
-OTHER = ["deepseek_v2_236b", "llama32_vision_90b", "xlstm_1_3b", "seamless_m4t_medium"]
+# the families the port does not run yet; mixtral runs since the moe slice
+# (tests/test_torch_moe.py), deepseek-v2, llama-3.2-vision and seamless since
+# the MLA, vlm and audio slices (tests/test_torch_{mla,vlm,audio}.py)
+OTHER = ["xlstm_1_3b"]
 
 
 def _configs(arch, swa=0):

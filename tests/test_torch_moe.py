@@ -15,8 +15,7 @@ packages differ only in the order of their sums:
     filled ring cache) and decode steps, and ``ServeEngine``'s greedy
     tokens over refilled slots with prompts longer than the window;
   * deepseek-v2 SMOKE with ``mla=None`` (``first_k_dense`` dense layers and
-    a shared expert) the same way; with MLA the port still refuses it,
-    naming its slice.
+    a shared expert) the same way; with MLA in ``tests/test_torch_mla.py``.
 """
 from __future__ import annotations
 
@@ -242,12 +241,3 @@ def test_engine_greedy_tokens_over_refilled_slots(arch):
     assert got == want
     assert sorted(got) == [0, 1, 2, 3, 4] and all(len(t) == 5 for t in got.values())
 
-
-def test_mla_is_still_refused_naming_its_slice():
-    cfg = configs.get_smoke_config("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="MLA slice"):
-        init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="deepseek-v2"):
-        forward({}, cfg, torch.zeros((1, 4), dtype=torch.long))
