@@ -29,6 +29,11 @@ Phases, each fatal on failure:
      cross-attention without a mask, q (1, 2048 and 159, 64, 128) against
      (1, 1024, 8, 128); K6 for one token against that memory, cache_len
      1024; f32 and bf16, each beside F.scaled_dot_product_attention);
+     the ssm family's scans at xlstm-1.3b's prefill of 2048 tokens:
+     mlstm_scan, q/k/v (1, 2048, 4, 1024) at chunk 64 in f32 and bf16, at
+     a ragged S = 2039 and from a carried state, and slstm_scan, xg (1,
+     2048, 8192) with R (4, 4, 512, 512) in f32 and bf16, each within
+     SCAN_REL of its plain version, beside its bound;
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -156,11 +161,18 @@ Phases, each fatal on failure:
      and the logits with it must differ from those with a zero memory; the
      card-vs-CPU cuts are 2 layers (1 dense + 1 MoE; 1 self + 1 cross at
      cross_attn_every 2; 2 + 2 encoder/decoder layers);
+  5g. the ssm family the same way: xlstm-1.3b whole (42 mLSTM and 6
+     sLSTM blocks, d_model 2048, 4 heads, bf16), K1, K4, mlstm_scan and
+     slstm_scan > 0, each scan launched once per block and prefill;
+     prefill/decode consistency in f32 at full depth and in bf16; the
+     card-vs-CPU cut at 2 layers, one mLSTM and one sLSTM block
+     (slstm_every 2), at full width; ``python -m repro_torch.launch.serve
+     --arch xlstm-1.3b`` on the card;
   6. nemotron-4-340b cut in width (NEMOTRON_CUT: head dim 192, 12 q heads
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5f, the session's, the concurrent ones, the workers' of
+     of phases 3-5g, the session's, the concurrent ones, the workers' of
      phases 3c and 3e and the in-process runs of 3d and 3g included; each
      must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
@@ -422,6 +434,7 @@ def kernel_phase(dev):
         + (f"{clock / 1e9:.3f} GHz: {floor * 1e3:.2f} us" if clock else "clock: not read"))
     out += model_kernel_phase(dev, gen)
     out += hybrid_kernel_phase(dev, gen)
+    out += xlstm_kernel_phase(dev, gen)
     mixtral_attention_checks(dev, gen)
     attention_family_checks(dev, gen)
     for k in out:
@@ -816,6 +829,136 @@ def ssd_route_checks(dev, gen):
 # where the plain version does not (its flash kernel feeds P to the tensor
 # cores in bf16, up to |v| * 2**-9 off), so its output is held at the bf16
 # tolerance, which a wrong row or head still misses by far
+# the ssm family's scans at xlstm-1.3b's prefill of SERVE_PROMPT tokens: 4
+# heads, the mLSTM's P = 4096 / 4 = 1024 at chunk 64, the sLSTM's hd = 512
+XLSTM_HEADS, MLSTM_P, MLSTM_CHUNK, SLSTM_HD = 4, 1024, 64, 512
+MLSTM_RAGGED = 2039  # 31 whole chunks and one of 55
+# Both kernels take their inputs to float32 and compute in float32, as their
+# plain versions do from the same inputs, so they differ only in the order
+# of their sums (over P = 1024 columns and 64 positions; over hd = 512 and
+# the head means): each output held at 1e-4 of its largest |value|.
+SCAN_REL = 1e-4
+
+
+def mlstm_bound(b, s, nh, p, chunk, el, ops_rate):
+    """(ms, by) of one mlstm_scan call: q, k, v in ``el`` bytes and the two
+    gates in float32 read, y and the final (C, n, m) in float32 written; per
+    (batch, head) the causal pairs of each chunk (the ragged last at its
+    length) need l(l+1)/2·P MACs for q·kᵀ and as many for W·v, and each
+    position P² for C·q and P² for its term of the C update."""
+    io = 3 * b * s * nh * p * el + 2 * b * s * nh * 4 + b * s * nh * p * 4 + b * nh * (p * p + p + 1) * 4
+    lens = [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
+    macs = b * nh * sum(l * (l + 1) * p + 2 * l * p * p for l in lens)
+    return bound_ms(io, 2 * macs, ops_rate)
+
+
+def slstm_bound(b, s, nh, hd, el, r_el, ops_rate):
+    """(ms, by) of one slstm_scan call: xg (4 gates) in ``el`` bytes and R in
+    ``r_el`` read once, hs and the final state in float32 written; each step
+    4·hd² MACs a head for h·R (the rest is O(hd))."""
+    io = 4 * b * s * nh * hd * el + 4 * nh * hd * hd * r_el + b * s * nh * hd * 4 + b * nh * (3 * hd + 1) * 4
+    return bound_ms(io, 2 * 4 * b * s * nh * hd * hd, ops_rate)
+
+
+def xlstm_kernel_phase(dev, gen):
+    """mlstm_scan and slstm_scan at xlstm-1.3b's prefill of 2048 tokens
+    against their plain versions on the card: the mLSTM scan in f32 and
+    with bf16 inputs (the row that goes into the kernels line: the serving
+    path's), at a ragged S, and from a carried state; the sLSTM recurrence
+    with f32 and with bf16 xg and R (the serving path's)."""
+    import torch
+
+    from repro_torch.kernels import mlstm, ref, slstm
+
+    b, s, nh, p, chunk = 1, SERVE_PROMPT, XLSTM_HEADS, MLSTM_P, MLSTM_CHUNK
+    rows = []
+    for dtype, seq in ((torch.float32, s), (torch.float32, MLSTM_RAGGED), (torch.bfloat16, s)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        el = torch.finfo(dtype).bits // 8
+        q, k, v = (torch.randn((b, seq, nh, p), generator=gen).to(dev, dtype) for _ in range(3))
+        ig, fg = (torch.randn((b, seq, nh), generator=gen).to(dev) for _ in range(2))
+        got_y, got_state = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk)
+        want_y, want_state = ref.mlstm_scan_ref(q, k, v, ig, fg, chunk)
+        err = check_rel(f"mlstm_scan {tag} S {seq} y", got_y, want_y, SCAN_REL)
+        for name, g_, w_ in zip("Cnm", got_state, want_state):
+            err = max(err, check_rel(f"mlstm_scan {tag} S {seq} {name}", g_, w_, SCAN_REL))
+        del want_y, want_state, got_y, got_state
+        torch.cuda.empty_cache()
+        fn = lambda: mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk)  # noqa: E731
+        ms, host = device_ms(fn, per_graph=2, reps=5), call_ms(fn, iters=5, warmup=1)
+        plain = call_ms(lambda: ref.mlstm_scan_ref(q, k, v, ig, fg, chunk), iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        rate, ops_rate = ("bf16", BF16_OPS_PER_S) if dtype == torch.bfloat16 else ("f32", FP32_OPS_PER_S)
+        bnd, by = mlstm_bound(b, seq, nh, p, chunk, el, ops_rate)
+        extra = ""
+        if dtype == torch.bfloat16:
+            b32, by32 = mlstm_bound(b, seq, nh, p, chunk, el, FP32_OPS_PER_S)
+            extra = (f"; at the f32 rate, which this SIMT build runs at, {b32 * 1e3:.1f} us "
+                     f"({by32})")
+        log(f"mlstm_scan q/k/v ({b},{seq},{nh},{p}) chunk {chunk} {tag}: max|err| {err:.3g} "
+            f"over y, C, n, m (each within {SCAN_REL} of its largest |value|); {mlstm.rows_per_block(p)} rows of C a "
+            f"block, {-(-p // mlstm.rows_per_block(p)) * nh * b} blocks, 1 launch per call; "
+            f"{ms * 1e3:.1f} us per call on the device ({host * 1e3:.1f} us per call from the "
+            f"host), plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by}, {rate}){extra}, "
+            f"library: none")
+        rows.append(dict(
+            name="mlstm_scan", route="cuda", source="src/repro_torch/kernels/csrc/mlstm.cu",
+            replaces="src/repro/models/xlstm.py:54 (mlstm_chunked, jnp under the "
+                     "kernel_mlstm_scan scope, not a Pallas kernel)",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+            call_ms=host))
+        del q, k, v, ig, fg
+    # from a carried state: the first 1000 positions, then the rest from their state
+    q, k, v = (torch.randn((b, 1500, nh, p), generator=gen).to(dev) for _ in range(3))
+    ig, fg = (torch.randn((b, 1500, nh), generator=gen).to(dev) for _ in range(2))
+    _, mid = ref.mlstm_scan_ref(q[:, :1000], k[:, :1000], v[:, :1000], ig[:, :1000], fg[:, :1000], chunk)
+    tail = (q[:, 1000:], k[:, 1000:], v[:, 1000:], ig[:, 1000:], fg[:, 1000:])
+    got_y, got_state = mlstm.mlstm_scan(*tail, chunk=chunk, state=mid)
+    want_y, want_state = ref.mlstm_scan_ref(*tail, chunk, mid)
+    err = check_rel("mlstm_scan from a state y", got_y, want_y, SCAN_REL)
+    for name, g_, w_ in zip("Cnm", got_state, want_state):
+        err = max(err, check_rel(f"mlstm_scan from a state {name}", g_, w_, SCAN_REL))
+    log(f"mlstm_scan f32 from the state of 1000 positions over the next 500: "
+        f"max|err| {err:.3g} over y, C, n, m (each within {SCAN_REL} of its largest |value|)")
+    del q, k, v, ig, fg, mid, tail, got_y, got_state, want_y, want_state
+    torch.cuda.empty_cache()
+
+    hd = SLSTM_HD
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        el = torch.finfo(dtype).bits // 8
+        xg = torch.randn((b, s, 4 * nh * hd), generator=gen).to(dev, dtype)
+        r = (torch.randn((4, nh, hd, hd), generator=gen) * hd ** -0.5).to(dev, dtype)
+        got_h, got_state = slstm.slstm_scan(xg, r)
+        want_h, want_state = ref.slstm_scan_ref(xg, r)
+        err = check_rel(f"slstm_scan {tag} hs", got_h, want_h, SCAN_REL)
+        for name, g_, w_ in zip("hcnm", got_state, want_state):
+            err = max(err, check_rel(f"slstm_scan {tag} {name}", g_, w_, SCAN_REL))
+        fn = lambda: slstm.slstm_scan(xg, r)  # noqa: E731
+        ms, host = device_ms(fn, per_graph=1, reps=3), call_ms(fn, iters=3, warmup=1)
+        # ~15 launches per step: too many to capture, timed as one call
+        plain = call_ms(lambda: ref.slstm_scan_ref(xg, r), iters=1, warmup=1)
+        rate, ops_rate = ("bf16", BF16_OPS_PER_S) if dtype == torch.bfloat16 else ("f32", FP32_OPS_PER_S)
+        bnd, by = slstm_bound(b, s, nh, hd, el, el, ops_rate)
+        extra = ""
+        if dtype == torch.bfloat16:
+            b32, by32 = slstm_bound(b, s, nh, hd, el, el, FP32_OPS_PER_S)
+            extra = f"; at the f32 rate, which this build runs at, {b32 * 1e3:.1f} us ({by32})"
+        log(f"slstm_scan xg ({b},{s},{4 * nh * hd}) R (4,{nh},{hd},{hd}) {tag}: max|err| {err:.3g} "
+            f"over hs, h, c, n, m (each within {SCAN_REL} of its largest |value|); {nh * b} blocks of {hd} threads, 1 "
+            f"launch per call; {ms * 1e3:.1f} us per call on the device ({host * 1e3:.1f} us per "
+            f"call from the host, {ms * 1e3 / s:.2f} us a step), plain {plain * 1e3:.1f} us, bound "
+            f"{bnd * 1e3:.1f} us ({by}, {rate}){extra}, library: none")
+        row = dict(
+            name="slstm_scan", route="cuda", source="src/repro_torch/kernels/csrc/slstm.cu",
+            replaces="src/repro/models/xlstm.py:262 (lax.scan of _slstm_cell, not a Pallas "
+                     "kernel)",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+            call_ms=host)
+        del xg, r, got_h, want_h
+    return [rows[-1], row]  # the bf16 rows: the serving path's types
+
+
 LIB_TOL = BF16_TOL
 
 
@@ -2238,6 +2381,7 @@ SERVE_ARCH = "qwen3-4b"
 HYBRID_ARCH = "zamba2-2.7b"
 MOE_ARCH = "mixtral-8x22b"
 MLA_ARCH, VLM_ARCH, AUDIO_ARCH = "deepseek-v2-236b", "llama-3.2-vision-90b", "seamless-m4t-medium"
+SSM_ARCH = "xlstm-1.3b"
 MEMORY_SEED = 1  # the numpy seed of the vlm/audio memories and the vlm gates
 ZERO_MEMORY_REL = 1e-2  # least max|diff|/max|logit| between a drawn and a zero memory
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 4096
@@ -2287,6 +2431,17 @@ SERVE_PHASES = (
     (AUDIO_ARCH, 2, ("flash_attention", "decode_attention"), (0, 1), (5e-2, 0.999, True),
      (2e-2, 0.9998, True),
      dict(cut_on_card=True, cut=dict(n_encoder_layers=2), max_prompt=1024, cli=True)),
+    # 5g: xlstm-1.3b whole (42 mLSTM + 6 sLSTM blocks, 3.6 B parameters: 7.2
+    # GB in bf16, 14.4 GB in f32 for the consistency check at full depth);
+    # K1 (the first norm, each mLSTM's out_norm and each sLSTM's group
+    # norm), K4 at every seam, mlstm_scan and slstm_scan once per block and
+    # prefill; the card-vs-CPU cut at 2 layers, one mLSTM and one sLSTM
+    # block (slstm_every 2), at full width; the CLI on the card. The limits:
+    # see the notes below
+    (SSM_ARCH, 2, ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "slstm_scan"), (0,),
+     (0.25, 0.99, False), (2e-2, 0.9998, True),
+     dict(cut_on_card=True, cut=dict(xlstm=dict(slstm_every=2)), f32_limits=(3e-4, 0.99999),
+          cli=True)),
 )
 # The checks of each serving phase after its engine run:
 #  * prefill/decode consistency at full width and depth: prefill(prompt)
@@ -2334,6 +2489,21 @@ SERVE_PHASES = (
 #    two probabilities may be no further apart than twice the token's largest
 #    card-vs-CPU probability difference (the flip is then that difference's).
 #    Every differing token is named.
+#  * xlstm-1.3b: 48 blocks of random weights amplify a rounding far more
+#    than the attention stacks do. On the CPU at d_model 256 and 512 (48
+#    blocks, slstm_every 8, prompts of 209-274 tokens, seeds 0-2) the
+#    float32 prefill/decode paths read 8e-6 to 6.9e-5 of the largest logit
+#    (cosine >= 0.9999998, the same greedy token), the bf16 paths 0.034 to
+#    0.10 (cosine >= 0.996, the same greedy token), and the bf16 prefill
+#    sits 0.69 to 1.24 from the float32 one (cosine 0.47 to 0.74; zamba2's
+#    is 0.26). So the float32 check is held at 3e-4 (cosine 0.99999, the
+#    same greedy token), the bf16 one at 0.25 and cosine 0.99 against gross
+#    faults. The two-block cut's bf16 witness, where nothing compounds, is
+#    qwen3-4b's: 2e-2, cosine 0.9998, the same greedy tokens. Sound runs
+#    read 0.0080-0.0086 (cosine >= 0.999949, the same tokens) over four
+#    seeds; a planted fault (mlstm_scan leaving out y's carried C·q term)
+#    0.36-0.50 (cosine 0.82-0.90): scripts/torch_bf16_witness.py --arch
+#    xlstm-1.3b, on the tree and on a copy with the fault.
 CONSISTENCY_F32, CONSISTENCY_F32_COS = 1e-4, 0.99999
 ROUTE_GAP_F32 = 1e-6
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)  # card vs CPU in f32: 2560- and 151936-wide sums
@@ -2488,14 +2658,28 @@ def no_drops(cfg):
     return cfg.replace(moe=dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k))
 
 
+def with_cut(cfg, cut):
+    """``cfg`` with the fields of ``cut`` replaced; a dict value replaces
+    fields of that sub-configuration (``xlstm=dict(slstm_every=2)``)."""
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+                          else v for k, v in cut.items()})
+
+
+def cut_words(cut) -> list:
+    return [f"{kk} {vv}" for k, v in cut.items()
+            for kk, vv in (v.items() if isinstance(v, dict) else [(k, v)])]
+
+
 def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, depth=None,
                 f32_depth=None, cut_on_card=False, routes=False, cut=None,
-                max_prompt=SERVE_PROMPT, cli=False, witness_layers=None):
+                max_prompt=SERVE_PROMPT, cli=False, witness_layers=None,
+                f32_limits=(CONSISTENCY_F32, CONSISTENCY_F32_COS)):
     """``arch`` at full width in bf16 through ServeEngine, at full depth or
-    cut to ``depth`` layers (``f32_depth`` for the float32 consistency check);
+    cut to ``depth`` layers (``f32_depth`` for the float32 consistency check,
+    held to ``f32_limits``: max|diff| over the largest logit, cosine);
     the card-vs-CPU cut's weights drawn on the card when ``cut_on_card``,
-    ``cut`` its other changes to the configuration (the bf16 witness at
-    ``witness_layers`` when given); with ``routes`` the experts each token
+    ``cut`` its other changes to the configuration (:func:`with_cut`; the
+    bf16 witness at ``witness_layers`` when given); with ``routes`` the experts each token
     chose on the card and the CPU are compared. Prompts
     of 128 to ``max_prompt`` tokens; a vlm or audio request carries a memory
     drawn with numpy at MEMORY_SEED, a vlm model's gates are opened
@@ -2563,6 +2747,13 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
     if cfg.family == "hybrid" and launches["ssd_scan"] != K7_LAUNCHES * cfg.n_layers * SERVE_REQUESTS:
         raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} kernels for "
                              f"{SERVE_REQUESTS} prefills of {cfg.n_layers} Mamba layers")
+    if cfg.family == "ssm":  # one launch per block and prefill, none in decode
+        from repro_torch.models.transformer import ssm_counts
+
+        for name, blocks in zip(("mlstm_scan", "slstm_scan"), ssm_counts(cfg)):
+            if launches[name] != blocks * SERVE_REQUESTS:
+                raise AssertionError(f"{name} launched {launches[name]} times for "
+                                     f"{SERVE_REQUESTS} prefills of {blocks} blocks")
     log(f"served {len(results)} requests x {SERVE_NEW} tokens, prompts {sorted(lens.tolist())}"
         + (f", each with a memory of {ml} positions" if ml else "")
         + f", slots {SERVE_SLOTS}, max_len {SERVE_MAX_LEN}: {wall:.2f} s, "
@@ -2665,9 +2856,9 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
     rel, cos, am, bm = agree(*f32)
     log(f"prefill/decode consistency, f32 ({f32_depth} layers), seed {seeds[0]} ({n} tokens): "
         f"max|diff|/max|logit| "
-        f"{rel:.3g} (limit {CONSISTENCY_F32}), cosine {cos:.7f} (limit {CONSISTENCY_F32_COS}), "
+        f"{rel:.3g} (limit {f32_limits[0]}), cosine {cos:.7f} (limit {f32_limits[1]}), "
         f"argmax {am} vs {bm}")
-    if rel > CONSISTENCY_F32 or cos < CONSISTENCY_F32_COS or am != bm:
+    if rel > f32_limits[0] or cos < f32_limits[1] or am != bm:
         raise AssertionError("prefill and decode_step disagree on the last token in f32")
     for seed in seeds:
         rel, cos, am, bm = agree(*bf16[seed])
@@ -2684,8 +2875,8 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
 
     # card against CPU: the same configuration cut to a few layers, float32
     cut = cut or {}
-    cut32 = cfg.replace(n_layers=cut_layers, dtype="float32", param_dtype="float32", **cut)
-    cut_text = ", ".join([f"{cut_layers} layers"] + [f"{k} {v}" for k, v in cut.items()])
+    cut32 = with_cut(cfg.replace(n_layers=cut_layers, dtype="float32", param_dtype="float32"), cut)
+    cut_text = ", ".join([f"{cut_layers} layers"] + cut_words(cut))
     t0 = time.perf_counter()
     if cut_on_card:
         dev_params = open_gates(init_params(cut32, torch.Generator(device=dev).manual_seed(0)), cut32)
@@ -2704,9 +2895,9 @@ def serve_phase(dev, arch, cut_layers, needed, seeds, bf16_limits, cut_limits, d
         + (f"; {routes_text(*check_routes('f32 card vs cpu', route_log, cfg.moe.top_k, True))}"
            if routes else ""))
     del cpu_params, dev_params
-    cut16 = cfg.replace(n_layers=witness_layers or cut_layers, **cut)
+    cut16 = with_cut(cfg.replace(n_layers=witness_layers or cut_layers), cut)
     if witness_layers:
-        cut_text = ", ".join([f"{witness_layers} layers"] + [f"{k} {v}" for k, v in cut.items()])
+        cut_text = ", ".join([f"{witness_layers} layers"] + cut_words(cut))
     routes = routes and cut16.n_layers > cut16.moe.first_k_dense  # a router in the witness
     for seed in seeds:
         params = open_gates(init_params(cut16, torch.Generator(device=dev).manual_seed(seed)), cut16)

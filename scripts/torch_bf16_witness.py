@@ -5,7 +5,8 @@ For each serving architecture of ``chip_smoke.SERVE_PHASES`` (or those
 named by ``--arch``), cut as the smoke cuts it for this check (qwen3-4b to
 2 layers, zamba2-2.7b to 6, mixtral-8x22b to 1, deepseek-v2-236b to its
 dense first layer, llama-3.2-vision-90b to one self and one cross block,
-seamless-m4t-medium to 2 + 2), at full width in bf16 with random weights
+seamless-m4t-medium to 2 + 2, xlstm-1.3b to one mLSTM and one sLSTM
+block), at full width in bf16 with random weights
 drawn on the card from seeds 0..SEEDS-1 (vlm gates opened and memories
 drawn as the smoke draws them): ``chip_smoke.bf16_witness`` (the logits of
 ``forward`` at every position of a 160-token prompt, then prefill and 3
@@ -53,8 +54,8 @@ def main() -> int:
     for arch, cut_layers, _, _, _, cut_limits, extra in chip_smoke.SERVE_PHASES:
         if args.arch and arch not in args.arch:
             continue
-        cfg = configs.get_config(arch).replace(
-            n_layers=extra.get("witness_layers") or cut_layers, **extra.get("cut", {}))
+        cfg = chip_smoke.with_cut(configs.get_config(arch).replace(
+            n_layers=extra.get("witness_layers") or cut_layers), extra.get("cut", {}))
         rng = np.random.default_rng(0)  # chip_smoke.py's first prompt
         top = extra.get("max_prompt", chip_smoke.SERVE_PROMPT)
         n = rng.integers(128, top + 1, size=chip_smoke.SERVE_REQUESTS)[0]

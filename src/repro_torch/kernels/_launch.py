@@ -39,3 +39,17 @@ def scale_of(scale: torch.Tensor, x: torch.Tensor, d: int) -> torch.Tensor:
     if tuple(scale.shape) != (d,):
         raise ValueError(f"scale must have shape ({d},), got {tuple(scale.shape)}")
     return scale.to(torch.float32).contiguous()
+
+
+def check_input(kernel: str, t: torch.Tensor, name: str, shape, dtypes: Sequence[torch.dtype],
+                device: torch.device) -> None:
+    """Raise unless ``t`` is a CUDA tensor on ``device`` of one of ``dtypes``
+    and of ``shape``."""
+    if not t.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got one on {t.device}")
+    if t.device != device:
+        raise ValueError(f"{kernel}: inputs on {device} and {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {name} must be one of {list(dtypes)}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

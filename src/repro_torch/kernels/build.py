@@ -78,11 +78,17 @@ _SIGNATURES = {
     ),
     "rt_ssd_scan_smem": (_I, _I, _I, _I),
     "rt_ssd_blocks_per_sm": (_I, _I, _I),
+    "rt_mlstm_scan": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "rt_mlstm_scan_smem": (_I, _I),
+    "rt_slstm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 KERNELS = (
     "rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan",
     "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan",
+    "mlstm_scan", "slstm_scan",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _count_lock = threading.Lock()

@@ -95,6 +95,37 @@ def ssd_scan(
     return ref.ssd_scan_ref(xh, dt, a, B_ssm, C_ssm, chunk, h0)
 
 
+def mlstm_scan(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,
+    f_gate: torch.Tensor,
+    *,
+    chunk: int = 64,
+    state: Optional[ref.MlstmState] = None,
+) -> Tuple[torch.Tensor, ref.MlstmState]:
+    """The chunked mLSTM scan → (y (B, S, nh, P) float32, final (C, n, m));
+    any S (the ragged last chunk is masked)."""
+    if q.is_cuda:
+        from .mlstm import mlstm_scan as _cuda
+
+        return _cuda(q, k, v, i_gate, f_gate, chunk=chunk, state=state)
+    return ref.mlstm_scan_ref(q, k, v, i_gate, f_gate, chunk, state)
+
+
+def slstm_scan(
+    xg: torch.Tensor, r_gates: torch.Tensor, *, state: Optional[ref.SlstmState] = None
+) -> Tuple[torch.Tensor, ref.SlstmState]:
+    """The sLSTM recurrence over S → (hs (B, S, nh, hd) float32, final
+    (h, c, n, m))."""
+    if xg.is_cuda:
+        from .slstm import slstm_scan as _cuda
+
+        return _cuda(xg, r_gates, state=state)
+    return ref.slstm_scan_ref(xg, r_gates, state)
+
+
 def map_chain(x: torch.Tensor, *, stages: Stages) -> torch.Tensor:
     """Sequential per-channel affine stages — the fused senml_parse chain."""
     if x.is_cuda:

@@ -216,3 +216,147 @@ def ssd_scan_ref(
     y = y + torch.einsum("cbin,cbhnp->cbihp", cc, h_prev) * torch.exp(cum)[..., None]
     y = y.transpose(0, 1).reshape(b, nc * chunk, nh, p)[:, :s]
     return y, h
+
+
+MlstmState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+SlstmState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def mlstm_scan_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,
+    f_gate: torch.Tensor,
+    chunk: int = 64,
+    state: Optional[MlstmState] = None,
+) -> Tuple[torch.Tensor, MlstmState]:
+    """The chunked mLSTM scan in float32: q/k/v (B, S, nh, P), the gates'
+    pre-activations ĩ, f̃ (B, S, nh) → (y (B, S, nh, P), final (C (B, nh,
+    P, P), n (B, nh, P), m (B, nh))), from ``state`` or C = n = 0, m = -1e30.
+
+    The recurrence of ``repro/models/xlstm.py``'s docstring, which its
+    ``mlstm_decode`` steps token by token, computed a chunk at a time as
+    ``_mlstm_chunked_impl`` does (every input taken to float32): per chunk,
+    log f = log σ(f̃), cumf its inclusive cumsum, src_j = ĩ_j − cumf_j, the
+    stabilizer m_c = max(m_{c−1}, max_j src_j), and
+      W_ij = exp(cumf_i + src_j − m_c)·(q_i·k_j)/√P for j ≤ i, else 0,
+      carry_i = exp(cumf_i + m_{c−1} − m_c),
+      y_i = (Σ_j W_ij v_j + carry_i·C q_i/√P)
+            / max(|Σ_j W_ij + carry_i·n·q_i/√P|, exp(−m_c)),
+      C ← exp(cumf_L + m_{c−1} − m_c)·C + Σ_j exp(cumf_L − cumf_j + ĩ_j − m_c)·v_j k_jᵀ,
+    and n likewise with k_j. The carried state enters y as C·q (C[p, r]
+    sums v_p k_r), as in the decode; the reference's chunked form contracts
+    q with C's other index there, which departs from its own recurrence
+    wherever a prompt spans more than one chunk (ROADMAP, queue 3).
+
+    Decomposed as the kernel is not: each chunk's own state contribution
+    for all chunks at once, the stabilizers as a running max, then the pass
+    over the chunks, then the outputs of all chunks at once. Where
+    ``chunk`` does not divide S the sequence is padded to whole chunks with
+    ĩ = −inf (no input, no say in the stabilizer) and log f = 0 (no decay),
+    which leaves y and the state as a shorter last chunk gives them; the
+    reference shrinks the chunk to a divisor of S instead (the same y up to
+    rounding: only the stabilizers' frames differ).
+    """
+    b, s, nh, p = q.shape
+    dev = q.device
+    if state is None:
+        C = torch.zeros((b, nh, p, p), dtype=torch.float32, device=dev)
+        n = torch.zeros((b, nh, p), dtype=torch.float32, device=dev)
+        m = torch.full((b, nh), NEG_INF, dtype=torch.float32, device=dev)
+    else:
+        C, n, m = (t.float().clone() for t in state)
+    nc = -(-s // chunk)
+    if nc == 0:
+        return torch.zeros((b, s, nh, p), dtype=torch.float32, device=dev), (C, n, m)
+    pad = nc * chunk - s
+
+    def chunks(t: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        # (B, S, ...) → (nc, B, chunk, ...) in float32
+        t = t.float()
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad), value=fill)
+        return t.reshape(b, nc, chunk, *t.shape[2:]).transpose(0, 1)
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)  # (nc, B, L, nh, P)
+    ic = chunks(i_gate, float("-inf"))  # (nc, B, L, nh)
+    cumf = torch.cumsum(chunks(torch.nn.functional.logsigmoid(f_gate.float())), dim=2)
+    src = ic - cumf
+    last = cumf[:, :, -1]  # (nc, B, nh)
+    stab = torch.cummax(torch.cat([m[None], src.amax(dim=2)]), dim=0).values
+    m_prev, m_new = stab[:-1], stab[1:]  # (nc, B, nh)
+    scale = p ** -0.5
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()[:, :, None]
+    logw = cumf[:, :, :, None, :] + src[:, :, None, :, :] - m_new[:, :, None, None, :]
+    W = torch.where(causal, torch.exp(logw), 0.0) * (
+        torch.einsum("cbihp,cbjhp->cbijh", qc, kc) * scale)  # (nc, B, Li, Lj, nh)
+    # each chunk's own contribution to the state, and the decay of the one before
+    to_end = torch.exp(last[:, :, None] - cumf + ic - m_new[:, :, None])  # (nc, B, L, nh)
+    dC = torch.einsum("cbjhp,cbjhr->cbhpr", vc * to_end[..., None], kc)
+    dn = torch.einsum("cbjh,cbjhr->cbhr", to_end, kc)
+    decay = torch.exp(last + m_prev - m_new)
+    before_C, before_n = [], []
+    for c in range(nc):
+        before_C.append(C)
+        before_n.append(n)
+        C = decay[c][..., None, None] * C + dC[c]
+        n = decay[c][..., None] * n + dn[c]
+    carry = torch.exp(cumf + m_prev[:, :, None] - m_new[:, :, None]) * scale  # (nc, B, L, nh)
+    num = torch.einsum("cbijh,cbjhp->cbihp", W, vc) + torch.einsum(
+        "cbhpr,cbihr->cbihp", torch.stack(before_C), qc) * carry[..., None]
+    den = W.sum(dim=3) + torch.einsum("cbhr,cbihr->cbih", torch.stack(before_n), qc) * carry
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new)[:, :, None])[..., None]
+    y = y.transpose(0, 1).reshape(b, nc * chunk, nh, p)[:, :s]
+    return y, (C, n, stab[-1])
+
+
+def slstm_cell_ref(
+    pre_x: torch.Tensor, r_gates: torch.Tensor, state: SlstmState
+) -> SlstmState:
+    """One sLSTM step: ``pre_x`` (B, 4·nh·hd), the input's gate
+    pre-activations (z, i, f, o); ``r_gates`` (4, nh, hd, hd), the
+    block-diagonal recurrent weights; ``state`` (h, c, n (B, nh, hd), m
+    (B, nh)) float32. ``repro/models/xlstm.py:_slstm_cell`` in float32: the
+    i and f gates are per-head means of their pre-activations, and
+    h = o·c / max(n, 1e-6)."""
+    h, c, n, m = state
+    b, nh, hd = h.shape
+    rec = torch.einsum("bhp,ghpr->bghr", h, r_gates.float())
+    pre = pre_x.float().reshape(b, 4, nh, hd) + rec
+    z_t = torch.tanh(pre[:, 0])
+    i_t = pre[:, 1].mean(-1)
+    f_t = pre[:, 2].mean(-1)
+    o_t = torch.sigmoid(pre[:, 3])
+    logf = torch.nn.functional.logsigmoid(f_t)
+    m_new = torch.maximum(logf + m, i_t)
+    i_p = torch.exp(i_t - m_new)[..., None]
+    f_p = torch.exp(logf + m - m_new)[..., None]
+    c_new = f_p * c + i_p * z_t
+    n_new = f_p * n + i_p
+    h_new = o_t * c_new / torch.clamp_min(n_new, 1e-6)
+    return h_new, c_new, n_new, m_new
+
+
+def slstm_scan_ref(
+    xg: torch.Tensor, r_gates: torch.Tensor, state: Optional[SlstmState] = None
+) -> Tuple[torch.Tensor, SlstmState]:
+    """The sLSTM recurrence over S: xg (B, S, 4·nh·hd) the input's gate
+    pre-activations, ``r_gates`` (4, nh, hd, hd) → (hs (B, S, nh, hd),
+    final (h, c, n, m)), all float32, from ``state`` or h = c = n = 0,
+    m = -1e30: :func:`slstm_cell_ref` step by step, the reference's
+    ``lax.scan`` of ``_slstm_cell``."""
+    b, s, _ = xg.shape
+    _, nh, hd, _ = r_gates.shape
+    dev = xg.device
+    if state is None:
+        zeros = torch.zeros((b, nh, hd), dtype=torch.float32, device=dev)
+        state = (zeros, zeros, zeros, torch.full((b, nh), NEG_INF, dtype=torch.float32, device=dev))
+    else:
+        state = tuple(t.float() for t in state)
+    hs = []
+    for t in range(s):
+        state = slstm_cell_ref(xg[:, t], r_gates, state)
+        hs.append(state[0])
+    out = torch.stack(hs, dim=1) if hs else torch.zeros((b, 0, nh, hd), device=dev)
+    return out, state

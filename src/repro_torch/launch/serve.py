@@ -18,11 +18,12 @@ Model mode (no subcommand; the reference's ``serve_model``):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
 
-Any architecture of the dense family (granite, nemotron, qwen1.5, qwen3),
-the moe family (mixtral; deepseek-v2 with MLA), the vlm family
-(llama-3.2-vision), the hybrid family (zamba2) or the audio family
-(seamless) serves; xlstm (ssm) raises. Random weights from a seeded
+Every architecture serves: the dense family (granite, nemotron, qwen1.5,
+qwen3), the moe family (mixtral; deepseek-v2 with MLA), the vlm family
+(llama-3.2-vision), the ssm family (xlstm), the hybrid family (zamba2)
+and the audio family (seamless). Random weights from a seeded
 ``torch.Generator`` on the serving device; from
 ``numpy.random.default_rng(0)`` in the reference's order, per request, a
 prompt length of 4–11, the prompt and, for vlm and audio, a standard

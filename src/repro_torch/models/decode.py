@@ -1,7 +1,7 @@
-"""Serving path of the dense, moe, vlm, hybrid and audio families: cache
-layouts, prefill (fills the cache, returns last-token logits), the encoder
-and single-token decode (port of ``repro/models/decode.py`` but its ssm
-family, with its default ``"scan"`` cache layout).
+"""Serving path of the dense, moe, vlm, ssm, hybrid and audio families:
+cache layouts, prefill (fills the cache, returns last-token logits), the
+encoder and single-token decode (port of ``repro/models/decode.py``, with
+its default ``"scan"`` cache layout).
 
 The caches keep the reference's layouts, stacked per layer:
   * dense: ``{"len": int, "layers": {"k": (L, B, M, KV, hd), "v": ...}}``;
@@ -19,13 +19,19 @@ The caches keep the reference's layouts, stacked per layer:
     "h": (L, B, nh, N, P) float32}, "shared": {"k": (L / every, B, M, KV,
     hd), "v": ...}}``, one KV stack entry per application of the shared
     block;
+  * ssm: ``{"len": int, "mlstm": {"conv": (Lm, B, 3, inner), "C": (Lm, B,
+    nh, P, P), "n": (Lm, B, nh, P), "m": (Lm, B, nh)}, "slstm": {"conv":
+    (Ls, B, 3, D), "h", "c", "n": (Ls, B, nh, hd), "m": (Ls, B, nh)}}``, all
+    float32, ``m`` starting at -1e30 (no ``"slstm"`` for ``slstm_every``
+    0): O(1) state, whatever ``max_len``;
 with ``M = max_len``, or ``min(max_len, window)`` under a sliding window,
 where the KV cache is a ring: position ``p`` lives in slot ``p % M``.
 Unlike the reference, whose functions return new arrays, :func:`prefill`
 and :func:`decode_step` write the cache IN PLACE and return the same dict
 (with ``len`` advanced): a full-width cache is hundreds of MB per slot, and
 a copy per token would double the bytes a decode step moves. Prefill
-overwrites every Mamba layer's conv tail and state, positions ``[0, S)``
+overwrites every Mamba, mLSTM and sLSTM layer's conv tail and state (the
+tail left-padded with zeros for a prompt shorter than it), positions ``[0, S)``
 of the KV (or latent) cache and the whole ``cross`` stack, and attention
 reads only positions below ``len``, so setting ``len`` to 0 empties a
 cache. The reference's ``CACHE_LAYOUT = "carry"`` variant
@@ -56,7 +62,7 @@ from .attention import (
 )
 from .common import add_norm
 from .config import ModelConfig
-from .ssm import _mamba_seq, mamba_decode, mamba_init_cache
+from .ssm import _mamba_seq, conv_tail, mamba_decode, mamba_init_cache
 from .transformer import (
     _dt,
     _mlp_seam,
@@ -64,9 +70,18 @@ from .transformer import (
     encode,  # noqa: F401 — the reference keeps encode in this module
     lm_head,
     memory_states,
-    require_supported,
     run_blocks,
     run_hybrid,
+    run_ssm,
+    ssm_counts,
+)
+from .xlstm import (
+    mlstm_decode,
+    mlstm_init_cache,
+    mlstm_prefill,
+    slstm_decode,
+    slstm_init_cache,
+    slstm_prefill,
 )
 
 PyTree = Any
@@ -86,7 +101,6 @@ def init_cache(
     """Empty cache for a serving session of ≤ max_len absolute positions;
     ``memory_len`` is the length of the memory (image tokens, encoder
     frames) the vlm and audio families attend to."""
-    require_supported(cfg)
     m = _ring(cfg, max_len)
     fam = cfg.family
     cache: Dict[str, Any] = {"len": 0}
@@ -98,6 +112,12 @@ def init_cache(
         n_self = cfg.n_layers - n_cross if fam == "vlm" else cfg.n_layers
         cache["layers"] = _attn_stack(cfg, n_self, batch, m, device)
         cache["cross"] = _kv_stack(cfg, n_cross, batch, memory_len, device)
+    elif fam == "ssm":
+        counts = ssm_counts(cfg)
+        for key, n, init in zip(("mlstm", "slstm"), counts, (mlstm_init_cache, slstm_init_cache)):
+            if n:
+                cache[key] = {k: t.expand(n, *t.shape).clone()
+                              for k, t in init(cfg, batch, device).items()}
     else:
         one = mamba_init_cache(cfg, batch, _dt(cfg), device)
         cache["mamba"] = {
@@ -219,13 +239,14 @@ def _mamba_prefill(p, x, cfg, cl) -> torch.Tensor:
     reference keeps only the prompt's rows there, from which its decode
     cannot go on) and the final state. Both are overwritten whole."""
     out, xbc, h_final = _mamba_seq(p, x, cfg)
-    conv = cl["conv"]
-    k = conv.shape[1]
-    tail = xbc[:, -k:]
-    conv[:, : k - tail.shape[1]] = 0
-    conv[:, k - tail.shape[1] :] = tail
+    conv_tail(cl["conv"], xbc)
     cl["h"].copy_(h_final)
     return out
+
+
+# the ssm family's blocks by kind (transformer.ssm_plan)
+_SSM_PREFILL = {"mlstm": mlstm_prefill, "slstm": slstm_prefill}
+_SSM_DECODE = {"mlstm": mlstm_decode, "slstm": slstm_decode}
 
 
 def prefill(
@@ -233,11 +254,13 @@ def prefill(
     memory: Optional[torch.Tensor] = None,  # vlm image tokens / audio frames (B, Sm, D)
 ) -> Tuple[torch.Tensor, PyTree]:
     """Process a fresh prompt (B, S); returns (last-token logits (B, V), cache)."""
-    require_supported(cfg)
     S = tokens.shape[1]
     h = params["embed"][tokens].to(_dt(cfg))
     positions = torch.arange(S, device=h.device)[None, :]
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        _, normed = run_ssm(params, cfg, h, lambda kind, i, cell, x: _SSM_PREFILL[kind](
+            cell, x, cfg, _cache_layer(cache, i, kind)))
+    elif cfg.family == "hybrid":
         every = cfg.shared_attn_every
         _, normed = run_hybrid(
             params, cfg, h,
@@ -266,7 +289,6 @@ def decode_step(
     params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache: PyTree
 ) -> Tuple[torch.Tensor, PyTree]:
     """One decode step on tokens (B, 1); returns (logits (B, V), cache)."""
-    require_supported(cfg)
     pos = int(cache["len"])
     h = params["embed"][tokens].to(_dt(cfg))
 
@@ -276,7 +298,10 @@ def decode_step(
         m_in, h = add_norm(y, h, bp["mlp_norm"], cfg.norm)
         return _mlp_seam(bp, h, m_in, cfg, nxt)
 
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        _, normed = run_ssm(params, cfg, h, lambda kind, i, cell, x: _SSM_DECODE[kind](
+            cell, x, _cache_layer(cache, i, kind), cfg)[0])
+    elif cfg.family == "hybrid":
         _, normed = run_hybrid(
             params, cfg, h,
             lambda i, mp, x: mamba_decode(mp, x, _cache_layer(cache, i, "mamba"), cfg)[0],

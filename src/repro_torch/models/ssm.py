@@ -67,6 +67,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
+def conv_tail(tail: torch.Tensor, x: torch.Tensor) -> None:
+    """The last ``K - 1`` rows of a causal conv's input ``x`` (B, S, C) into
+    its decode cache ``tail`` (B, K - 1, C), in place, left-padded with
+    zeros for a shorter prompt as the conv pads them (the reference keeps
+    only the prompt's rows, from which its decode cannot go on)."""
+    k = tail.shape[1]
+    rows = x[:, -k:]
+    tail[:, : k - rows.shape[1]] = 0
+    tail[:, k - rows.shape[1] :] = rows
+
+
 def ssd_chunked(
     xh: torch.Tensor,  # (B, S, nh, P) inputs per head
     dt: torch.Tensor,  # (B, S, nh) softplus'd step sizes, float32

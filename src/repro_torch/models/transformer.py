@@ -1,10 +1,11 @@
-"""Model assembly for the dense, moe, vlm, hybrid and audio families:
+"""Model assembly for the dense, moe, vlm, ssm, hybrid and audio families:
 parameter init, the encoder and the teacher-forcing forward (port of
-``repro/models/transformer.py`` but its ssm family).
+``repro/models/transformer.py``).
 
 Parameters are a plain dictionary of tensors in the reference's layout:
 the per-layer weights stacked on a leading ``L`` axis (``wq (L, D, H, hd)``,
-``wo (L, H, hd, D)``, ``mamba_blocks.mixer.w_in (L, D, E)``, a gated cross
+``wo (L, H, hd, D)``, ``mamba_blocks.mixer.w_in (L, D, E)``,
+``mlstm_blocks.cell.wq (L, inner, inner)``, a gated cross
 block's ``gate (L,)``, …), and the hybrid family's one shared attention
 block unstacked, so :func:`repro_torch.convert.params_from_jax` moves
 arrays without re-laying them out. Layers run in a Python loop over views
@@ -29,8 +30,11 @@ with the shared attention + MLP block after every
 norm, the shared block's attention norm or the final norm, and the shared
 block's own two seams are a dense block's; K1 runs the first Mamba norm
 (and, inside the mixer, the gated ``out_norm``). The ssm family (xlstm)
-raises ``NotImplementedError`` naming the slice of the port that brings it.
-LayerNorm seams (nemotron, seamless) are plain torch, as in the reference.
+runs groups of ``slstm_every - 1`` mLSTM blocks then one sLSTM block
+(:func:`ssm_plan`, :func:`run_ssm`), each ``h + block(norm(h))``: the first
+norm a K1 pass, every seam after a block one K4 pass into the next block's
+norm or the final norm. LayerNorm seams (nemotron, seamless) are plain
+torch, as in the reference.
 """
 from __future__ import annotations
 
@@ -50,23 +54,9 @@ from .common import add_norm, apply_norm, dense_init, embed_init, norm_params
 from .config import ModelConfig
 from .mlp import mlp, mlp_params, moe_layer, moe_params
 from .ssm import mamba_block, mamba_params
+from .xlstm import mlstm_block, mlstm_params, slstm_block, slstm_params
 
 PyTree = Any
-
-# the slice of the port (ROADMAP queue 1) that brings each family the
-# port lacks
-FAMILY_SLICE = {
-    "ssm": "the ssm slice (xlstm, ROADMAP item 17)",
-}
-
-
-def require_supported(cfg: ModelConfig) -> None:
-    if cfg.family in FAMILY_SLICE:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, moe, vlm, hybrid and audio families; "
-            f"family {cfg.family!r} comes with {FAMILY_SLICE[cfg.family]}"
-        )
-
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
@@ -81,7 +71,6 @@ def init_params(
     ``device`` (default: where they were drawn). Norm gains are ones and
     biases zeros, as in the reference; the numbers differ from
     ``jax.random``'s (tests load the reference's with ``params_from_jax``)."""
-    require_supported(cfg)
     dtype = _dt(cfg)
     V, D, L = cfg.padded_vocab, cfg.d_model, cfg.n_layers
     dev = generator.device
@@ -113,6 +102,17 @@ def init_params(
         params["enc_final_norm"] = norm_params(cfg.norm, D, dtype, dev)
         params["blocks"] = _dense_layers(generator, cfg, dtype, L)
         params["cross_blocks"] = _cross_layers(generator, cfg, dtype, L, gated=False)
+    elif fam == "ssm":
+        n_m, n_s = ssm_counts(cfg)
+        params["mlstm_blocks"] = {
+            "norm": norm_params(cfg.norm, (n_m, D), dtype, dev),
+            "cell": mlstm_params(generator, cfg, dtype, n_m),
+        }
+        if n_s:
+            params["slstm_blocks"] = {
+                "norm": norm_params(cfg.norm, (n_s, D), dtype, dev),
+                "cell": slstm_params(generator, cfg, dtype, n_s),
+            }
     else:
         params["mamba_blocks"] = {
             "norm": norm_params(cfg.norm, (L, D), dtype, dev),
@@ -295,6 +295,45 @@ def run_hybrid(params: PyTree, cfg: ModelConfig, h: torch.Tensor, mamba_fn, shar
     return h, normed
 
 
+def ssm_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(mLSTM blocks, sLSTM blocks) of an ssm model: every
+    ``slstm_every``-th block is an sLSTM block (none for 0)."""
+    every = cfg.xlstm.slstm_every
+    n_s = cfg.n_layers // every if every else 0
+    if every and cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into groups of "
+                         f"{every} ending in an sLSTM block")
+    return cfg.n_layers - n_s, n_s
+
+
+def ssm_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """The ssm stack's blocks in order, as (kind, index in its stack), the
+    kind ``"mlstm"`` or ``"slstm"`` naming the parameter stack
+    ``{kind}_blocks`` and the cache stack ``{kind}``: ``slstm_every - 1``
+    mLSTM blocks then one sLSTM block, repeated (all mLSTM for
+    ``slstm_every`` 0)."""
+    n_m, n_s = ssm_counts(cfg)
+    if not n_s:
+        return [("mlstm", i) for i in range(n_m)]
+    per = cfg.xlstm.slstm_every - 1
+    return [e for g in range(n_s)
+            for e in [("mlstm", g * per + j) for j in range(per)] + [("slstm", g)]]
+
+
+def run_ssm(params: PyTree, cfg: ModelConfig, h: torch.Tensor, block_fn):
+    """Drive the ssm stack: block ``(kind, i)`` of :func:`ssm_plan` adds
+    ``block_fn(kind, i, cell, norm(h))`` to the stream. Returns the stream
+    and its final-normed version."""
+    plan = ssm_plan(cfg)
+    blocks = [tree_map(lambda t, i=i: t[i], params[f"{kind}_blocks"]) for kind, i in plan]
+    norms = [bp["norm"] for bp in blocks[1:]] + [params["final_norm"]]
+    normed = apply_norm(h, blocks[0]["norm"], cfg.norm)
+    for (kind, i), bp, nxt in zip(plan, blocks, norms):
+        y = block_fn(kind, i, bp["cell"], normed)
+        normed, h = add_norm(y, h, nxt, cfg.norm)
+    return h, normed
+
+
 # ======================================================================== forward
 
 def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -327,7 +366,6 @@ def forward(
     memory: Optional[torch.Tensor] = None,  # vlm vision / audio frames (B, Sm, D)
 ) -> torch.Tensor:
     """Teacher-forcing forward → logits (B, S, V)."""
-    require_supported(cfg)
     S = tokens.shape[1]
     h = params["embed"][tokens].to(_dt(cfg))
     positions = torch.arange(S, device=h.device)[None, :]
@@ -337,6 +375,9 @@ def forward(
             lambda i, mp, x: mamba_block(mp, x, cfg),
             lambda g, sp, h, a_in, nxt: _dense_block(sp, h, a_in, positions, cfg, nxt),
         )
+    elif cfg.family == "ssm":
+        block = {"mlstm": mlstm_block, "slstm": slstm_block}
+        _, normed = run_ssm(params, cfg, h, lambda kind, i, cell, x: block[kind](cell, x, cfg))
     else:
         mem = memory_states(params, cfg, memory)
 

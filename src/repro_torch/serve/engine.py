@@ -9,8 +9,9 @@ Gumbel-max draw of :mod:`repro_torch.random`, keyed from the logits as the
 reference keys it, so with float32 logits it draws what ``jax.random``
 draws. Caches live where the parameters live and are reused on refill:
 setting ``len`` to 0 empties one, since prefill overwrites positions
-``[0, S)`` (and the whole ``cross`` stack) and attention reads only
-positions below ``len``. The vlm and audio families take a memory with
+``[0, S)`` (and the whole ``cross`` stack, and every Mamba, mLSTM and
+sLSTM state and conv tail) and attention reads only positions below
+``len``. The vlm and audio families take a memory with
 each request (``Request.memory``, (Sm, D): image tokens or encoder
 frames, ``mem_len`` = ``num_image_tokens`` or ``encoder_seq`` positions),
 handed to prefill as (1, Sm, D) float32 and cast there, as in the

@@ -1511,3 +1511,124 @@ def test_attention_families_on_the_card_match_cpu(cuda, arch):
         ("rmsnorm", "rmsnorm_residual") if cfg.norm == "rmsnorm" else ())
     for name in needed:
         assert counts[name] > 0, name
+
+
+# -- the ssm family's scans (mlstm.cu, slstm.cu) -------------------------------------------
+# Both take their inputs to float32 and sum in float32, as their plain
+# versions do from the same inputs: held at 1e-4 of the largest |value| of
+# each output, as K7.
+
+
+def _mlstm_case(g, b, s, nh, p, dev, dtype, with_state):
+    q, k, v = (_randn(g, (b, s, nh, p), dev, dtype) for _ in range(3))
+    ig, fg = (torch.randn((b, s, nh), generator=g).to(dev) for _ in range(2))
+    state = None
+    if with_state:  # the state of 9 positions of the plain scan
+        pre = [_randn(g, (b, 9, nh, p), dev, torch.float32) for _ in range(3)]
+        pre += [torch.randn((b, 9, nh), generator=g).to(dev) for _ in range(2)]
+        state = ref.mlstm_scan_ref(*pre, chunk=4)[1]
+    return q, k, v, ig, fg, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,p,chunk,with_state", [
+    (1, 1, 1, 8, 8, False),        # one position
+    (2, 37, 4, 16, 8, False),      # xlstm SMOKE's widths, ragged
+    (2, 37, 4, 16, 8, True),
+    (1, 64, 2, 40, 16, False),     # P no multiple of the 32-column tiles
+    (1, 130, 4, 1024, 64, True),   # xlstm-1.3b's widths: 32 blocks a head
+    (3, 100, 2, 64, 64, False),
+    (1, 50, 2, 2048, 32, False),   # wider than a block of 32 rows of C fits
+])
+def test_cuda_mlstm_scan(cuda, dtype, b, s, nh, p, chunk, with_state):
+    from repro_torch.kernels import mlstm
+
+    g = torch.Generator().manual_seed(s + p)
+    q, k, v, ig, fg, state = _mlstm_case(g, b, s, nh, p, cuda, dtype, with_state)
+    got_y, got_state = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk, state=state)
+    want_y, want_state = ref.mlstm_scan_ref(q, k, v, ig, fg, chunk, state)
+    assert got_y.dtype == torch.float32 and got_y.shape == (b, s, nh, p)
+    _assert_rel(got_y, want_y)
+    for got, want in zip(got_state, want_state):
+        _assert_rel(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_mlstm_scan_takes_strided_gates_and_counts_one_launch(cuda):
+    # the mLSTM block hands over the gates as the two halves of one product
+    from repro_torch.kernels import mlstm
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(21)
+    q, k, v, _, _, _ = _mlstm_case(g, 2, 70, 4, 32, cuda, torch.bfloat16, False)
+    gates = torch.randn((2, 70, 8), generator=g).to(cuda, torch.bfloat16)
+    reset_launch_counts()
+    got = mlstm.mlstm_scan(q, k, v, gates[..., :4], gates[..., 4:], chunk=16)
+    assert launch_counts()["mlstm_scan"] == 1
+    want = mlstm.mlstm_scan(q, k, v, gates[..., :4].contiguous(), gates[..., 4:].contiguous(),
+                            chunk=16)
+    assert torch.equal(got[0], want[0])
+    with pytest.raises(ValueError, match="chunk"):
+        mlstm.mlstm_scan(q, k, v, gates[..., :4], gates[..., 4:], chunk=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,hd,with_state", [
+    (1, 1, 1, 16, False),
+    (2, 37, 4, 16, True),          # xlstm SMOKE's widths
+    (2, 29, 3, 40, False),         # hd no multiple of a warp
+    (1, 300, 4, 512, True),        # xlstm-1.3b's widths
+])
+def test_cuda_slstm_scan(cuda, dtype, b, s, nh, hd, with_state):
+    from repro_torch.kernels import slstm
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(s + hd)
+    xg = _randn(g, (b, s, 4 * nh * hd), cuda, dtype)
+    r = (torch.randn((4, nh, hd, hd), generator=g) * hd ** -0.5).to(cuda, dtype)
+    state = None
+    if with_state:
+        state = tuple(torch.randn((b, nh, hd), generator=g).to(cuda) for _ in range(2))
+        state += (torch.rand((b, nh, hd), generator=g).to(cuda) + 0.5,
+                  torch.randn((b, nh), generator=g).to(cuda))
+    reset_launch_counts()
+    got_h, got_state = slstm.slstm_scan(xg, r, state=state)
+    assert launch_counts()["slstm_scan"] == 1
+    want_h, want_state = ref.slstm_scan_ref(xg, r, state)
+    assert got_h.dtype == torch.float32 and got_h.shape == (b, s, nh, hd)
+    _assert_rel(got_h, want_h)
+    for got, want in zip(got_state, want_state):
+        _assert_rel(got, want)
+
+
+@pytest.mark.gpu
+def test_ssm_serving_path_on_the_card_matches_cpu(cuda):
+    from repro_torch import configs
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+    from repro_torch.models.transformer import tree_map
+
+    cfg = configs.get_smoke_config("xlstm-1.3b")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    torch.testing.assert_close(forward(on_card, cfg, toks.to(cuda)).cpu(), forward(params, cfg, toks),
+                               rtol=1e-4, atol=1e-4)
+    caches = {"cpu": init_cache(cfg, 2, 32), "cuda": init_cache(cfg, 2, 32, device=cuda)}
+    want, _ = prefill(params, cfg, toks, caches["cpu"])
+    got, _ = prefill(on_card, cfg, toks.to(cuda), caches["cuda"])
+    for _ in range(3):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok = want.argmax(-1)[:, None]
+        want, _ = decode_step(params, cfg, tok, caches["cpu"])
+        got, _ = decode_step(on_card, cfg, tok.to(cuda), caches["cuda"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for stack in ("mlstm", "slstm"):
+        for name, t in caches["cpu"][stack].items():
+            _assert_rel(caches["cuda"][stack][name].cpu(), t)
+    counts = launch_counts()
+    for name in ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "slstm_scan"):
+        assert counts[name] > 0, name

@@ -16,7 +16,7 @@ from repro.kernels import ref as jref
 from repro.kernels.fused import affine_rmsnorm as pallas_affine_rmsnorm
 from repro.kernels.fused import map_chain as pallas_map_chain
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
-from repro_torch.kernels import build, fused, kalman, ops, ref, rmsnorm, ssd
+from repro_torch.kernels import build, fused, kalman, mlstm, ops, ref, rmsnorm, slstm, ssd
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -144,6 +144,14 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
     ssd_args = (xt.reshape(1, 12, 1, 5), xt[None, :, :1].abs(), -torch.ones(1), xt[None], xt[None])
     for a, b in zip(ops.ssd_scan(*ssd_args, chunk=8), ref.ssd_scan_ref(*ssd_args, 8)):
         assert torch.equal(a, b)
+    mlstm_args = (xt.reshape(1, 12, 1, 5),) * 3 + (xt[None, :, :1], xt[None, :, 1:2])
+    got, want = ops.mlstm_scan(*mlstm_args, chunk=8), ref.mlstm_scan_ref(*mlstm_args, 8)
+    for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.equal(a, b)
+    got, want = ops.slstm_scan(xt[None, :, :4], st[:4].reshape(4, 1, 1, 1)), ref.slstm_scan_ref(
+        xt[None, :, :4], st[:4].reshape(4, 1, 1, 1))
+    for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.equal(a, b)
     assert ops.launch_counts() == {name: 0 for name in build.KERNELS}
 
 
@@ -160,7 +168,10 @@ def test_meta_dispatch_gives_shapes_only():
     lambda x, s: fused.affine_rmsnorm(x, s, STAGES),
     lambda x, s: kalman.kalman_scan(x, s, s, 0.1, 1.0),
     lambda x, s: ssd.ssd_scan(x[None, :, None], x[None, :, :1], s[:1], x[None], x[None], chunk=4),
-], ids=["rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan", "ssd_scan"])
+    lambda x, s: mlstm.mlstm_scan(*[x[None, :, None]] * 3, x[None, :, :1], x[None, :, :1], chunk=4),
+    lambda x, s: slstm.slstm_scan(x[None, :, :4], s[:4].reshape(4, 1, 1, 1)),
+], ids=["rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan", "ssd_scan", "mlstm_scan",
+        "slstm_scan"])
 def test_cuda_wrappers_reject_cpu_tensors(call):
     # a CUDA wrapper launches on CUDA tensors or raises; it has no CPU fallback
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -177,8 +188,8 @@ def test_build_is_lazy_and_keyed_by_source():
     assert build._lib is None
     names = [p.rsplit("/", 1)[-1] for p in build.sources()]
     assert names == [
-        "decode_attention.cu", "flash_attention.cu", "fused.cu", "kalman.cu", "rmsnorm.cu",
-        "ssd.cu",
+        "decode_attention.cu", "flash_attention.cu", "fused.cu", "kalman.cu", "mlstm.cu",
+        "rmsnorm.cu", "slstm.cu", "ssd.cu",
     ]
     assert len(build._digest()) == 16
 

@@ -1,5 +1,5 @@
-"""Shared helpers of the CPU parity tests of the port's MLA, vlm and audio
-families (``tests/test_torch_{mla,vlm,audio}.py``).
+"""Shared helpers of the CPU parity tests of the port's MLA, vlm, audio and
+ssm families (``tests/test_torch_{mla,vlm,audio,xlstm}.py``).
 
 Parameters are the reference's ``init_params(cfg, PRNGKey(seed))`` as
 numpy, handed to the port through ``params_from_jax``; a vlm model's
@@ -7,7 +7,8 @@ gates, 0 at init (so that every cross-attention output is dropped), are
 set to the same nonzero numpy values in both trees first. Tokens and
 memories are drawn with numpy. Everything runs the SMOKE configs in
 float32, where the packages differ only in the order of their sums:
-held at rtol = atol = 1e-5.
+held at rtol = atol = 1e-5 (``TOL``; the ssm family's recurrent states
+and scans at 2e-5 of the largest value, in its own file).
 """
 from __future__ import annotations
 
