@@ -33,7 +33,9 @@ Phases, each fatal on failure:
      mlstm_scan, q/k/v (1, 2048, 4, 1024) at chunk 64 in f32 and bf16, at
      a ragged S = 2039 and from a carried state, and slstm_scan, xg (1,
      2048, 8192) with R (4, 4, 512, 512) in f32 and bf16, each within
-     SCAN_REL of its plain version, beside its bound;
+     SCAN_REL of its plain version, beside its bound and its launch plan,
+     the sLSTM's µs a step beside the chain's floor (its clusters' h
+     exchange and barrier alone);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -833,10 +835,13 @@ def ssd_route_checks(dev, gen):
 # heads, the mLSTM's P = 4096 / 4 = 1024 at chunk 64, the sLSTM's hd = 512
 XLSTM_HEADS, MLSTM_P, MLSTM_CHUNK, SLSTM_HD = 4, 1024, 64, 512
 MLSTM_RAGGED = 2039  # 31 whole chunks and one of 55
-# Both kernels take their inputs to float32 and compute in float32, as their
-# plain versions do from the same inputs, so they differ only in the order
-# of their sums (over P = 1024 columns and 64 positions; over hd = 512 and
-# the head means): each output held at 1e-4 of its largest |value|.
+# Both kernels sum in float32, as their plain versions do from the same
+# inputs. Their products run on the tensor cores with bf16 operands: exact
+# bf16 inputs, and each float32 operand as bf16 terms (the mLSTM's W, C and
+# v·to_end as two terms, 2^-16 relative, beside bf16 inputs and as three,
+# about 2^-24, beside f32 ones; the sLSTM's h as three). With the order of
+# their sums (over P = 1024 columns and 64 positions; over hd = 512 and the
+# head means) each output is held at 1e-4 of its largest |value|.
 SCAN_REL = 1e-4
 
 
@@ -890,38 +895,36 @@ def xlstm_kernel_phase(dev, gen):
         torch.cuda.empty_cache()
         rate, ops_rate = ("bf16", BF16_OPS_PER_S) if dtype == torch.bfloat16 else ("f32", FP32_OPS_PER_S)
         bnd, by = mlstm_bound(b, seq, nh, p, chunk, el, ops_rate)
-        extra = ""
-        if dtype == torch.bfloat16:
-            b32, by32 = mlstm_bound(b, seq, nh, p, chunk, el, FP32_OPS_PER_S)
-            extra = (f"; at the f32 rate, which this SIMT build runs at, {b32 * 1e3:.1f} us "
-                     f"({by32})")
+        plan = mlstm.launch_plan(b, seq, nh, p, chunk, dtype)
         log(f"mlstm_scan q/k/v ({b},{seq},{nh},{p}) chunk {chunk} {tag}: max|err| {err:.3g} "
-            f"over y, C, n, m (each within {SCAN_REL} of its largest |value|); {mlstm.rows_per_block(p)} rows of C a "
-            f"block, {-(-p // mlstm.rows_per_block(p)) * nh * b} blocks, 1 launch per call; "
+            f"over y, C, n, m (each within {SCAN_REL} of its largest |value|); {plan}; "
             f"{ms * 1e3:.1f} us per call on the device ({host * 1e3:.1f} us per call from the "
-            f"host), plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by}, {rate}){extra}, "
+            f"host), plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by}, {rate}), "
             f"library: none")
         rows.append(dict(
             name="mlstm_scan", route="cuda", source="src/repro_torch/kernels/csrc/mlstm.cu",
             replaces="src/repro/models/xlstm.py:54 (mlstm_chunked, jnp under the "
                      "kernel_mlstm_scan scope, not a Pallas kernel)",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
-            call_ms=host))
+            call_ms=host, plan=plan))
         del q, k, v, ig, fg
     # from a carried state: the first 1000 positions, then the rest from their state
-    q, k, v = (torch.randn((b, 1500, nh, p), generator=gen).to(dev) for _ in range(3))
-    ig, fg = (torch.randn((b, 1500, nh), generator=gen).to(dev) for _ in range(2))
-    _, mid = ref.mlstm_scan_ref(q[:, :1000], k[:, :1000], v[:, :1000], ig[:, :1000], fg[:, :1000], chunk)
-    tail = (q[:, 1000:], k[:, 1000:], v[:, 1000:], ig[:, 1000:], fg[:, 1000:])
-    got_y, got_state = mlstm.mlstm_scan(*tail, chunk=chunk, state=mid)
-    want_y, want_state = ref.mlstm_scan_ref(*tail, chunk, mid)
-    err = check_rel("mlstm_scan from a state y", got_y, want_y, SCAN_REL)
-    for name, g_, w_ in zip("Cnm", got_state, want_state):
-        err = max(err, check_rel(f"mlstm_scan from a state {name}", g_, w_, SCAN_REL))
-    log(f"mlstm_scan f32 from the state of 1000 positions over the next 500: "
-        f"max|err| {err:.3g} over y, C, n, m (each within {SCAN_REL} of its largest |value|)")
-    del q, k, v, ig, fg, mid, tail, got_y, got_state, want_y, want_state
-    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q, k, v = (torch.randn((b, 1500, nh, p), generator=gen).to(dev, dtype) for _ in range(3))
+        ig, fg = (torch.randn((b, 1500, nh), generator=gen).to(dev) for _ in range(2))
+        _, mid = ref.mlstm_scan_ref(q[:, :1000], k[:, :1000], v[:, :1000], ig[:, :1000], fg[:, :1000],
+                                    chunk)
+        tail = (q[:, 1000:], k[:, 1000:], v[:, 1000:], ig[:, 1000:], fg[:, 1000:])
+        got_y, got_state = mlstm.mlstm_scan(*tail, chunk=chunk, state=mid)
+        want_y, want_state = ref.mlstm_scan_ref(*tail, chunk, mid)
+        err = check_rel(f"mlstm_scan {tag} from a state y", got_y, want_y, SCAN_REL)
+        for name, g_, w_ in zip("Cnm", got_state, want_state):
+            err = max(err, check_rel(f"mlstm_scan {tag} from a state {name}", g_, w_, SCAN_REL))
+        log(f"mlstm_scan {tag} from the state of 1000 positions over the next 500: "
+            f"max|err| {err:.3g} over y, C, n, m (each within {SCAN_REL} of its largest |value|)")
+        del q, k, v, ig, fg, mid, tail, got_y, got_state, want_y, want_state
+        torch.cuda.empty_cache()
 
     hd = SLSTM_HD
     for dtype in (torch.float32, torch.bfloat16):
@@ -936,25 +939,25 @@ def xlstm_kernel_phase(dev, gen):
             err = max(err, check_rel(f"slstm_scan {tag} {name}", g_, w_, SCAN_REL))
         fn = lambda: slstm.slstm_scan(xg, r)  # noqa: E731
         ms, host = device_ms(fn, per_graph=1, reps=3), call_ms(fn, iters=3, warmup=1)
+        # the chain's floor: the same clusters doing the S steps' h exchange
+        # and barrier alone (not a kernel of the path: no launch counted)
+        floor = device_ms(lambda: slstm.chain_floor(b, s, nh, hd, dtype, dev), per_graph=1, reps=3)
         # ~15 launches per step: too many to capture, timed as one call
         plain = call_ms(lambda: ref.slstm_scan_ref(xg, r), iters=1, warmup=1)
         rate, ops_rate = ("bf16", BF16_OPS_PER_S) if dtype == torch.bfloat16 else ("f32", FP32_OPS_PER_S)
         bnd, by = slstm_bound(b, s, nh, hd, el, el, ops_rate)
-        extra = ""
-        if dtype == torch.bfloat16:
-            b32, by32 = slstm_bound(b, s, nh, hd, el, el, FP32_OPS_PER_S)
-            extra = f"; at the f32 rate, which this build runs at, {b32 * 1e3:.1f} us ({by32})"
+        plan = slstm.launch_plan(hd, dtype, dtype)
         log(f"slstm_scan xg ({b},{s},{4 * nh * hd}) R (4,{nh},{hd},{hd}) {tag}: max|err| {err:.3g} "
-            f"over hs, h, c, n, m (each within {SCAN_REL} of its largest |value|); {nh * b} blocks of {hd} threads, 1 "
-            f"launch per call; {ms * 1e3:.1f} us per call on the device ({host * 1e3:.1f} us per "
-            f"call from the host, {ms * 1e3 / s:.2f} us a step), plain {plain * 1e3:.1f} us, bound "
-            f"{bnd * 1e3:.1f} us ({by}, {rate}){extra}, library: none")
+            f"over hs, h, c, n, m (each within {SCAN_REL} of its largest |value|); {plan}; "
+            f"{ms * 1e3:.1f} us per call on the device ({host * 1e3:.1f} us per call from the host), "
+            f"{ms * 1e3 / s:.3f} us a step against the chain's floor of {floor * 1e3 / s:.3f} us a "
+            f"step; plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.1f} us ({by}, {rate}), library: none")
         row = dict(
             name="slstm_scan", route="cuda", source="src/repro_torch/kernels/csrc/slstm.cu",
             replaces="src/repro/models/xlstm.py:262 (lax.scan of _slstm_cell, not a Pallas "
                      "kernel)",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
-            call_ms=host)
+            call_ms=host, plan=plan, chain_floor_ms=floor)
         del xg, r, got_h, want_h
     return [rows[-1], row]  # the bf16 rows: the serving path's types
 

@@ -56,7 +56,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of strides
 # C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t,
-# the *_smem entries a byte count, rt_ssd_blocks_per_sm a count of blocks)
+# the *_smem entries a byte count, rt_ssd_blocks_per_sm a count of blocks,
+# rt_slstm_max_clusters a count of clusters or minus a cudaError_t)
 _SIGNATURES = {
     "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
     "rt_map_chain": (_P, _I64, _P, _I64, _I, _P, _P, _I, _I, _P),
@@ -79,10 +80,15 @@ _SIGNATURES = {
     "rt_ssd_scan_smem": (_I, _I, _I, _I),
     "rt_ssd_blocks_per_sm": (_I, _I, _I),
     "rt_mlstm_scan": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    "rt_mlstm_scan_smem": (_I, _I),
-    "rt_slstm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rt_mlstm_scan_smem": (_I, _I, _I),
+    "rt_slstm_scan": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "rt_slstm_smem": (_I, _I, _I),
+    "rt_slstm_max_clusters": (_I, _I, _I, _I, _I, _I),
+    "rt_slstm_chain_floor": (_P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 KERNELS = (

@@ -84,6 +84,7 @@
 // only). A simple, correct route: it re-reads C, B and x from L2 once per
 // tile of the other operand, and runs B x nh blocks only.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -637,9 +638,6 @@ struct MmaArgs {
   int vec;             // 1: x, B and C are copied in 16-byte pieces
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(in ? 16 : 0)
@@ -652,22 +650,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. trans: each thread gets a column pair instead
-// of a row pair (the B operand of a row-major K x N tile).
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row))
-               : "memory");
-}
 
 // rows [0, prow) x columns [0, pcol) of a bf16 tile into shared memory (row
 // stride ds); source rows past `rows` and columns past `cols` are zero.
@@ -728,16 +710,6 @@ __device__ __forceinline__ void chunk_cum(const float* dts, float decay, int lp,
   __syncwarp();
 }
 
-// (x0, x1) as hi + lo bf16 pairs: hi = x truncated to bf16 (exact in f32), lo
-// = the remainder rounded to bf16, so hi + lo holds x to 2^-16 relative
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
-  hi = __byte_perm(b0, b1, 0x7632);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __uint_as_float(b0 & 0xffff0000u),
-                                                 x1 - __uint_as_float(b1 & 0xffff0000u));
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // 2^x on the special-function unit (flushes subnormal results to 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -745,24 +717,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// D += A (16 x 16, row) . B (16 x 8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ldmatrix row addresses. Pattern A, for a 16 x 16 A fragment of a
-// row-major tile (rows = M) and, transposed, for the B fragments of two
-// column tiles of a row-major K x N tile: matrices (rows +0, cols +0),
-// (+8, +0), (+0, +8), (+8, +8). Pattern B, for the B fragments of two
-// column tiles of an N x K tile (rows = N) and, transposed, for an A
-// fragment of a K x M tile: (+0, +0), (+0, +8), (+8, +0), (+8, +8).
-__device__ __forceinline__ int row_a(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int col_a(int lane) { return (lane >> 4) * 8; }
-__device__ __forceinline__ int row_b(int lane) { return (lane & 7) + (lane >> 4) * 8; }
-__device__ __forceinline__ int col_b(int lane) { return ((lane >> 3) & 1) * 8; }
 
 // Kernel A: for each (batch, chunk, head), the chunk's own state
 // s_c = B^T (x * exp(cum_last - cum) * dt), stored transposed (P x N, f32)

@@ -1514,9 +1514,10 @@ def test_attention_families_on_the_card_match_cpu(cuda, arch):
 
 
 # -- the ssm family's scans (mlstm.cu, slstm.cu) -------------------------------------------
-# Both take their inputs to float32 and sum in float32, as their plain
-# versions do from the same inputs: held at 1e-4 of the largest |value| of
-# each output, as K7.
+# Both sum in float32, as their plain versions do from the same inputs; their
+# tensor-core products take each float32 operand as bf16 terms (2^-16 or
+# about 2^-24 relative): held at 1e-4 of the largest |value| of each output,
+# as K7.
 
 
 def _mlstm_case(g, b, s, nh, p, dev, dtype, with_state):
@@ -1601,6 +1602,87 @@ def test_cuda_slstm_scan(cuda, dtype, b, s, nh, hd, with_state):
     _assert_rel(got_h, want_h)
     for got, want in zip(got_state, want_state):
         _assert_rel(got, want)
+
+
+# the routes of the cluster build (kernels/slstm.py:plan): hd 1024 streams R
+# from L2 in either dtype; B nh = 32 clusters of 16 blocks on the tensor
+# route run in waves; R in f32 at hd 512 streams beside bf16 xg
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,xg_dtype,r_dtype,route", [
+    (1, 40, 2, 1024, torch.float32, torch.float32, "streaming"),
+    (1, 40, 2, 1024, torch.bfloat16, torch.bfloat16, "streaming"),
+    (4, 24, 8, 512, torch.bfloat16, torch.bfloat16, "tensor"),
+    (1, 64, 4, 512, torch.bfloat16, torch.float32, "streaming"),
+])
+def test_cuda_slstm_scan_routes(cuda, b, s, nh, hd, xg_dtype, r_dtype, route):
+    from repro_torch.kernels import slstm
+
+    assert slstm.plan(hd, r_dtype).route == route
+    if b * nh > 8:  # more clusters than the card places at once: waves
+        assert b * nh > slstm.max_active_clusters(hd, xg_dtype, r_dtype) >= 1
+    g = torch.Generator().manual_seed(hd + b)
+    xg = _randn(g, (b, s, 4 * nh * hd), cuda, xg_dtype)
+    r = (torch.randn((4, nh, hd, hd), generator=g) * hd ** -0.5).to(cuda, r_dtype)
+    state = tuple(torch.randn((b, nh, hd), generator=g).to(cuda) for _ in range(2))
+    state += (torch.rand((b, nh, hd), generator=g).to(cuda) + 0.5,
+              torch.randn((b, nh), generator=g).to(cuda))
+    got_h, got_state = slstm.slstm_scan(xg, r, state=state)
+    want_h, want_state = ref.slstm_scan_ref(xg, r, state)
+    _assert_rel(got_h, want_h)
+    for got, want in zip(got_state, want_state):
+        _assert_rel(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mlstm_scan_short_chunk_wide_from_a_state(cuda, dtype):
+    # a chunk below 64 at xlstm-1.3b's P: 16-row tiles half used, ragged S
+    from repro_torch.kernels import mlstm
+
+    g = torch.Generator().manual_seed(77)
+    q, k, v, ig, fg, state = _mlstm_case(g, 1, 77, 2, 1024, cuda, dtype, True)
+    got_y, got_state = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=24, state=state)
+    want_y, want_state = ref.mlstm_scan_ref(q, k, v, ig, fg, 24, state)
+    _assert_rel(got_y, want_y)
+    for got, want in zip(got_state, want_state):
+        _assert_rel(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_scans_refuse_shapes_they_do_not_take(cuda):
+    # a refused shape raises on CUDA tensors: no fallback to the plain version
+    from repro_torch.kernels import mlstm, slstm
+
+    with pytest.raises(ValueError, match="head dim"):
+        slstm.slstm_scan(torch.zeros((1, 2, 4 * 1025), device=cuda),
+                         torch.zeros((4, 1, 1025, 1025), device=cuda))
+    q = torch.zeros((1, 3, 1, 4096), device=cuda)
+    gate = torch.zeros((1, 3, 1), device=cuda)
+    with pytest.raises(ValueError, match="above 3072"):
+        mlstm.mlstm_scan(q, q, q, gate, gate, chunk=4)
+    with pytest.raises(ValueError, match="chunk"):
+        mlstm.mlstm_scan(q[..., :64], q[..., :64], q[..., :64], gate, gate, chunk=65)
+
+
+@pytest.mark.gpu
+def test_cuda_scan_plans_match_the_sources(cuda):
+    # the host's plans size shared memory as the CUDA sources do
+    from repro_torch.kernels import build, mlstm, slstm
+
+    lib = build.library()
+    for hd in (16, 40, 300, 512, 640, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            pl = slstm.plan(hd, dtype)
+            assert lib.rt_slstm_smem(hd, pl.cols, int(pl.tensor)) == pl.smem
+    for p in (8, 40, 1024, 2048):
+        for dtype in (torch.float32, torch.bfloat16):
+            tp = mlstm.rows_per_block(p, dtype)
+            assert lib.rt_mlstm_scan_smem(p, tp, int(dtype == torch.bfloat16)) == mlstm.carry_smem(p, tp, dtype)
+    # xlstm-1.3b's sLSTM: 16-block clusters, all 4 heads of a prefill at once
+    assert slstm.max_active_clusters(512, torch.bfloat16, torch.bfloat16) >= 4
+    out = slstm.chain_floor(1, 100, 4, 512, torch.bfloat16, cuda)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 64, 32) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.gpu

@@ -283,3 +283,47 @@ def test_built_head_dims_take_no_padding_copy():
     # the pieces kernel there (test_attention_plain_above_the_built_head_dims...)
     with pytest.raises(ValueError, match="above 192"):
         padded_head_dim(193)
+
+
+# -- the ssm scans' launch plans (csrc/slstm.cu, csrc/mlstm.cu) ----------------------------
+
+
+@pytest.mark.parametrize("hd,dtype,want", [
+    (512, torch.bfloat16, (16, 32, True, 21632)),   # xlstm-1.3b: R^T in registers
+    (512, torch.float32, (16, 32, False, 16512)),   # R in f32: streamed into f32 FMAs
+    (1024, torch.bfloat16, (16, 64, False, 32896)),
+    (16, torch.bfloat16, (1, 16, True, 2432)),
+    (40, torch.float32, (2, 20, False, 8960)),
+])
+def test_slstm_plan(hd, dtype, want):
+    pl = slstm.plan(hd, dtype)
+    assert (pl.cluster, pl.cols, pl.tensor, pl.smem) == want
+
+
+def test_slstm_plan_covers_every_column_with_no_empty_block():
+    for hd in range(1, slstm.MAX_HEAD_DIM + 1):
+        pl = slstm.plan(hd, torch.bfloat16)
+        assert pl.cluster <= slstm.MAX_CLUSTER and pl.cols <= 64
+        assert (pl.cluster - 1) * pl.cols < hd <= pl.cluster * pl.cols
+        assert pl.tensor == (hd <= 512) and (not pl.tensor or pl.cols <= 32)
+        assert not slstm.plan(hd, torch.float32).tensor
+    with pytest.raises(ValueError, match="head dim"):
+        slstm.plan(slstm.MAX_HEAD_DIM + 1, torch.bfloat16)
+
+
+def test_mlstm_plan():
+    # 32 rows of C a block where the f32 tile and the staged tiles fit, else 16
+    assert [mlstm.rows_per_block(1024, d) for d in (torch.bfloat16, torch.float32)] == [32, 32]
+    assert [mlstm.rows_per_block(2048, d) for d in (torch.bfloat16, torch.float32)] == [16, 16]
+    assert mlstm.rows_per_block(8, torch.float32) == 32
+    assert mlstm.carry_smem(1024, 32, torch.bfloat16) == 195080
+    assert mlstm.carry_smem(1024, 32, torch.float32) == 217096 <= mlstm.MAX_SMEM
+    assert mlstm.n_blocks(1024) == 8 and mlstm.n_blocks(40) == 1
+    assert mlstm.launch_plan(1, 2048, 4, 1024, 64, torch.bfloat16).startswith(
+        "3 launches per call: 128 chunk blocks; 256 blocks for n (128 columns x 4 chunks each); "
+        "128 blocks of 32 rows of C over tiles of 128 columns")
+    with pytest.raises(ValueError, match="above 3072"):
+        mlstm.rows_per_block(4096, torch.bfloat16)
+    assert mlstm.rows_per_block(2816, torch.bfloat16) == 16
+    with pytest.raises(ValueError, match="do not fit"):
+        mlstm.rows_per_block(2880, torch.bfloat16)
