@@ -35,7 +35,15 @@ Phases, each fatal on failure:
      2048, 8192) with R (4, 4, 512, 512) in f32 and bf16, each within
      SCAN_REL of its plain version, beside its bound and its launch plan,
      the sLSTM's µs a step beside the chain's floor (its clusters' h
-     exchange and barrier alone);
+     exchange and barrier alone); the scans' routes for the shapes their
+     first builds refused (SCAN_ROUTES: the sLSTM at hd 1040 and 2048, the
+     mLSTM at P 2304-3200 and chunks 96 and 128), each within SCAN_REL;
+     the backward kernels at qwen3-4b's training shapes, f32 and bf16:
+     rmsnorm_bwd in K1's and K4's forms at (2048, 2560) and (65536, 128),
+     flash_attention_bwd causal at q (1, 2048, 32, 128) over 8 KV heads,
+     under a window of 512 and without a mask against 1024 keys, each
+     within BWD_REL of its plain version (autograd of the forward's), beside
+     its bound and the backward of F.rms_norm / F.scaled_dot_product_attention;
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -173,13 +181,26 @@ Phases, each fatal on failure:
   6. nemotron-4-340b cut in width (NEMOTRON_CUT: head dim 192, 12 q heads
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
+  6b. (run right after phase 2, while the card is empty) training
+     (``repro_torch.train``): qwen3-4b at its published widths
+     and all 36 layers, bf16, batch 1 x 2048 tokens, AdamW with f32
+     moments, 4 steps on one repeated TokenStream batch, with launch counts
+     reset just before and read just after (K1, K4, K5, rmsnorm_bwd and
+     flash_attention_bwd > 0); loss finite and falling, ms a step, peak
+     memory; step 1 run twice from the same state bitwise equal; the state
+     saved after step 2 (build/train_ckpt), restored, and steps 3-4 bitwise
+     equal to the straight run's; the cut run, 2 layers at the published
+     widths in f32, batch 1 x 128, on the card against the CPU (the step-0
+     loss and gradients, the parameters after 2 steps);
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
-     of phases 3-5g, the session's, the concurrent ones, the workers' of
+     of phases 3-6b, the session's, the concurrent ones, the workers' of
      phases 3c and 3e and the in-process runs of 3d and 3g included; each
      must be > 0), the card line as nvidia-smi gives
      it, and as the last line ``{"ok": true, "device": {...}}``.
 
-``--phase kernels`` stops after phase 2 (a first check of new kernels).
+``--phase kernels`` stops after phase 2 (a first check of new kernels);
+``--phase train`` runs the scans' new routes, the backward kernels and
+phase 6 alone.
 """
 from __future__ import annotations
 
@@ -437,6 +458,8 @@ def kernel_phase(dev):
     out += model_kernel_phase(dev, gen)
     out += hybrid_kernel_phase(dev, gen)
     out += xlstm_kernel_phase(dev, gen)
+    scan_route_checks(dev, gen)
+    out += backward_kernel_phase(dev, gen)
     mixtral_attention_checks(dev, gen)
     attention_family_checks(dev, gen)
     for k in out:
@@ -1219,6 +1242,390 @@ def attention_family_checks(dev, gen):
             f"({by}), plain {plain * 1e3:.2f} us, library F.scaled_dot_product_attention "
             f"{lib * 1e3:.2f} us")
         del q1, kc, vc
+
+
+# The scans' routes for the shapes their first builds refused (kernels/
+# slstm.py:plan, kernels/mlstm.py:route), each held to its plain version at
+# SCAN_REL: the sLSTM's streaming route above hd 1024 (4 and 8 columns a
+# lane), the mLSTM's general route above the tensor route's shared memory
+# (P 2304 in f32 still takes the tensor route) and with chunks above 64
+# (one stabilizer a chunk, S no multiple of the chunk, forget gates biased
+# open: log sigmoid of N(0, 1) over 128 positions pushes exp(-m) below f32).
+SCAN_ROUTES = (
+    ("slstm", 1040, "float32"), ("slstm", 2048, "bfloat16"),
+    ("mlstm_p", 2304, "float32"), ("mlstm_p", 2560, "float32"),
+    ("mlstm_p", 2880, "bfloat16"), ("mlstm_p", 3200, "bfloat16"),
+    ("mlstm_chunk", 96, "float32"), ("mlstm_chunk", 128, "bfloat16"),
+)
+
+
+def scan_route_checks(dev, gen):
+    """One line per route of :data:`SCAN_ROUTES`: the error against the
+    plain version, the launch plan, µs per call beside the bound and the
+    plain version's µs (no library call computes either scan)."""
+    import torch
+
+    from repro_torch.kernels import mlstm, ref, slstm
+
+    for kind, size, dname in SCAN_ROUTES:
+        dtype = getattr(torch, dname)
+        el = torch.finfo(dtype).bits // 8
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        if kind == "slstm":
+            b, s, nh, hd = 1, 64, 1, size
+            xg = torch.randn((b, s, 4 * nh * hd), generator=gen).to(dev, dtype)
+            r = (torch.randn((4, nh, hd, hd), generator=gen) * hd ** -0.5).to(dev, dtype)
+            fn = lambda: slstm.slstm_scan(xg, r)  # noqa: E731
+            plain = lambda: ref.slstm_scan_ref(xg, r)  # noqa: E731
+            got, want = fn(), plain()
+            plan, (bnd, by) = slstm.launch_plan(hd, dtype, dtype), slstm_bound(b, s, nh, hd, el, el, ops_rate)
+            shape = f"xg ({b},{s},{4 * nh * hd}) R (4,{nh},{hd},{hd})"
+        else:
+            b, nh = 1, 2
+            p, chunk, s = (size, 64, 200) if kind == "mlstm_p" else (512, size, 3 * size - 17)
+            q, k, v = (torch.randn((b, s, nh, p), generator=gen).to(dev, dtype) for _ in range(3))
+            ig = torch.randn((b, s, nh), generator=gen).to(dev)
+            fg = (torch.randn((b, s, nh), generator=gen) + 3.0).to(dev)
+            fn = lambda: mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk)  # noqa: E731
+            plain = lambda: ref.mlstm_scan_ref(q, k, v, ig, fg, chunk)  # noqa: E731
+            got, want = fn(), plain()
+            plan, (bnd, by) = (mlstm.launch_plan(b, s, nh, p, chunk, dtype),
+                               mlstm_bound(b, s, nh, p, chunk, el, ops_rate))
+            shape = f"q/k/v ({b},{s},{nh},{p}) chunk {chunk}"
+        err = check_rel(f"{kind} {size} {dname}", got[0], want[0], SCAN_REL)
+        for i, (g_, w_) in enumerate(zip(got[1], want[1])):
+            err = max(err, check_rel(f"{kind} {size} {dname} state {i}", g_, w_, SCAN_REL))
+        del got, want
+        ms = device_ms(fn, per_graph=1, reps=3)
+        plain_ms = call_ms(plain, iters=1, warmup=1)  # the sLSTM's: ~15 launches a step, one call
+        log(f"{kind.split('_')[0]}_scan {shape} {dname}: max|err| {err:.3g} (each output within "
+            f"{SCAN_REL} of its largest |value|); {plan}; {ms * 1e3:.1f} us per call on the device, "
+            f"bound {bnd * 1e3:.1f} us ({by}), plain {plain_ms * 1e3:.1f} us, library: none")
+        torch.cuda.empty_cache()
+
+
+# -- the backward kernels (training) -------------------------------------------------
+#
+# Each backward kernel against its plain version, torch.autograd.grad of the
+# forward's plain version on the same inputs, at qwen3-4b's training shapes
+# (2048 tokens): K1/K4 at the seams' (2048, 2560) rows and K1 at the q-norm's
+# (65536, 128); K5 causal at q (1, 2048, 32, 128) over 8 KV heads, under a
+# window of 512, and without a mask at Sq 2048 against Sk 1024. The kernels
+# sum in f32 in another order than autograd's ops: each gradient is held at
+# a share of its largest |value|, 1e-4 in f32 and 2e-2 in bf16 (one bf16
+# rounding of the result; the plain version rounds along the way).
+BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+ATTN_BWD_SHAPES = (
+    ("qwen3-4b causal", 2048, 2048, 32, 8, 128, True, 0),
+    ("window 512", 2048, 2048, 32, 8, 128, True, 512),
+    ("no mask, Sq != Sk", 2048, 1024, 32, 8, 128, False, 0),
+)
+
+
+def visible_keys(sq, sk, causal, window) -> int:
+    """(q, k) pairs a mask lets through."""
+    total = 0
+    for i in range(sq):
+        hi = min(sk, i + 1) if causal else sk
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def backward_kernel_phase(dev, gen):
+    """rmsnorm_bwd (K1 and K4 forms) and flash_attention_bwd against their
+    plain versions in f32 and bf16, with device µs, bound, plain µs and the
+    library's µs (the backward of F.rms_norm, of F.scaled_dot_product_attention,
+    each through autograd with the graph kept, so the forward is not timed);
+    returns the bf16 rows (the training path's) for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref, rmsnorm
+
+    rows = []
+    eps = 1e-6
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        el = torch.finfo(dtype).bits // 8
+        for (n, d), label in (((2048, 2560), "seams"), ((65536, 128), "q-norm")):
+            x, res, gy, gh = (torch.randn((n, d), generator=gen).to(dev, dtype) for _ in range(4))
+            scale = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+            for form in ("K1", "K4"):
+                if form == "K1":
+                    fn = lambda: rmsnorm.rmsnorm_bwd(x, gy, scale, eps)  # noqa: E731
+                    got, want = fn(), ref.rmsnorm_bwd_ref(x, scale, gy, eps)
+                    plain = lambda: ref.rmsnorm_bwd_ref(x, scale, gy, eps)  # noqa: E731
+                    io, lib_in = 3 * n * d * el + 2 * d * 4, x
+                else:
+                    fn = lambda: rmsnorm.rmsnorm_bwd(x, gy, scale, eps, res=res, gh=gh)  # noqa: E731
+                    got = fn()
+                    w = ref.rmsnorm_residual_bwd_ref(x, res, scale, gy, gh, eps)
+                    want = (w[0], w[2])
+                    plain = lambda: ref.rmsnorm_residual_bwd_ref(x, res, scale, gy, gh, eps)  # noqa: E731
+                    io, lib_in = 5 * n * d * el + 2 * d * 4, None
+                rel = BWD_REL[dname]
+                err = max(check_rel(f"rmsnorm_bwd {form} {label} {dname} dx", got[0].float(), want[0].float(), rel),
+                          check_rel(f"rmsnorm_bwd {form} {label} {dname} dscale", got[1], want[1], rel))
+                ms = device_ms(fn)
+                plain_ms = call_ms(plain, iters=10, warmup=2)
+                # the library: F.rms_norm's backward (K4: of the sum's norm and the sum)
+                xl = (x.float() + res.float()).to(dtype) if lib_in is None else x
+                xl = xl.detach().requires_grad_(True)
+                wl = scale.to(dtype).detach().requires_grad_(True)
+                yl = F.rms_norm(xl, (d,), wl, eps)
+                lib_ms = call_ms(lambda: torch.autograd.grad(yl, (xl, wl), gy, retain_graph=True),
+                                 iters=10, warmup=2)
+                bnd, by = bound_ms(io, 10 * n * d)
+                log(f"rmsnorm_bwd {form} ({n},{d}) {label} {dname}: max|err| {err:.3g} (within {rel} "
+                    f"of the largest |value|); {ms * 1e3:.2f} us/call on the device, bound "
+                    f"{bnd * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, library F.rms_norm "
+                    f"backward {lib_ms * 1e3:.2f} us")
+                if dname == "bfloat16" and form == "K4" and label == "seams":
+                    rows.append(dict(
+                        name="rmsnorm_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                        replaces="none: the backward of K1 (src/repro/kernels/rmsnorm.py:55) and K4 "
+                                 "(:94); the reference trains through jnp",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                        library_ms=lib_ms, call_ms=call_ms(fn, iters=10, warmup=2)))
+                del got, want, yl
+            del x, res, gy, gh
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        el = torch.finfo(dtype).bits // 8
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        for label, sq, sk, h, kv, hd, causal, window in ATTN_BWD_SHAPES:
+            q, do = (torch.randn((1, sq, h, hd), generator=gen).to(dev, dtype) for _ in range(2))
+            k, v = (torch.randn((1, sk, kv, hd), generator=gen).to(dev, dtype) for _ in range(2))
+            o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
+            fn = lambda: flash_attention.flash_attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, causal=causal, window=window)
+            got = fn()
+            want = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+            rel = BWD_REL[dname]
+            err = max(check_rel(f"flash_attention_bwd {label} {dname} d{n}", a.float(), w.float(), rel)
+                      for n, a, w in zip("qkv", got, want))
+            del want
+            ms = device_ms(fn, per_graph=3, reps=5)
+            plain_ms = call_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window),
+                               iters=3, warmup=1)
+            torch.cuda.empty_cache()
+            ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            mask = None
+            if window:
+                i, j = torch.arange(sq, device=dev)[:, None], torch.arange(sk, device=dev)[None, :]
+                mask = (j <= i) & (j > i - window)
+            ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                is_causal=causal and not window, enable_gqa=True)
+            dol = do.transpose(1, 2)
+            lib_ms = call_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol, retain_graph=True),
+                             iters=5, warmup=1)
+            pairs = h * visible_keys(sq, sk, causal, window)
+            bnd, by = bound_ms((2 * (2 * sq * h + 2 * sk * kv) * hd) * el + sq * h * 4, 10 * hd * pairs, ops_rate)
+            log(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}) {dname}: max|err| "
+                f"{err:.3g} (within {rel} of the largest |value|); {ms * 1e3:.1f} us/call on the device, "
+                f"bound {bnd * 1e3:.1f} us ({by}, {10 * hd * pairs / 1e9:.1f} GFLOP), plain "
+                f"{plain_ms * 1e3:.1f} us, library SDPA backward {lib_ms * 1e3:.1f} us")
+            if dname == "bfloat16" and label == "qwen3-4b causal":
+                rows.append(dict(
+                    name="flash_attention_bwd", route="cuda",
+                    source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    replaces="none: the backward of K5 (src/repro/kernels/flash_attention.py:133); "
+                             "the reference trains through jnp",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                    library_ms=lib_ms, call_ms=call_ms(fn, iters=3, warmup=1)))
+            del q, k, v, do, o, lse, got, ol, ql, kl, vl
+            torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 6: training -------------------------------------------------------------------
+#
+# qwen3-4b at its published widths and all 36 layers, bf16, batch 1 of 2048
+# tokens, AdamW with f32 moments as launch/train.py sets them (peak lr 1e-4,
+# no warmup), TRAIN_STEPS steps on one repeated TokenStream batch. The state
+# is about 53 GB on the card: bf16 params and grads, f32 mu and nu.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "qwen3-4b", 2048, 4, 1e-4
+TRAIN_CKPT_AT = 2  # the straight run saves its state after this step
+TRAIN_CKPT_DIR = os.path.join("build", "train_ckpt")  # .gitignore lists build/
+# the card against the CPU: 2 layers at the published widths, f32, batch 1
+# of 128 tokens, 2 steps. The loss and each gradient leaf sum over 2560- and
+# 151936-wide rows in another order: the loss within 1e-5 relative, each
+# step-0 gradient leaf within 1e-3 of its largest |value|, the parameters
+# after 2 steps within PARITY_TOL.
+TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ, TRAIN_CUT_STEPS = 2, 128, 2
+TRAIN_GRAD_REL = 1e-3
+
+
+def state_digest(state):
+    """Per leaf of a train state, an int64 sum of its bits weighted by
+    position (slice by slice): equal digests for bitwise equal states."""
+    import torch
+
+    from repro_torch.train.optim import slices, tree_leaves
+
+    out = []
+    for t in tree_leaves(state):
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        total = 0
+        for sl in slices(t):
+            bits = t[sl].reshape(-1).view(ints).long()
+            w = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.long) % 1000003
+            total += int((bits * w).sum()) + int(bits.sum())
+        out.append(total)
+    return out
+
+
+def training_phase(dev):
+    """The training slice on the card: the qwen3-4b run (ms a step, peak
+    memory, launches, loss finite and falling, a repeated step bitwise, save
+    → restore → continue equal to running straight through) and the cut run
+    against the CPU. Returns the launch counts of the straight run's steps."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.train import (AdamWConfig, abstract_train_state, make_train_step,
+                                   train_state_init)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.step import loss_and_grads
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(TRAIN_ARCH)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0, total_steps=100,
+                      mu_dtype="float32", nu_dtype="float32")
+    step_fn = make_train_step(cfg, opt)
+    raw = TokenStream(cfg.vocab_size, TRAIN_SEQ, 1, seed=0).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+
+    def fresh():
+        t0 = time.perf_counter()
+        st = train_state_init(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    def run(st, steps):
+        out = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            st, m = step_fn(st, batch)
+            loss = float(m["loss"])  # synchronizes
+            out.append((loss, (time.perf_counter() - t0) * 1e3, float(m["grad_norm"])))
+        return st, out
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = fresh()
+    resident = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    state, first = run(state, 1)
+    digest1 = state_digest(state)
+    state, more = run(state, TRAIN_CKPT_AT - 1)
+    counts_a = launch_counts()
+    t0 = time.perf_counter()
+    ckpt.save(TRAIN_CKPT_DIR, TRAIN_CKPT_AT, state)
+    save_s = time.perf_counter() - t0
+    reset_launch_counts()
+    state, rest = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
+    counts_b = launch_counts()
+    counts = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    peak = torch.cuda.max_memory_allocated()
+    digest_end = state_digest(state)
+    steps = first + more + rest
+    losses = [s[0] for s in steps]
+    total, _ = cfg.param_count()
+    log(f"training {cfg.name}: {cfg.n_layers} layers at the published widths ({total / 1e9:.3f} B "
+        f"params, {cfg.param_dtype}), batch 1 x {TRAIN_SEQ} tokens, AdamW f32 moments, peak lr "
+        f"{TRAIN_LR}: state drawn on the card in {init_s:.1f} s, {resident / 2**30:.2f} GiB resident")
+    log(f"training steps (loss, ms, grad norm): "
+        + "; ".join(f"{lo:.4f}, {ms:.1f} ms, {gn:.3f}" for lo, ms, gn in steps)
+        + f"; ms a step after the first: {statistics.median(s[1] for s in steps[1:]):.1f}; peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    if not all(math.isfinite(lo) for lo in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: the loss is not finite and falling: {losses}")
+    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"training launched no {name}: {counts}")
+    log(f"training launches over the {TRAIN_STEPS} steps: {counts}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step run twice from the same state gives the same bits
+    state, _ = fresh()
+    state, again = run(state, 1)
+    if state_digest(state) != digest1:
+        raise AssertionError("training: step 1 from the same state differs between two runs")
+    log(f"training: step 1 run again from the same initial state: bitwise equal (loss "
+        f"{again[0][0]:.4f}, {again[0][1]:.1f} ms)")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # save → restore → continue equals running straight through
+    t0 = time.perf_counter()
+    state = ckpt.restore(TRAIN_CKPT_DIR, target=abstract_train_state(cfg, opt), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if int(state["step"]) != TRAIN_CKPT_AT:
+        raise AssertionError(f"training: restored step {int(state['step'])}, saved {TRAIN_CKPT_AT}")
+    state, resumed = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
+    if state_digest(state) != digest_end or [s[0] for s in resumed] != losses[TRAIN_CKPT_AT:]:
+        raise AssertionError("training: resuming from the checkpoint differs from the straight run")
+    ck_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(TRAIN_CKPT_DIR) for f in fs)
+    log(f"training: checkpoint of step {TRAIN_CKPT_AT} ({ck_bytes / 1e9:.2f} GB) saved in {save_s:.1f} s, "
+        f"restored in {restore_s:.1f} s; steps {TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} from it bitwise equal "
+        f"to the straight run's (state and losses)")
+    del state
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the cut run: the card against the CPU in f32
+    t0 = time.perf_counter()
+    cut = cfg.replace(n_layers=TRAIN_CUT_LAYERS, dtype="float32", param_dtype="float32")
+    cut_opt = opt
+    cpu = train_state_init(cut, cut_opt, torch.Generator().manual_seed(0))
+    from repro_torch.models.transformer import tree_map
+
+    card = tree_map(lambda t: t.to(dev), cpu)
+    raw = TokenStream(cut.vocab_size, TRAIN_CUT_SEQ, 1, seed=1).batch(0)
+    cut_batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    grads = {}
+    for name, st, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        grads[name] = loss_and_grads(st["params"], cut, cut_batch["tokens"].to(d),
+                                     cut_batch["labels"].to(d))
+    worst = 0.0
+    for gc_, gg in zip(grads["card"][1], grads["cpu"][1]):
+        worst = max(worst, check_rel("training cut step-0 gradient", gc_.cpu(), gg, TRAIN_GRAD_REL))
+    l_card, l_cpu = float(grads["card"][0]), float(grads["cpu"][0])
+    if abs(l_card - l_cpu) > 1e-5 * abs(l_cpu):
+        raise AssertionError(f"training cut: loss {l_card} on the card, {l_cpu} on the cpu")
+    del grads
+    cut_step = make_train_step(cut, cut_opt)
+    loss_pairs = []
+    for _ in range(TRAIN_CUT_STEPS):
+        card, mc = cut_step(card, {k: t.to(dev) for k, t in cut_batch.items()})
+        cpu, mp = cut_step(cpu, cut_batch)
+        loss_pairs.append((float(mc["loss"]), float(mp["loss"])))
+    from repro_torch.train.optim import tree_leaves
+
+    perr = max(check_close("training cut parameters", a.cpu(), b, PARITY_TOL)
+               for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
+    log(f"training cut ({cut.n_layers} layers at the published widths, f32, batch 1 x {TRAIN_CUT_SEQ}) "
+        f"card vs cpu: step-0 loss {l_card:.6f} vs {l_cpu:.6f}, gradients max|err| {worst:.3g} (each "
+        f"leaf within {TRAIN_GRAD_REL} of its largest |value|); losses over {TRAIN_CUT_STEPS} steps "
+        f"{loss_pairs}; parameters max|err| {perr:.3g} (tol {PARITY_TOL}); {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 # -- phase 3: the main path ------------------------------------------------------------
@@ -3220,7 +3627,7 @@ def nemotron_cut_phase(dev):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phase", choices=("all", "kernels"), default="all")
+    parser.add_argument("--phase", choices=("all", "kernels", "train"), default="all")
     args = parser.parse_args()
 
     import torch
@@ -3249,11 +3656,19 @@ def main() -> int:
             log(f"  nvcc: {line.strip()}")
     dev = torch.device("cuda", 0)
 
+    if args.phase == "train":
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        scan_route_checks(dev, gen)
+        backward_kernel_phase(dev, gen)
+        training_phase(dev)
+        return 0
     kernels = kernel_phase(dev)
     if args.phase == "kernels":
         return 0
+    # training first: its state (about 53 GB) wants the card before anything else has run on it
+    runs = {"training": training_phase(dev)}
     stream, stream_concurrent, phase3 = main_path_phase(dev)
-    runs = {"stream path": stream, "stream path, concurrent": stream_concurrent}
+    runs.update({"stream path": stream, "stream path, concurrent": stream_concurrent})
     runs["session"], runs["session, concurrent"] = session_phase(dev, card)
     runs.update(worker_phase(dev, phase3))
     runs.update(transport_sharded_phase(dev, phase3))

@@ -11,7 +11,9 @@ The serving path's state is the model's parameters and the KV cache. The
 port keeps the reference's layouts (per-layer leading axis, ``wq (D, H,
 hd)``, ``wo (H, hd, D)``, the cache as ``(L, B, S, KV, hd)``), so
 :func:`params_from_jax` and :func:`cache_from_jax` move arrays and
-re-lay nothing out. That holds for every family's tree: MLA's weights
+re-lay nothing out (and :func:`train_state_from_jax` /
+:func:`train_state_to_numpy` move a whole train state, moments and step
+included). That holds for every family's tree: MLA's weights
 (``w_dq``, ``w_uq``, ``w_dkv``, ``w_krope``, ``w_uk``, ``w_uv``) and its
 latent cache (``c_kv (L, B, S, r)``, ``k_rope (L, B, S, rope_hd)``), the
 cross blocks' ``k_input_norm`` and the gated blocks' ``gate`` (stacked as
@@ -55,6 +57,28 @@ def cache_from_jax(cache_np: Any, device: torch.device | str = "cpu") -> Any:
     out = states_from_jax(out, device)
     out["len"] = int(np.asarray(cache_np["len"]))
     return out
+
+
+def train_state_from_jax(state_np: Any, device: torch.device | str = "cpu") -> Any:
+    """The reference's train state ``{step, params, mu, nu}`` (leaves as
+    numpy) → the port's: the same tree of tensors on ``device``, the step
+    a 0-d int32 tensor there too."""
+    return states_from_jax(state_np, device)
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The port's train state → numpy copies the reference takes (the port
+    updates its state in place), bfloat16 as ``ml_dtypes.bfloat16``
+    (imported only when a bfloat16 leaf is there: the package JAX ships
+    with)."""
+    if isinstance(state, dict):
+        return {k: train_state_to_numpy(v) for k, v in state.items()}
+    t = state.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
 
 
 def states_to_numpy(states: Any) -> Any:

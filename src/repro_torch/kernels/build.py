@@ -64,7 +64,11 @@ _SIGNATURES = {
     "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_kalman_scan": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _F, _F, _P),
     "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_flash_attention_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P,
+    ),
+    "rt_rmsnorm_bwd": (_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _P),
     "rt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
@@ -83,6 +87,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "rt_mlstm_scan_smem": (_I, _I, _I),
+    "rt_mlstm_scan_general": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P,
+    ),
     "rt_slstm_scan": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
@@ -94,7 +102,7 @@ _SIGNATURES = {
 KERNELS = (
     "rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan",
     "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan",
-    "mlstm_scan", "slstm_scan",
+    "mlstm_scan", "slstm_scan", "rmsnorm_bwd", "flash_attention_bwd",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _count_lock = threading.Lock()

@@ -60,6 +60,11 @@
 // zeros (the plain version gives it the mean of V); that cannot happen on
 // the serving path, where every row sees its own key. l is clamped at
 // 1e-30; the default scale hd^-0.5 is applied by the caller.
+//
+// Under autograd both kernels also write each row's log-sum-exp of its
+// scaled scores, lse = m + log(l) in natural units (+inf for a row that sees
+// no key), which flash_attention_bwd.cu reads to form P again; the
+// inference path passes no lse buffer and the store is skipped.
 #include "attention_pieces.cuh"
 #include "common.cuh"
 
@@ -74,6 +79,7 @@ struct FlashArgs {
   const void* v;
   void* o;
   const int* plan;  // bf16: (q tile, first key, end key) per block order; f32: unused
+  float* lse;       // (B, H, Sq) log-sum-exp of each row's scaled scores, or null
   int64_t q_sb, q_ss, q_sh;  // element strides of q (B, Sq, H, hd); inner stride 1
   int64_t k_sb, k_ss, k_sh;  // k (B, Sk, KV, hd)
   int64_t v_sb, v_ss, v_sh;  // v (B, Sk, KV, hd)
@@ -205,6 +211,8 @@ __global__ void __launch_bounds__(kSimtThreads) flash_fwd_simt(FlashArgs a) {
   }
 
   if (q_pos < a.sq) {
+    if (a.lse != nullptr && sub == 0)
+      a.lse[(static_cast<int64_t>(b) * a.h + head) * a.sq + q_pos] = l > 0.0f ? m + logf(l) : __int_as_float(0x7f800000);
     const float lc = fmaxf(l, 1e-30f);
     float* ob = static_cast<float*>(a.o) + b * a.o_sb + q_pos * a.o_ss + head * a.o_sh;
 #pragma unroll
@@ -619,6 +627,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wg(FlashArgs a) {
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
   bf16* ob = static_cast<bf16*>(a.o) + b * a.o_sb + head * a.o_sh + 2 * t4;
   const int row1 = row0 + 8;
+  if (a.lse != nullptr && t4 == 0) {  // m is in log2 units of the scaled scores
+    const float kLn2 = 0.6931471805599453f, inf = __int_as_float(0x7f800000);
+    float* lr = a.lse + (static_cast<int64_t>(b) * a.h + head) * a.sq;
+    if (row0 < a.sq) lr[row0] = l0 > 0.0f ? (m0 + log2f(l0)) * kLn2 : inf;
+    if (row1 < a.sq) lr[row1] = l1 > 0.0f ? (m1 + log2f(l1)) * kLn2 : inf;
+  }
 #pragma unroll
   for (int n = 0; n < NO / 4; ++n) {
     if (row0 < a.sq)
@@ -648,14 +662,15 @@ cudaError_t launch_wg(const FlashArgs& a, cudaStream_t stream) {
 // bf16 takes the tensor-core kernel (base pointers and seq/head strides
 // 16-byte aligned, checked by the wrapper) and its tile plan on the device,
 // ceil(sq / 128) x 3 ints (kernels/flash_attention.py:tile_plan); f32 the
-// SIMT kernel, which takes no plan.
+// SIMT kernel, which takes no plan. lse: (batch, h, sq) f32 for each row's
+// log-sum-exp (autograd's forward), or null.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  const int* plan, const int64_t* strides, int batch, int sq,
+                                  const int* plan, float* lse, const int64_t* strides, int batch, int sq,
                                   int sk, int h, int kv, int hd, float scale, int causal,
                                   int window, int is_bf16, void* stream) {
   if (batch == 0 || sq == 0 || h == 0) return cudaSuccess;
   if (kv <= 0 || h % kv != 0 || (is_bf16 && plan == nullptr)) return cudaErrorInvalidValue;
-  FlashArgs a{q, k, v, o, plan,
+  FlashArgs a{q, k, v, o, plan, lse,
               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
               strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
               batch, sq, sk, h, kv, scale, causal, window};

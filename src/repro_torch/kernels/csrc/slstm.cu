@@ -43,8 +43,10 @@
 //     0-2 of an 8-wide B operand, so one product per 16 x 16 piece of R^T
 //     gives h R in f32 sums: 16 products a warp and step.
 //   * streaming (R in f32, or hd above 512): f32 FMAs, a lane per column
-//     and the 16 warps over rows p in groups of 8, the block's slice read
-//     from L2 every step (1/cluster of the bytes the whole head needs).
+//     (kU columns a lane, 32 kU a block: 2 up to hd 1024, 4 up to 2048, 8
+//     up to 4096, one build each) and the 16 warps over rows p in groups
+//     of 8, the block's slice read from L2 every step (1/cluster of the
+//     bytes the whole head needs).
 // The head means of the i and f gates need every column. They come from
 // the identity mean_r (h R_g)_r = h . rbar_g with rbar_g[p] = mean_r
 // R_g[p][r]: the prologue forms each head's rbar_i and rbar_f (the rows
@@ -70,8 +72,8 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 16;
-constexpr int kMaxHeadDim = 1024;
-constexpr int kMaxCols = 64;       // a lane per column, at most two columns a lane
+constexpr int kMaxHeadDim = 4096;
+constexpr int kMaxCols = 256;      // streaming: columns a block, at most 8 a lane
 constexpr int kTensorMaxHd = 512;  // the tensor route: 32 columns a block, 16 pairs of k-steps
 constexpr int kPairs = 8;          // pairs of 16-row k-steps a warp holds (kTensorMaxHd / 64)
 
@@ -313,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_tensor_kernel(SlstmArgs a) 
 
 // -- the streaming route ------------------------------------------------------------
 
-template <typename T, typename TR>
+template <typename T, typename TR, int kU>
 __global__ void __launch_bounds__(kThreads, 1) slstm_stream_kernel(SlstmArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -369,9 +371,9 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_stream_kernel(SlstmArgs a) 
     const float xbi = xbn[0], xbf = xbn[1];
     if (colt && t + 1 < S) fetch(t + 1);  // issued now, used a step later
 
-    // h R[g] over this warp's groups of 8 rows, a lane per column (two where
-    // cols > 32); the dot products with rbar on lanes 0-7 (i) and 8-15 (f)
-    float acc[2][4] = {};
+    // h R[g] over this warp's groups of 8 rows, a lane per column (up to kU
+    // where cols > 32); the dot products with rbar on lanes 0-7 (i) and 8-15 (f)
+    float acc[kU][4] = {};
     float di = 0.0f, df = 0.0f;
     for (int p8 = warp; p8 < hd8; p8 += kWarps) {
       const float4 h0 = reinterpret_cast<const float4*>(hcur + p8 * 8)[0];
@@ -383,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_stream_kernel(SlstmArgs a) 
       else if (lane < 16)
         df = fmaf(hl, rbar[hp + p8 * 8 + (lane - 8)], df);
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const int c = lane + 32 * u;
         if (c >= cpad) break;
 #pragma unroll
@@ -402,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_stream_kernel(SlstmArgs a) 
     di = rt::warp_sum(di);
     df = rt::warp_sum(df);
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < kU; ++u) {
       const int c = lane + 32 * u;
       if (c >= cpad) break;
 #pragma unroll
@@ -490,11 +492,20 @@ cudaError_t configure(K kern, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr
 
 using KernelFn = void (*)(SlstmArgs);
 
-KernelFn pick(int xg_bf16, int r_bf16, int tensor) {
+template <int kU>
+KernelFn pick_stream(int xg_bf16, int r_bf16) {
+  using bf = __nv_bfloat16;
+  if (xg_bf16) return r_bf16 ? slstm_stream_kernel<bf, bf, kU> : slstm_stream_kernel<bf, float, kU>;
+  return r_bf16 ? slstm_stream_kernel<float, bf, kU> : slstm_stream_kernel<float, float, kU>;
+}
+
+// the streaming build of a block of `cols` columns: 2, 4 or 8 a lane
+KernelFn pick(int cols, int xg_bf16, int r_bf16, int tensor) {
   using bf = __nv_bfloat16;
   if (tensor) return xg_bf16 ? slstm_tensor_kernel<bf> : slstm_tensor_kernel<float>;
-  if (xg_bf16) return r_bf16 ? slstm_stream_kernel<bf, bf> : slstm_stream_kernel<bf, float>;
-  return r_bf16 ? slstm_stream_kernel<float, bf> : slstm_stream_kernel<float, float>;
+  if (cols <= 64) return pick_stream<2>(xg_bf16, r_bf16);
+  if (cols <= 128) return pick_stream<4>(xg_bf16, r_bf16);
+  return pick_stream<8>(xg_bf16, r_bf16);
 }
 
 bool plan_ok(int hd, int cluster, int cols, int r_bf16, int tensor) {
@@ -512,7 +523,7 @@ extern "C" int rt_slstm_smem(int hd, int cols, int tensor) { return slstm_smem_b
 // minus a cudaError_t.
 extern "C" int rt_slstm_max_clusters(int hd, int cluster, int cols, int xg_bf16, int r_bf16, int tensor) {
   if (!plan_ok(hd, cluster, cols, r_bf16, tensor)) return -static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kern = pick(xg_bf16, r_bf16, tensor);
+  const KernelFn kern = pick(cols, xg_bf16, r_bf16, tensor);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(kern, cfg, attr, cluster, 1, 1, slstm_smem_bytes(hd, cols, tensor), nullptr);
@@ -535,7 +546,7 @@ extern "C" int rt_slstm_scan(const void* xg, const void* R, const float* h0, con
   if (batch == 0 || nh == 0) return cudaSuccess;
   if (s < 0 || !plan_ok(hd, cluster, cols, r_bf16, tensor)) return cudaErrorInvalidValue;
   const SlstmArgs args{xg, R, h0, c0, n0, m0, hs, h, c, n, m, xbar, s, nh, hd, cluster, cols};
-  const KernelFn kern = pick(xg_bf16, r_bf16, tensor);
+  const KernelFn kern = pick(cols, xg_bf16, r_bf16, tensor);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = configure(kern, cfg, attr, cluster, nh, batch, slstm_smem_bytes(hd, cols, tensor),

@@ -33,6 +33,14 @@ given), and the output keeps its first ``hd_v`` columns. The zero columns
 of v add nothing to P·V; they cost (hd - hd_v) / hd_v more V bytes read and
 O bytes written (50% at MLA's shape). A build with its own v head dim is
 work for a later change.
+
+Training: ``flash_attention(..., with_lse=True)`` also returns each row's
+log-sum-exp of its scaled scores, (B, H, Sq) float32, which
+:func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``) reads to
+form the gradients of q, k and v. The backward is built for the head dims
+in :data:`BWD_HEAD_DIMS`, with any head dim up to 128 zero-padded as the
+forward's; above 128, and on route (a), it raises (ROADMAP, queue 1). Its
+plain version is :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -53,6 +61,8 @@ KERNELS = {
     torch.bfloat16: "flash_fwd_wg (wgmma m64n64k16 / m64nHDk16 bf16, cp.async K/V ring, heavy-first)",
     torch.float32: "flash_fwd_simt (f32 FMAs from shared memory)",
 }
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)  # csrc/flash_attention_bwd.cu
+BWD_ROADMAP = "ROADMAP queue 1: K5's backward above head dim 128 and on route (a)"
 PIECES_KERNEL = "attention_pieces (SIMT f32 FMAs, head dim in pieces of 64, O in shared memory)"
 
 
@@ -178,7 +188,13 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
+    """The output (B, Sq, H, hd); with ``with_lse`` (training) the pair
+    (output, lse (B, H, Sq) float32), for head dims up to 128 only."""
+    if with_lse and (v.shape[-1] != q.shape[-1] or q.shape[-1] > BWD_HEAD_DIMS[-1]):
+        raise NotImplementedError(f"flash_attention under autograd at q head dim {q.shape[-1]} "
+                                  f"and v head dim {v.shape[-1]}: {BWD_ROADMAP}")
     if v.shape[-1] != q.shape[-1]:
         return attend_padded_value(flash_attention, q, k, v, causal=causal, window=window,
                                    scale=scale)
@@ -190,23 +206,71 @@ def flash_attention(
     if width != hd:
         q, k, v = pad_head_dim((q, k, v), width)
         scale = hd ** -0.5 if scale is None else scale
-        o = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
-        return o[..., :hd].contiguous()
+        out = flash_attention(q, k, v, causal=causal, window=window, scale=scale, with_lse=with_lse)
+        if with_lse:
+            return out[0][..., :hd].contiguous(), out[1]
+        return out[..., :hd].contiguous()
     sk, kv = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     load_route(q.dtype, q.element_size(), [t.data_ptr() for t in (q, k, v)], strides)
     scale = float(scale if scale is not None else hd ** -0.5)
     plan = _plan_on(q.device, sq, sk, bool(causal), int(window)).data_ptr() if q.dtype == torch.bfloat16 else 0
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     err = build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), plan,
+        lse.data_ptr() if with_lse else None,
         build.strides_arg(strides + list(o.stride()[:3])),
         b, sq, sk, h, kv, hd, scale, int(causal), int(window),
         int(q.dtype == torch.bfloat16), stream_ptr(q),
     )
     build.check(err, "flash_attention")
     build.count_launch("flash_attention")
-    return o
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of K5 from its inputs, its output ``o``, its ``lse`` and
+    the output's gradient ``do``, by ``csrc/flash_attention_bwd.cu``; each
+    in q's dtype and its input's shape. Head dims up to 128 (others
+    zero-padded to the next built one); above, or with v's head dim below
+    q's, it raises."""
+    hd = q.shape[-1]
+    if v.shape[-1] != hd or hd > BWD_HEAD_DIMS[-1]:
+        raise NotImplementedError(f"flash_attention_bwd at q head dim {hd} and v head dim "
+                                  f"{v.shape[-1]}: {BWD_ROADMAP}")
+    check_heads(q, k, v, "flash_attention_bwd")
+    b, sq, h, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or t.stride(3) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype} with inner stride 1")
+    if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be packed float32 {(b, h, sq)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    scale = float(scale if scale is not None else hd ** -0.5)
+    width = next(w for w in BWD_HEAD_DIMS if w >= hd)
+    if width != hd:
+        grads = flash_attention_bwd(*pad_head_dim((q, k, v, o), width), lse,
+                                    *pad_head_dim((do,), width), causal=causal, window=window,
+                                    scale=scale)
+        return tuple(t[..., :hd].contiguous() for t in grads)
+    sk, kv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
+    err = build.library().rt_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), build.strides_arg(strides),
+        b, sq, sk, h, kv, hd, scale, int(causal), int(window), int(q.dtype == torch.bfloat16),
+        stream_ptr(q),
+    )
+    build.check(err, "flash_attention_bwd")
+    build.count_launch("flash_attention_bwd")
+    return dq, dk, dv
 
 
 def _flash_pieces(q, k, v, causal, window, scale) -> torch.Tensor:

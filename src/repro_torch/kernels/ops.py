@@ -9,6 +9,14 @@ the CPU tests and the card run the same operator code.
 :func:`launch_counts` reports the CUDA launches per kernel since the last
 :func:`reset_launch_counts`, which is how a run proves that its main path
 went through the kernels.
+
+Under autograd (grad enabled and an input that requires it), a CUDA call
+of K1, K4 or K5 goes through :mod:`repro_torch.kernels.autograd`, whose
+forward launches the same kernel (K5 also writing its log-sum-exp) and
+whose backward launches the hand-written backward kernel; on the CPU
+autograd runs through the plain versions, as always. A CUDA call that
+needs a gradient from a kernel without a backward kernel raises, naming
+the ROADMAP item that adds it.
 """
 from __future__ import annotations
 
@@ -20,10 +28,27 @@ from . import ref
 from .build import launch_counts, reset_launch_counts  # noqa: F401 — public surface
 
 Stages = Sequence[Tuple[float, float]]
+NO_BACKWARD = "ROADMAP queue 1: backward kernels for K6, K7 and the ssm scans"
+
+
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd needs a gradient from CUDA kernel ``name``, which
+    has no backward kernel yet."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(f"{name} on the card under autograd: no backward kernel "
+                                  f"({NO_BACKWARD})")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     if x.is_cuda:
+        if _needs_grad(x, scale):
+            from .autograd import RmsNorm
+
+            return RmsNorm.apply(x, scale, eps)
         from .rmsnorm import rmsnorm as _cuda
 
         return _cuda(x, scale, eps=eps)
@@ -35,6 +60,10 @@ def rmsnorm_residual(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rmsnorm(x + res)·scale, x + res), the sum taken in float32."""
     if x.is_cuda:
+        if _needs_grad(x, res, scale):
+            from .autograd import RmsNormResidual
+
+            return RmsNormResidual.apply(x, res, scale, eps)
         from .rmsnorm import rmsnorm_residual as _cuda
 
         return _cuda(x, res, scale, eps=eps)
@@ -53,6 +82,10 @@ def flash_attention(
     """q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) with hd_v <=
     hd: KV heads are taken natively."""
     if q.is_cuda:
+        if _needs_grad(q, k, v):
+            from .autograd import FlashAttention
+
+            return FlashAttention.apply(q, k, v, causal, window, scale)
         from .flash_attention import flash_attention as _cuda
 
         return _cuda(q, k, v, causal=causal, window=window, scale=scale)
@@ -70,6 +103,7 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query token (B, 1, H, hd) against a (B, S, KV, hd) cache."""
     if q.is_cuda:
+        _no_backward("decode_attention", q, k_cache, v_cache)
         from .decode_attention import decode_attention as _cuda
 
         return _cuda(q, k_cache, v_cache, cache_len, window=window, scale=scale)
@@ -89,6 +123,7 @@ def ssd_scan(
     """Mamba2 chunked SSD scan → (y (B, S, nh, P), final state (B, nh, N, P)),
     both float32; any S (the ragged last chunk is masked)."""
     if xh.is_cuda:
+        _no_backward("ssd_scan", xh, dt, a, B_ssm, C_ssm, h0)
         from .ssd import ssd_scan as _cuda
 
         return _cuda(xh, dt, a, B_ssm, C_ssm, chunk=chunk, h0=h0)
@@ -108,6 +143,7 @@ def mlstm_scan(
     """The chunked mLSTM scan → (y (B, S, nh, P) float32, final (C, n, m));
     any S (the ragged last chunk is masked)."""
     if q.is_cuda:
+        _no_backward("mlstm_scan", q, k, v, i_gate, f_gate, *(state or ()))
         from .mlstm import mlstm_scan as _cuda
 
         return _cuda(q, k, v, i_gate, f_gate, chunk=chunk, state=state)
@@ -120,6 +156,7 @@ def slstm_scan(
     """The sLSTM recurrence over S → (hs (B, S, nh, hd) float32, final
     (h, c, n, m))."""
     if xg.is_cuda:
+        _no_backward("slstm_scan", xg, r_gates, *(state or ()))
         from .slstm import slstm_scan as _cuda
 
         return _cuda(xg, r_gates, state=state)

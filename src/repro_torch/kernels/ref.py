@@ -5,7 +5,8 @@ operation order, with torch ops that run on any device. The CPU path of
 :mod:`repro_torch.kernels.ops` uses them, the tests hold them to
 ``repro.kernels.ref`` and to the Pallas kernels, and ``chip_smoke.py``
 holds each CUDA kernel to them on the card. Nothing on the GPU path calls
-them.
+them. The ``*_bwd_ref`` functions are the backward kernels' twins, each
+``torch.autograd.grad`` of its forward's plain version.
 """
 from __future__ import annotations
 
@@ -77,6 +78,46 @@ def flash_attention_ref(
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]  # (B, Sq, KV, G, 1)
     return (out / torch.clamp(l, min=1e-30)).reshape(b, sq, h, hd_v).to(q.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of :func:`rmsnorm_ref` for the incoming gradient ``g``:
+    ``torch.autograd.grad`` of the forward's plain version, dscale in
+    float32 (``csrc/rmsnorm_bwd.cu``'s twin)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        sg = scale.detach().float().requires_grad_(True)
+        dx, ds = torch.autograd.grad(rmsnorm_ref(xg, sg, eps), (xg, sg), g)
+    return dx, ds
+
+
+def rmsnorm_residual_bwd_ref(
+    x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+    gh: Optional[torch.Tensor] = None, eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dres, dscale) of :func:`rmsnorm_residual_ref` for the incoming
+    gradients ``g`` of y and ``gh`` of h (None: h unused)."""
+    with torch.enable_grad():
+        xg, rg = (t.detach().requires_grad_(True) for t in (x, res))
+        sg = scale.detach().float().requires_grad_(True)
+        y, h = rmsnorm_residual_ref(xg, rg, sg, eps)
+        outs, grads = (y, h) if gh is not None else (y,), (g, gh) if gh is not None else (g,)
+        dx, dres, ds = torch.autograd.grad(outs, (xg, rg, sg), grads)
+    return dx, dres, ds
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    causal: bool = True, window: int = 0, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_ref` for the output's gradient
+    ``do``: ``torch.autograd.grad`` of the forward's plain version, each in
+    its input's dtype (``csrc/flash_attention_bwd.cu``'s twin)."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention_ref(qg, kg, vg, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
 
 
 def decode_attention_ref(

@@ -14,10 +14,15 @@ K4: h = x + res in float32, y = rmsnorm(h)·scale; returns (y, h), both in
 x's dtype. Port of ``repro/kernels/rmsnorm.py:rmsnorm_residual``; the same
 template as K1 with a second input and output. The plain version is
 :func:`repro_torch.kernels.ref.rmsnorm_residual_ref`.
+
+:func:`rmsnorm_bwd` is the gradient of both, for training
+(``csrc/rmsnorm_bwd.cu``, :func:`bwd_plan`); its plain versions are
+:func:`repro_torch.kernels.ref.rmsnorm_bwd_ref` and
+:func:`~repro_torch.kernels.ref.rmsnorm_residual_bwd_ref`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -131,3 +136,64 @@ def rmsnorm_residual(
     build.check(err, "rmsnorm_residual")
     build.count_launch("rmsnorm_residual")
     return y.reshape(x.shape), added.reshape(x.shape)
+
+
+BWD_SMEM = 98304  # bytes of shared memory a block of rmsnorm_bwd's row launch may take
+BWD_MAX_BLOCKS = 1024  # csrc/rmsnorm_bwd.cu: blocks of the row launch, at most
+BWD_WARPS = 8  # warps of a 256-thread block
+
+
+def bwd_plan(rows: int, d: int) -> Tuple[int, int]:
+    """(warps, blocks) of ``csrc/rmsnorm_bwd.cu``'s row launch, a plain
+    function of the shape: as many of a block's 8 warps as fit ``d`` floats
+    of dscale partials each in :data:`BWD_SMEM` bytes (a warp takes a row
+    at a time), and one block per ``warps`` rows up to
+    :data:`BWD_MAX_BLOCKS`. Raises where one warp's partials do not fit a
+    block's 227 KB."""
+    warps = min(BWD_WARPS, BWD_SMEM // (4 * d))
+    if warps < 1:
+        if 4 * d > 232448:
+            raise ValueError(f"rmsnorm_bwd: rows of {d} values do not fit a block's shared memory")
+        warps = 1
+    return warps, max(1, min(BWD_MAX_BLOCKS, -(-rows // warps)))
+
+
+def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+                res: Optional[torch.Tensor] = None,
+                gh: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of K1 (``res`` None) or K4 (``res`` given, and ``gh``,
+    the incoming gradient of h, where there is one) by
+    ``csrc/rmsnorm_bwd.cu``: returns (dx, dscale); for K4 dx is also dres.
+    dx in x's dtype and shape, dscale float32 (d,)."""
+    x2, rows, d, stride = rows_of(x, "x", (torch.float32, torch.bfloat16))
+    r_ptr, r_stride = None, 0
+    if res is not None:
+        r2, r_rows, r_d, r_stride = rows_of(res, "res", (x.dtype,))
+        if (r_rows, r_d) != (rows, d):
+            raise ValueError(f"res has shape {tuple(res.shape)}, x {tuple(x.shape)}")
+        r_ptr = r2.data_ptr()
+    packed = []
+    for name, t in (("g", g), ("gh", gh)):
+        if t is None:
+            packed.append(None)
+            continue
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"rmsnorm_bwd: {name} {tuple(t.shape)} {t.dtype} does not match x "
+                             f"{tuple(x.shape)} {x.dtype}")
+        packed.append(t.contiguous())
+    g, gh = packed
+    sc = scale_of(scale, x, d)
+    dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    warps, blocks = bwd_plan(rows, d)
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx.reshape(x.shape), dscale.zero_()
+    err = build.library().rt_rmsnorm_bwd(
+        x2.data_ptr(), stride, r_ptr, r_stride, g.data_ptr(), gh.data_ptr() if gh is not None else None,
+        sc.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(), rows, d, float(eps),
+        warps, blocks, int(x.dtype == torch.bfloat16), stream_ptr(x),
+    )
+    build.check(err, "rmsnorm_bwd")
+    build.count_launch("rmsnorm_bwd")
+    return dx.reshape(x.shape), dscale

@@ -8,7 +8,8 @@ or bfloat16; ``r_gates`` (4, nh, hd, hd), float32 or bfloat16 (copied to
 packed if they are not); an optional state (h, c, n (B, nh, hd), m (B,
 nh)) float32. Returns hs (B, S, nh, hd) and the final (h, c, n, m), all
 float32. A thread-block cluster per (head, batch), its blocks splitting the
-head's columns (:func:`plan`; hd ≤ 1024). The plain version is
+head's columns (:func:`plan`; hd ≤ 4096: above 1024 the streaming route
+gives each lane 4 or 8 columns). The plain version is
 :func:`repro_torch.kernels.ref.slstm_scan_ref`.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from . import build
 from ._launch import check_input, stream_ptr
 from .ref import SlstmState
 
-MAX_HEAD_DIM = 1024  # csrc/slstm.cu: kMaxHeadDim (a lane per column, 64 columns a block)
+MAX_HEAD_DIM = 4096  # csrc/slstm.cu: kMaxHeadDim (16 blocks of up to 256 columns, 8 a lane)
 TENSOR_MAX_HEAD_DIM = 512  # csrc/slstm.cu: kTensorMaxHd
 MAX_CLUSTER = 16  # blocks of a cluster: non-portable above 8
 THREADS = 512  # a block: 16 warps
@@ -61,7 +62,8 @@ def smem_bytes(hd: int, cols: int, tensor: bool) -> int:
 def plan(hd: int, r_dtype: torch.dtype) -> SlstmPlan:
     """cluster = min(16, ceil(hd / 32)), cols = ceil(hd / cluster): 16
     blocks of 32 columns at hd = 512; the tensor route for bf16 R up to hd
-    512, else the streaming one."""
+    512, else the streaming one, whose lanes take 2, 4 or 8 columns for
+    blocks of up to 64, 128 or 256 (hd up to 1024, 2048 or 4096)."""
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"slstm_scan: head dim {hd} outside [1, {MAX_HEAD_DIM}]")
     cluster = min(MAX_CLUSTER, -(-hd // 32))

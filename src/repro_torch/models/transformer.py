@@ -35,12 +35,24 @@ runs groups of ``slstm_every - 1`` mLSTM blocks then one sLSTM block
 norm a K1 pass, every seam after a block one K4 pass into the next block's
 norm or the final norm. LayerNorm seams (nemotron, seamless) are plain
 torch, as in the reference.
+
+Under autograd (grad enabled and a parameter that requires it, as in
+``train/step.py``) the drivers change in two ways, and the serving path,
+which needs no gradient, keeps its views and its single pass:
+  * each block runs under ``torch.utils.checkpoint`` (:data:`REMAT`), so
+    its activations are recomputed in the backward, as the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` around every block;
+  * each stacked parameter is split once with ``unbind``
+    (:func:`stack_views`), whose backward stacks the per-layer gradients
+    once; ``t[i]``'s backward would write a zero-filled gradient of the
+    whole stack for every layer.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .attention import (
     cross_attention,
@@ -57,6 +69,8 @@ from .ssm import mamba_block, mamba_params
 from .xlstm import mlstm_block, mlstm_params, slstm_block, slstm_params
 
 PyTree = Any
+REMAT = True  # recompute each block in the backward (the reference's remat)
+
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
@@ -174,9 +188,34 @@ def tree_map(fn, tree: PyTree) -> PyTree:
     return fn(tree)
 
 
-def layers(blocks: PyTree, n: int) -> List[PyTree]:
-    """The stacked block parameters as ``n`` per-layer trees of views."""
-    return [tree_map(lambda t, i=i: t[i], blocks) for i in range(n)]
+def _leaves(tree: PyTree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def training(params: PyTree) -> bool:
+    """Whether autograd will need the parameters' gradients."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _leaves(params))
+
+
+def stack_views(blocks: PyTree, train: bool):
+    """Layer ``i`` of a stack as a tree, through the returned function: a
+    view ``t[i]`` of each leaf, or under autograd (``train``) the ``i``-th
+    part of one ``unbind`` of each leaf."""
+    if not train:
+        return lambda i: tree_map(lambda t: t[i], blocks)
+    parts = tree_map(lambda t: t.unbind(0), blocks)
+    return lambda i: tree_map(lambda p: p[i], parts)
+
+
+def remat(train: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` where ``train`` and
+    :data:`REMAT` (nothing of ``fn`` kept for the backward)."""
+    if train and REMAT:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
 
 
 def lm_head(params: PyTree, cfg: ModelConfig) -> torch.Tensor:
@@ -266,11 +305,13 @@ def run_blocks(params: PyTree, cfg: ModelConfig, h: torch.Tensor, layer_fn):
     the blocks of :func:`block_plan`; returns the stream and its
     final-normed version."""
     plan = block_plan(cfg)
-    blocks = [tree_map(lambda t, i=b.index: t[i], params[b.params_key]) for b in plan]
+    train = training(params)
+    views = {key: stack_views(params[key], train) for key in dict.fromkeys(b.params_key for b in plan)}
+    blocks = [views[b.params_key](b.index) for b in plan]
     a_in = apply_norm(h, blocks[0]["attn_norm"], cfg.norm)
     for i, (b, bp) in enumerate(zip(plan, blocks)):
         nxt = blocks[i + 1]["attn_norm"] if i + 1 < len(blocks) else params["final_norm"]
-        h, a_in = layer_fn(b, bp, h, a_in, nxt)
+        h, a_in = remat(train, layer_fn, b, bp, h, a_in, nxt)
     return h, a_in
 
 
@@ -282,16 +323,22 @@ def run_hybrid(params: PyTree, cfg: ModelConfig, h: torch.Tensor, mamba_fn, shar
     Returns the stream and its final-normed version."""
     every = cfg.shared_attn_every
     shared = params["shared_attn"] if every else None
-    blocks = layers(params["mamba_blocks"], cfg.n_layers)
+    train = training(params)
+    view = stack_views(params["mamba_blocks"], train)
+    blocks = [view(i) for i in range(cfg.n_layers)]
     norms = [bp["norm"] for bp in blocks[1:]] + [params["final_norm"]]
     normed = apply_norm(h, blocks[0]["norm"], cfg.norm)
-    for i, bp in enumerate(blocks):
+
+    def layer(i, bp, h, normed, nxt):
         y = mamba_fn(i, bp["mixer"], normed)
         if every and i % every == every - 1:
             a_in, h = add_norm(y, h, shared["attn_norm"], cfg.norm)
-            h, normed = shared_fn(i // every, shared, h, a_in, norms[i])
-        else:
-            normed, h = add_norm(y, h, norms[i], cfg.norm)
+            return shared_fn(i // every, shared, h, a_in, nxt)
+        normed, h = add_norm(y, h, nxt, cfg.norm)
+        return h, normed
+
+    for i, bp in enumerate(blocks):
+        h, normed = remat(train, layer, i, bp, h, normed, norms[i])
     return h, normed
 
 
@@ -325,12 +372,19 @@ def run_ssm(params: PyTree, cfg: ModelConfig, h: torch.Tensor, block_fn):
     ``block_fn(kind, i, cell, norm(h))`` to the stream. Returns the stream
     and its final-normed version."""
     plan = ssm_plan(cfg)
-    blocks = [tree_map(lambda t, i=i: t[i], params[f"{kind}_blocks"]) for kind, i in plan]
+    train = training(params)
+    views = {kind: stack_views(params[f"{kind}_blocks"], train) for kind in dict.fromkeys(k for k, _ in plan)}
+    blocks = [views[kind](i) for kind, i in plan]
     norms = [bp["norm"] for bp in blocks[1:]] + [params["final_norm"]]
     normed = apply_norm(h, blocks[0]["norm"], cfg.norm)
-    for (kind, i), bp, nxt in zip(plan, blocks, norms):
-        y = block_fn(kind, i, bp["cell"], normed)
+
+    def layer(kind, i, cell, h, normed, nxt):
+        y = block_fn(kind, i, cell, normed)
         normed, h = add_norm(y, h, nxt, cfg.norm)
+        return h, normed
+
+    for (kind, i), bp, nxt in zip(plan, blocks, norms):
+        h, normed = remat(train, layer, kind, i, bp["cell"], h, normed, nxt)
     return h, normed
 
 
@@ -342,11 +396,17 @@ def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
     mask), its final norm."""
     mem = apply_norm(frames.to(_dt(cfg)), params["enc_embed_norm"], cfg.norm)
     positions = torch.arange(mem.shape[1], device=mem.device)[None, :]
-    blocks = layers(params["encoder"], cfg.n_encoder_layers)
+    train = training(params)
+    view = stack_views(params["encoder"], train)
+    blocks = [view(i) for i in range(cfg.n_encoder_layers)]
     a_in = apply_norm(mem, blocks[0]["attn_norm"], cfg.norm)
+
+    def layer(bp, mem, a_in, nxt):
+        return _dense_block(bp, mem, a_in, positions, cfg, nxt, causal=False)
+
     for i, bp in enumerate(blocks):
         nxt = blocks[i + 1]["attn_norm"] if i + 1 < len(blocks) else params["enc_final_norm"]
-        mem, a_in = _dense_block(bp, mem, a_in, positions, cfg, nxt, causal=False)
+        mem, a_in = remat(train, layer, bp, mem, a_in, nxt)
     return a_in
 
 

@@ -1570,8 +1570,8 @@ def test_cuda_mlstm_scan_takes_strided_gates_and_counts_one_launch(cuda):
     want = mlstm.mlstm_scan(q, k, v, gates[..., :4].contiguous(), gates[..., 4:].contiguous(),
                             chunk=16)
     assert torch.equal(got[0], want[0])
-    with pytest.raises(ValueError, match="chunk"):
-        mlstm.mlstm_scan(q, k, v, gates[..., :4], gates[..., 4:], chunk=128)
+    with pytest.raises(ValueError, match="chunk"):  # every chunk from 1 up runs (the general route)
+        mlstm.mlstm_scan(q, k, v, gates[..., :4], gates[..., 4:], chunk=0)
 
 
 @pytest.mark.gpu
@@ -1648,20 +1648,51 @@ def test_cuda_mlstm_scan_short_chunk_wide_from_a_state(cuda, dtype):
         _assert_rel(got, want)
 
 
+# The shapes the scans' first builds refused, each now on a kernel route and
+# held to its plain version at SSD_REL: the sLSTM above hd 1024 (the
+# streaming route with 4 and 8 columns a lane), the mLSTM above the tensor
+# route's shared memory (P 2304 in f32 still fits it; 2560 in f32 and
+# 2880, 3200 in bf16 take the general route) and with chunks above 64 (one
+# stabilizer a chunk), S no multiple of the chunk, forget gates biased open;
+# above hd 4096 the sLSTM
+# still raises, with no fallback to the plain version.
 @pytest.mark.gpu
-def test_cuda_scans_refuse_shapes_they_do_not_take(cuda):
-    # a refused shape raises on CUDA tensors: no fallback to the plain version
+@pytest.mark.parametrize("case", [
+    ("slstm", 1040, torch.float32), ("slstm", 2048, torch.bfloat16), ("slstm", 4097, torch.float32),
+    ("mlstm_p", 2304, torch.float32), ("mlstm_p", 2560, torch.float32),
+    ("mlstm_p", 2880, torch.bfloat16), ("mlstm_p", 3200, torch.bfloat16),
+    ("mlstm_chunk", 96, torch.float32), ("mlstm_chunk", 128, torch.bfloat16),
+])
+def test_cuda_scans_refuse_shapes_they_do_not_take(cuda, case):
     from repro_torch.kernels import mlstm, slstm
 
-    with pytest.raises(ValueError, match="head dim"):
-        slstm.slstm_scan(torch.zeros((1, 2, 4 * 1025), device=cuda),
-                         torch.zeros((4, 1, 1025, 1025), device=cuda))
-    q = torch.zeros((1, 3, 1, 4096), device=cuda)
-    gate = torch.zeros((1, 3, 1), device=cuda)
-    with pytest.raises(ValueError, match="above 3072"):
-        mlstm.mlstm_scan(q, q, q, gate, gate, chunk=4)
-    with pytest.raises(ValueError, match="chunk"):
-        mlstm.mlstm_scan(q[..., :64], q[..., :64], q[..., :64], gate, gate, chunk=65)
+    kind, size, dtype = case
+    g = torch.Generator().manual_seed(size)
+    if kind == "slstm":
+        if size > slstm.MAX_HEAD_DIM:
+            with pytest.raises(ValueError, match="head dim"):
+                slstm.slstm_scan(torch.zeros((1, 2, 4 * size), device=cuda),
+                                 torch.zeros((4, 1, size, size), device=cuda))
+            return
+        xg = _randn(g, (1, 24, 4 * size), cuda, dtype)
+        r = (torch.randn((4, 1, size, size), generator=g) * size ** -0.5).to(cuda, dtype)
+        assert slstm.plan(size, dtype).route == "streaming"
+        got_h, got_state = slstm.slstm_scan(xg, r)
+        want_h, want_state = ref.slstm_scan_ref(xg, r)
+    else:
+        p, chunk, s = (size, 64, 100) if kind == "mlstm_p" else (256, size, 3 * size - 17)
+        q, k, v, ig, fg, state = _mlstm_case(g, 1, s, 2, p, cuda, dtype, True)
+        # forget gates biased open, as xLSTM initialises them: log sigmoid of
+        # N(0, 1) sums to about -100 over 128 positions, past which exp(-m)
+        # underflows f32 and both versions give 0 / 0 at a chunk's first rows
+        fg = fg + 3.0
+        assert mlstm.route(p, chunk, dtype) == ("tensor cores" if (p, dtype) == (2304, torch.float32)
+                                                else "general")
+        got_h, got_state = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk, state=state)
+        want_h, want_state = ref.mlstm_scan_ref(q, k, v, ig, fg, chunk, state)
+    _assert_rel(got_h, want_h)
+    for got, want in zip(got_state, want_state):
+        _assert_rel(got, want)
 
 
 @pytest.mark.gpu
@@ -1714,3 +1745,167 @@ def test_ssm_serving_path_on_the_card_matches_cpu(cuda):
     counts = launch_counts()
     for name in ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "slstm_scan"):
         assert counts[name] > 0, name
+
+
+# -- training: the backward kernels (csrc/rmsnorm_bwd.cu, csrc/flash_attention_bwd.cu) --------
+#
+# Each is held to its plain version, torch.autograd.grad of the forward's
+# plain version on the same inputs. Both sum in float32 in another order
+# than autograd's ops, so a gradient is held at a share of its largest
+# |value|: 1e-4 in f32 (SSD_REL), 2e-2 in bf16, where the kernel rounds
+# its f32 result once to bf16 and the plain version rounds its forward's
+# output and its grads along the way.
+BWD_REL = {torch.float32: SSD_REL, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,view", [
+    ((2048, 2560), False),     # qwen3-4b's seams at a 2048-token step
+    ((1, 64, 32, 128), True),  # its q-norm rows, a strided view of a wider row
+    ((3, 17, 100), False),     # odd widths
+    ((5, 7), True),            # narrow
+])
+def test_cuda_rmsnorm_bwd(cuda, dtype, shape, view):
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(sum(shape))
+    wide = _randn(g, shape[:-1] + (shape[-1] + 3,), cuda, dtype)
+    x = wide[..., 1:shape[-1] + 1] if view else wide[..., :shape[-1]].contiguous()
+    res = _randn(g, shape, cuda, dtype)
+    gy, gh = _randn(g, shape, cuda, dtype), _randn(g, shape, cuda, dtype)
+    scale = (1.0 + 0.1 * torch.randn((shape[-1],), generator=g)).to(cuda)
+    reset_launch_counts()
+    dx, ds = rmsnorm.rmsnorm_bwd(x, gy, scale)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, gy)
+    _assert_rel(dx.float(), want_dx.float(), BWD_REL[dtype])
+    _assert_rel(ds, want_ds, BWD_REL[dtype])
+    for with_gh in (False, True):  # K4: the gradient through h and y, or y's alone
+        dx, ds = rmsnorm.rmsnorm_bwd(x, gy, scale, res=res, gh=gh if with_gh else None)
+        want_dx, want_dres, want_ds = ref.rmsnorm_residual_bwd_ref(x, res, scale, gy,
+                                                                   gh if with_gh else None)
+        _assert_rel(dx.float(), want_dx.float(), BWD_REL[dtype])
+        _assert_rel(dx.float(), want_dres.float(), BWD_REL[dtype])
+        _assert_rel(ds, want_ds, BWD_REL[dtype])
+    assert launch_counts()["rmsnorm_bwd"] == 3
+    # a call repeats bit for bit (no atomics)
+    again = rmsnorm.rmsnorm_bwd(x, gy, scale, res=res, gh=gh)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window", [
+    (1, 256, 256, 8, 2, 128, True, 0),     # qwen3-4b's heads, cut in length
+    (1, 300, 300, 4, 1, 128, True, 96),    # a window that starts inside a tile
+    (2, 77, 130, 4, 4, 64, False, 0),      # no mask, Sq != Sk (seamless's head dim)
+    (1, 129, 129, 6, 3, 80, True, 0),      # zamba2's head dim, a ragged tile
+    (1, 65, 65, 2, 1, 96, True, 0),        # an unbuilt head dim, zero-padded to 128
+    (1, 33, 33, 2, 2, 32, False, 0),
+])
+def test_cuda_flash_attention_bwd(cuda, dtype, b, sq, sk, h, kv, hd, causal, window):
+    g = torch.Generator().manual_seed(sq + hd)
+    q = _randn(g, (b, sq, h, hd), cuda, dtype)
+    k = _randn(g, (b, sk, kv, hd), cuda, dtype)
+    v = _randn(g, (b, sk, kv, hd), cuda, dtype)
+    do = _randn(g, (b, sq, h, hd), cuda, dtype)
+    o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
+    assert torch.equal(o, flash_attention.flash_attention(q, k, v, causal=causal, window=window))
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        _assert_rel(a.float(), w.float(), BWD_REL[dtype])
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_cuda_training_step_matches_cpu_through_the_backward_kernels(cuda):
+    from repro_torch import configs
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train import AdamWConfig, make_train_step, train_state_init
+
+    cfg = configs.get_smoke_config("qwen3-4b")
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    states = {"cpu": train_state_init(cfg, opt, torch.Generator().manual_seed(0))}
+    states["cuda"] = tree_map(lambda t: t.to(cuda), states["cpu"])
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, opt)
+    reset_launch_counts()
+    losses = {}
+    for dev, st in states.items():
+        for _ in range(2):
+            st, m = step(st, {k: t.to(dev) for k, t in batch.items()})
+        states[dev], losses[dev] = st, float(m["loss"])
+    counts = launch_counts()
+    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"):
+        assert counts[name] > 0, name
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for a, w in zip(_leaves(states["cuda"]["params"]), _leaves(states["cpu"]["params"])):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-5)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+@pytest.mark.gpu
+def test_cuda_inference_path_launches_what_it_did_without_grad(cuda):
+    # without a gradient to take the forward launches K1, K4, K5 as before,
+    # no backward kernel, and the same counts with grad enabled but no
+    # parameter requiring it
+    from repro_torch import configs
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.transformer import tree_map
+
+    cfg = configs.get_smoke_config("qwen3-4b")
+    params = tree_map(lambda t: t.to(cuda), init_params(cfg, torch.Generator().manual_seed(0)))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1)).to(cuda)
+    runs = []
+    for grad in (False, True):
+        reset_launch_counts()
+        with torch.set_grad_enabled(grad):
+            logits = forward(params, cfg, toks)
+        runs.append((launch_counts(), logits))
+    (counts, logits), (counts_grad, logits_grad) = runs
+    assert counts == counts_grad and torch.equal(logits, logits_grad)
+    # the first norm, then q- and k-norm in every layer; two K4 seams a layer
+    assert counts["rmsnorm"] == 1 + 2 * cfg.n_layers and counts["rmsnorm_residual"] == 2 * cfg.n_layers
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["rmsnorm_bwd"] == counts["flash_attention_bwd"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ssd_scan", "mlstm_scan", "slstm_scan", "decode_attention",
+                                    "flash_attention_hd192", "flash_attention_route_a"])
+def test_cuda_kernels_without_a_backward_raise_under_grad(cuda, kernel):
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(3)
+
+    def leaf(shape, dtype=torch.float32):
+        return _randn(g, shape, cuda, dtype).requires_grad_(True)
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if kernel == "ssd_scan":
+            ops.ssd_scan(leaf((1, 16, 2, 8)), torch.rand((1, 16, 2), device=cuda),
+                         -torch.rand((2,), device=cuda), leaf((1, 16, 4)), leaf((1, 16, 4)), chunk=8)
+        elif kernel == "mlstm_scan":
+            x = leaf((1, 8, 1, 16))
+            ops.mlstm_scan(x, x, x, leaf((1, 8, 1)), leaf((1, 8, 1)), chunk=8)
+        elif kernel == "slstm_scan":
+            ops.slstm_scan(leaf((1, 4, 64)), leaf((4, 1, 16, 16)))
+        elif kernel == "decode_attention":
+            ops.decode_attention(leaf((1, 1, 2, 64)), leaf((1, 8, 1, 64)), leaf((1, 8, 1, 64)), 4)
+        elif kernel == "flash_attention_hd192":
+            ops.flash_attention(leaf((1, 8, 2, 192), torch.bfloat16), leaf((1, 8, 1, 192), torch.bfloat16),
+                                leaf((1, 8, 1, 192), torch.bfloat16))
+        else:
+            ops.flash_attention(leaf((1, 8, 2, 192)), leaf((1, 8, 1, 192)), leaf((1, 8, 1, 128)))
