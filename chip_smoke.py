@@ -1377,8 +1377,10 @@ def backward_kernel_phase(dev, gen):
                 lib_ms = call_ms(lambda: torch.autograd.grad(yl, (xl, wl), gy, retain_graph=True),
                                  iters=10, warmup=2)
                 bnd, by = bound_ms(io, 10 * n * d)
+                plan = rmsnorm.bwd_plan(n, d, el, True)
                 log(f"rmsnorm_bwd {form} ({n},{d}) {label} {dname}: max|err| {err:.3g} (within {rel} "
-                    f"of the largest |value|); {ms * 1e3:.2f} us/call on the device, bound "
+                    f"of the largest |value|); route {plan.row.route}, {plan.row.threads} threads a row, "
+                    f"{plan.blocks} blocks; {ms * 1e3:.2f} us/call on the device, bound "
                     f"{bnd * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, library F.rms_norm "
                     f"backward {lib_ms * 1e3:.2f} us")
                 if dname == "bfloat16" and form == "K4" and label == "seams":
@@ -1423,7 +1425,8 @@ def backward_kernel_phase(dev, gen):
             pairs = h * visible_keys(sq, sk, causal, window)
             bnd, by = bound_ms((2 * (2 * sq * h + 2 * sk * kv) * hd) * el + sq * h * 4, 10 * hd * pairs, ops_rate)
             log(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}) {dname}: max|err| "
-                f"{err:.3g} (within {rel} of the largest |value|); {ms * 1e3:.1f} us/call on the device, "
+                f"{err:.3g} (within {rel} of the largest |value|); kernel {flash_attention.BWD_KERNELS[dtype]}; "
+                f"{ms * 1e3:.1f} us/call on the device, "
                 f"bound {bnd * 1e3:.1f} us ({by}, {10 * hd * pairs / 1e9:.1f} GFLOP), plain "
                 f"{plain_ms * 1e3:.1f} us, library SDPA backward {lib_ms * 1e3:.1f} us")
             if dname == "bfloat16" and label == "qwen3-4b causal":
@@ -1474,6 +1477,65 @@ def state_digest(state):
             total += int((bits * w).sum()) + int(bits.sum())
         out.append(total)
     return out
+
+
+# Kernel names of the groups a training step's device time is split into
+# (the first that matches); the rest is AdamW's slices where it ran inside
+# adamw_update, else "the rest".
+STEP_GROUPS = (
+    ("flash_attention_bwd", ("fa_bwd",)),
+    ("K5", ("flash_fwd",)),
+    ("cuBLAS products", ("gemm", "cutlass", "nvjet", "xmma", "cublas")),
+    ("rmsnorm_bwd", ("rms_bwd",)),
+    ("K1/K4", ("rms_rows",)),
+)
+
+
+def step_split(step_fn, state, batch):
+    """One training step under torch.profiler: its device time in ms by
+    STEP_GROUPS, the AdamW slices and the rest, and the step's wall ms. The
+    card is synchronized around adamw_update, so the kernels that start
+    inside its range on the trace are its own. Returns (state, split, wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.train.step as step_mod
+
+    inner = step_mod.adamw_update
+
+    def adamw_marked(*args, **kw):
+        torch.cuda.synchronize()
+        with record_function("train.adamw_update"):
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+        return out
+
+    step_mod.adamw_update = adamw_marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        step_mod.adamw_update = inner
+    events = prof.events()
+    marks = [e for e in events if e.name == "train.adamw_update" and e.device_type == DeviceType.CPU]
+    lo, hi = (marks[0].time_range.start, marks[0].time_range.end) if marks else (math.inf, math.inf)
+    split = {name: 0.0 for name, _ in STEP_GROUPS}
+    split.update({"AdamW slices": 0.0, "the rest": 0.0})
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        low = e.name.lower()
+        group = next((name for name, keys in STEP_GROUPS if any(k in low for k in keys)), None)
+        if group is None:
+            group = "AdamW slices" if lo <= e.time_range.start <= hi else "the rest"
+        split[group] += e.time_range.elapsed_us() / 1e3
+    if not sum(split.values()) > 0:
+        raise AssertionError("training: the profiled step shows no device time")
+    return state, split, wall
 
 
 def training_phase(dev):
@@ -1581,6 +1643,10 @@ def training_phase(dev):
     log(f"training: checkpoint of step {TRAIN_CKPT_AT} ({ck_bytes / 1e9:.2f} GB) saved in {save_s:.1f} s, "
         f"restored in {restore_s:.1f} s; steps {TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} from it bitwise equal "
         f"to the straight run's (state and losses)")
+    state, split, wall = step_split(step_fn, state, batch)
+    log(f"training step {TRAIN_STEPS + 1} under torch.profiler: device ms by kernel group "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"; {sum(split.values()):.2f} ms on the device in all, {wall:.1f} ms of wall (traced)")
     del state
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
     gc.collect()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where K7, the kalman scan and the ssm family's scans spend their time on the card.
+"""Where K7, the kalman scan, the ssm family's scans and the backward kernels spend their time on the card.
 
 Run from the root of a checkout on a machine with a CUDA card:
 ``python3 scripts/torch_kernel_ablation.py``. Prints, and writes as JSON to
@@ -20,7 +20,17 @@ Run from the root of a checkout on a machine with a CUDA card:
     the card places at once, its µs a step, and the chain's floor: the same
     clusters doing the 2048 steps' h exchange and barrier alone.
 
-``--only ssm`` (or ``k7``, ``kalman``) runs one part.
+  * the training path's two backward kernels in bf16 (``--only bwd``):
+    ``flash_attention_bwd`` at ``chip_smoke.ATTN_BWD_SHAPES`` (qwen3-4b's
+    causal q (1, 2048, 32, 128) over 8 KV heads, a window of 512, no mask
+    at Sk 1024) and ``rmsnorm_bwd`` at :data:`BWD_ROWS` (K4's form at the
+    seams' (2048, 2560), K1's there and at the q- and k-norm's (65536, 128)
+    and (16384, 128)): device µs per call and of each of its launches (D,
+    dk/dv and dq; the row pass and the dscale sum).
+
+``--only ssm`` (or ``k7``, ``kalman``, ``bwd``) runs one part; ``--src
+<checkout>/src`` times another checkout's port with this script (compare
+two in one call, in turns).
 
 Device times are CUDA-graph replays between CUDA events
 (``chip_smoke.device_ms``); the card's name and power limit head the
@@ -38,11 +48,12 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import device_ms  # noqa: E402
+from chip_smoke import ATTN_BWD_SHAPES, device_ms  # noqa: E402
 
 GROUPS = (1, 2, 5, 10, 20)
 KALMAN_ROWS = (256, 16384)
 KALMAN_QR = ((0.1, 1.0), (0.3, 1.5), (1e-6, 1e3))
+BWD_ROWS = (("K4", 2048, 2560), ("K1", 2048, 2560), ("K1", 65536, 128), ("K1", 16384, 128))
 
 
 def kernels_us(fn, calls: int = 10) -> dict:
@@ -100,12 +111,52 @@ def ssm_scans(dev, gen) -> dict:
     return out
 
 
+def backward_kernels(dev, gen) -> dict:
+    """The backward kernels' device µs per call and per launch, bf16."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, rmsnorm
+
+    out = {}
+    bf16 = torch.bfloat16
+    for label, sq, sk, h, kv, hd, causal, window in ATTN_BWD_SHAPES:
+        q, do = (torch.randn((1, sq, h, hd), generator=gen).to(dev, bf16) for _ in range(2))
+        k, v = (torch.randn((1, sk, kv, hd), generator=gen).to(dev, bf16) for _ in range(2))
+        o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
+        fn = lambda: flash_attention.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, causal=causal, window=window)
+        us = device_ms(fn, per_graph=3, reps=5) * 1e3
+        by = kernels_us(fn, calls=5)
+        out[f"flash_attention_bwd {label}"] = {"us": us, "kernels_us": by}
+        print(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}) bf16: {us:.2f} us "
+              f"per call; by kernel {({k_: round(v_, 2) for k_, v_ in by.items()})}")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    for form, n, d in BWD_ROWS:
+        x, res, gy, gh = (torch.randn((n, d), generator=gen).to(dev, bf16) for _ in range(4))
+        scale = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
+        if form == "K1":
+            fn = lambda: rmsnorm.rmsnorm_bwd(x, gy, scale)  # noqa: E731
+        else:
+            fn = lambda: rmsnorm.rmsnorm_bwd(x, gy, scale, res=res, gh=gh)  # noqa: E731
+        us = device_ms(fn) * 1e3
+        by = kernels_us(fn)
+        out[f"rmsnorm_bwd {form} ({n},{d})"] = {"us": us, "kernels_us": by}
+        print(f"rmsnorm_bwd {form} ({n},{d}) bf16: {us:.2f} us per call; by kernel "
+              f"{({k_: round(v_, 2) for k_, v_ in by.items()})}")
+        del x, res, gy, gh
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="chiprun_out/torch_kernel_ablation.json")
-    parser.add_argument("--only", choices=("k7", "kalman", "ssm"), default=None)
+    parser.add_argument("--only", choices=("k7", "kalman", "ssm", "bwd"), default=None)
+    parser.add_argument("--src", default=None, help="the src/ directory of another checkout to time")
     args = parser.parse_args()
-    parts = (args.only,) if args.only else ("k7", "kalman", "ssm")
+    parts = (args.only,) if args.only else ("k7", "kalman", "ssm", "bwd")
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
     import torch.nn.functional as F
@@ -120,6 +171,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}")
+    import repro_torch
+
+    print(f"port: {os.path.relpath(os.path.dirname(repro_torch.__file__), ROOT)}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     report = {"card": card}
@@ -164,6 +218,8 @@ def main() -> int:
                 print(f"kalman_scan ({rows},5) q {q} r {r}, p0 = 1: {us:.2f} us")
     if "ssm" in parts:
         report.update(ssm_scans(dev, gen))
+    if "bwd" in parts:
+        report.update(backward_kernels(dev, gen))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -39,8 +39,10 @@ log-sum-exp of its scaled scores, (B, H, Sq) float32, which
 :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``) reads to
 form the gradients of q, k and v. The backward is built for the head dims
 in :data:`BWD_HEAD_DIMS`, with any head dim up to 128 zero-padded as the
-forward's; above 128, and on route (a), it raises (ROADMAP, queue 1). Its
-plain version is :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
+forward's; above 128, and on route (a), it raises (ROADMAP, queue 1).
+bfloat16 runs on the tensor cores (mma.sync), in the order of
+:func:`bwd_plan`; float32 runs SIMT FMAs (:data:`BWD_KERNELS`). Its plain
+version is :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -62,6 +64,12 @@ KERNELS = {
     torch.float32: "flash_fwd_simt (f32 FMAs from shared memory)",
 }
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128)  # csrc/flash_attention_bwd.cu
+BWD_BLOCK = 64  # q rows and keys a tile of the backward (kB)
+BWD_KERNELS = {
+    torch.bfloat16: "fa_bwd_dkdv_mma + fa_bwd_dq_mma (mma.sync m16n8k16 bf16, cp.async double buffers, "
+                    "heavy-first)",
+    torch.float32: "fa_bwd_dkdv + fa_bwd_dq (f32 FMAs from shared memory)",
+}
 BWD_ROADMAP = "ROADMAP queue 1: K5's backward above head dim 128 and on route (a)"
 PIECES_KERNEL = "attention_pieces (SIMT f32 FMAs, head dim in pieces of 64, O in shared memory)"
 
@@ -100,6 +108,43 @@ def tile_plan(sq: int, sk: int, causal: bool, window: int,
         begin = max(0, q_start - window + 1) // block_k * block_k if window > 0 else 0
         plan.append((qt, begin, max(begin, end)))
     return plan
+
+
+def key_tile_plan(sq: int, sk: int, causal: bool, window: int,
+                  block: int = BWD_BLOCK) -> List[Tuple[int, int, int]]:
+    """(key tile, first q row, end q row) in the order the backward's dk/dv
+    blocks take the key tiles: block t takes entry ``t // (KV * B)``, for
+    KV head ``t % KV`` and batch ``t % (KV * B) // KV``, and walks each q
+    head of the head's group over the q rows from the first in steps of
+    ``block`` up to the end.
+
+    A key tile is seen by q rows from its first key on under a causal mask,
+    and up to the row whose window still holds its last key. The tiles go
+    heaviest first (the most q tiles walked), ties in key order: under a
+    causal mask the first key tiles, which every later q row sees.
+    """
+    plan = []
+    for kt in range(-(-sk // block)):
+        j0 = kt * block
+        begin = min(j0, sq) if causal else 0
+        end = min(sq, min(sk, j0 + block) - 1 + window) if window > 0 else sq
+        plan.append((kt, begin, max(begin, end)))
+    return sorted(plan, key=lambda e: (-((e[2] - e[1] + block - 1) // block), e[0]))
+
+
+def bwd_plan(sq: int, sk: int, causal: bool, window: int) -> List[Tuple[int, int, int]]:
+    """The bfloat16 backward's plan, as the kernels read it: the dk/dv pass's
+    :func:`key_tile_plan` entries, then the dq pass's :func:`tile_plan`
+    entries at tiles of :data:`BWD_BLOCK` q rows and keys."""
+    return (key_tile_plan(sq, sk, causal, window)
+            + tile_plan(sq, sk, causal, window, BWD_BLOCK, BWD_BLOCK))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan_on(device: torch.device, sq: int, sk: int, causal: bool, window: int) -> torch.Tensor:
+    """:func:`bwd_plan` as an (n, 3) int32 tensor on ``device``, made once per
+    shape (the copy is blocking, so every stream sees it)."""
+    return torch.tensor(bwd_plan(sq, sk, causal, window), dtype=torch.int32).reshape(-1, 3).to(device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -259,14 +304,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                                     scale=scale)
         return tuple(t[..., :hd].contiguous() for t in grads)
     sk, kv = k.shape[1], k.shape[2]
+    inputs = (q, k, v, o, do)
+    load_route(q.dtype, q.element_size(), [t.data_ptr() for t in inputs],
+               [s for t in inputs for s in t.stride()[:3]])
+    is_bf16 = q.dtype == torch.bfloat16
+    plan = _bwd_plan_on(q.device, sq, sk, bool(causal), int(window)).data_ptr() if is_bf16 else None
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
     err = build.library().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), build.strides_arg(strides),
-        b, sq, sk, h, kv, hd, scale, int(causal), int(window), int(q.dtype == torch.bfloat16),
-        stream_ptr(q),
+        dsum.data_ptr(), plan, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), build.strides_arg(strides),
+        b, sq, sk, h, kv, hd, scale, int(causal), int(window), int(is_bf16), stream_ptr(q),
     )
     build.check(err, "flash_attention_bwd")
     build.count_launch("flash_attention_bwd")

@@ -16,7 +16,8 @@ template as K1 with a second input and output. The plain version is
 :func:`repro_torch.kernels.ref.rmsnorm_residual_ref`.
 
 :func:`rmsnorm_bwd` is the gradient of both, for training
-(``csrc/rmsnorm_bwd.cu``, :func:`bwd_plan`); its plain versions are
+(``csrc/rmsnorm_bwd.cu``: K1's register route, each row read once, then a
+parallel fixed-order dscale sum; :func:`bwd_plan`); its plain versions are
 :func:`repro_torch.kernels.ref.rmsnorm_bwd_ref` and
 :func:`~repro_torch.kernels.ref.rmsnorm_residual_bwd_ref`.
 """
@@ -138,24 +139,64 @@ def rmsnorm_residual(
     return y.reshape(x.shape), added.reshape(x.shape)
 
 
-BWD_SMEM = 98304  # bytes of shared memory a block of rmsnorm_bwd's row launch may take
-BWD_MAX_BLOCKS = 1024  # csrc/rmsnorm_bwd.cu: blocks of the row launch, at most
+BWD_SMEM = 98304  # bytes of shared memory a block of the two-pass route's row launch may take
+BWD_MAX_BLOCKS = 1024  # blocks of the row launch, at most
 BWD_WARPS = 8  # warps of a 256-thread block
+BWD_MAX_THREADS = 256  # threads a row of the register route (csrc/rmsnorm_bwd.cu: kThreads)
+BWD_ROWS_PER_GROUP = 4  # rows a group takes before the grid grows
 
 
-def bwd_plan(rows: int, d: int) -> Tuple[int, int]:
-    """(warps, blocks) of ``csrc/rmsnorm_bwd.cu``'s row launch, a plain
-    function of the shape: as many of a block's 8 warps as fit ``d`` floats
-    of dscale partials each in :data:`BWD_SMEM` bytes (a warp takes a row
-    at a time), and one block per ``warps`` rows up to
-    :data:`BWD_MAX_BLOCKS`. Raises where one warp's partials do not fit a
-    block's 227 KB."""
-    warps = min(BWD_WARPS, BWD_SMEM // (4 * d))
-    if warps < 1:
-        if 4 * d > 232448:
-            raise ValueError(f"rmsnorm_bwd: rows of {d} values do not fit a block's shared memory")
-        warps = 1
-    return warps, max(1, min(BWD_MAX_BLOCKS, -(-rows // warps)))
+class BwdPlan(NamedTuple):
+    """How ``csrc/rmsnorm_bwd.cu`` takes ``rows`` rows of ``d`` values.
+
+    ``row`` is the row launch's route: K1's register route (``row_plan``'s
+    group of threads a row and chunks a thread), or the two-pass route, a
+    warp a row. A block of 256 threads takes ``groups`` rows at once (256 /
+    ``row.threads`` groups, or warps); block ``b``'s group ``w`` takes rows
+    ``b·groups + w + i·blocks·groups`` for ``i < iters`` and keeps its
+    columns' dscale partials over them. The blocks' partials, ``blocks``
+    rows of ``d``, are summed by columns in 32 chains, each over every 32nd
+    block in block order, then a fixed tree over the chains. Every sum's
+    order is a function of the plan, which is a function of the shape (and
+    of the alignment, which picks only the load route).
+    """
+
+    row: RowPlan
+    groups: int
+    blocks: int
+    iters: int
+
+    def args(self) -> Tuple[int, ...]:
+        """The plan as ``rt_rmsnorm_bwd`` takes it."""
+        return (*self.row.args(), self.groups, self.blocks, self.iters)
+
+
+def bwd_plan(rows: int, d: int, elem_size: int, aligned: bool) -> BwdPlan:
+    """The plan of ``csrc/rmsnorm_bwd.cu`` for ``rows`` rows of ``d`` values of
+    ``elem_size`` bytes (``aligned`` as :func:`row_plan` takes it).
+
+    The register route where :func:`row_plan` gives it with at most
+    :data:`BWD_MAX_THREADS` threads a row (narrow rows: one thread of one or
+    two chunks); else the two-pass route, a warp a row, with as many of a
+    block's 8 warps as fit ``d`` floats of partials each in :data:`BWD_SMEM`
+    bytes. Then as many blocks as give each group
+    :data:`BWD_ROWS_PER_GROUP` rows, up to :data:`BWD_MAX_BLOCKS`. Raises
+    where one warp's partials do not fit a block's 227 KB.
+    """
+    row = row_plan(d, elem_size, aligned)
+    if row.route == "narrow":
+        row = RowPlan("registers", 1, -(-d * elem_size // CHUNK_BYTES), False)
+    if row.route == "registers" and row.threads <= BWD_MAX_THREADS:
+        groups = TWO_PASS_THREADS // row.threads
+    else:
+        row = RowPlan("two-pass", TWO_PASS_THREADS, 1, False)
+        groups = min(BWD_WARPS, BWD_SMEM // (4 * d))
+        if groups < 1:
+            if 4 * d > 232448:
+                raise ValueError(f"rmsnorm_bwd: rows of {d} values do not fit a block's shared memory")
+            groups = 1
+    blocks = max(1, min(BWD_MAX_BLOCKS, -(-rows // (groups * BWD_ROWS_PER_GROUP))))
+    return BwdPlan(row, groups, blocks, -(-rows // (blocks * groups)))
 
 
 def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
@@ -185,14 +226,16 @@ def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, eps: floa
     sc = scale_of(scale, x, d)
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
-    warps, blocks = bwd_plan(rows, d)
-    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     if rows == 0:
         return dx.reshape(x.shape), dscale.zero_()
+    ptrs = [t.data_ptr() for t in (x2, g, gh, sc, dx) if t is not None] + ([r_ptr] if res is not None else [])
+    el = x.element_size()
+    plan = bwd_plan(rows, d, el, aligned_rows(ptrs, (stride, r_stride), el))
+    part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
     err = build.library().rt_rmsnorm_bwd(
         x2.data_ptr(), stride, r_ptr, r_stride, g.data_ptr(), gh.data_ptr() if gh is not None else None,
         sc.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(), rows, d, float(eps),
-        warps, blocks, int(x.dtype == torch.bfloat16), stream_ptr(x),
+        *plan.args(), int(x.dtype == torch.bfloat16), stream_ptr(x),
     )
     build.check(err, "rmsnorm_bwd")
     build.count_launch("rmsnorm_bwd")

@@ -2,8 +2,10 @@
 
 K5 (``kernels/flash_attention.py``): the tile plan that the tensor-core
 kernel reads from the card (the order in which its blocks take the q tiles,
-heaviest first, and the range of keys each q tile visits), and the check of
-strides and alignment that decides how q, k and v are read. K6
+heaviest first, and the range of keys each q tile visits), the check of
+strides and alignment that decides how q, k and v are read, and the
+backward's plan (the order in which its dk/dv blocks take the key tiles and
+the q rows each walks, then the dq pass's tile plan). K6
 (``kernels/decode_attention.py``): how the split plan streams tiles and
 fills the card (its coverage of the valid range is held in
 ``test_torch_model_kernels.py``). Each is held against a brute-force mask or
@@ -86,6 +88,57 @@ def test_plan_tensor_is_the_plan_in_the_kernels_layout():
     got = fa._plan_on(torch.device("cpu"), 300, 300, True, 100)
     assert got.dtype == torch.int32 and got.is_contiguous() and got.shape == (3, 3)
     assert got.tolist() == [list(e) for e in fa.tile_plan(300, 300, True, 100)]
+
+
+BWD = fa.BWD_BLOCK
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", FLASH_PLANS)
+def test_key_tile_plan_walks_every_visible_row_once(sq, sk, causal, window):
+    mask = _mask(sq, sk, causal, window)
+    plan = fa.key_tile_plan(sq, sk, causal, window)
+    assert sorted(kt for kt, _, _ in plan) == list(range(-(-sk // BWD)))  # each key tile once
+    for kt, begin, end in plan:
+        assert 0 <= begin <= end <= sq
+        rows = np.flatnonzero(mask[:, kt * BWD:(kt + 1) * BWD].any(axis=1))
+        if rows.size:
+            assert begin <= rows.min() and rows.max() < end
+            assert rows.min() < begin + BWD  # the first q tile walked holds a row that sees a key
+        # the rows the block does not walk see none of its keys
+        assert not mask[:begin, kt * BWD:(kt + 1) * BWD].any()
+        assert not mask[end:, kt * BWD:(kt + 1) * BWD].any()
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", FLASH_PLANS)
+def test_key_tile_order_is_heaviest_first(sq, sk, causal, window):
+    plan = fa.key_tile_plan(sq, sk, causal, window)
+    work = [-(-(end - begin) // BWD) for _, begin, end in plan]  # q tiles each block walks (a head)
+    assert work == sorted(work, reverse=True)
+    for a, b in zip(plan, plan[1:]):  # ties in key order
+        if -(-(a[2] - a[1]) // BWD) == -(-(b[2] - b[1]) // BWD):
+            assert a[0] < b[0]
+    if causal and sq >= sk:
+        # the first key tiles are seen by the most q rows, and go first
+        assert [kt for kt, _, _ in plan] == list(range(-(-sk // BWD)))
+    # every q tile a block walks holds a row that sees one of its keys
+    mask = _mask(sq, sk, causal, window)
+    for kt, begin, end in plan:
+        cols = mask[:, kt * BWD:(kt + 1) * BWD]
+        for i0 in range(begin, end, BWD):
+            assert cols[i0:i0 + BWD].any(), (kt, i0)
+
+
+def test_bwd_plan_is_the_key_tiles_then_the_q_tiles_in_the_kernels_layout():
+    plan = fa.bwd_plan(300, 200, True, 100)
+    assert plan == fa.key_tile_plan(300, 200, True, 100) + fa.tile_plan(300, 200, True, 100, BWD, BWD)
+    assert len(plan) == -(-200 // BWD) + -(-300 // BWD)
+    got = fa._bwd_plan_on(torch.device("cpu"), 300, 200, True, 100)
+    assert got.dtype == torch.int32 and got.is_contiguous() and got.shape == (len(plan), 3)
+    assert got.tolist() == [list(e) for e in plan]
+    # qwen3-4b's training layer: 32 key tiles for 32 x 8 dk/dv blocks, 32 q tiles for 32 x 32 dq blocks
+    plan = fa.bwd_plan(2048, 2048, True, 0)
+    assert plan[:2] == [(0, 0, 2048), (1, 64, 2048)] and plan[31] == (31, 1984, 2048)
+    assert plan[32:34] == [(31, 0, 2048), (30, 0, 1984)]
 
 
 def test_load_route_takes_aligned_bf16_and_any_f32():

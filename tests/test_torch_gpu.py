@@ -1763,6 +1763,7 @@ BWD_REL = {torch.float32: SSD_REL, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("shape,view", [
     ((2048, 2560), False),     # qwen3-4b's seams at a 2048-token step
     ((1, 64, 32, 128), True),  # its q-norm rows, a strided view of a wider row
+    ((1, 2048, 8, 128), False),  # its k-norm rows at a 2048-token step: 16384 rows of 128
     ((3, 17, 100), False),     # odd widths
     ((5, 7), True),            # narrow
 ])
@@ -1802,6 +1803,10 @@ def test_cuda_rmsnorm_bwd(cuda, dtype, shape, view):
     (1, 129, 129, 6, 3, 80, True, 0),      # zamba2's head dim, a ragged tile
     (1, 65, 65, 2, 1, 96, True, 0),        # an unbuilt head dim, zero-padded to 128
     (1, 33, 33, 2, 2, 32, False, 0),
+    (1, 2048, 2048, 32, 8, 128, True, 0),  # qwen3-4b's training layer, whole
+    (1, 200, 200, 48, 8, 128, True, 0),    # a GQA group of 6 (mixtral's 48 q heads over 8)
+    (1, 150, 150, 4, 2, 16, True, 0),      # head dim 16
+    (2, 200, 200, 4, 2, 64, True, 50),     # a window, Sq not a multiple of 64
 ])
 def test_cuda_flash_attention_bwd(cuda, dtype, b, sq, sk, h, kv, hd, causal, window):
     g = torch.Generator().manual_seed(sq + hd)

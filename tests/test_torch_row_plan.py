@@ -2,11 +2,13 @@
 row kernels (K1, K3, K4) run by, against a brute-force statement of its
 rule over every width from 1 to 20000, in float32 and bfloat16, for
 aligned and unaligned rows. The plan fixes the order of the kernels' sums,
-so the one thing alignment may change is the load route."""
+so the one thing alignment may change is the load route. The backward's
+plan (``rmsnorm.bwd_plan``), which deals the rows to groups of threads and
+fixes the fan-in of the dscale partials, against its own rule."""
 import pytest
 
 from repro_torch.kernels import rmsnorm
-from repro_torch.kernels.rmsnorm import RowPlan, aligned_rows, row_plan
+from repro_torch.kernels.rmsnorm import BwdPlan, RowPlan, aligned_rows, bwd_plan, row_plan
 
 WIDTHS = range(1, 20001)
 
@@ -68,3 +70,67 @@ def test_plan_arguments_and_alignment():
     assert not aligned_rows((256, 4098), (64,), 2)    # a base 2 bytes off
     assert not aligned_rows((256,), (129,), 2)        # an odd row stride
     assert aligned_rows((0,), (4,), 4)
+
+
+def bwd_brute_force(rows, d, elem, aligned):
+    """The register route of ``row_plan`` up to 256 threads a row (narrow
+    rows: one thread holding the row in 16-byte chunks), 256 / threads rows
+    a block at once; else a warp a row, as many warps as fit d floats each
+    in 96 KB (at least one); then the fewest blocks up to 1024 that give no
+    group more than 4 rows, and the passes that take every row."""
+    row = row_plan(d, elem, aligned)
+    if row.route == "narrow":
+        row = RowPlan("registers", 1, -(-d * elem // 16), False)
+    if row.route == "registers" and row.threads <= 256:
+        groups = 256 // row.threads
+    else:
+        row, groups = RowPlan("two-pass", 256, 1, False), max(1, min(8, 98304 // (4 * d)))
+    blocks = next((b for b in range(1, 1025) if b * groups * 4 >= rows), 1024)
+    return BwdPlan(row, groups, blocks, -(-rows // (blocks * groups)))
+
+
+BWD_SHAPES = [(r, d) for r in (1, 3, 64, 1000, 2048, 16384, 65536, 300001)
+              for d in (1, 5, 7, 8, 9, 100, 128, 2560, 5120, 8192, 16384, 20000)]
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bfloat16"])
+def test_bwd_plan_is_its_rule_and_deals_every_row_once(elem):
+    for rows, d in BWD_SHAPES:
+        for aligned in (True, False):
+            plan = bwd_plan(rows, d, elem, aligned)
+            assert plan == bwd_brute_force(rows, d, elem, aligned), (rows, d)
+            # alignment changes only the load route
+            u = bwd_plan(rows, d, elem, False)
+            assert (u.row.route, u.row.threads, u.row.chunks) == (plan.row.route, plan.row.threads,
+                                                                  plan.row.chunks)
+            assert u[1:] == plan[1:]
+        if rows > 70000:
+            continue
+        # block b's group w takes rows b·groups + w + i·blocks·groups: each row once
+        per = plan.blocks * plan.groups
+        dealt = sorted(b * plan.groups + w + i * per for b in range(plan.blocks)
+                       for w in range(plan.groups) for i in range(plan.iters)
+                       if b * plan.groups + w + i * per < rows)
+        assert dealt == list(range(rows)), (rows, d)
+        assert (plan.iters - 1) * per < rows <= plan.iters * per  # no pass takes no row
+
+
+@pytest.mark.parametrize("rows,d,elem,plan", [
+    # qwen3-4b's training step: the seams, the q- and the k-norm
+    (2048, 2560, 2, BwdPlan(RowPlan("registers", 128, 3, True), 2, 256, 4)),
+    (65536, 128, 2, BwdPlan(RowPlan("registers", 16, 1, True), 16, 1024, 4)),
+    (16384, 128, 2, BwdPlan(RowPlan("registers", 16, 1, True), 16, 256, 4)),
+    (2048, 5120, 2, BwdPlan(RowPlan("registers", 256, 3, True), 1, 512, 4)),
+    (2048, 16384, 2, BwdPlan(RowPlan("two-pass", 256, 1, False), 1, 512, 4)),  # 512 threads a row
+    (2048, 18432, 4, BwdPlan(RowPlan("two-pass", 256, 1, False), 1, 512, 4)),
+    (5, 7, 4, BwdPlan(RowPlan("registers", 1, 2, False), 256, 1, 1)),
+])
+def test_bwd_plan_at_the_training_widths(rows, d, elem, plan):
+    assert bwd_plan(rows, d, elem, True) == plan
+    assert plan.args() == (*plan.row.args(), plan.groups, plan.blocks, plan.iters)
+
+
+def test_bwd_plan_refuses_rows_past_a_blocks_shared_memory():
+    bwd_plan(1, 58112, 4, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        bwd_plan(1, 58113, 4, False)
