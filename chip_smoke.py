@@ -38,12 +38,22 @@ Phases, each fatal on failure:
      exchange and barrier alone); the scans' routes for the shapes their
      first builds refused (SCAN_ROUTES: the sLSTM at hd 1040 and 2048, the
      mLSTM at P 2304-3200 and chunks 96 and 128), each within SCAN_REL;
-     the backward kernels at qwen3-4b's training shapes, f32 and bf16:
-     rmsnorm_bwd in K1's and K4's forms at (2048, 2560) and (65536, 128),
+     the backward kernels at the training steps' shapes, f32 and bf16:
+     rmsnorm_bwd in K1's and K4's forms at (2048, 2560), (65536, 128),
+     (2048, 2048), (2048, 4096) and (2048, 5120) (RMSNORM_BWD_ROWS),
      flash_attention_bwd causal at q (1, 2048, 32, 128) over 8 KV heads,
-     under a window of 512 and without a mask against 1024 keys, each
+     under a window of 512 and without a mask against 1024 keys, and
+     causal at zamba2-2.7b's q and kv (1, 2048, 32, 80), each
      within BWD_REL of its plain version (autograd of the forward's), beside
      its bound and the backward of F.rms_norm / F.scaled_dot_product_attention;
+     the scans' backward kernels at the hybrid and ssm families' training
+     shapes, f32 and bf16, and at a second S: ssd_scan_bwd at zamba2-2.7b's
+     xh (1, 2048, 80, 64), N 64, chunk 128 (and S 1109), mlstm_scan_bwd at
+     xlstm-1.3b's q/k/v (1, 2048, 4, 1024), chunk 64 (and S 2039),
+     slstm_scan_bwd at its xg (1, 2048, 8192), R (4, 4, 512, 512) (and S
+     1000), each within BWD_REL of its plain version and bitwise on a
+     repeat, beside its bound and the plain version's µs (no library call
+     computes them);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -182,16 +192,24 @@ Phases, each fatal on failure:
      per KV head) on the card against the CPU in f32, with decode steps
      past the cache's last slot;
   6b. (run right after phase 2, while the card is empty) training
-     (``repro_torch.train``): qwen3-4b at its published widths
-     and all 36 layers, bf16, batch 1 x 2048 tokens, AdamW with f32
-     moments, 4 steps on one repeated TokenStream batch, with launch counts
-     reset just before and read just after (K1, K4, K5, rmsnorm_bwd and
-     flash_attention_bwd > 0); loss finite and falling, ms a step, peak
-     memory; step 1 run twice from the same state bitwise equal; the state
-     saved after step 2 (build/train_ckpt), restored, and steps 3-4 bitwise
-     equal to the straight run's; the cut run, 2 layers at the published
-     widths in f32, batch 1 x 128, on the card against the CPU (the step-0
-     loss and gradients, the parameters after 2 steps);
+     (``repro_torch.train``, TRAINING): qwen3-4b at its published widths
+     cut from 36 to 18 layers (TRAIN_LAYERS), zamba2-2.7b (54 Mamba2
+     layers, the shared block 9 times) and xlstm-1.3b (42 mLSTM and 6
+     sLSTM blocks) at their published widths and full depth, bf16, batch
+     1 x 2048 tokens, AdamW with f32 moments, 4 steps on one repeated
+     TokenStream batch, with launch counts reset just before and read just
+     after (K1, K4, rmsnorm_bwd, and each model's own: qwen3-4b's and
+     zamba2's K5 and flash_attention_bwd, zamba2's ssd_scan and
+     ssd_scan_bwd, xlstm's mlstm_scan, mlstm_scan_bwd, slstm_scan and
+     slstm_scan_bwd, > 0); loss finite and falling, ms a step, peak
+     memory, a step's device split; step 1 run twice from the same state
+     bitwise equal; for qwen3-4b alone, the state saved after step 2
+     (build/train_ckpt), restored, and steps 3-4 bitwise equal to the
+     straight run's; each model's cut run, 2 layers at the published
+     widths in f32, batch 1 x 128, on the card against the CPU (zamba2
+     with its shared block after the second layer, xlstm one mLSTM and one
+     sLSTM block): the step-0 gradients, the losses of TRAIN_CUT_STEPS
+     steps and after them, and each parameter leaf's move;
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
      of phases 3-6b, the session's, the concurrent ones, the workers' of
      phases 3c and 3e and the in-process runs of 3d and 3g included; each
@@ -282,17 +300,28 @@ def call_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, per_graph: int = 20, reps: int = 21) -> float:
+def device_ms(fn, per_graph: int = 20, reps: int = 21, adapt: bool = True) -> float:
     """Median device ms per call: ``per_graph`` calls captured in one CUDA
     graph, replayed ``reps`` times between CUDA events, so host overhead
-    drops out and back-to-back launches remain."""
+    drops out and back-to-back launches remain. With ``adapt``, a call that
+    takes more than a millisecond (timed on its last warm-up) gets at most
+    enough calls a graph for about 5 ms and 5 replays: its median needs no
+    more, and the smoke's time limit does."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(2):
             fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+    end.synchronize()
+    one = start.elapsed_time(end)
+    if adapt and one > 1.0:
+        per_graph, reps = min(per_graph, max(1, int(5.0 / one))), min(reps, 5)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1307,18 +1336,30 @@ def scan_route_checks(dev, gen):
 # -- the backward kernels (training) -------------------------------------------------
 #
 # Each backward kernel against its plain version, torch.autograd.grad of the
-# forward's plain version on the same inputs, at qwen3-4b's training shapes
-# (2048 tokens): K1/K4 at the seams' (2048, 2560) rows and K1 at the q-norm's
-# (65536, 128); K5 causal at q (1, 2048, 32, 128) over 8 KV heads, under a
-# window of 512, and without a mask at Sq 2048 against Sk 1024. The kernels
+# forward's plain version on the same inputs, at the training steps' shapes
+# (2048 tokens): K1/K4 at qwen3-4b's and zamba2-2.7b's seams (2048, 2560),
+# qwen3-4b's q-norm (65536, 128), xlstm-1.3b's seams and sLSTM group norm
+# (2048, 2048), its mLSTM out_norm (2048, 4096) and zamba2-2.7b's Mamba2
+# out_norm (2048, 5120) (RMSNORM_BWD_ROWS); K5 causal at qwen3-4b's q (1,
+# 2048, 32, 128) over 8 KV heads, under a window of 512, without a mask at
+# Sq 2048 against Sk 1024, and causal at zamba2-2.7b's shared attention, q
+# and kv (1, 2048, 32, 80) (head dim 80, padded in the kernel). The kernels
 # sum in f32 in another order than autograd's ops: each gradient is held at
 # a share of its largest |value|, 1e-4 in f32 and 2e-2 in bf16 (one bf16
 # rounding of the result; the plain version rounds along the way).
 BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+RMSNORM_BWD_ROWS = (
+    ((2048, 2560), "seams"),
+    ((65536, 128), "q-norm"),
+    ((2048, 2048), "xlstm-1.3b seams"),
+    ((2048, 4096), "mLSTM out_norm"),
+    ((2048, 5120), "Mamba2 out_norm"),
+)
 ATTN_BWD_SHAPES = (
     ("qwen3-4b causal", 2048, 2048, 32, 8, 128, True, 0),
     ("window 512", 2048, 2048, 32, 8, 128, True, 512),
     ("no mask, Sq != Sk", 2048, 1024, 32, 8, 128, False, 0),
+    ("zamba2-2.7b shared attention causal", 2048, 2048, 32, 32, 80, True, 0),
 )
 
 
@@ -1336,8 +1377,9 @@ def backward_kernel_phase(dev, gen):
     """rmsnorm_bwd (K1 and K4 forms) and flash_attention_bwd against their
     plain versions in f32 and bf16, with device µs, bound, plain µs and the
     library's µs (the backward of F.rms_norm, of F.scaled_dot_product_attention,
-    each through autograd with the graph kept, so the forward is not timed);
-    returns the bf16 rows (the training path's) for the kernels line."""
+    each through autograd with the graph kept, so the forward is not timed),
+    then the scans' backward kernels (scan_backward_checks); returns the
+    bf16 rows (the training path's) for the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -1348,7 +1390,7 @@ def backward_kernel_phase(dev, gen):
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         el = torch.finfo(dtype).bits // 8
-        for (n, d), label in (((2048, 2560), "seams"), ((65536, 128), "q-norm")):
+        for (n, d), label in RMSNORM_BWD_ROWS:
             x, res, gy, gh = (torch.randn((n, d), generator=gen).to(dev, dtype) for _ in range(4))
             scale = (1.0 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
             for form in ("K1", "K4"):
@@ -1439,25 +1481,229 @@ def backward_kernel_phase(dev, gen):
                     library_ms=lib_ms, call_ms=call_ms(fn, iters=3, warmup=1)))
             del q, k, v, do, o, lse, got, ol, ql, kl, vl
             torch.cuda.empty_cache()
+    return rows + scan_backward_checks(dev, gen)
+
+
+# The scans' backward kernels at the training path's shapes (a 2048-token
+# step of zamba2-2.7b and of xlstm-1.3b) and at a second S, f32 and bf16,
+# each held to its plain version (torch.autograd.grad of the forward's plain
+# version) at BWD_REL and bitwise on a repeat. Their bounds count the
+# algorithm's f32 FMAs at the inputs' type's rate (the kernels run SIMT f32
+# FMAs: PERF.md §6) and each input read and output written once.
+SSD_BWD_SHAPE = (1, SERVE_PROMPT, 80, 64, 64, 128)  # b, S, heads, P, N, chunk
+SSD_BWD_RAGGED = 1109
+SLSTM_BWD_SHORT = 1000
+
+
+def chunk_lengths(s, chunk):
+    return [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
+
+
+def ssd_bwd_bound(b, s, nh, p, n, chunk, el, ops_rate):
+    """(ms, by) of one ssd_scan_bwd call: xh, B, C in ``el`` bytes, dt, a and
+    dy in f32 read; dxh, dB, dC in ``el`` bytes, ddt and da in f32 written.
+    Per (batch, head, chunk of l): 6 l N P MACs for the state terms (the
+    chunk's own state, G's input, G^T B, C H, G x, H dy) and l(l+1)/2 (3N + 2P)
+    for the in-chunk ones (C.B, dy.x, W^T dy, dS B, dS^T C)."""
+    io = 2 * b * s * nh * p * el + b * s * nh * p * 4 + 2 * b * s * nh * 4 + 2 * nh * 4 + 4 * b * s * n * el
+    macs = b * nh * sum(6 * l * n * p + l * (l + 1) // 2 * (3 * n + 2 * p) for l in chunk_lengths(s, chunk))
+    return bound_ms(io, 2 * macs, ops_rate)
+
+
+def mlstm_bwd_bound(b, s, nh, p, chunk, el, ops_rate):
+    """(ms, by) of one mlstm_scan_bwd call: q, k, v in ``el`` bytes, the
+    gates, y and dy in f32 read; dq, dk, dv in ``el`` bytes, di, df in f32
+    written. Per (batch, head, chunk of l): 6 l P^2 MACs (the chunk's own
+    state, G's input, G k, G^T v, C q, C^T dy) and 5 l(l+1)/2 P (q.k, dy.v,
+    then dv, dq, dk's in-chunk terms)."""
+    io = 6 * b * s * nh * p * el + 2 * b * s * nh * p * 4 + 4 * b * s * nh * 4
+    macs = b * nh * sum(6 * l * p * p + 5 * l * (l + 1) // 2 * p for l in chunk_lengths(s, chunk))
+    return bound_ms(io, 2 * macs, ops_rate)
+
+
+def slstm_bwd_bound(b, s, nh, hd, el, ops_rate):
+    """(ms, by) of one slstm_scan_bwd call: xg and R in ``el`` bytes, hs and
+    dhs in f32 read; dxg and dR in ``el`` bytes written. Per step and head
+    4 hd^2 MACs three times: the pre-activations h_{t-1} R, the chain's
+    dpre R^T, and dR's h_{t-1}^T dpre."""
+    io = 8 * b * s * nh * hd * el + 8 * nh * hd * hd * el + 2 * b * s * nh * hd * 4
+    return bound_ms(io, 2 * 3 * 4 * b * s * nh * hd * hd, ops_rate)
+
+
+def scan_backward_checks(dev, gen):
+    """ssd_scan_bwd, mlstm_scan_bwd and slstm_scan_bwd against their plain
+    versions on the card; returns their bf16 rows at S = 2048 (the training
+    path's) for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mlstm, ref, slstm, ssd
+
+    rows = []
+
+    def check(label, fn, want_fn, dname):
+        """The kernel's gradients against the plain version's and a repeat;
+        returns (max error, this plain call's ms: the sLSTM's, thousands of
+        launches and seconds a call, is timed by this one call, its first)."""
+        got = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = want_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rel = BWD_REL[dname]
+        err = 0.0
+        for i, (a, w) in enumerate(zip(got, want)):
+            if (a is None) != (w is None):
+                raise AssertionError(f"{label}: gradient {i} is {a} against {w}")
+            if a is not None:
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    raise AssertionError(f"{label}: gradient {i} {a.dtype} {tuple(a.shape)} against "
+                                         f"{w.dtype} {tuple(w.shape)}")
+                err = max(err, check_rel(f"{label} gradient {i}", a.float(), w.float(), rel))
+        del want
+        again = fn()
+        if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: a repeat differs")
+        del got, again
+        torch.cuda.empty_cache()
+        return err, plain_ms
+
+    b, s, nh, p, n, chunk = SSD_BWD_SHAPE
+    for dname, seq in (("float32", s), ("bfloat16", SSD_BWD_RAGGED), ("bfloat16", s)):
+        dtype = getattr(torch, dname)
+        xh = torch.randn((b, seq, nh, p), generator=gen).to(dev, dtype)
+        dt = F.softplus(torch.randn((b, seq, nh), generator=gen)).to(dev)
+        a = -torch.exp(0.5 * torch.randn((nh,), generator=gen)).to(dev)
+        bm, cm = (torch.randn((b, seq, n), generator=gen).to(dev, dtype) for _ in range(2))
+        dy = torch.randn((b, seq, nh, p), generator=gen).to(dev)
+        fn = lambda: ssd.ssd_scan_bwd(xh, dt, a, bm, cm, dy, chunk=chunk)  # noqa: E731
+        plain = lambda: ref.ssd_scan_bwd_ref(xh, dt, a, bm, cm, dy, None, chunk)  # noqa: E731
+        label = f"ssd_scan_bwd xh ({b},{seq},{nh},{p}) N {n} chunk {chunk} {dname}"
+        err, _ = check(label, fn, plain, dname)
+        ms = device_ms(fn, per_graph=2, reps=5)
+        plain_ms = call_ms(plain, iters=2, warmup=1)  # a first call's set-up would count
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        bnd, by = ssd_bwd_bound(b, seq, nh, p, n, chunk, xh.element_size(), ops_rate)
+        log(f"{label}: max|err| {err:.3g} over dxh, ddt, da, dB, dC (each within {BWD_REL[dname]} of "
+            f"its largest |value|), a repeat bitwise equal; kernel {ssd.BWD_KERNEL}, "
+            f"{ssd.BWD_LAUNCHES} launches per call; {ms * 1e3:.1f} us per call on the device, bound "
+            f"{bnd * 1e3:.1f} us ({by}), plain {plain_ms * 1e3:.1f} us, library: none")
+        if dname == "bfloat16" and seq == s:
+            rows.append(dict(
+                name="ssd_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                replaces="none: the backward of K7 (src/repro/kernels/ssd.py:90; the model's "
+                         "ssd_chunked, src/repro/models/ssm.py:61); the reference trains through "
+                         "jax.grad of its lax.scan",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                call_ms=call_ms(fn, iters=3, warmup=1)))
+        del xh, dt, a, bm, cm, dy
+        torch.cuda.empty_cache()
+
+    b, s, nh, p, chunk = 1, SERVE_PROMPT, XLSTM_HEADS, MLSTM_P, MLSTM_CHUNK
+    for dname, seq in (("float32", s), ("bfloat16", MLSTM_RAGGED), ("bfloat16", s)):
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn((b, seq, nh, p), generator=gen).to(dev, dtype) for _ in range(3))
+        ig = torch.randn((b, seq, nh), generator=gen).to(dev)
+        fg = torch.randn((b, seq, nh), generator=gen).to(dev) + 3.0  # forget gates biased open
+        y, _ = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk)
+        dy = torch.randn((b, seq, nh, p), generator=gen).to(dev)
+        fn = lambda: mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dy, chunk=chunk)  # noqa: E731
+        plain = lambda: ref.mlstm_scan_bwd_ref(q, k, v, ig, fg, dy, None, chunk)  # noqa: E731
+        label = f"mlstm_scan_bwd q/k/v ({b},{seq},{nh},{p}) chunk {chunk} {dname}"
+        err, _ = check(label, fn, plain, dname)
+        ms = device_ms(fn, per_graph=1, reps=3)
+        plain_ms = call_ms(plain, iters=2, warmup=1)
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        bnd, by = mlstm_bwd_bound(b, seq, nh, p, chunk, q.element_size(), ops_rate)
+        log(f"{label}: max|err| {err:.3g} over dq, dk, dv, di, df (each within {BWD_REL[dname]} of "
+            f"its largest |value|), a repeat bitwise equal; kernel {mlstm.BWD_KERNEL}, "
+            f"{mlstm.BWD_LAUNCHES} launches per call; {ms * 1e3:.1f} us per call on the device, bound "
+            f"{bnd * 1e3:.1f} us ({by}), plain {plain_ms * 1e3:.1f} us, library: none")
+        if dname == "bfloat16" and seq == s:
+            rows.append(dict(
+                name="mlstm_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/mlstm_bwd.cu",
+                replaces="none: the backward of mlstm_scan (src/repro/models/xlstm.py:54, "
+                         "mlstm_chunked, jnp, not a Pallas kernel); the reference trains through "
+                         "jax.grad",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                call_ms=call_ms(fn, iters=2, warmup=1)))
+        del q, k, v, ig, fg, y, dy
+        torch.cuda.empty_cache()
+
+    hd = SLSTM_HD
+    for dname, seq in (("float32", s), ("bfloat16", SLSTM_BWD_SHORT), ("bfloat16", s)):
+        dtype = getattr(torch, dname)
+        xg = torch.randn((b, seq, 4 * nh * hd), generator=gen).to(dev, dtype)
+        r = (torch.randn((4, nh, hd, hd), generator=gen) * hd ** -0.5).to(dev, dtype)
+        hs, _ = slstm.slstm_scan(xg, r)
+        dhs = torch.randn((b, seq, nh, hd), generator=gen).to(dev)
+        fn = lambda: slstm.slstm_scan_bwd(xg, r, hs, dhs)  # noqa: E731
+        plain = lambda: ref.slstm_scan_bwd_ref(xg, r, dhs)  # noqa: E731
+        label = f"slstm_scan_bwd xg ({b},{seq},{4 * nh * hd}) R (4,{nh},{hd},{hd}) {dname}"
+        err, plain_ms = check(label, fn, plain, dname)
+        ms = device_ms(fn, per_graph=1, reps=3)
+        ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        bnd, by = slstm_bwd_bound(b, seq, nh, hd, xg.element_size(), ops_rate)
+        log(f"{label}: max|err| {err:.3g} over dxg, dR (each within {BWD_REL[dname]} of its largest "
+            f"|value|), a repeat bitwise equal; kernel {slstm.BWD_KERNEL}, 1 launch per call (and "
+            f"the two products around it); {ms * 1e3:.1f} us per call on the device "
+            f"({ms * 1e3 / seq:.2f} us a step), bound {bnd * 1e3:.1f} us ({by}), plain "
+            f"{plain_ms * 1e3:.1f} us, library: none")
+        if dname == "bfloat16" and seq == s:
+            rows.append(dict(
+                name="slstm_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/slstm_bwd.cu",
+                replaces="none: the backward of slstm_scan (src/repro/models/xlstm.py:262, lax.scan "
+                         "of _slstm_cell, not a Pallas kernel); the reference trains through "
+                         "jax.grad",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                call_ms=call_ms(fn, iters=2, warmup=1)))
+        del xg, r, hs, dhs
+        torch.cuda.empty_cache()
     return rows
 
 
 # -- phase 6: training -------------------------------------------------------------------
 #
-# qwen3-4b at its published widths and all 36 layers, bf16, batch 1 of 2048
-# tokens, AdamW with f32 moments as launch/train.py sets them (peak lr 1e-4,
-# no warmup), TRAIN_STEPS steps on one repeated TokenStream batch. The state
-# is about 53 GB on the card: bf16 params and grads, f32 mu and nu.
-TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "qwen3-4b", 2048, 4, 1e-4
+# TRAINING's models at their published widths, bf16, batch 1 of 2048 tokens,
+# AdamW with f32 moments as launch/train.py sets them (peak lr 1e-4, no
+# warmup), TRAIN_STEPS steps on one repeated TokenStream batch, each with the
+# launches its steps must make. zamba2-2.7b (54 Mamba2 layers with the shared
+# attention block applied 9 times) and xlstm-1.3b (42 mLSTM and 6 sLSTM
+# blocks) train at full depth. qwen3-4b's depth is cut from 36 to
+# TRAIN_LAYERS layers, to keep the smoke within its time limit beside them:
+# its state is about 27 GB on the card (bf16 params and grads, f32 mu and
+# nu) and so is the checkpoint its round trip writes and reads (the whole
+# model's: 53 GB). At 8 layers the 4th step's loss stood above the 1st's: the
+# rise at step 3 of AdamW without warmup had not settled. The checkpoint
+# round trip is qwen3-4b's alone. Each model's cut against the CPU: 2 layers
+# at the published widths (zamba2 with its shared block after the second,
+# shared_attn_every 2; xlstm one mLSTM and one sLSTM block, slstm_every 2).
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 4, 1e-4
+TRAIN_LAYERS = 18
+TRAINING = (  # arch, depth (None: the published one), launches, the cut's changes, checkpoint
+    ("qwen3-4b", TRAIN_LAYERS, ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd",
+                                "flash_attention_bwd"), {}, True),
+    ("zamba2-2.7b", None, ("rmsnorm", "rmsnorm_residual", "ssd_scan", "ssd_scan_bwd", "flash_attention",
+                           "flash_attention_bwd", "rmsnorm_bwd"), dict(shared_attn_every=2), False),
+    ("xlstm-1.3b", None, ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "mlstm_scan_bwd", "slstm_scan",
+                          "slstm_scan_bwd", "rmsnorm_bwd"), dict(xlstm=dict(slstm_every=2)), False),
+)
 TRAIN_CKPT_AT = 2  # the straight run saves its state after this step
 TRAIN_CKPT_DIR = os.path.join("build", "train_ckpt")  # .gitignore lists build/
-# the card against the CPU: 2 layers at the published widths, f32, batch 1
-# of 128 tokens, 2 steps. The loss and each gradient leaf sum over 2560- and
-# 151936-wide rows in another order: the loss within 1e-5 relative, each
-# step-0 gradient leaf within 1e-3 of its largest |value|, the parameters
-# after 2 steps within PARITY_TOL.
+# The card against the CPU: 2 layers at the published widths, f32, batch 1
+# of 128 tokens, the state drawn on the card and copied to the CPU (the
+# CPU's generator is the slowest part for qwen3-4b's), TRAIN_CUT_STEPS steps,
+# so that AdamW's moments of step 1 carry into step 2 on both. Each sums over
+# 2560- and 151936-wide rows in another order. Held: each step's loss and
+# the loss after the last step (the updates' effect) within TRAIN_LOSS_REL
+# relative; each step-0 gradient leaf within TRAIN_GRAD_REL of its largest
+# |value|; each parameter leaf's move over the steps within TRAIN_MOVE_REL
+# of its norm. The move is not held element by element: AdamW's first step
+# is lr * g / (|g| + eps), about lr * sign(g), so an element whose gradient
+# lies within the two sides' rounding of zero moves a whole step either way.
 TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ, TRAIN_CUT_STEPS = 2, 128, 2
-TRAIN_GRAD_REL = 1e-3
+TRAIN_GRAD_REL, TRAIN_LOSS_REL, TRAIN_MOVE_REL = 1e-3, 1e-5, 1e-2
 
 
 def state_digest(state):
@@ -1483,6 +1729,10 @@ def state_digest(state):
 # (the first that matches); the rest is AdamW's slices where it ran inside
 # adamw_update, else "the rest".
 STEP_GROUPS = (
+    ("ssd_scan_bwd", ("ssd_bwd",)),
+    ("mlstm_scan_bwd", ("mlstm_bwd",)),
+    ("slstm_scan_bwd", ("slstm_bwd",)),
+    ("K7 / mlstm_scan / slstm_scan", ("ssd_", "mlstm_", "slstm_")),
     ("flash_attention_bwd", ("fa_bwd",)),
     ("K5", ("flash_fwd",)),
     ("cuBLAS products", ("gemm", "cutlass", "nvjet", "xmma", "cublas")),
@@ -1538,11 +1788,78 @@ def step_split(step_fn, state, batch):
     return state, split, wall
 
 
-def training_phase(dev):
-    """The training slice on the card: the qwen3-4b run (ms a step, peak
-    memory, launches, loss finite and falling, a repeated step bitwise, save
-    → restore → continue equal to running straight through) and the cut run
-    against the CPU. Returns the launch counts of the straight run's steps."""
+def training_cut(dev, cut, opt, words):
+    """``cut`` (an f32 configuration) on the card against the CPU from one
+    state: the step-0 loss and gradients, then TRAIN_CUT_STEPS steps, their
+    losses, the loss after them and the parameters' move."""
+    import gc
+
+    import torch
+
+    from repro_torch.data import TokenStream
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.train.loss import cross_entropy_loss
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.step import loss_and_grads
+
+    t0 = time.perf_counter()
+    card = train_state_init(cut, opt, torch.Generator(device=dev).manual_seed(0))
+    cpu = tree_map(lambda t: t.cpu(), card)
+    start = [t.clone() for t in tree_leaves(cpu["params"])]
+    raw = TokenStream(cut.vocab_size, TRAIN_CUT_SEQ, 1, seed=1).batch(0)
+    batches = {"cpu": {k: torch.from_numpy(v) for k, v in raw.items()}}
+    batches["card"] = {k: t.to(dev) for k, t in batches["cpu"].items()}
+    grads = {}
+    for name, st in (("cpu", cpu), ("card", card)):
+        grads[name] = loss_and_grads(st["params"], cut, batches[name]["tokens"], batches[name]["labels"])
+    worst = 0.0
+    for gc_, gg in zip(grads["card"][1], grads["cpu"][1]):
+        worst = max(worst, check_rel(f"training cut {cut.name} step-0 gradient", gc_.cpu(), gg,
+                                     TRAIN_GRAD_REL))
+    del grads
+    cut_step = make_train_step(cut, opt)
+    losses = []
+    for _ in range(TRAIN_CUT_STEPS):
+        card, mc = cut_step(card, batches["card"])
+        cpu, mp = cut_step(cpu, batches["cpu"])
+        losses.append((float(mc["loss"]), float(mp["loss"])))
+    with torch.no_grad():
+        losses.append(tuple(float(cross_entropy_loss(forward(st["params"], cut, batches[name]["tokens"]),
+                                                     batches[name]["labels"], z_loss_coeff=1e-4)[0])
+                            for name, st in (("card", card), ("cpu", cpu))))
+    for i, (l_card, l_cpu) in enumerate(losses):
+        if not abs(l_card - l_cpu) <= TRAIN_LOSS_REL * abs(l_cpu):
+            raise AssertionError(f"training cut {cut.name}: the loss after {i} steps {l_card} on the "
+                                 f"card, {l_cpu} on the cpu")
+    move, elem = 0.0, 0.0
+    for a, b, p0 in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"]), start):
+        diff, step = float((a.cpu() - b).norm()), float((b - p0).norm())
+        if not diff <= TRAIN_MOVE_REL * step:
+            raise AssertionError(f"training cut {cut.name}: a parameter leaf {tuple(b.shape)} moved "
+                                 f"{step:.3g} on the cpu and the card differs by {diff:.3g}")
+        move = max(move, diff / step if step else 0.0)
+        elem = max(elem, float((a.cpu() - b).abs().max()))
+    lr = opt.peak_lr
+    log(f"training cut {cut.name} ({words}, f32, batch 1 x {TRAIN_CUT_SEQ}) card vs cpu: losses at "
+        f"steps 0-{TRAIN_CUT_STEPS} {losses} (each within {TRAIN_LOSS_REL} relative), step-0 "
+        f"gradients max|err| {worst:.3g} (each leaf within {TRAIN_GRAD_REL} of its largest |value|); "
+        f"over {TRAIN_CUT_STEPS} steps at lr {lr}, each parameter leaf's move on the card differs "
+        f"from the cpu's by at most {move:.3g} of its norm (within {TRAIN_MOVE_REL}), element max|err| "
+        f"{elem:.3g} ({elem / lr:.3g} steps of lr); {time.perf_counter() - t0:.1f} s")
+    del card, cpu, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def training_run(dev, arch, layers, needed, cut, opt, checkpoint):
+    """``arch`` trained on the card at its published widths, at full depth
+    or cut to ``layers``: launches, the loss finite and falling, ms a step,
+    peak memory, one step's device split, step 1 repeated bitwise; with
+    ``checkpoint``, the state saved after TRAIN_CKPT_AT steps, restored, and
+    the steps after it bitwise equal to the straight run's; then its cut
+    against the CPU. Returns the launch counts of its TRAIN_STEPS steps."""
     import gc
     import shutil
 
@@ -1551,24 +1868,20 @@ def training_phase(dev):
     from repro_torch import configs
     from repro_torch.data import TokenStream
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-    from repro_torch.train import (AdamWConfig, abstract_train_state, make_train_step,
-                                   train_state_init)
+    from repro_torch.train import abstract_train_state, make_train_step, train_state_init
     from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.step import loss_and_grads
 
     t_phase = time.perf_counter()
-    cfg = configs.get_config(TRAIN_ARCH)
-    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0, total_steps=100,
-                      mu_dtype="float32", nu_dtype="float32")
+    full = configs.get_config(arch)
+    cfg = full.replace(n_layers=layers or full.n_layers)
     step_fn = make_train_step(cfg, opt)
     raw = TokenStream(cfg.vocab_size, TRAIN_SEQ, 1, seed=0).batch(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
 
     def fresh():
-        t0 = time.perf_counter()
         st = train_state_init(cfg, opt, torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
-        return st, time.perf_counter() - t0
+        return st
 
     def run(st, steps):
         out = []
@@ -1579,117 +1892,100 @@ def training_phase(dev):
             out.append((loss, (time.perf_counter() - t0) * 1e3, float(m["grad_norm"])))
         return st, out
 
-    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
-    torch.cuda.empty_cache()
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
     torch.cuda.reset_peak_memory_stats()
-    state, init_s = fresh()
+    state = fresh()
     resident = torch.cuda.memory_allocated()
     reset_launch_counts()
-    state, first = run(state, 1)
+    state, steps = run(state, 1)
     digest1 = state_digest(state)
     state, more = run(state, TRAIN_CKPT_AT - 1)
-    counts_a = launch_counts()
-    t0 = time.perf_counter()
-    ckpt.save(TRAIN_CKPT_DIR, TRAIN_CKPT_AT, state)
-    save_s = time.perf_counter() - t0
-    reset_launch_counts()
+    if checkpoint:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        ckpt.save(TRAIN_CKPT_DIR, TRAIN_CKPT_AT, state)
+        save_s = time.perf_counter() - t0
     state, rest = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
-    counts_b = launch_counts()
-    counts = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    digest_end = state_digest(state)
-    steps = first + more + rest
-    losses = [s[0] for s in steps]
+    digest_end = state_digest(state) if checkpoint else None
+    steps += more + rest
+    losses = [x[0] for x in steps]
     total, _ = cfg.param_count()
-    log(f"training {cfg.name}: {cfg.n_layers} layers at the published widths ({total / 1e9:.3f} B "
-        f"params, {cfg.param_dtype}), batch 1 x {TRAIN_SEQ} tokens, AdamW f32 moments, peak lr "
-        f"{TRAIN_LR}: state drawn on the card in {init_s:.1f} s, {resident / 2**30:.2f} GiB resident")
-    log(f"training steps (loss, ms, grad norm): "
+    depth = (f"depth cut from {full.n_layers} to {cfg.n_layers} layers (the smoke's time)"
+             if cfg.n_layers != full.n_layers else f"{cfg.n_layers} layers")
+    log(f"training {cfg.name}: {depth}, at the published widths ({total / 1e9:.3f} B params, "
+        f"{cfg.param_dtype}), batch 1 x {TRAIN_SEQ} tokens, AdamW f32 moments, peak lr {TRAIN_LR}: "
+        f"{resident / 2**30:.2f} GiB resident")
+    log(f"training {cfg.name} steps (loss, ms, grad norm): "
         + "; ".join(f"{lo:.4f}, {ms:.1f} ms, {gn:.3f}" for lo, ms, gn in steps)
-        + f"; ms a step after the first: {statistics.median(s[1] for s in steps[1:]):.1f}; peak "
+        + f"; ms a step after the first: {statistics.median(x[1] for x in steps[1:]):.1f}; peak "
         f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     if not all(math.isfinite(lo) for lo in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training: the loss is not finite and falling: {losses}")
-    for name in ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"):
+        raise AssertionError(f"training {cfg.name}: the loss is not finite and falling: {losses}")
+    for name in needed:
         if counts[name] <= 0:
-            raise AssertionError(f"training launched no {name}: {counts}")
-    log(f"training launches over the {TRAIN_STEPS} steps: {counts}")
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # one step run twice from the same state gives the same bits
-    state, _ = fresh()
-    state, again = run(state, 1)
-    if state_digest(state) != digest1:
-        raise AssertionError("training: step 1 from the same state differs between two runs")
-    log(f"training: step 1 run again from the same initial state: bitwise equal (loss "
-        f"{again[0][0]:.4f}, {again[0][1]:.1f} ms)")
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # save → restore → continue equals running straight through
-    t0 = time.perf_counter()
-    state = ckpt.restore(TRAIN_CKPT_DIR, target=abstract_train_state(cfg, opt), device=dev)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    if int(state["step"]) != TRAIN_CKPT_AT:
-        raise AssertionError(f"training: restored step {int(state['step'])}, saved {TRAIN_CKPT_AT}")
-    state, resumed = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
-    if state_digest(state) != digest_end or [s[0] for s in resumed] != losses[TRAIN_CKPT_AT:]:
-        raise AssertionError("training: resuming from the checkpoint differs from the straight run")
-    ck_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(TRAIN_CKPT_DIR) for f in fs)
-    log(f"training: checkpoint of step {TRAIN_CKPT_AT} ({ck_bytes / 1e9:.2f} GB) saved in {save_s:.1f} s, "
-        f"restored in {restore_s:.1f} s; steps {TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} from it bitwise equal "
-        f"to the straight run's (state and losses)")
+            raise AssertionError(f"training {cfg.name} launched no {name}: {counts}")
+    log(f"training {cfg.name} launches over the {TRAIN_STEPS} steps: {counts}")
     state, split, wall = step_split(step_fn, state, batch)
-    log(f"training step {TRAIN_STEPS + 1} under torch.profiler: device ms by kernel group "
+    log(f"training {cfg.name} step {TRAIN_STEPS + 1} under torch.profiler: device ms by kernel group "
         + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f"; {sum(split.values()):.2f} ms on the device in all, {wall:.1f} ms of wall (traced)")
     del state
-    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
 
-    # the cut run: the card against the CPU in f32
-    t0 = time.perf_counter()
-    cut = cfg.replace(n_layers=TRAIN_CUT_LAYERS, dtype="float32", param_dtype="float32")
-    cut_opt = opt
-    cpu = train_state_init(cut, cut_opt, torch.Generator().manual_seed(0))
-    from repro_torch.models.transformer import tree_map
+    # one step run twice from the same state gives the same bits
+    state, again = run(fresh(), 1)
+    if state_digest(state) != digest1:
+        raise AssertionError(f"training {cfg.name}: step 1 from the same state differs between two runs")
+    log(f"training {cfg.name}: step 1 run again from the same initial state: bitwise equal (loss "
+        f"{again[0][0]:.4f}, {again[0][1]:.1f} ms)")
+    del state
+    free()
 
-    card = tree_map(lambda t: t.to(dev), cpu)
-    raw = TokenStream(cut.vocab_size, TRAIN_CUT_SEQ, 1, seed=1).batch(0)
-    cut_batch = {k: torch.from_numpy(v) for k, v in raw.items()}
-    grads = {}
-    for name, st, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
-        grads[name] = loss_and_grads(st["params"], cut, cut_batch["tokens"].to(d),
-                                     cut_batch["labels"].to(d))
-    worst = 0.0
-    for gc_, gg in zip(grads["card"][1], grads["cpu"][1]):
-        worst = max(worst, check_rel("training cut step-0 gradient", gc_.cpu(), gg, TRAIN_GRAD_REL))
-    l_card, l_cpu = float(grads["card"][0]), float(grads["cpu"][0])
-    if abs(l_card - l_cpu) > 1e-5 * abs(l_cpu):
-        raise AssertionError(f"training cut: loss {l_card} on the card, {l_cpu} on the cpu")
-    del grads
-    cut_step = make_train_step(cut, cut_opt)
-    loss_pairs = []
-    for _ in range(TRAIN_CUT_STEPS):
-        card, mc = cut_step(card, {k: t.to(dev) for k, t in cut_batch.items()})
-        cpu, mp = cut_step(cpu, cut_batch)
-        loss_pairs.append((float(mc["loss"]), float(mp["loss"])))
-    from repro_torch.train.optim import tree_leaves
+    if checkpoint:  # save → restore → continue equals running straight through
+        t0 = time.perf_counter()
+        state = ckpt.restore(TRAIN_CKPT_DIR, target=abstract_train_state(cfg, opt), device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if int(state["step"]) != TRAIN_CKPT_AT:
+            raise AssertionError(f"training: restored step {int(state['step'])}, saved {TRAIN_CKPT_AT}")
+        state, resumed = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
+        if state_digest(state) != digest_end or [x[0] for x in resumed] != losses[TRAIN_CKPT_AT:]:
+            raise AssertionError(f"training {cfg.name}: resuming from the checkpoint differs from the "
+                                 "straight run")
+        ck_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(TRAIN_CKPT_DIR)
+                       for f in fs)
+        log(f"training {cfg.name}: checkpoint of step {TRAIN_CKPT_AT} ({ck_bytes / 1e9:.2f} GB) saved in "
+            f"{save_s:.1f} s, restored in {restore_s:.1f} s; steps {TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} "
+            f"from it bitwise equal to the straight run's (state and losses)")
+        del state
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+        free()
 
-    perr = max(check_close("training cut parameters", a.cpu(), b, PARITY_TOL)
-               for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
-    log(f"training cut ({cut.n_layers} layers at the published widths, f32, batch 1 x {TRAIN_CUT_SEQ}) "
-        f"card vs cpu: step-0 loss {l_card:.6f} vs {l_cpu:.6f}, gradients max|err| {worst:.3g} (each "
-        f"leaf within {TRAIN_GRAD_REL} of its largest |value|); losses over {TRAIN_CUT_STEPS} steps "
-        f"{loss_pairs}; parameters max|err| {perr:.3g} (tol {PARITY_TOL}); {time.perf_counter() - t0:.1f} s")
-    del card, cpu
-    gc.collect()
-    torch.cuda.empty_cache()
+    training_cut(dev, with_cut(cfg, dict(n_layers=TRAIN_CUT_LAYERS, dtype="float32",
+                                         param_dtype="float32", **cut)),
+                 opt, ", ".join([f"{TRAIN_CUT_LAYERS} layers at the published widths"] + cut_words(cut)))
+    log(f"training {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def training_phase(dev):
+    """The training slice on the card: TRAINING's runs (training_run).
+    Returns the launch counts of their straight runs' steps, summed."""
+    from repro_torch.train import AdamWConfig
+
+    t_phase = time.perf_counter()
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0, total_steps=100,
+                      mu_dtype="float32", nu_dtype="float32")
+    counts = {}
+    for arch, layers, needed, cut, checkpoint in TRAINING:
+        run = training_run(dev, arch, layers, needed, cut, opt, checkpoint)
+        counts = {k: counts.get(k, 0) + v for k, v in run.items()}
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -3728,10 +4024,12 @@ def main() -> int:
         backward_kernel_phase(dev, gen)
         training_phase(dev)
         return 0
+    t0 = time.perf_counter()
     kernels = kernel_phase(dev)
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     if args.phase == "kernels":
         return 0
-    # training first: its state (about 53 GB) wants the card before anything else has run on it
+    # training first: its states (up to about 44 GB) want the card before anything else has run on it
     runs = {"training": training_phase(dev)}
     stream, stream_concurrent, phase3 = main_path_phase(dev)
     runs.update({"stream path": stream, "stream path, concurrent": stream_concurrent})

@@ -23,12 +23,22 @@ Run from the root of a checkout on a machine with a CUDA card:
   * the training path's two backward kernels in bf16 (``--only bwd``):
     ``flash_attention_bwd`` at ``chip_smoke.ATTN_BWD_SHAPES`` (qwen3-4b's
     causal q (1, 2048, 32, 128) over 8 KV heads, a window of 512, no mask
-    at Sk 1024) and ``rmsnorm_bwd`` at :data:`BWD_ROWS` (K4's form at the
-    seams' (2048, 2560), K1's there and at the q- and k-norm's (65536, 128)
-    and (16384, 128)): device µs per call and of each of its launches (D,
+    at Sk 1024, zamba2-2.7b's causal q and kv (1, 2048, 32, 80)) and
+    ``rmsnorm_bwd`` at :data:`BWD_ROWS` (K4's form at the seams' (2048,
+    2560), K1's there and at the q- and k-norm's (65536, 128) and (16384,
+    128)): device µs per call and of each of its launches (D,
     dk/dv and dq; the row pass and the dscale sum).
 
-``--only ssm`` (or ``k7``, ``kalman``, ``bwd``) runs one part; ``--src
+  * the scans' backward kernels, bf16 and f32 (``--only scan_bwd``):
+    ``ssd_scan_bwd`` at zamba2-2.7b's 2048-token step (xh (1, 2048, 80,
+    64), N 64, chunk 128), ``mlstm_scan_bwd`` (q/k/v (1, 2048, 4, 1024),
+    chunk 64) and ``slstm_scan_bwd`` (xg (1, 2048, 8192), R (4, 4, 512,
+    512)) at xlstm-1.3b's: device µs per call and of each launch (the
+    sLSTM's two products around its kernel included); ``ssd_scan_bwd`` also
+    with 20 calls a graph and 21 replays, beside ``device_ms``'s 1 call and
+    5 replays for a call over 1 ms.
+
+``--only ssm`` (or ``k7``, ``kalman``, ``bwd``, ``scan_bwd``) runs one part; ``--src
 <checkout>/src`` times another checkout's port with this script (compare
 two in one call, in turns).
 
@@ -148,13 +158,58 @@ def backward_kernels(dev, gen) -> dict:
     return out
 
 
+def scan_backward_kernels(dev, gen) -> dict:
+    """The scans' backward kernels' device µs per call and per launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mlstm, slstm, ssd
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        b, s, nh, p, n, chunk = 1, 2048, 80, 64, 64, 128
+        xh = torch.randn((b, s, nh, p), generator=gen).to(dev, dtype)
+        dt = F.softplus(torch.randn((b, s, nh), generator=gen)).to(dev)
+        a = -torch.exp(0.5 * torch.randn((nh,), generator=gen)).to(dev)
+        bm, cm = (torch.randn((b, s, n), generator=gen).to(dev, dtype) for _ in range(2))
+        dy = torch.randn((b, s, nh, p), generator=gen).to(dev)
+        cases = [(f"ssd_scan_bwd (1,{s},{nh},{p}) N {n} chunk {chunk} {tag}",
+                  lambda chunk=chunk: ssd.ssd_scan_bwd(xh, dt, a, bm, cm, dy, chunk=chunk), 3)]
+        nh, p, chunk = 4, 1024, 64
+        q, k, v = (torch.randn((b, s, nh, p), generator=gen).to(dev, dtype) for _ in range(3))
+        ig = torch.randn((b, s, nh), generator=gen).to(dev)
+        fg = torch.randn((b, s, nh), generator=gen).to(dev) + 3.0
+        y, _ = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk)
+        dym = torch.randn((b, s, nh, p), generator=gen).to(dev)
+        cases.append((f"mlstm_scan_bwd (1,{s},{nh},{p}) chunk {chunk} {tag}",
+                      lambda: mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dym, chunk=chunk), 1))
+        hd = 512
+        xg = torch.randn((b, s, 4 * nh * hd), generator=gen).to(dev, dtype)
+        r = (torch.randn((4, nh, hd, hd), generator=gen) * hd ** -0.5).to(dev, dtype)
+        hs, _ = slstm.slstm_scan(xg, r)
+        dhs = torch.randn((b, s, nh, hd), generator=gen).to(dev)
+        cases.append((f"slstm_scan_bwd (1,{s},{4 * nh * hd}) R (4,{nh},{hd},{hd}) {tag}",
+                      lambda: slstm.slstm_scan_bwd(xg, r, hs, dhs), 1))
+        for label, fn, per_graph in cases:
+            us = device_ms(fn, per_graph=per_graph, reps=3) * 1e3
+            by = kernels_us(fn, calls=2)
+            out[label] = {"us": us, "kernels_us": by}
+            if label.startswith("ssd_scan_bwd"):
+                out[label]["us_20_calls_21_replays"] = device_ms(fn, per_graph=20, reps=21, adapt=False) * 1e3
+            print(f"{label}: {us:.1f} us per call; by kernel {({k_: round(v_, 1) for k_, v_ in by.items()})}")
+        del xh, dt, a, bm, cm, dy, q, k, v, ig, fg, y, dym, xg, r, hs, dhs, cases
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="chiprun_out/torch_kernel_ablation.json")
-    parser.add_argument("--only", choices=("k7", "kalman", "ssm", "bwd"), default=None)
+    parser.add_argument("--only", choices=("k7", "kalman", "ssm", "bwd", "scan_bwd"), default=None)
     parser.add_argument("--src", default=None, help="the src/ directory of another checkout to time")
     args = parser.parse_args()
-    parts = (args.only,) if args.only else ("k7", "kalman", "ssm", "bwd")
+    parts = (args.only,) if args.only else ("k7", "kalman", "ssm", "bwd", "scan_bwd")
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
 
@@ -220,6 +275,8 @@ def main() -> int:
         report.update(ssm_scans(dev, gen))
     if "bwd" in parts:
         report.update(backward_kernels(dev, gen))
+    if "scan_bwd" in parts:
+        report.update(scan_backward_kernels(dev, gen))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

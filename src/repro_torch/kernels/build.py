@@ -99,12 +99,26 @@ _SIGNATURES = {
     "rt_slstm_smem": (_I, _I, _I),
     "rt_slstm_max_clusters": (_I, _I, _I, _I, _I, _I),
     "rt_slstm_chain_floor": (_P, _I, _I, _I, _I, _I, _I, _P),
+    "rt_ssd_scan_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "rt_ssd_bwd_smem": (_I, _I, _I),
+    "rt_slstm_scan_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _P,
+    ),
+    "rt_mlstm_scan_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 KERNELS = (
     "rmsnorm", "map_chain", "affine_rmsnorm", "kalman_scan",
     "rmsnorm_residual", "flash_attention", "decode_attention", "ssd_scan",
     "mlstm_scan", "slstm_scan", "rmsnorm_bwd", "flash_attention_bwd",
+    "ssd_scan_bwd", "mlstm_scan_bwd", "slstm_scan_bwd",
 )
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _count_lock = threading.Lock()

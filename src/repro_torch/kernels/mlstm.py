@@ -190,3 +190,95 @@ def _general(q, k, v, ig, fg, init, y, final, chunk: int) -> Tuple[torch.Tensor,
     build.check(err, "mlstm_scan")
     build.count_launch("mlstm_scan")
     return y, final
+
+
+BWD_KERNEL = ("mlstm_bwd_gates + nsum + intra + outer + pass + state + final (SIMT f32 FMAs over "
+              "64 x 64 tiles)")
+BWD_LAUNCHES = 7  # csrc/mlstm_bwd.cu: launches of one call, counted as one
+BWD_TILE = 64  # csrc/mlstm_bwd.cu: kT, the longest chunk and the tile of P
+
+
+def mlstm_scan_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,
+    f_gate: torch.Tensor,
+    y: torch.Tensor,
+    dy: torch.Tensor,
+    dstate: Optional[Tuple[Optional[torch.Tensor], ...]] = None,
+    *,
+    chunk: int = 64,
+    state: Optional[MlstmState] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradient of :func:`mlstm_scan` (``csrc/mlstm_bwd.cu``): (dq, dk,
+    dv, dĩ, df̃, dC0, dn0, dm0) for the forward's inputs, its output ``y``
+    and the incoming gradients ``dy`` of y and ``dstate`` = (dC, dn, dm) of
+    the final state (None, or None entries, where unused); each in its
+    input's dtype, the state's None without ``state``. Recomputes the
+    states before each chunk (P x P floats a chunk, head and batch, twice:
+    C and its gradient). Takes chunks up to :data:`BWD_TILE` (every chunk
+    the forward's tensor route takes), any P and any S of at least one
+    position; raises beyond. One call is
+    :data:`BWD_LAUNCHES` launches, counted once. The plain version is
+    :func:`repro_torch.kernels.ref.mlstm_scan_bwd_ref`."""
+    if q.dim() != 4:
+        raise ValueError(f"mlstm_scan_bwd: q must be (B, S, nh, P), got {tuple(q.shape)}")
+    b, s, nh, p = q.shape
+    dev = q.device
+    io = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    floats = (torch.float32, torch.bfloat16, torch.float16)
+    check_input("mlstm_scan_bwd", q, "q", (b, s, nh, p), io, dev)
+    for name, t in (("k", k), ("v", v)):
+        check_input("mlstm_scan_bwd", t, name, (b, s, nh, p), (q.dtype,), dev)
+    for name, t in (("i_gate", i_gate), ("f_gate", f_gate)):
+        check_input("mlstm_scan_bwd", t, name, (b, s, nh), floats, dev)
+    for name, t in (("y", y), ("dy", dy)):
+        check_input("mlstm_scan_bwd", t, name, (b, s, nh, p), f32, dev)
+    shapes = ((b, nh, p, p), (b, nh, p), (b, nh))
+    ds = tuple(dstate) if dstate is not None else (None,) * 3
+    for name, t, shape in zip(("dC", "dn", "dm"), ds, shapes):
+        if t is not None:
+            check_input("mlstm_scan_bwd", t, name, shape, f32, dev)
+    if state is not None:
+        for name, t, shape in zip("Cnm", state, shapes):
+            check_input("mlstm_scan_bwd", t, name, shape, f32, dev)
+    if not 1 <= chunk <= BWD_TILE:
+        raise ValueError(f"mlstm_scan_bwd: chunk {chunk} outside [1, {BWD_TILE}] "
+                         f"(ROADMAP queue 1, item 21)")
+    f = dict(dtype=torch.float32, device=dev)
+    d0 = tuple(torch.empty(shape, **f) for shape in shapes) if state is not None else (None,) * 3
+    grads = tuple(torch.empty((b, s, nh, p), **f) for _ in range(3)) + tuple(
+        torch.empty((b, s, nh), **f) for _ in range(2))
+    nc, nt = -(-s // chunk), -(-p // BWD_TILE)
+    sl = nc * chunk
+    pos = torch.empty((b, nh, 4, sl), **f)
+    cinf = torch.empty((b, nh, nc, 4), **f)
+    dnb = torch.empty((b, nh, nc, p), **f)
+    nb = torch.empty((b, nh, nc, p), **f)
+    pos2 = torch.empty((b, nh, 5, sl), **f)
+    dmi = torch.empty((b, nh, nc), **f)
+    cs = torch.empty((b, nh, nc, p, p), **f)
+    gs = torch.empty((b, nh, nc, p, p), **f)
+    un = torch.empty((b, nh, nc, p), **f)
+    part = torch.empty((b, nh, nc, nt, 2, BWD_TILE), **f)
+    pdec = torch.empty((b, nh, nc, nt), **f)
+    cg = torch.empty((b, nh, nc + 1, 4), **f)
+    q, k, v, y, dy = (t.contiguous() for t in (q, k, v, y, dy))
+    ig, fg = i_gate.float().contiguous(), f_gate.float().contiguous()
+    init = tuple(t.contiguous() for t in state) if state is not None else (None,) * 3
+    ds = tuple(None if t is None else t.contiguous() for t in ds)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.library().rt_mlstm_scan_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(), fg.data_ptr(), y.data_ptr(),
+        dy.data_ptr(), *(ptr(t) for t in init), *(ptr(t) for t in ds),
+        *(t.data_ptr() for t in grads), *(ptr(t) for t in d0),
+        *(t.data_ptr() for t in (pos, cinf, dnb, nb, pos2, dmi, cs, gs, un, part, pdec, cg)),
+        b, s, nh, p, int(chunk), int(q.dtype == torch.bfloat16), stream_ptr(q),
+    )
+    build.check(err, "mlstm_scan_bwd")
+    build.count_launch("mlstm_scan_bwd")
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v, i_gate, f_gate))) + d0
+
+

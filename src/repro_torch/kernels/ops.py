@@ -11,12 +11,13 @@ the CPU tests and the card run the same operator code.
 went through the kernels.
 
 Under autograd (grad enabled and an input that requires it), a CUDA call
-of K1, K4 or K5 goes through :mod:`repro_torch.kernels.autograd`, whose
-forward launches the same kernel (K5 also writing its log-sum-exp) and
-whose backward launches the hand-written backward kernel; on the CPU
-autograd runs through the plain versions, as always. A CUDA call that
-needs a gradient from a kernel without a backward kernel raises, naming
-the ROADMAP item that adds it.
+of K1, K4, K5, K7 or the ssm scans goes through
+:mod:`repro_torch.kernels.autograd`, whose forward launches the same kernel
+(K5 also writing its log-sum-exp) and whose backward launches the
+hand-written backward kernel; on the CPU autograd runs through the plain
+versions, as always. A CUDA call that needs a gradient from a kernel
+without a backward kernel (K6) raises, naming the ROADMAP item that adds
+it.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from . import ref
 from .build import launch_counts, reset_launch_counts  # noqa: F401 — public surface
 
 Stages = Sequence[Tuple[float, float]]
-NO_BACKWARD = "ROADMAP queue 1: backward kernels for K6, K7 and the ssm scans"
+NO_BACKWARD = "ROADMAP queue 1, item 21: K6 has no training use"
 
 
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
@@ -123,7 +124,10 @@ def ssd_scan(
     """Mamba2 chunked SSD scan → (y (B, S, nh, P), final state (B, nh, N, P)),
     both float32; any S (the ragged last chunk is masked)."""
     if xh.is_cuda:
-        _no_backward("ssd_scan", xh, dt, a, B_ssm, C_ssm, h0)
+        if _needs_grad(xh, dt, a, B_ssm, C_ssm, h0):
+            from .autograd import SsdScan
+
+            return SsdScan.apply(xh, dt, a, B_ssm, C_ssm, h0, chunk)
         from .ssd import ssd_scan as _cuda
 
         return _cuda(xh, dt, a, B_ssm, C_ssm, chunk=chunk, h0=h0)
@@ -143,7 +147,11 @@ def mlstm_scan(
     """The chunked mLSTM scan → (y (B, S, nh, P) float32, final (C, n, m));
     any S (the ragged last chunk is masked)."""
     if q.is_cuda:
-        _no_backward("mlstm_scan", q, k, v, i_gate, f_gate, *(state or ()))
+        if _needs_grad(q, k, v, i_gate, f_gate, *(state or ())):
+            from .autograd import MlstmScan
+
+            y, *final = MlstmScan.apply(q, k, v, i_gate, f_gate, *(state or (None,) * 3), chunk)
+            return y, tuple(final)
         from .mlstm import mlstm_scan as _cuda
 
         return _cuda(q, k, v, i_gate, f_gate, chunk=chunk, state=state)
@@ -156,7 +164,11 @@ def slstm_scan(
     """The sLSTM recurrence over S → (hs (B, S, nh, hd) float32, final
     (h, c, n, m))."""
     if xg.is_cuda:
-        _no_backward("slstm_scan", xg, r_gates, *(state or ()))
+        if _needs_grad(xg, r_gates, *(state or ())):
+            from .autograd import SlstmScan
+
+            hs, *final = SlstmScan.apply(xg, r_gates, *(state or (None,) * 4))
+            return hs, tuple(final)
         from .slstm import slstm_scan as _cuda
 
         return _cuda(xg, r_gates, state=state)

@@ -251,7 +251,9 @@ def ssd_scan_ref(
     h_prev = torch.stack(before)  # (nc, B, nh, N, P)
     # the outputs of all chunks
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).tril()[:, :, None]
-    T = torch.where(causal, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0)
+    # masked in log space: exp(cum_i - cum_j) above the diagonal can overflow,
+    # and where() would then hand autograd 0 * inf
+    T = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))
     W = T * torch.einsum("cbin,cbjn->cbij", cc, bc)[..., None] * dtc[:, :, None, :, :]
     y = torch.einsum("cbijh,cbjhp->cbihp", W, xc)
     y = y + torch.einsum("cbin,cbhnp->cbihp", cc, h_prev) * torch.exp(cum)[..., None]
@@ -330,7 +332,7 @@ def mlstm_scan_ref(
     scale = p ** -0.5
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()[:, :, None]
     logw = cumf[:, :, :, None, :] + src[:, :, None, :, :] - m_new[:, :, None, None, :]
-    W = torch.where(causal, torch.exp(logw), 0.0) * (
+    W = torch.exp(torch.where(causal, logw, float("-inf"))) * (  # masked in log space, as T above
         torch.einsum("cbihp,cbjhp->cbijh", qc, kc) * scale)  # (nc, B, Li, Lj, nh)
     # each chunk's own contribution to the state, and the decay of the one before
     to_end = torch.exp(last[:, :, None] - cumf + ic - m_new[:, :, None])  # (nc, B, L, nh)
@@ -401,3 +403,78 @@ def slstm_scan_ref(
         hs.append(state[0])
     out = torch.stack(hs, dim=1) if hs else torch.zeros((b, 0, nh, hd), device=dev)
     return out, state
+
+
+def _grads_of(fn, inputs, outs_grads):
+    """``torch.autograd.grad`` of ``fn(*leaves)`` at ``inputs``: each input
+    that is not None becomes a leaf (a detached copy in its dtype); the
+    outputs whose incoming gradient is not None are differentiated. Returns
+    one gradient per input (None where the input was None or does not reach
+    those outputs)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(True) for t in inputs]
+        outs = fn(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, outs_grads) if g is not None]
+        wrt = [t for t in leaves if t is not None]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True))
+        return tuple(None if t is None else next(got) for t in leaves)
+
+
+def ssd_scan_bwd_ref(
+    xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B_ssm: torch.Tensor,
+    C_ssm: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+    chunk: int = 128, h0: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dxh, ddt, da, dB, dC, dh0) of :func:`ssd_scan_ref` for the incoming
+    gradients ``dy`` of y and ``dh`` of the final state (None: the state is
+    unused): ``torch.autograd.grad`` of the forward's plain version, each in
+    its input's dtype, dh0 None without ``h0`` (``csrc/ssd_bwd.cu``'s twin)."""
+    def fn(x, d, a_, b_, c_, h):
+        return ssd_scan_ref(x, d, a_, b_, c_, chunk, h)
+
+    return _grads_of(fn, (xh, dt, a, B_ssm, C_ssm, h0), (dy, dh))
+
+
+def mlstm_scan_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
+    f_gate: torch.Tensor, dy: torch.Tensor, dstate: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    chunk: int = 64, state: Optional[MlstmState] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dq, dk, dv, dĩ, df̃, dC0, dn0, dm0) of :func:`mlstm_scan_ref` for the
+    incoming gradients ``dy`` of y and ``dstate`` = (dC, dn, dm) of the final
+    state (None, or None entries, where unused): ``torch.autograd.grad`` of
+    the forward's plain version, through the stabilizer m and the
+    denominator's max as autograd takes them (``csrc/mlstm_bwd.cu``'s twin).
+    The state's gradients are None without ``state``."""
+    def fn(q_, k_, v_, i_, f_, C0, n0, m0):
+        st = None if C0 is None else (C0, n0, m0)
+        y, (C, n, m) = mlstm_scan_ref(q_, k_, v_, i_, f_, chunk, st)
+        return y, C, n, m
+
+    st = tuple(state) if state is not None else (None, None, None)
+    ds = tuple(dstate) if dstate is not None else (None, None, None)
+    return _grads_of(fn, (q, k, v, i_gate, f_gate) + st, (dy,) + ds)
+
+
+def slstm_scan_bwd_ref(
+    xg: torch.Tensor, r_gates: torch.Tensor, dhs: torch.Tensor,
+    dstate: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    state: Optional[SlstmState] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dxg, dR, dh0, dc0, dn0, dm0) of :func:`slstm_scan_ref` for the
+    incoming gradients ``dhs`` of hs and ``dstate`` = (dh, dc, dn, dm) of
+    the final state (None, or None entries, where unused):
+    ``torch.autograd.grad`` of the forward's plain version
+    (``csrc/slstm_bwd.cu``'s twin), with R taken to float32 once, so that
+    its gradient sums every step in float32 and a bf16 R's is rounded once
+    (per step, autograd would sum S bf16-rounded terms in bf16). The
+    state's gradients are None without ``state``."""
+    def fn(x, r, h0, c0, n0, m0):
+        st = None if h0 is None else (h0, c0, n0, m0)
+        hs, (h, c, n, m) = slstm_scan_ref(x, r.float(), st)
+        return hs, h, c, n, m
+
+    st = tuple(state) if state is not None else (None,) * 4
+    ds = tuple(dstate) if dstate is not None else (None,) * 4
+    return _grads_of(fn, (xg, r_gates) + st, (dhs,) + ds)

@@ -151,3 +151,71 @@ def slstm_scan(
     build.check(err, "slstm_scan")
     build.count_launch("slstm_scan")
     return hs, final
+
+
+BWD_KERNEL = "slstm_bwd (SIMT f32, a block per (head, batch), f32 R^T streamed from L2 every step)"
+BWD_MAX_HEAD_DIM = 1024  # csrc/slstm_bwd.cu: kThreads * kCols
+
+
+def slstm_scan_bwd(
+    xg: torch.Tensor, r_gates: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor,
+    dstate: Optional[Tuple[Optional[torch.Tensor], ...]] = None, *,
+    state: Optional[SlstmState] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradient of :func:`slstm_scan` (``csrc/slstm_bwd.cu``): (dxg, dR,
+    dh0, dc0, dn0, dm0) for the forward's inputs, its output ``hs`` and the
+    incoming gradients ``dhs`` of hs and ``dstate`` = (dh, dc, dn, dm) of
+    the final state (None, or None entries, where unused); dxg and dR in
+    their inputs' dtypes, the state's gradients None without ``state``.
+    Every step's pre-activations xg_t + h_{t-1}·R are one product here (the
+    forward's hs gives h_{t-1}), the reverse chain one launch, and
+    dR = Σ_t h_{t-1}ᵀ·dpre_t one product of what it writes. Head dims up to
+    :data:`BWD_MAX_HEAD_DIM`, any S of at least one step. The plain version is
+    :func:`repro_torch.kernels.ref.slstm_scan_bwd_ref`."""
+    if xg.dim() != 3 or r_gates.dim() != 4:
+        raise ValueError(f"slstm_scan_bwd: xg must be (B, S, 4·nh·hd) and r_gates (4, nh, hd, "
+                         f"hd), got {tuple(xg.shape)} and {tuple(r_gates.shape)}")
+    b, s, _ = xg.shape
+    _, nh, hd, _ = r_gates.shape
+    dev = xg.device
+    io = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    check_input("slstm_scan_bwd", xg, "xg", (b, s, 4 * nh * hd), io, dev)
+    check_input("slstm_scan_bwd", r_gates, "r_gates", (4, nh, hd, hd), io, dev)
+    check_input("slstm_scan_bwd", hs, "hs", (b, s, nh, hd), f32, dev)
+    check_input("slstm_scan_bwd", dhs, "dhs", (b, s, nh, hd), f32, dev)
+    shapes = ((b, nh, hd),) * 3 + ((b, nh),)
+    ds = tuple(dstate) if dstate is not None else (None,) * 4
+    for name, t, shape in zip(("dh", "dc", "dn", "dm"), ds, shapes):
+        if t is not None:
+            check_input("slstm_scan_bwd", t, name, shape, f32, dev)
+    if state is not None:
+        for name, t, shape in zip("hcnm", state, shapes):
+            check_input("slstm_scan_bwd", t, name, shape, f32, dev)
+    if not 1 <= hd <= BWD_MAX_HEAD_DIM:
+        raise ValueError(f"slstm_scan_bwd: head dim {hd} outside [1, {BWD_MAX_HEAD_DIM}] "
+                         f"(ROADMAP queue 1, item 21)")
+    f = dict(dtype=torch.float32, device=dev)
+    init = tuple(t.contiguous() for t in state) if state is not None else (None,) * 4
+    ds = tuple(None if t is None else t.contiguous() for t in ds)
+    d0 = tuple(torch.empty(shape, **f) for shape in shapes) if state is not None else (None,) * 4
+    h0 = init[0] if init[0] is not None else torch.zeros((b, nh, hd), **f)
+    hprev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)  # (B, S, nh, hd)
+    rf = r_gates.float()
+    pre = (xg.float().reshape(b, s, 4, nh, hd)
+           + torch.einsum("bshp,ghpr->bsghr", hprev, rf)).contiguous()
+    dpre = torch.empty((b, s, 4, nh, hd), **f)
+    cs = torch.empty((b, nh, s, hd), **f)
+    ns = torch.empty((b, nh, s, hd), **f)
+    gate = torch.empty((b, nh, s, 3), **f)
+    rf, dhs = rf.contiguous(), dhs.contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.library().rt_slstm_scan_bwd(
+        pre.data_ptr(), rf.data_ptr(), *(ptr(t) for t in init), dhs.data_ptr(),
+        *(ptr(t) for t in ds), dpre.data_ptr(), *(ptr(t) for t in d0),
+        cs.data_ptr(), ns.data_ptr(), gate.data_ptr(), b, s, nh, hd, stream_ptr(xg),
+    )
+    build.check(err, "slstm_scan_bwd")
+    build.count_launch("slstm_scan_bwd")
+    dR = torch.einsum("bshp,bsghr->ghpr", hprev, dpre)
+    return (dpre.reshape(b, s, 4 * nh * hd).to(xg.dtype), dR.to(r_gates.dtype)) + d0

@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build
-from ._launch import stream_ptr
+from ._launch import check_input, stream_ptr
 
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 REG_DIM = 128  # chunk, N and P of the SIMT and tensor-core builds' register tiles
@@ -199,3 +199,82 @@ def ssd_scan(
     for _ in range(launches(b, s, nh, bf16)):
         build.count_launch("ssd_scan")
     return y, h
+
+
+BWD_KERNEL = "ssd_bwd_su + ssd_bwd_pass + ssd_bwd_chunk + ssd_bwd_heads + ssd_bwd_da (SIMT f32)"
+BWD_LAUNCHES = 5  # csrc/ssd_bwd.cu: launches of one call, counted as one
+BWD_MAX_CHUNK = 128  # csrc/ssd_bwd.cu: kMaxL
+BWD_MAX_NP = 64  # csrc/ssd_bwd.cu: kMaxNP, the largest N and P
+BWD_ROADMAP = "ROADMAP queue 1, item 21: ssd_scan_bwd above chunk 128 or N, P 64"
+
+
+def ssd_scan_bwd(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    B_ssm: torch.Tensor,
+    C_ssm: torch.Tensor,
+    dy: torch.Tensor,
+    dh: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_scan` (``csrc/ssd_bwd.cu``): (dxh, ddt, da,
+    dB, dC, dh0) for the incoming gradients ``dy`` (B, S, nh, P) of y and
+    ``dh`` (B, nh, N, P) of the final state (None: unused), each in its
+    input's dtype, dh0 None without ``h0``. Recomputes the forward's states
+    from the inputs (no forward variant saves them). Takes chunks up to
+    :data:`BWD_MAX_CHUNK` and N, P up to :data:`BWD_MAX_NP`, any S of at
+    least one position, and raises beyond. One call is :data:`BWD_LAUNCHES` launches, counted once.
+    The plain version is :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`."""
+    if xh.dim() != 4:
+        raise ValueError(f"ssd_scan_bwd: xh must be (B, S, nh, P), got {tuple(xh.shape)}")
+    b, s, nh, p = xh.shape
+    n = B_ssm.shape[-1]
+    dev = xh.device
+    io = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    check_input("ssd_scan_bwd", xh, "xh", (b, s, nh, p), io, dev)
+    check_input("ssd_scan_bwd", dt, "dt", (b, s, nh), f32, dev)
+    check_input("ssd_scan_bwd", a, "a", (nh,), f32, dev)
+    check_input("ssd_scan_bwd", B_ssm, "B", (b, s, n), (xh.dtype,), dev)
+    check_input("ssd_scan_bwd", C_ssm, "C", (b, s, n), (xh.dtype,), dev)
+    check_input("ssd_scan_bwd", dy, "dy", (b, s, nh, p), f32, dev)
+    for name, t in (("dh", dh), ("h0", h0)):
+        if t is not None:
+            check_input("ssd_scan_bwd", t, name, (b, nh, n, p), f32, dev)
+    if not (1 <= chunk <= BWD_MAX_CHUNK and 1 <= n <= BWD_MAX_NP and 1 <= p <= BWD_MAX_NP):
+        raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} outside the kernel's build "
+                         f"({BWD_ROADMAP})")
+    smem = build.library().rt_ssd_bwd_smem(int(chunk), n, p)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} take {smem} bytes of shared "
+                         f"memory, above {MAX_SMEM} ({BWD_ROADMAP})")
+    f = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, s, nh, p), **f)
+    ddt = torch.empty((b, s, nh), **f)
+    da = torch.empty((nh,), **f)
+    dB = torch.empty((b, s, n), **f)
+    dC = torch.empty((b, s, n), **f)
+    dh0 = torch.empty((b, nh, n, p), **f) if h0 is not None else None
+    nc = -(-s // chunk)
+    hs = torch.empty((b, nh, nc, n, p), **f)
+    gs = torch.empty((b, nh, nc, n, p), **f)
+    el = torch.empty((b, nh, nc), **f)
+    dbp = torch.empty((b, nh, s, n), **f)
+    dcp = torch.empty((b, nh, s, n), **f)
+    dap = torch.empty((b, nc, nh), **f)
+    xh, B_ssm, C_ssm, dt, a, dy = (t.contiguous() for t in (xh, B_ssm, C_ssm, dt, a, dy))
+    dh, h0 = (None if t is None else t.contiguous() for t in (dh, h0))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.library().rt_ssd_scan_bwd(
+        xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_ssm.data_ptr(), C_ssm.data_ptr(),
+        dy.data_ptr(), ptr(dh), ptr(h0), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), ptr(dh0), hs.data_ptr(), gs.data_ptr(), el.data_ptr(),
+        dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(),
+        b, s, nh, p, n, int(chunk), int(xh.dtype == torch.bfloat16), stream_ptr(xh),
+    )
+    build.check(err, "ssd_scan_bwd")
+    build.count_launch("ssd_scan_bwd")
+    return dx.to(xh.dtype), ddt, da, dB.to(B_ssm.dtype), dC.to(B_ssm.dtype), dh0

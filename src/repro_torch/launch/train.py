@@ -4,7 +4,10 @@
         --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt --device cpu
 
 On the card (the default ``--device cuda``) the forward and backward run
-through the port's kernels and their backward kernels. Fault tolerance is
+through the port's kernels and their backward kernels: the dense family
+(K1, K4, K5), the hybrid (``--arch zamba2-2.7b``: also K7) and the ssm
+family (``--arch xlstm-1.3b``: the mLSTM and sLSTM scans). A kernel call
+without a backward kernel at its shape raises (ROADMAP queue 1, item 21). Fault tolerance is
 the reference's: an async checkpoint every ``--ckpt-every`` steps; on
 restart the driver restores the latest checkpoint and resumes the data
 stream at the exact batch index, so the loop is crash-idempotent. It

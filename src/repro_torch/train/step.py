@@ -4,8 +4,9 @@ The step is a function ``(state, batch) → (state, metrics)``. The
 reference's is pure and jitted with the state donated; the port's runs
 eagerly and updates the state's tensors in place (``optim.adamw_update``),
 which is what donation buys there. On the card the forward and backward go
-through the kernels' autograd (K1, K4, K5 and their backward kernels), with
-every block recomputed in the backward (``models/transformer.py``: REMAT).
+through the kernels' autograd (K1, K4, K5, K7 and the ssm family's scans,
+each with its backward kernel), with every block recomputed in the backward
+(``models/transformer.py``: REMAT).
 
 Gradient accumulation: ``accum > 1`` loops over microbatches in Python,
 accumulating grads in ``accum_dtype`` (f32 by default), as the reference's

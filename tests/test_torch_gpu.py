@@ -1888,8 +1888,8 @@ def test_cuda_inference_path_launches_what_it_did_without_grad(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["ssd_scan", "mlstm_scan", "slstm_scan", "decode_attention",
-                                    "flash_attention_hd192", "flash_attention_route_a"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "flash_attention_hd192",
+                                    "flash_attention_route_a"])
 def test_cuda_kernels_without_a_backward_raise_under_grad(cuda, kernel):
     from repro_torch.kernels import ops
 
@@ -1899,18 +1899,204 @@ def test_cuda_kernels_without_a_backward_raise_under_grad(cuda, kernel):
         return _randn(g, shape, cuda, dtype).requires_grad_(True)
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if kernel == "ssd_scan":
-            ops.ssd_scan(leaf((1, 16, 2, 8)), torch.rand((1, 16, 2), device=cuda),
-                         -torch.rand((2,), device=cuda), leaf((1, 16, 4)), leaf((1, 16, 4)), chunk=8)
-        elif kernel == "mlstm_scan":
-            x = leaf((1, 8, 1, 16))
-            ops.mlstm_scan(x, x, x, leaf((1, 8, 1)), leaf((1, 8, 1)), chunk=8)
-        elif kernel == "slstm_scan":
-            ops.slstm_scan(leaf((1, 4, 64)), leaf((4, 1, 16, 16)))
-        elif kernel == "decode_attention":
+        if kernel == "decode_attention":
             ops.decode_attention(leaf((1, 1, 2, 64)), leaf((1, 8, 1, 64)), leaf((1, 8, 1, 64)), 4)
         elif kernel == "flash_attention_hd192":
             ops.flash_attention(leaf((1, 8, 2, 192), torch.bfloat16), leaf((1, 8, 1, 192), torch.bfloat16),
                                 leaf((1, 8, 1, 192), torch.bfloat16))
         else:
             ops.flash_attention(leaf((1, 8, 2, 192)), leaf((1, 8, 1, 192)), leaf((1, 8, 1, 128)))
+
+
+# -- training the hybrid and ssm families: the scans' backward kernels -------------------
+# (csrc/ssd_bwd.cu, csrc/mlstm_bwd.cu, csrc/slstm_bwd.cu), each held to its
+# plain version (torch.autograd.grad of the forward's plain version) at
+# BWD_REL: 1e-4 of the largest |value| in f32, 2e-2 in bf16.
+
+
+def _rel_all(got, want, dtype):
+    assert len(got) == len(want)
+    for a, w in zip(got, want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert a.dtype == w.dtype and a.shape == w.shape
+            _assert_rel(a.float(), w.float(), BWD_REL[dtype])
+
+
+def _bitwise(got, again):
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,p,n,chunk,with_state", [
+    (1, 512, 8, 64, 64, 128, False),   # zamba2-2.7b's head and state widths, 8 of its 80 heads
+    (1, 333, 4, 64, 64, 128, True),    # a ragged last chunk, from a state, d h_final
+    (2, 37, 3, 32, 16, 8, False),      # zamba2 SMOKE's widths
+    (1, 40, 2, 5, 3, 16, True),
+])
+def test_cuda_ssd_scan_bwd(cuda, dtype, b, s, nh, p, n, chunk, with_state):
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(s + p)
+    xh = _randn(g, (b, s, nh, p), cuda, dtype)
+    dt = (0.05 + 0.45 * torch.rand((b, s, nh), generator=g)).to(cuda)
+    a = (-0.2 - torch.rand((nh,), generator=g)).to(cuda)
+    bm, cm = _randn(g, (b, s, n), cuda, dtype), _randn(g, (b, s, n), cuda, dtype)
+    dy = _randn(g, (b, s, nh, p), cuda, torch.float32)
+    h0 = _randn(g, (b, nh, n, p), cuda, torch.float32) if with_state else None
+    dh = _randn(g, (b, nh, n, p), cuda, torch.float32) if with_state else None
+    reset_launch_counts()
+    got = ssd.ssd_scan_bwd(xh, dt, a, bm, cm, dy, dh, chunk=chunk, h0=h0)
+    assert launch_counts()["ssd_scan_bwd"] == 1
+    _rel_all(got, ref.ssd_scan_bwd_ref(xh, dt, a, bm, cm, dy, dh, chunk, h0), dtype)
+    _bitwise(got, ssd.ssd_scan_bwd(xh, dt, a, bm, cm, dy, dh, chunk=chunk, h0=h0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,p,chunk,with_state", [
+    (1, 256, 2, 1024, 64, False),  # xlstm-1.3b's head width, 2 of its 4 heads
+    (1, 130, 2, 64, 64, True),     # a ragged last chunk, from a state, the final state's grads
+    (2, 37, 4, 32, 8, False),      # xlstm SMOKE's widths
+    (1, 50, 2, 40, 16, True),      # P no multiple of the 64-column tiles
+])
+def test_cuda_mlstm_scan_bwd(cuda, dtype, b, s, nh, p, chunk, with_state):
+    from repro_torch.kernels import mlstm
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(s + p)
+    q, k, v, ig, fg, state = _mlstm_case(g, b, s, nh, p, cuda, dtype, with_state)
+    fg = fg + 3.0  # forget gates biased open (see test_cuda_scans_refuse_shapes_they_do_not_take)
+    y, _ = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk, state=state)
+    dy = _randn(g, (b, s, nh, p), cuda, torch.float32)
+    dfinal = None
+    if with_state:
+        dfinal = (_randn(g, (b, nh, p, p), cuda, torch.float32), _randn(g, (b, nh, p), cuda, torch.float32),
+                  _randn(g, (b, nh), cuda, torch.float32))
+    reset_launch_counts()
+    got = mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dy, dfinal, chunk=chunk, state=state)
+    assert launch_counts()["mlstm_scan_bwd"] == 1
+    _rel_all(got, ref.mlstm_scan_bwd_ref(q, k, v, ig, fg, dy, dfinal, chunk, state), dtype)
+    _bitwise(got, mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dy, dfinal, chunk=chunk, state=state))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,hd,with_state", [
+    (1, 96, 4, 512, False),   # xlstm-1.3b's sLSTM heads, cut in length
+    (2, 19, 4, 16, True),     # xlstm SMOKE's widths, from a state, the final state's grads
+    (1, 9, 1, 700, False),    # two columns a thread
+])
+def test_cuda_slstm_scan_bwd(cuda, dtype, b, s, nh, hd, with_state):
+    from repro_torch.kernels import slstm
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(s + hd)
+    xg = _randn(g, (b, s, 4 * nh * hd), cuda, dtype)
+    r = (torch.randn((4, nh, hd, hd), generator=g) * hd ** -0.5).to(cuda, dtype)
+    state = dfinal = None
+    if with_state:
+        state = (_randn(g, (b, nh, hd), cuda, torch.float32), _randn(g, (b, nh, hd), cuda, torch.float32),
+                 torch.rand((b, nh, hd), generator=g).to(cuda) + 0.5, _randn(g, (b, nh), cuda, torch.float32))
+        dfinal = tuple(_randn(g, x.shape, cuda, torch.float32) for x in state)
+    hs, _ = slstm.slstm_scan(xg, r, state=state)
+    dhs = _randn(g, (b, s, nh, hd), cuda, torch.float32)
+    reset_launch_counts()
+    got = slstm.slstm_scan_bwd(xg, r, hs, dhs, dfinal, state=state)
+    assert launch_counts()["slstm_scan_bwd"] == 1
+    _rel_all(got, ref.slstm_scan_bwd_ref(xg, r, dhs, dfinal, state), dtype)
+    _bitwise(got, slstm.slstm_scan_bwd(xg, r, hs, dhs, dfinal, state=state))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ssd_chunk", "ssd_state", "mlstm_chunk", "slstm_hd"])
+def test_cuda_scan_bwd_refuses_shapes_outside_its_build(cuda, case):
+    from repro_torch.kernels import mlstm, slstm
+
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="ROADMAP"):
+        if case == "ssd_chunk":
+            ssd.ssd_scan_bwd(z(1, 300, 2, 64), z(1, 300, 2), z(2), z(1, 300, 64), z(1, 300, 64),
+                             z(1, 300, 2, 64), chunk=256)
+        elif case == "ssd_state":
+            ssd.ssd_scan_bwd(z(1, 40, 2, 64), z(1, 40, 2), z(2), z(1, 40, 128), z(1, 40, 128),
+                             z(1, 40, 2, 64), chunk=8)
+        elif case == "mlstm_chunk":
+            x = z(1, 200, 1, 32)
+            mlstm.mlstm_scan_bwd(x, x, x, z(1, 200, 1), z(1, 200, 1), x, x, chunk=128)
+        else:
+            slstm.slstm_scan_bwd(z(1, 3, 4 * 1040), z(4, 1, 1040, 1040), z(1, 3, 1, 1040),
+                                 z(1, 3, 1, 1040))
+
+
+@pytest.mark.gpu
+def test_cuda_scans_under_grad_launch_their_backward_kernels(cuda):
+    # a CUDA call that needs a gradient goes through kernels/autograd.py:
+    # the forward kernel, then the backward kernel, each counted once
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(3)
+
+    def leaf(shape):
+        return _randn(g, shape, cuda, torch.float32).requires_grad_(True)
+
+    reset_launch_counts()
+    xh, bm, cm = leaf((1, 16, 2, 8)), leaf((1, 16, 4)), leaf((1, 16, 4))
+    dt = torch.rand((1, 16, 2), device=cuda).requires_grad_(True)
+    a = (-torch.rand((2,), device=cuda)).requires_grad_(True)
+    y, _ = ops.ssd_scan(xh, dt, a, bm, cm, chunk=8)
+    q, ig = leaf((1, 8, 1, 16)), leaf((1, 8, 1))
+    ym, _ = ops.mlstm_scan(q, q, q, ig, ig + 3.0, chunk=8)
+    xg, r = leaf((1, 4, 64)), leaf((4, 1, 16, 16))
+    hs, _ = ops.slstm_scan(xg, r)
+    grads = torch.autograd.grad(y.sum() + ym.sum() + hs.sum(), (xh, dt, a, bm, cm, q, ig, xg, r))
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    counts = launch_counts()
+    for name in ("ssd_scan_bwd", "mlstm_scan", "mlstm_scan_bwd", "slstm_scan", "slstm_scan_bwd"):
+        assert counts[name] == 1, name
+    assert counts["ssd_scan"] == ssd.launches(1, 16, 2, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_cuda_hybrid_and_ssm_training_steps_match_cpu(cuda, arch):
+    # a 2-layer f32 cut (xlstm: one mLSTM and one sLSTM block) on the card
+    # and on the CPU from one state: the step-0 loss and gradients (each leaf
+    # within BWD_REL of its largest |value|), then the parameters after two
+    # steps within rtol 1e-4, atol 1e-4 (a tenth of a step's largest move at
+    # lr 1e-3: AdamW's m / sqrt(v) magnifies a last-bit difference of a
+    # gradient near 0, as tests/test_torch_train.py says)
+    from repro_torch import configs
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train import AdamWConfig, make_train_step, train_state_init
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = configs.get_smoke_config(arch).replace(n_layers=2)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    states = {"cpu": train_state_init(cfg, opt, torch.Generator().manual_seed(0))}
+    states["cuda"] = tree_map(lambda t: t.to(cuda), states["cpu"])
+    toks = torch.randint(0, cfg.vocab_size, (2, 27), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, opt)
+    reset_launch_counts()
+    grads = {dev: loss_and_grads(st["params"], cfg, batch["tokens"].to(dev), batch["labels"].to(dev))
+             for dev, st in states.items()}
+    assert abs(float(grads["cuda"][0]) - float(grads["cpu"][0])) <= 1e-5 * abs(float(grads["cpu"][0]))
+    for a, w in zip(grads["cuda"][1], grads["cpu"][1]):
+        _assert_rel(a.cpu(), w, BWD_REL[torch.float32])
+    losses = {}
+    for dev, st in states.items():
+        for _ in range(2):
+            st, m = step(st, {k: x.to(dev) for k, x in batch.items()})
+        states[dev], losses[dev] = st, float(m["loss"])
+    counts = launch_counts()
+    scans = ("ssd_scan", "ssd_scan_bwd", "flash_attention", "flash_attention_bwd") if cfg.ssm else (
+        "mlstm_scan", "mlstm_scan_bwd", "slstm_scan", "slstm_scan_bwd")
+    for name in ("rmsnorm", "rmsnorm_bwd") + scans:
+        assert counts[name] > 0, name
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for a, w in zip(_leaves(states["cuda"]["params"]), _leaves(states["cpu"]["params"])):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -189,8 +189,8 @@ def test_build_is_lazy_and_keyed_by_source():
     names = [p.rsplit("/", 1)[-1] for p in build.sources()]
     assert names == [
         "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fused.cu",
-        "kalman.cu", "mlstm.cu", "mlstm_general.cu", "rmsnorm.cu", "rmsnorm_bwd.cu", "slstm.cu",
-        "ssd.cu",
+        "kalman.cu", "mlstm.cu", "mlstm_bwd.cu", "mlstm_general.cu", "rmsnorm.cu", "rmsnorm_bwd.cu",
+        "slstm.cu", "slstm_bwd.cu", "ssd.cu", "ssd_bwd.cu",
     ]
     assert len(build._digest()) == 16
 
