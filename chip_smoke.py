@@ -52,8 +52,9 @@ Phases, each fatal on failure:
      xlstm-1.3b's q/k/v (1, 2048, 4, 1024), chunk 64 (and S 2039),
      slstm_scan_bwd at its xg (1, 2048, 8192), R (4, 4, 512, 512) (and S
      1000), each within BWD_REL of its plain version and bitwise on a
-     repeat, beside its bound and the plain version's µs (no library call
-     computes them);
+     repeat, naming its route and launch plan (the mLSTM's six launches,
+     the sLSTM's cluster, tensor or streaming), beside its bound and the
+     plain version's µs (no library call computes them);
      K2/K3 must be bitwise equal to the eager op-by-op path and the kalman
      scan to its plain version (from p0 = 1 and from the gain's fixed
      point); device time per launch (CUDA-graph replay between CUDA
@@ -1487,9 +1488,11 @@ def backward_kernel_phase(dev, gen):
 # The scans' backward kernels at the training path's shapes (a 2048-token
 # step of zamba2-2.7b and of xlstm-1.3b) and at a second S, f32 and bf16,
 # each held to its plain version (torch.autograd.grad of the forward's plain
-# version) at BWD_REL and bitwise on a repeat. Their bounds count the
-# algorithm's f32 FMAs at the inputs' type's rate (the kernels run SIMT f32
-# FMAs: PERF.md §6) and each input read and output written once.
+# version) at BWD_REL and bitwise on a repeat, each line naming its route
+# and launch plan. Their bounds count the algorithm's MACs at the inputs'
+# type's rate (bf16: the tensor cores', which the mLSTM's state products and
+# the sLSTM's tensor route use; ssd_scan_bwd runs SIMT f32 FMAs: PERF.md §6)
+# and each input read and output written once.
 SSD_BWD_SHAPE = (1, SERVE_PROMPT, 80, 64, 64, 128)  # b, S, heads, P, N, chunk
 SSD_BWD_RAGGED = 1109
 SLSTM_BWD_SHORT = 1000
@@ -1524,10 +1527,13 @@ def mlstm_bwd_bound(b, s, nh, p, chunk, el, ops_rate):
 def slstm_bwd_bound(b, s, nh, hd, el, ops_rate):
     """(ms, by) of one slstm_scan_bwd call: xg and R in ``el`` bytes, hs and
     dhs in f32 read; dxg and dR in ``el`` bytes written. Per step and head
-    4 hd^2 MACs three times: the pre-activations h_{t-1} R, the chain's
-    dpre R^T, and dR's h_{t-1}^T dpre."""
+    2 hd^2 + 2 hd MACs three times: the pre-activations h_{t-1} R (z and o;
+    i and f enter only as head means, h . rowmean(R)), the chain's dpre R^T
+    (dpre_i and dpre_f are one scalar a gate: R_i, R_f as row sums), and
+    dR's h_{t-1}^T dpre (its i and f gates rank one a step); the plain
+    version forms 4 hd^2 three times."""
     io = 8 * b * s * nh * hd * el + 8 * nh * hd * hd * el + 2 * b * s * nh * hd * 4
-    return bound_ms(io, 2 * 3 * 4 * b * s * nh * hd * hd, ops_rate)
+    return bound_ms(io, 2 * 3 * (2 * hd * hd + 2 * hd) * b * s * nh, ops_rate)
 
 
 def scan_backward_checks(dev, gen):
@@ -1616,10 +1622,11 @@ def scan_backward_checks(dev, gen):
         plain_ms = call_ms(plain, iters=2, warmup=1)
         ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         bnd, by = mlstm_bwd_bound(b, seq, nh, p, chunk, q.element_size(), ops_rate)
+        plan = mlstm.bwd_launch_plan(b, seq, nh, p, chunk, dtype)
         log(f"{label}: max|err| {err:.3g} over dq, dk, dv, di, df (each within {BWD_REL[dname]} of "
-            f"its largest |value|), a repeat bitwise equal; kernel {mlstm.BWD_KERNEL}, "
-            f"{mlstm.BWD_LAUNCHES} launches per call; {ms * 1e3:.1f} us per call on the device, bound "
-            f"{bnd * 1e3:.1f} us ({by}), plain {plain_ms * 1e3:.1f} us, library: none")
+            f"its largest |value|), a repeat bitwise equal; kernel {mlstm.BWD_KERNEL}, {plan}; "
+            f"{ms * 1e3:.1f} us per call on the device, bound {bnd * 1e3:.1f} us ({by}), plain "
+            f"{plain_ms * 1e3:.1f} us, library: none")
         if dname == "bfloat16" and seq == s:
             rows.append(dict(
                 name="mlstm_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/mlstm_bwd.cu",
@@ -1627,7 +1634,7 @@ def scan_backward_checks(dev, gen):
                          "mlstm_chunked, jnp, not a Pallas kernel); the reference trains through "
                          "jax.grad",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                call_ms=call_ms(fn, iters=2, warmup=1)))
+                call_ms=call_ms(fn, iters=2, warmup=1), plan=plan))
         del q, k, v, ig, fg, y, dy
         torch.cuda.empty_cache()
 
@@ -1645,11 +1652,11 @@ def scan_backward_checks(dev, gen):
         ms = device_ms(fn, per_graph=1, reps=3)
         ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         bnd, by = slstm_bwd_bound(b, seq, nh, hd, xg.element_size(), ops_rate)
+        plan = slstm.bwd_launch_plan(hd, dtype)
         log(f"{label}: max|err| {err:.3g} over dxg, dR (each within {BWD_REL[dname]} of its largest "
-            f"|value|), a repeat bitwise equal; kernel {slstm.BWD_KERNEL}, 1 launch per call (and "
-            f"the two products around it); {ms * 1e3:.1f} us per call on the device "
-            f"({ms * 1e3 / seq:.2f} us a step), bound {bnd * 1e3:.1f} us ({by}), plain "
-            f"{plain_ms * 1e3:.1f} us, library: none")
+            f"|value|), a repeat bitwise equal; kernel {slstm.BWD_KERNEL}, {plan} (and the two "
+            f"products around it); {ms * 1e3:.1f} us per call on the device ({ms * 1e3 / seq:.2f} us a "
+            f"step), bound {bnd * 1e3:.1f} us ({by}), plain {plain_ms * 1e3:.1f} us, library: none")
         if dname == "bfloat16" and seq == s:
             rows.append(dict(
                 name="slstm_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/slstm_bwd.cu",
@@ -1657,7 +1664,7 @@ def scan_backward_checks(dev, gen):
                          "of _slstm_cell, not a Pallas kernel); the reference trains through "
                          "jax.grad",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                call_ms=call_ms(fn, iters=2, warmup=1)))
+                call_ms=call_ms(fn, iters=2, warmup=1), plan=plan, us_a_step=ms * 1e3 / seq))
         del xg, r, hs, dhs
         torch.cuda.empty_cache()
     return rows

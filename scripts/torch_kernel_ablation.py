@@ -34,9 +34,10 @@ Run from the root of a checkout on a machine with a CUDA card:
     64), N 64, chunk 128), ``mlstm_scan_bwd`` (q/k/v (1, 2048, 4, 1024),
     chunk 64) and ``slstm_scan_bwd`` (xg (1, 2048, 8192), R (4, 4, 512,
     512)) at xlstm-1.3b's: device µs per call and of each launch (the
-    sLSTM's two products around its kernel included); ``ssd_scan_bwd`` also
-    with 20 calls a graph and 21 replays, beside ``device_ms``'s 1 call and
-    5 replays for a call over 1 ms.
+    sLSTM's two products around its kernel included, and its kernel alone
+    with µs a step), the mLSTM's and sLSTM's launch plans;
+    ``ssd_scan_bwd`` also with 20 calls a graph and 21 replays, beside
+    ``device_ms``'s 1 call and 5 replays for a call over 1 ms.
 
 ``--only ssm`` (or ``k7``, ``kalman``, ``bwd``, ``scan_bwd``) runs one part; ``--src
 <checkout>/src`` times another checkout's port with this script (compare
@@ -184,6 +185,9 @@ def scan_backward_kernels(dev, gen) -> dict:
         dym = torch.randn((b, s, nh, p), generator=gen).to(dev)
         cases.append((f"mlstm_scan_bwd (1,{s},{nh},{p}) chunk {chunk} {tag}",
                       lambda: mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dym, chunk=chunk), 1))
+        plans = {}  # another checkout's port may predate the backward plans
+        if hasattr(mlstm, "bwd_launch_plan"):
+            plans[cases[-1][0]] = mlstm.bwd_launch_plan(b, s, nh, p, chunk, dtype)
         hd = 512
         xg = torch.randn((b, s, 4 * nh * hd), generator=gen).to(dev, dtype)
         r = (torch.randn((4, nh, hd, hd), generator=gen) * hd ** -0.5).to(dev, dtype)
@@ -191,13 +195,24 @@ def scan_backward_kernels(dev, gen) -> dict:
         dhs = torch.randn((b, s, nh, hd), generator=gen).to(dev)
         cases.append((f"slstm_scan_bwd (1,{s},{4 * nh * hd}) R (4,{nh},{hd},{hd}) {tag}",
                       lambda: slstm.slstm_scan_bwd(xg, r, hs, dhs), 1))
+        if hasattr(slstm, "bwd_launch_plan"):
+            plans[cases[-1][0]] = slstm.bwd_launch_plan(hd, dtype)
         for label, fn, per_graph in cases:
             us = device_ms(fn, per_graph=per_graph, reps=3) * 1e3
             by = kernels_us(fn, calls=2)
             out[label] = {"us": us, "kernels_us": by}
             if label.startswith("ssd_scan_bwd"):
                 out[label]["us_20_calls_21_replays"] = device_ms(fn, per_graph=20, reps=21, adapt=False) * 1e3
-            print(f"{label}: {us:.1f} us per call; by kernel {({k_: round(v_, 1) for k_, v_ in by.items()})}")
+            if label in plans:
+                out[label]["plan"] = plans[label]
+            print(f"{label}: {us:.1f} us per call; by kernel {({k_: round(v_, 1) for k_, v_ in by.items()})}"
+                  + (f"; {plans[label]}" if label in plans else ""))
+            if label.startswith("slstm_scan_bwd"):
+                # the reverse chain's kernel apart from the two products around it
+                chain = sum(v_ for k_, v_ in by.items() if k_.startswith("slstm_bwd"))
+                out[label].update(kernel_us=chain, kernel_us_a_step=chain / s, products_us=sum(by.values()) - chain)
+                print(f"  the kernel {chain:.1f} us ({chain / s:.3f} us a step), the products and "
+                      f"copies around it {sum(by.values()) - chain:.1f} us")
         del xh, dt, a, bm, cm, dy, q, k, v, ig, fg, y, dym, xg, r, hs, dhs, cases
         torch.cuda.empty_cache()
     return out

@@ -105,13 +105,16 @@ _SIGNATURES = {
     ),
     "rt_ssd_bwd_smem": (_I, _I, _I),
     "rt_slstm_scan_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "rt_slstm_bwd_smem": (_I, _I, _I),
+    "rt_slstm_bwd_max_clusters": (_I, _I, _I, _I, _I),
     "rt_mlstm_scan_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "rt_mlstm_bwd_smem": (_I, _I),
 }
 
 KERNELS = (

@@ -26,7 +26,7 @@ The plain version is :func:`repro_torch.kernels.ref.mlstm_scan_ref`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -192,10 +192,64 @@ def _general(q, k, v, ig, fg, init, y, final, chunk: int) -> Tuple[torch.Tensor,
     return y, final
 
 
-BWD_KERNEL = ("mlstm_bwd_gates + nsum + intra + outer + pass + state + final (SIMT f32 FMAs over "
-              "64 x 64 tiles)")
-BWD_LAUNCHES = 7  # csrc/mlstm_bwd.cu: launches of one call, counted as one
-BWD_TILE = 64  # csrc/mlstm_bwd.cu: kT, the longest chunk and the tile of P
+BWD_KERNEL = ("mlstm_bwd_gates + nsum + intra + walk + state (mma.sync bf16, f32 operands as bf16 "
+              "terms) + final")
+BWD_LAUNCHES = 6  # csrc/mlstm_bwd.cu: launches of one call, counted as one
+BWD_TILE = 64  # csrc/mlstm_bwd.cu: kT = kW, the longest chunk, the tile of P and of the states
+BWD_STAGES = 3  # csrc/mlstm_bwd.cu: kStages, the state launch's ring of copies
+
+
+class MlstmBwdPlan(NamedTuple):
+    """The backward's tile plan, a plain function of (P, chunk, dtype):
+    ``pp`` P padded to whole 64-column tiles (the term planes' width);
+    ``terms`` the bf16 terms of an input and of an f32 operand; ``kt``
+    columns of P a step of the state launch takes; ``walk_blocks`` and
+    ``state_blocks`` per (head, batch) at S of ``nc`` chunks;
+    ``intra_smem``, ``walk_smem`` and ``state_smem`` bytes of shared memory
+    a block of launches 3, 4 and 5 takes."""
+
+    pp: int
+    terms: Tuple[int, int]
+    kt: int
+    walk_blocks: int
+    state_blocks: int
+    intra_smem: int
+    walk_smem: int
+    state_smem: int
+
+
+def bwd_plan(p: int, chunk: int, dtype: torch.dtype, nc: int = 1) -> MlstmBwdPlan:
+    """csrc/mlstm_bwd.cu's sizes: the in-chunk launch's f32 tiles and bf16
+    term tiles; 64 x 64 tiles of C and of G (two walks) and a block a
+    thread's worth of n's columns; the state launch a block
+    per 64 columns and chunk, stepping over P by 32 columns (bf16 inputs)
+    or 16 (f32) through a ring of :data:`BWD_STAGES` stages."""
+    if not 1 <= chunk <= BWD_TILE:
+        raise ValueError(f"mlstm_scan_bwd: chunk {chunk} outside [1, {BWD_TILE}] (ROADMAP queue 1, item 21)")
+    t_in, t_op, _ = terms(dtype)
+    kt = 32 if dtype == torch.bfloat16 else 16
+    tw = BWD_TILE + 8  # a staged row of a 64-wide tile, bf16
+    tiles = -(-p // BWD_TILE)
+    stage = (3 * t_in + t_op) * BWD_TILE * (kt + 8) + 2 * t_op * BWD_TILE * (kt + 8) + 2 * t_op * kt * tw
+    tile_f32 = BWD_TILE * (BWD_TILE + 1)  # an f32 tile of launch 3, rows padded by one
+    return MlstmBwdPlan(
+        pp=tiles * BWD_TILE, terms=(t_in, t_op), kt=kt,
+        walk_blocks=2 * tiles * tiles + -(-p // 256), state_blocks=tiles * nc,
+        intra_smem=4 * (3 * tile_f32 + 10 * BWD_TILE)
+        + 2 * BWD_TILE * tw * max(3 * t_in + t_op, 3 * t_op + 2 * t_in),
+        walk_smem=2 * BWD_TILE * tw * (4 * t_op + 2 * t_in) + 4 * 2 * BWD_TILE,
+        state_smem=BWD_STAGES * 2 * stage + 4 * (2 * BWD_TILE + 2 * 4 * BWD_TILE + 256))
+
+
+def bwd_launch_plan(b: int, s: int, nh: int, p: int, chunk: int, dtype: torch.dtype) -> str:
+    """The backward's launch plan in words (the smoke and the kernel ablation log it)."""
+    nc = -(-s // chunk)
+    pl = bwd_plan(p, chunk, dtype, nc)
+    tiles = pl.pp // BWD_TILE
+    return (f"{BWD_LAUNCHES} launches per call: {nc * nh * b} chunk blocks; {pl.walk_blocks * nh * b} walk "
+            f"blocks ({tiles * tiles} tiles of 64 x 64 each for C and G, {pl.walk_blocks - 2 * tiles * tiles} "
+            f"for n); {pl.state_blocks * nh * b} state blocks of 64 columns stepping by {pl.kt}; mma.sync bf16, "
+            f"inputs as {pl.terms[0]} and f32 operands as {pl.terms[1]} bf16 term(s)")
 
 
 def mlstm_scan_bwd(
@@ -216,11 +270,11 @@ def mlstm_scan_bwd(
     and the incoming gradients ``dy`` of y and ``dstate`` = (dC, dn, dm) of
     the final state (None, or None entries, where unused); each in its
     input's dtype, the state's None without ``state``. Recomputes the
-    states before each chunk (P x P floats a chunk, head and batch, twice:
-    C and its gradient). Takes chunks up to :data:`BWD_TILE` (every chunk
-    the forward's tensor route takes), any P and any S of at least one
-    position; raises beyond. One call is
-    :data:`BWD_LAUNCHES` launches, counted once. The plain version is
+    states before each chunk (P x P values a chunk, head and batch, twice:
+    C and its gradient, as bf16 term planes: :func:`bwd_plan`). Takes
+    chunks up to :data:`BWD_TILE` (every chunk the forward's tensor route
+    takes), any P and any S of at least one position; raises beyond. One
+    call is :data:`BWD_LAUNCHES` launches, counted once. The plain version is
     :func:`repro_torch.kernels.ref.mlstm_scan_bwd_ref`."""
     if q.dim() != 4:
         raise ValueError(f"mlstm_scan_bwd: q must be (B, S, nh, P), got {tuple(q.shape)}")
@@ -244,14 +298,12 @@ def mlstm_scan_bwd(
     if state is not None:
         for name, t, shape in zip("Cnm", state, shapes):
             check_input("mlstm_scan_bwd", t, name, shape, f32, dev)
-    if not 1 <= chunk <= BWD_TILE:
-        raise ValueError(f"mlstm_scan_bwd: chunk {chunk} outside [1, {BWD_TILE}] "
-                         f"(ROADMAP queue 1, item 21)")
+    nc, nt = -(-s // chunk), -(-p // BWD_TILE)
+    pl = bwd_plan(p, chunk, q.dtype, nc)  # raises for a chunk outside [1, BWD_TILE]
     f = dict(dtype=torch.float32, device=dev)
     d0 = tuple(torch.empty(shape, **f) for shape in shapes) if state is not None else (None,) * 3
     grads = tuple(torch.empty((b, s, nh, p), **f) for _ in range(3)) + tuple(
         torch.empty((b, s, nh), **f) for _ in range(2))
-    nc, nt = -(-s // chunk), -(-p // BWD_TILE)
     sl = nc * chunk
     pos = torch.empty((b, nh, 4, sl), **f)
     cinf = torch.empty((b, nh, nc, 4), **f)
@@ -259,8 +311,11 @@ def mlstm_scan_bwd(
     nb = torch.empty((b, nh, nc, p), **f)
     pos2 = torch.empty((b, nh, 5, sl), **f)
     dmi = torch.empty((b, nh, nc), **f)
-    cs = torch.empty((b, nh, nc, p, p), **f)
-    gs = torch.empty((b, nh, nc, p, p), **f)
+    t_in, t_op = pl.terms
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    cpl = torch.empty((b, nh, nc, t_op, pl.pp, pl.pp), **bf)  # C before each chunk, as bf16 terms
+    gpl = torch.empty((b, nh, nc, t_op, pl.pp, pl.pp), **bf)  # G after each chunk
+    inpl = torch.empty((b, nh, 3 * t_in + t_op, sl, pl.pp), **bf)  # q, k, v, dy as bf16 terms
     un = torch.empty((b, nh, nc, p), **f)
     part = torch.empty((b, nh, nc, nt, 2, BWD_TILE), **f)
     pdec = torch.empty((b, nh, nc, nt), **f)
@@ -274,7 +329,7 @@ def mlstm_scan_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(), fg.data_ptr(), y.data_ptr(),
         dy.data_ptr(), *(ptr(t) for t in init), *(ptr(t) for t in ds),
         *(t.data_ptr() for t in grads), *(ptr(t) for t in d0),
-        *(t.data_ptr() for t in (pos, cinf, dnb, nb, pos2, dmi, cs, gs, un, part, pdec, cg)),
+        *(t.data_ptr() for t in (pos, cinf, dnb, nb, pos2, dmi, cpl, gpl, inpl, un, part, pdec, cg)),
         b, s, nh, p, int(chunk), int(q.dtype == torch.bfloat16), stream_ptr(q),
     )
     build.check(err, "mlstm_scan_bwd")

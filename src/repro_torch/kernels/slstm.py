@@ -153,8 +153,53 @@ def slstm_scan(
     return hs, final
 
 
-BWD_KERNEL = "slstm_bwd (SIMT f32, a block per (head, batch), f32 R^T streamed from L2 every step)"
-BWD_MAX_HEAD_DIM = 1024  # csrc/slstm_bwd.cu: kThreads * kCols
+BWD_KERNEL = ("slstm_bwd (a cluster per (head, batch), the forward's plan turned around: dpre through "
+              "distributed shared memory; bf16 R_z, R_o in registers as mma.sync fragments, f32 R "
+              "streamed from L2)")
+BWD_MAX_HEAD_DIM = MAX_HEAD_DIM  # csrc/slstm_bwd.cu: kMaxHeadDim
+BWD_SLOTS = MAX_CLUSTER * 256 // 32  # csrc/slstm_bwd.cu: kSlots, the head sums' partials a buffer holds
+BWD_K_GROUPS = THREADS // 32 // 2  # csrc/slstm_bwd.cu: kKGroups, the tensor route's warps over r
+# registers a thread of the tensor route holds R_z's and R_o's rows in: 2
+# gates x 2 pairs of k-steps x 2 k-steps x 4 (csrc/slstm_bwd.cu: af)
+BWD_FRAG_REGS = 2 * 2 * 2 * 4
+
+
+def bwd_smem_bytes(hd: int, cols: int, tensor: bool) -> int:
+    """csrc/slstm_bwd.cu: slstm_bwd_smem_bytes. tensor: dpre's bf16 terms
+    twice (16 bytes a row padded to 32 rows), the head sums' partial slots
+    twice, the 8 warps' row sums over r, the row sums of R_i and R_f;
+    streaming: dpre_z and dpre_o twice in f32, the slots twice, the matvec's
+    rows and the row sums."""
+    hr = -(-hd // 32) * 32
+    if tensor:
+        return 2 * hr * 16 + 4 * (2 * BWD_SLOTS * 2 + BWD_K_GROUPS * 32 + 2 * 32)
+    return 4 * (2 * 2 * hr + 2 * BWD_SLOTS * 2 + 3 * (-(-cols // 32) * 32))
+
+
+def bwd_plan(hd: int, r_dtype: torch.dtype) -> SlstmPlan:
+    """The backward's plan: the forward's (:func:`plan`: its cluster, its
+    columns, a block owning the same rows of R, the tensor route for bf16 R
+    up to hd 512) with the backward kernel's shared memory."""
+    pl = plan(hd, r_dtype)
+    return pl._replace(smem=bwd_smem_bytes(hd, pl.cols, pl.tensor))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_active_clusters(device: int, hd: int, r_bf16: bool) -> int:
+    pl = bwd_plan(hd, torch.bfloat16 if r_bf16 else torch.float32)
+    with torch.cuda.device(device):
+        n = build.library().rt_slstm_bwd_max_clusters(hd, pl.cluster, pl.cols, int(r_bf16), int(pl.tensor))
+    if n < 0:
+        build.check(-n, "slstm_scan_bwd")
+    return n
+
+
+def bwd_launch_plan(hd: int, r_dtype: torch.dtype) -> str:
+    """The backward's launch plan in words (the smoke and the kernel ablation log it)."""
+    pl = bwd_plan(hd, r_dtype)
+    return (f"a cluster of {pl.cluster} blocks x {pl.cols} columns per (head, batch), route "
+            f"{pl.route}, {_bwd_active_clusters(torch.cuda.current_device(), hd, r_dtype == torch.bfloat16)} "
+            f"clusters at once, 1 launch per call")
 
 
 def slstm_scan_bwd(
@@ -168,10 +213,11 @@ def slstm_scan_bwd(
     the final state (None, or None entries, where unused); dxg and dR in
     their inputs' dtypes, the state's gradients None without ``state``.
     Every step's pre-activations xg_t + h_{t-1}·R are one product here (the
-    forward's hs gives h_{t-1}), the reverse chain one launch, and
-    dR = Σ_t h_{t-1}ᵀ·dpre_t one product of what it writes. Head dims up to
-    :data:`BWD_MAX_HEAD_DIM`, any S of at least one step. The plain version is
-    :func:`repro_torch.kernels.ref.slstm_scan_bwd_ref`."""
+    forward's hs gives h_{t-1}; R taken to f32 for it), the reverse chain
+    one launch on :func:`bwd_plan` (R as given: bf16 on the tensor route),
+    and dR = Σ_t h_{t-1}ᵀ·dpre_t one product of what it writes. Head dims up
+    to :data:`BWD_MAX_HEAD_DIM`, any S of at least one step. The plain
+    version is :func:`repro_torch.kernels.ref.slstm_scan_bwd_ref`."""
     if xg.dim() != 3 or r_gates.dim() != 4:
         raise ValueError(f"slstm_scan_bwd: xg must be (B, S, 4·nh·hd) and r_gates (4, nh, hd, "
                          f"hd), got {tuple(xg.shape)} and {tuple(r_gates.shape)}")
@@ -195,25 +241,31 @@ def slstm_scan_bwd(
     if not 1 <= hd <= BWD_MAX_HEAD_DIM:
         raise ValueError(f"slstm_scan_bwd: head dim {hd} outside [1, {BWD_MAX_HEAD_DIM}] "
                          f"(ROADMAP queue 1, item 21)")
+    pl = bwd_plan(hd, r_gates.dtype)
+    r_bf16 = r_gates.dtype == torch.bfloat16
+    if _bwd_active_clusters(dev.index, hd, r_bf16) < 1:
+        raise RuntimeError(f"slstm_scan_bwd: the card cannot place a cluster of {pl.cluster} blocks "
+                           f"of {pl.smem} bytes of shared memory")
     f = dict(dtype=torch.float32, device=dev)
     init = tuple(t.contiguous() for t in state) if state is not None else (None,) * 4
     ds = tuple(None if t is None else t.contiguous() for t in ds)
     d0 = tuple(torch.empty(shape, **f) for shape in shapes) if state is not None else (None,) * 4
     h0 = init[0] if init[0] is not None else torch.zeros((b, nh, hd), **f)
     hprev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)  # (B, S, nh, hd)
-    rf = r_gates.float()
+    r_gates = r_gates.contiguous()
     pre = (xg.float().reshape(b, s, 4, nh, hd)
-           + torch.einsum("bshp,ghpr->bsghr", hprev, rf)).contiguous()
+           + torch.einsum("bshp,ghpr->bsghr", hprev, r_gates.float())).contiguous()
     dpre = torch.empty((b, s, 4, nh, hd), **f)
     cs = torch.empty((b, nh, s, hd), **f)
     ns = torch.empty((b, nh, s, hd), **f)
-    gate = torch.empty((b, nh, s, 3), **f)
-    rf, dhs = rf.contiguous(), dhs.contiguous()
+    gate = torch.empty((b, nh, 3, s), **f)
+    dhs = dhs.contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.library().rt_slstm_scan_bwd(
-        pre.data_ptr(), rf.data_ptr(), *(ptr(t) for t in init), dhs.data_ptr(),
+        pre.data_ptr(), r_gates.data_ptr(), *(ptr(t) for t in init[1:]), dhs.data_ptr(),
         *(ptr(t) for t in ds), dpre.data_ptr(), *(ptr(t) for t in d0),
-        cs.data_ptr(), ns.data_ptr(), gate.data_ptr(), b, s, nh, hd, stream_ptr(xg),
+        cs.data_ptr(), ns.data_ptr(), gate.data_ptr(), b, s, nh, hd, pl.cluster, pl.cols,
+        int(pl.tensor), int(r_bf16), stream_ptr(xg),
     )
     build.check(err, "slstm_scan_bwd")
     build.count_launch("slstm_scan_bwd")

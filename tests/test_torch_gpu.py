@@ -1709,8 +1709,20 @@ def test_cuda_scan_plans_match_the_sources(cuda):
         for dtype in (torch.float32, torch.bfloat16):
             tp = mlstm.rows_per_block(p, dtype)
             assert lib.rt_mlstm_scan_smem(p, tp, int(dtype == torch.bfloat16)) == mlstm.carry_smem(p, tp, dtype)
-    # xlstm-1.3b's sLSTM: 16-block clusters, all 4 heads of a prefill at once
+    for hd in (16, 40, 200, 512, 700, 1040, 2048, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            pl = slstm.bwd_plan(hd, dtype)
+            assert lib.rt_slstm_bwd_smem(hd, pl.cols, int(pl.tensor)) == pl.smem
+    for p in (8, 40, 1024, 3200):
+        for dtype in (torch.float32, torch.bfloat16):
+            pl = mlstm.bwd_plan(p, 64, dtype)
+            assert lib.rt_mlstm_bwd_smem(int(dtype == torch.bfloat16), 0) == pl.walk_smem
+            assert lib.rt_mlstm_bwd_smem(int(dtype == torch.bfloat16), 1) == pl.state_smem
+            assert lib.rt_mlstm_bwd_smem(int(dtype == torch.bfloat16), 2) == pl.intra_smem
+    # xlstm-1.3b's sLSTM: 16-block clusters, all 4 heads of a prefill at once, both ways
     assert slstm.max_active_clusters(512, torch.bfloat16, torch.bfloat16) >= 4
+    for dtype in (torch.float32, torch.bfloat16):
+        assert slstm._bwd_active_clusters(cuda.index or 0, 512, dtype == torch.bfloat16) >= 4
     out = slstm.chain_floor(1, 100, 4, 512, torch.bfloat16, cuda)
     torch.cuda.synchronize()
     assert out.shape == (1, 64, 32) and bool(torch.isfinite(out).all())
@@ -1960,6 +1972,7 @@ def test_cuda_ssd_scan_bwd(cuda, dtype, b, s, nh, p, n, chunk, with_state):
     (1, 130, 2, 64, 64, True),     # a ragged last chunk, from a state, the final state's grads
     (2, 37, 4, 32, 8, False),      # xlstm SMOKE's widths
     (1, 50, 2, 40, 16, True),      # P no multiple of the 64-column tiles
+    (1, 100, 1, 3200, 64, False),  # the forward's general route, 50 tiles of the states a side
 ])
 def test_cuda_mlstm_scan_bwd(cuda, dtype, b, s, nh, p, chunk, with_state):
     from repro_torch.kernels import mlstm
@@ -1984,9 +1997,12 @@ def test_cuda_mlstm_scan_bwd(cuda, dtype, b, s, nh, p, chunk, with_state):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,nh,hd,with_state", [
-    (1, 96, 4, 512, False),   # xlstm-1.3b's sLSTM heads, cut in length
+    (1, 96, 4, 512, False),   # xlstm-1.3b's sLSTM heads, cut in length (bf16: the tensor route)
     (2, 19, 4, 16, True),     # xlstm SMOKE's widths, from a state, the final state's grads
-    (1, 9, 1, 700, False),    # two columns a thread
+    (1, 40, 2, 200, False),   # a cluster of 7 blocks of 29 columns, the last 26
+    (1, 9, 1, 700, False),    # streaming in bf16 too (hd above 512), 44 columns a block
+    (1, 24, 1, 1040, False),  # 65 columns a block: 3 warps of column threads
+    (1, 12, 1, 2048, False),  # 128 columns a block
 ])
 def test_cuda_slstm_scan_bwd(cuda, dtype, b, s, nh, hd, with_state):
     from repro_torch.kernels import slstm
@@ -2026,8 +2042,8 @@ def test_cuda_scan_bwd_refuses_shapes_outside_its_build(cuda, case):
             x = z(1, 200, 1, 32)
             mlstm.mlstm_scan_bwd(x, x, x, z(1, 200, 1), z(1, 200, 1), x, x, chunk=128)
         else:
-            slstm.slstm_scan_bwd(z(1, 3, 4 * 1040), z(4, 1, 1040, 1040), z(1, 3, 1, 1040),
-                                 z(1, 3, 1, 1040))
+            slstm.slstm_scan_bwd(z(1, 3, 4 * 4097), z(4, 1, 4097, 4097), z(1, 3, 1, 4097),
+                                 z(1, 3, 1, 4097))
 
 
 @pytest.mark.gpu

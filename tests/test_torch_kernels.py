@@ -329,3 +329,58 @@ def test_mlstm_plan():
     assert mlstm.rows_per_block(2816, torch.bfloat16) == 16
     with pytest.raises(ValueError, match="do not fit"):
         mlstm.rows_per_block(2880, torch.bfloat16)
+
+
+# -- the scans' backward plans (csrc/slstm_bwd.cu, csrc/mlstm_bwd.cu) -------------------------
+
+
+@pytest.mark.parametrize("hd,dtype,want", [
+    (512, torch.bfloat16, (16, 32, True, 19712)),   # xlstm-1.3b: R_z, R_o in registers
+    (512, torch.float32, (16, 32, False, 10624)),   # R in f32: streamed from L2
+    (4096, torch.float32, (16, 256, False, 70656)),
+    (200, torch.bfloat16, (7, 29, True, 19712 - 2 * 512 * 16 + 2 * 224 * 16)),
+])
+def test_slstm_bwd_plan(hd, dtype, want):
+    pl = slstm.bwd_plan(hd, dtype)
+    assert (pl.cluster, pl.cols, pl.tensor, pl.smem) == want
+
+
+def test_slstm_bwd_plan_covers_every_column_and_fits_a_block():
+    # the forward's clusters and columns; the tensor route exactly for bf16 R
+    # up to hd 512; shared memory within a block's 227 KB and R's fragments
+    # within half the 128 registers a thread of a 512-thread block has
+    assert slstm.BWD_FRAG_REGS <= 128 // 2
+    for hd in range(1, slstm.BWD_MAX_HEAD_DIM + 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            pl = slstm.bwd_plan(hd, dtype)
+            assert 1 <= pl.cluster <= slstm.MAX_CLUSTER and 1 <= pl.cols <= 256
+            assert (pl.cluster - 1) * pl.cols < hd <= pl.cluster * pl.cols
+            assert pl.tensor == (dtype == torch.bfloat16 and hd <= 512)
+            assert not pl.tensor or pl.cols <= 32
+            assert pl.smem <= mlstm.MAX_SMEM
+    with pytest.raises(ValueError, match="head dim"):
+        slstm.bwd_plan(slstm.BWD_MAX_HEAD_DIM + 1, torch.bfloat16)
+
+
+def test_mlstm_bwd_plan_covers_every_p_and_chunk():
+    # P padded to whole 64-column tiles (the term planes), a whole number of
+    # the state launch's steps, every block within 227 KB, any chunk to 64
+    for p in range(1, 4097):
+        for dtype in (torch.bfloat16, torch.float32):
+            pl = mlstm.bwd_plan(p, 64, dtype)
+            assert pl.pp % mlstm.BWD_TILE == 0 and p <= pl.pp < p + mlstm.BWD_TILE
+            assert pl.pp % pl.kt == 0
+            assert max(pl.intra_smem, pl.walk_smem, pl.state_smem) <= mlstm.MAX_SMEM
+    for chunk in range(1, mlstm.BWD_TILE + 1):
+        assert mlstm.bwd_plan(1024, chunk, torch.bfloat16).pp == 1024
+    for chunk in (0, mlstm.BWD_TILE + 1):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            mlstm.bwd_plan(1024, chunk, torch.bfloat16)
+    pl = mlstm.bwd_plan(1024, 64, torch.bfloat16, nc=32)
+    assert pl == (1024, (1, 2), 32, 516, 512, 126208, 92672, 197120)
+    assert mlstm.bwd_plan(1024, 64, torch.float32)[1:3] == ((3, 3), 16)
+    assert mlstm.bwd_plan(1024, 64, torch.float32)[5:] == (190720, 166400, 210944)
+    assert mlstm.bwd_launch_plan(1, 2048, 4, 1024, 64, torch.bfloat16) == (
+        "6 launches per call: 128 chunk blocks; 2064 walk blocks (256 tiles of 64 x 64 each for C and "
+        "G, 4 for n); 2048 state blocks of 64 columns stepping by 32; mma.sync bf16, inputs as 1 and "
+        "f32 operands as 2 bf16 term(s)")
