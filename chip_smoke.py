@@ -308,6 +308,8 @@ def device_ms(fn, per_graph: int = 20, reps: int = 21, adapt: bool = True) -> fl
     takes more than a millisecond (timed on its last warm-up) gets at most
     enough calls a graph for about 5 ms and 5 replays: its median needs no
     more, and the smoke's time limit does."""
+    import gc
+
     import torch
 
     side = torch.cuda.Stream()
@@ -325,9 +327,17 @@ def device_ms(fn, per_graph: int = 20, reps: int = 21, adapt: bool = True) -> fl
         per_graph, reps = min(per_graph, max(1, int(5.0 / one))), min(reps, 5)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
+    # the collector off during the capture: a CUDA graph in a reference cycle
+    # destroyed inside it invalidates it (runtime/graphs.py:collector_held)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(per_graph):
+                fn()
+    finally:
+        if collecting:
+            gc.enable()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -1490,9 +1500,9 @@ def backward_kernel_phase(dev, gen):
 # each held to its plain version (torch.autograd.grad of the forward's plain
 # version) at BWD_REL and bitwise on a repeat, each line naming its route
 # and launch plan. Their bounds count the algorithm's MACs at the inputs'
-# type's rate (bf16: the tensor cores', which the mLSTM's state products and
-# the sLSTM's tensor route use; ssd_scan_bwd runs SIMT f32 FMAs: PERF.md §6)
-# and each input read and output written once.
+# type's rate (bf16: the tensor cores', which ssd_scan_bwd's bf16 build, the
+# mLSTM's state products and the sLSTM's tensor route use; their f32 builds
+# run SIMT f32 FMAs: PERF.md §6) and each input read and output written once.
 SSD_BWD_SHAPE = (1, SERVE_PROMPT, 80, 64, 64, 128)  # b, S, heads, P, N, chunk
 SSD_BWD_RAGGED = 1109
 SLSTM_BWD_SHORT = 1000
@@ -1505,11 +1515,14 @@ def chunk_lengths(s, chunk):
 def ssd_bwd_bound(b, s, nh, p, n, chunk, el, ops_rate):
     """(ms, by) of one ssd_scan_bwd call: xh, B, C in ``el`` bytes, dt, a and
     dy in f32 read; dxh, dB, dC in ``el`` bytes, ddt and da in f32 written.
-    Per (batch, head, chunk of l): 6 l N P MACs for the state terms (the
-    chunk's own state, G's input, G^T B, C H, G x, H dy) and l(l+1)/2 (3N + 2P)
-    for the in-chunk ones (C.B, dy.x, W^T dy, dS B, dS^T C)."""
+    The head-summed algebra's MACs (csrc/ssd_bwd.cu's header): per (batch,
+    head, chunk of l) 5 l N P for the state terms (the chunk's own state,
+    G's input, G^T B, G x, H dy) and l(l+1)/2 2P for dy.x and W^T dy; per
+    (batch, chunk) l(l+1)/2 3N for C.B, D B and D^T C, which B and C being
+    shared by the heads leaves once."""
     io = 2 * b * s * nh * p * el + b * s * nh * p * 4 + 2 * b * s * nh * 4 + 2 * nh * 4 + 4 * b * s * n * el
-    macs = b * nh * sum(6 * l * n * p + l * (l + 1) // 2 * (3 * n + 2 * p) for l in chunk_lengths(s, chunk))
+    macs = sum(b * nh * (5 * l * n * p + l * (l + 1) * p) + b * l * (l + 1) // 2 * 3 * n
+               for l in chunk_lengths(s, chunk))
     return bound_ms(io, 2 * macs, ops_rate)
 
 
@@ -1591,10 +1604,12 @@ def scan_backward_checks(dev, gen):
         plain_ms = call_ms(plain, iters=2, warmup=1)  # a first call's set-up would count
         ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         bnd, by = ssd_bwd_bound(b, seq, nh, p, n, chunk, xh.element_size(), ops_rate)
+        slots = ssd._bwd_slots(dev, chunk, n, p) if ssd.bwd_route(dtype) == "mma" else 0
+        plan = ssd.bwd_launch_plan(b, seq, nh, chunk, n, p, dtype, slots)
         log(f"{label}: max|err| {err:.3g} over dxh, ddt, da, dB, dC (each within {BWD_REL[dname]} of "
-            f"its largest |value|), a repeat bitwise equal; kernel {ssd.BWD_KERNEL}, "
-            f"{ssd.BWD_LAUNCHES} launches per call; {ms * 1e3:.1f} us per call on the device, bound "
-            f"{bnd * 1e3:.1f} us ({by}), plain {plain_ms * 1e3:.1f} us, library: none")
+            f"its largest |value|), a repeat bitwise equal; kernel {ssd.BWD_KERNEL[dtype]}, {plan}; "
+            f"{ms * 1e3:.1f} us per call on the device, bound {bnd * 1e3:.1f} us ({by}), plain "
+            f"{plain_ms * 1e3:.1f} us, library: none")
         if dname == "bfloat16" and seq == s:
             rows.append(dict(
                 name="ssd_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
@@ -1602,7 +1617,7 @@ def scan_backward_checks(dev, gen):
                          "ssd_chunked, src/repro/models/ssm.py:61); the reference trains through "
                          "jax.grad of its lax.scan",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                call_ms=call_ms(fn, iters=3, warmup=1)))
+                call_ms=call_ms(fn, iters=3, warmup=1), plan=plan))
         del xh, dt, a, bm, cm, dy
         torch.cuda.empty_cache()
 
@@ -4012,6 +4027,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -4056,6 +4072,7 @@ def main() -> int:
         k["launches"] = sum(counts[k["name"]] for counts in runs.values())
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was launched on no counted path")
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,10 @@ Run from the root of a checkout on a machine with a CUDA card:
     ``ssd_scan_bwd`` at zamba2-2.7b's 2048-token step (xh (1, 2048, 80,
     64), N 64, chunk 128), ``mlstm_scan_bwd`` (q/k/v (1, 2048, 4, 1024),
     chunk 64) and ``slstm_scan_bwd`` (xg (1, 2048, 8192), R (4, 4, 512,
-    512)) at xlstm-1.3b's: device µs per call and of each launch (the
+    512)) at xlstm-1.3b's: device µs per call and of each launch
+    (``ssd_scan_bwd``'s bf16 build: states, passes, chunk terms, sums; the
     sLSTM's two products around its kernel included, and its kernel alone
-    with µs a step), the mLSTM's and sLSTM's launch plans;
+    with µs a step), the three scans' launch plans;
     ``ssd_scan_bwd`` also with 20 calls a graph and 21 replays, beside
     ``device_ms``'s 1 call and 5 replays for a call over 1 ms.
 
@@ -177,6 +178,10 @@ def scan_backward_kernels(dev, gen) -> dict:
         dy = torch.randn((b, s, nh, p), generator=gen).to(dev)
         cases = [(f"ssd_scan_bwd (1,{s},{nh},{p}) N {n} chunk {chunk} {tag}",
                   lambda chunk=chunk: ssd.ssd_scan_bwd(xh, dt, a, bm, cm, dy, chunk=chunk), 3)]
+        plans = {}  # another checkout's port may predate the backward plans
+        if hasattr(ssd, "bwd_launch_plan"):
+            slots = ssd._bwd_slots(dev, chunk, n, p) if ssd.bwd_route(dtype) == "mma" else 0
+            plans[cases[-1][0]] = ssd.bwd_launch_plan(b, s, nh, chunk, n, p, dtype, slots)
         nh, p, chunk = 4, 1024, 64
         q, k, v = (torch.randn((b, s, nh, p), generator=gen).to(dev, dtype) for _ in range(3))
         ig = torch.randn((b, s, nh), generator=gen).to(dev)
@@ -185,7 +190,6 @@ def scan_backward_kernels(dev, gen) -> dict:
         dym = torch.randn((b, s, nh, p), generator=gen).to(dev)
         cases.append((f"mlstm_scan_bwd (1,{s},{nh},{p}) chunk {chunk} {tag}",
                       lambda: mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dym, chunk=chunk), 1))
-        plans = {}  # another checkout's port may predate the backward plans
         if hasattr(mlstm, "bwd_launch_plan"):
             plans[cases[-1][0]] = mlstm.bwd_launch_plan(b, s, nh, p, chunk, dtype)
         hd = 512

@@ -56,7 +56,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of strides
 # C entry points of csrc/*.cu: name -> argument types (each returns a cudaError_t,
-# the *_smem entries a byte count, rt_ssd_blocks_per_sm a count of blocks,
+# the *_smem entries a byte count, rt_ssd_blocks_per_sm and
+# rt_ssd_bwd_blocks_per_sm a count of blocks,
 # rt_slstm_max_clusters a count of clusters or minus a cudaError_t)
 _SIGNATURES = {
     "rt_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
@@ -104,6 +105,12 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "rt_ssd_bwd_smem": (_I, _I, _I),
+    "rt_ssd_scan_bwd_mma": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I64P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "rt_ssd_bwd_mma_smem": (_I, _I, _I, _I),
+    "rt_ssd_bwd_blocks_per_sm": (_I, _I, _I),
     "rt_slstm_scan_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,

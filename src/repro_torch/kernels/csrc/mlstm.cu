@@ -61,7 +61,10 @@
 //      barriers and a load its products do not hide (on an H100 at 700 W,
 //      about 840 of the call's 944 us at xlstm-1.3b's prefill; the first
 //      two launches 58 and 35).
-// Products are mma.sync m16n8k16 on bf16 with f32 sums. An operand the
+// Products are mma.sync m16n8k16 on bf16 with f32 sums; q.k^T and C q,
+// whose sums run over all of P, take each 16 columns in accumulators of
+// their own and add them in f32 (the tensor cores' sums do not round to
+// nearest, and a chain over P drifts). An operand the
 // kernels compute in f32 (W, C, v to_end) enters as bf16 terms (mma.cuh:
 // splitn): two (2^-16 relative) where the inputs are bf16, which are exact
 // operands; three (about f32's 2^-24) where the inputs are f32, which then
@@ -402,19 +405,23 @@ __global__ void __launch_bounds__(kChunkThreads) mlstm_chunk(MlstmArgs a) {
   for (int t = 0; t < tiles; ++t) {
     const bf16* qs = qbuf(t & 1);
     if (t < nkt) {
-      // S = q k^T, causal pairs of 16 x 16 tiles only
+      // S = q k^T, causal pairs of 16 x 16 tiles only; each 16 columns
+      // summed apart, then added to S in f32 (the tensor cores' f32
+      // sums do not round to nearest: one chain over all of P left y several
+      // times as far from float64 as the plain version, which the backward,
+      // reading y, carried into every gradient but dv)
       const bf16* ks = kbuf(t & 1);
       if (rows) {
 #pragma unroll
-        for (int kb = 0; kb < kT; kb += 16) {
-          uint32_t af[kIn][4];
+        for (int jp = 0; jp < 4; ++jp) {
+          if (jp > warp) break;
 #pragma unroll
-          for (int ti = 0; ti < kIn; ++ti)
-            ldsm4(af[ti], qs + ti * kTerm + (warp * 16 + row_a(lane)) * kS + kb + col_a(lane));
+          for (int kb = 0; kb < kT; kb += 16) {
+            float part[2][4] = {};
+            uint32_t af[kIn][4], bfr[kIn][4];
 #pragma unroll
-          for (int jp = 0; jp < 4; ++jp) {
-            if (jp > warp) break;
-            uint32_t bfr[kIn][4];
+            for (int ti = 0; ti < kIn; ++ti)
+              ldsm4(af[ti], qs + ti * kTerm + (warp * 16 + row_a(lane)) * kS + kb + col_a(lane));
 #pragma unroll
             for (int tj = 0; tj < kIn; ++tj)
               ldsm4(bfr[tj], ks + tj * kTerm + (jp * 16 + row_b(lane)) * kS + kb + col_b(lane));
@@ -423,9 +430,14 @@ __global__ void __launch_bounds__(kChunkThreads) mlstm_chunk(MlstmArgs a) {
 #pragma unroll
               for (int tj = 0; tj < kIn; ++tj) {
                 if (ti + tj >= kOp) continue;
-                mma(acc[2 * jp], af[ti], bfr[tj][0], bfr[tj][1]);
-                mma(acc[2 * jp + 1], af[ti], bfr[tj][2], bfr[tj][3]);
+                mma(part[0], af[ti], bfr[tj][0], bfr[tj][1]);
+                mma(part[1], af[ti], bfr[tj][2], bfr[tj][3]);
               }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[2 * jp][e] += part[0][e];
+              acc[2 * jp + 1][e] += part[1][e];
+            }
           }
         }
       }
@@ -740,10 +752,12 @@ __global__ void __launch_bounds__(kCarryThreads, 1) mlstm_carry(MlstmArgs a) {
         for (int w = 0; w < kOp; ++w) *reinterpret_cast<uint32_t*>(chs + (w * TP + pr) * kS + cc) = t[w];
       }
       __syncthreads();
-      // (C q)_i over the tile's columns: A = q (rows i), B = C's terms (rows p)
+      // (C q)_i over the tile's columns: A = q (rows i), B = C's terms (rows p),
+      // summed apart and added to (C q)_i in f32 (as S in mlstm_chunk)
       if (warp < cq_units && mq * 16 < lp) {
 #pragma unroll
         for (int kb = 0; kb < kT; kb += 16) {
+          float part[2][4] = {};
           uint32_t af[kIn][4], bfr[kOp][4];
 #pragma unroll
           for (int ti = 0; ti < kIn; ++ti)
@@ -756,9 +770,14 @@ __global__ void __launch_bounds__(kCarryThreads, 1) mlstm_carry(MlstmArgs a) {
 #pragma unroll
             for (int tc = 0; tc < kOp; ++tc) {
               if (ti + tc >= kOp) continue;
-              mma(cq[0], af[ti], bfr[tc][0], bfr[tc][1]);
-              mma(cq[1], af[ti], bfr[tc][2], bfr[tc][3]);
+              mma(part[0], af[ti], bfr[tc][0], bfr[tc][1]);
+              mma(part[1], af[ti], bfr[tc][2], bfr[tc][3]);
             }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            cq[0][e] += part[0][e];
+            cq[1][e] += part[1][e];
+          }
         }
       }
       // C <- decay C + (v to_end)^T k over the tile's columns: A = v to_end's

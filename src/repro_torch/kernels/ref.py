@@ -457,6 +457,50 @@ def mlstm_scan_bwd_ref(
     return _grads_of(fn, (q, k, v, i_gate, f_gate) + st, (dy,) + ds)
 
 
+def mlstm_steps_ref(q, k, v, i_gate, f_gate, C, n, m):
+    """The mLSTM cell step by step (the reference module's equations, as its
+    ``mlstm_decode`` takes them) from the state (C, n, m): (y, C, n, m)."""
+    scale = q.shape[-1] ** -0.5
+    ys = []
+    for t in range(q.shape[1]):
+        logf = torch.nn.functional.logsigmoid(f_gate[:, t])
+        m_new = torch.maximum(logf + m, i_gate[:, t])
+        i_p, f_p = torch.exp(i_gate[:, t] - m_new), torch.exp(logf + m - m_new)
+        C = f_p[..., None, None] * C + i_p[..., None, None] * torch.einsum("bhp,bhr->bhpr", v[:, t], k[:, t])
+        n = f_p[..., None] * n + i_p[..., None] * k[:, t]
+        num = torch.einsum("bhpr,bhr->bhp", C, q[:, t] * scale)
+        den = torch.einsum("bhp,bhp->bh", n, q[:, t] * scale).abs()
+        ys.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
+        m = m_new
+    return torch.stack(ys, dim=1), C, n, m
+
+
+def mlstm_recurrence_bwd_f64(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
+    f_gate: torch.Tensor, dy: torch.Tensor, segment: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dĩ, df̃) in float64 from the zero state: autograd of the
+    cell's recurrence step by step, not chunked, every input taken to
+    float64. The yardstick ``mlstm_scan_bwd``'s kernel and
+    :func:`mlstm_scan_bwd_ref` are both held to. Only the states at every
+    ``segment``-th step are kept for the backward (the steps between are
+    run again), so (1, 2048, 4, 1024) fits a card."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, nh, p = q.shape
+    with torch.enable_grad():
+        leaves = [x.detach().double().requires_grad_(True) for x in (q, k, v, i_gate, f_gate)]
+        C = torch.zeros((b, nh, p, p), dtype=torch.float64, device=q.device)
+        n = torch.zeros((b, nh, p), dtype=torch.float64, device=q.device)
+        m = torch.full((b, nh), NEG_INF, dtype=torch.float64, device=q.device)
+        ys = []
+        for t0 in range(0, s, segment):
+            piece = [x[:, t0:t0 + segment] for x in leaves]
+            y, C, n, m = checkpoint(mlstm_steps_ref, *piece, C, n, m, use_reentrant=False)
+            ys.append(y)
+        return torch.autograd.grad(torch.cat(ys, dim=1), leaves, dy.double())
+
+
 def slstm_scan_bwd_ref(
     xg: torch.Tensor, r_gates: torch.Tensor, dhs: torch.Tensor,
     dstate: Optional[Sequence[Optional[torch.Tensor]]] = None,

@@ -28,7 +28,7 @@ Pallas kernel ``repro/kernels/ssd.py:ssd_scan``. The plain version is
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -201,11 +201,112 @@ def ssd_scan(
     return y, h
 
 
-BWD_KERNEL = "ssd_bwd_su + ssd_bwd_pass + ssd_bwd_chunk + ssd_bwd_heads + ssd_bwd_da (SIMT f32)"
-BWD_LAUNCHES = 5  # csrc/ssd_bwd.cu: launches of one call, counted as one
+# the backward build each input dtype runs (see bwd_route); a call is one count
+BWD_KERNEL = {torch.float32: "ssd_bwd_su + ssd_bwd_pass + ssd_bwd_chunk + ssd_bwd_heads + ssd_bwd_da (SIMT f32)",
+              torch.bfloat16: "ssd_bwd_states + ssd_bwd_passes + ssd_bwd_chunk_mma + ssd_bwd_sums (mma.sync bf16)"}
+BWD_LAUNCHES = {torch.float32: 5, torch.bfloat16: 4}  # csrc/ssd_bwd.cu: launches of one call, counted as one
 BWD_MAX_CHUNK = 128  # csrc/ssd_bwd.cu: kMaxL
 BWD_MAX_NP = 64  # csrc/ssd_bwd.cu: kMaxNP, the largest N and P
 BWD_ROADMAP = "ROADMAP queue 1, item 21: ssd_scan_bwd above chunk 128 or N, P 64"
+BWD_VECS = 11  # csrc/ssd_bwd.cu: kVecs, launch C's per-position f32 vectors
+# the bf16 build's scratch, in the order rt_ssd_scan_bwd_mma takes its offsets
+BWD_WORK = ("su", "el", "dyp", "ghp", "dbp", "dcp", "dap")
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward build a call runs: ``"mma"`` for bf16 inputs (the
+    training path's), ``"simt"`` for f32 (the checks and the f32 cuts)."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def _up16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def bwd_smem(chunk: int, n: int, p: int) -> Tuple[int, int]:
+    """Bytes of shared memory a block of the bf16 build's launch A (the
+    chunk states) and C (the chunk terms) takes: ``BwdLayout`` of
+    ``csrc/ssd_bwd.cu``, the chunk, N and P padded to 16, bf16 rows 8
+    elements past that, C.B^T and D^T as their causal 16 x 16 tiles."""
+    lp, np_, pp = _up16(chunk), _up16(n), _up16(p)
+    nb = lp // 16
+    bc, x, gh = 2 * lp * (np_ + 8), 2 * lp * (pp + 8), 2 * np_ * (pp + 8)
+    tiles, vec = 1024 * nb * (nb + 1) // 2, 4 * lp
+    return 2 * bc + 3 * x + 4 * vec, 2 * bc + 2 * tiles + 3 * x + 4 * gh + BWD_VECS * vec + 4 * nb * lp + 64
+
+
+class SsdBwdPlan(NamedTuple):
+    """The bf16 build's plan for one call: the padded chunk, N and P; the
+    heads a block of launch C takes (:func:`head_group`) and its groups;
+    the blocks of launches A, C and D and the threads of B; the shared
+    memory of a block of A and of C; and the scratch, each buffer's
+    (offset, bytes) in one allocation (256-byte aligned), named by
+    :data:`BWD_WORK`, and its total bytes."""
+
+    lp: int
+    np: int
+    pp: int
+    group: int
+    groups: int
+    state_blocks: int
+    pass_threads: int
+    chunk_blocks: int
+    sum_blocks: int
+    state_smem: int
+    chunk_smem: int
+    work: Tuple[Tuple[int, int], ...]
+    work_bytes: int
+
+
+def bwd_plan(batch: int, s: int, nh: int, chunk: int, n: int, p: int, slots: int) -> SsdBwdPlan:
+    """The bf16 build's plan at (batch, S, heads, chunk, N, P), with
+    ``slots`` blocks of launch C running at once on the card."""
+    if not (1 <= chunk <= BWD_MAX_CHUNK and 1 <= n <= BWD_MAX_NP and 1 <= p <= BWD_MAX_NP):
+        raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} outside the kernel's build "
+                         f"({BWD_ROADMAP})")
+    lp, np_, pp = _up16(chunk), _up16(n), _up16(p)
+    nc = -(-s // chunk)
+    group = head_group(batch, nc, nh, slots)
+    groups = -(-nh // group)
+    slots_ = batch * nc * nh
+    sizes = (4 * slots_ * 2 * np_ * pp, 4 * slots_, 2 * slots_ * 2 * lp * pp, 2 * slots_ * 4 * np_ * pp,
+             4 * batch * groups * s * n, 4 * batch * groups * s * n, 4 * slots_)
+    work, off = [], 0
+    for size in sizes:
+        work.append((off, size))
+        off += -(-size // 256) * 256
+    a_smem, c_smem = bwd_smem(chunk, n, p)
+    return SsdBwdPlan(lp, np_, pp, group, groups, nc * nh * batch, batch * nh * np_ * pp,
+                      nc * groups * batch, -(-batch * s * n // 256) + 1, a_smem, c_smem, tuple(work), off)
+
+
+def bwd_launch_plan(batch: int, s: int, nh: int, chunk: int, n: int, p: int, dtype: torch.dtype,
+                    slots: int) -> str:
+    """A call's launch plan in words (the smoke and the kernel ablation log it)."""
+    nc = -(-s // chunk)
+    if bwd_route(dtype) == "simt":
+        return (f"{BWD_LAUNCHES[dtype]} launches per call: {nc * nh * batch} blocks of the chunk terms "
+                f"(512 threads, one head each); per-head partials of dB and dC; f32 FMAs")
+    pl = bwd_plan(batch, s, nh, chunk, n, p, slots)
+    return (f"{BWD_LAUNCHES[dtype]} launches per call: {pl.state_blocks} state blocks; {pl.pass_threads} "
+            f"pass threads; {pl.chunk_blocks} chunk blocks of {pl.group} heads ({pl.groups} groups, "
+            f"{pl.chunk_smem} bytes of shared memory each); {pl.sum_blocks} sum blocks; mma.sync bf16, "
+            f"inputs as 1 and f32 operands as 2 bf16 terms")
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_slots(device: torch.device, chunk: int, n: int, p: int) -> int:
+    """Blocks of the bf16 build's launch C the card runs at once."""
+    with torch.cuda.device(device):
+        per_sm = build.library().rt_ssd_bwd_blocks_per_sm(chunk, n, p)
+    if per_sm < 1:
+        raise RuntimeError(f"ssd_scan_bwd: no block of the chunk kernel fits an SM of {device}")
+    return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+
+
+def _inner_stride(t: torch.Tensor, name: str) -> None:
+    if t.numel() and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"ssd_scan_bwd: {name} must have inner stride 1, got {tuple(t.stride())}")
 
 
 def ssd_scan_bwd(
@@ -226,8 +327,11 @@ def ssd_scan_bwd(
     input's dtype, dh0 None without ``h0``. Recomputes the forward's states
     from the inputs (no forward variant saves them). Takes chunks up to
     :data:`BWD_MAX_CHUNK` and N, P up to :data:`BWD_MAX_NP`, any S of at
-    least one position, and raises beyond. One call is :data:`BWD_LAUNCHES` launches, counted once.
-    The plain version is :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`."""
+    least one position, and raises beyond. bf16 inputs run the tensor-core
+    build (:func:`bwd_plan`), reading every input through its strides and
+    writing dx, dB and dC in bf16; f32 inputs the SIMT build. One call is
+    :data:`BWD_LAUNCHES` launches, counted once. The plain version is
+    :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`."""
     if xh.dim() != 4:
         raise ValueError(f"ssd_scan_bwd: xh must be (B, S, nh, P), got {tuple(xh.shape)}")
     b, s, nh, p = xh.shape
@@ -247,6 +351,8 @@ def ssd_scan_bwd(
     if not (1 <= chunk <= BWD_MAX_CHUNK and 1 <= n <= BWD_MAX_NP and 1 <= p <= BWD_MAX_NP):
         raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} outside the kernel's build "
                          f"({BWD_ROADMAP})")
+    if bwd_route(xh.dtype) == "mma":
+        return _ssd_scan_bwd_mma(xh, dt, a, B_ssm, C_ssm, dy, dh, int(chunk), h0)
     smem = build.library().rt_ssd_bwd_smem(int(chunk), n, p)
     if smem > MAX_SMEM:
         raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} take {smem} bytes of shared "
@@ -278,3 +384,37 @@ def ssd_scan_bwd(
     build.check(err, "ssd_scan_bwd")
     build.count_launch("ssd_scan_bwd")
     return dx.to(xh.dtype), ddt, da, dB.to(B_ssm.dtype), dC.to(B_ssm.dtype), dh0
+
+
+def _ssd_scan_bwd_mma(xh, dt, a, B_ssm, C_ssm, dy, dh, chunk, h0):
+    """The bf16 build: four launches over one scratch allocation, every
+    input read through its strides, dx, dB and dC written in bf16."""
+    b, s, nh, p = xh.shape
+    n = B_ssm.shape[-1]
+    dev = xh.device
+    for name, t in (("xh", xh), ("B", B_ssm), ("C", C_ssm), ("dy", dy), ("dh", dh), ("h0", h0)):
+        if t is not None:
+            _inner_stride(t, name)
+    pl = bwd_plan(b, s, nh, chunk, n, p, _bwd_slots(dev, chunk, n, p))  # every such shape fits (tests)
+    dx = torch.empty((b, s, nh, p), dtype=xh.dtype, device=dev)
+    ddt = torch.empty((b, s, nh), dtype=torch.float32, device=dev)
+    da = torch.empty((nh,), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, n), dtype=B_ssm.dtype, device=dev)
+    dC = torch.empty((b, s, n), dtype=B_ssm.dtype, device=dev)
+    dh0 = torch.empty((b, nh, n, p), dtype=torch.float32, device=dev) if h0 is not None else None
+    work = torch.empty((pl.work_bytes,), dtype=torch.uint8, device=dev)
+    state = lambda t: (0, 0, 0) if t is None else t.stride()[:3]  # noqa: E731
+    strides = build.strides_arg([
+        *xh.stride()[:3], *dt.stride(), *B_ssm.stride()[:2], *C_ssm.stride()[:2], *dy.stride()[:3],
+        *state(h0), *state(dh), a.stride(0),
+    ])
+    offsets = build.strides_arg([off for off, _ in pl.work])
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.library().rt_ssd_scan_bwd_mma(
+        xh.data_ptr(), dt.data_ptr(), a.data_ptr(), B_ssm.data_ptr(), C_ssm.data_ptr(), dy.data_ptr(),
+        ptr(dh), ptr(h0), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        ptr(dh0), work.data_ptr(), offsets, strides, b, s, nh, p, n, chunk, pl.group, stream_ptr(xh),
+    )
+    build.check(err, "ssd_scan_bwd")
+    build.count_launch("ssd_scan_bwd")
+    return dx, ddt, da, dB, dC, dh0

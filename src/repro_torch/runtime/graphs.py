@@ -42,6 +42,15 @@ Captures use ``capture_error_mode="thread_local"``: the background
 checkpoint writer copies states to the host from another thread, which a
 capture in progress must not fail.
 
+Python's cyclic garbage collector is held off while a capture runs
+(:func:`collector_held`). A ``torch.cuda.CUDAGraph`` left in a reference
+cycle (a dropped system's segments hold theirs in one) is destroyed when
+the collector gets to it, and its destructor's CUDA calls, made inside
+another graph's capture, invalidate that capture: its next launch fails
+with "operation failed due to a previous error during capture", in
+whichever task it happens to be. The collector runs again after the
+capture, outside it.
+
 Each graph gets a cuBLAS workspace of its own. PyTorch keeps one
 workspace per (cuBLAS handle, stream) and allocates it at the first
 product issued on that pair, so every graph captured on the capture
@@ -54,6 +63,9 @@ warm-up or capture issues into the buffer the graph holds.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
@@ -183,7 +195,8 @@ class CapturedStep:
         reserved = torch.cuda.memory_reserved(device)
         failure: Optional[BaseException] = None
         t0 = time.perf_counter()
-        with build.recording_launches() as launches, torch.cuda.stream(self.stream):
+        with collector_held(), build.recording_launches() as launches, \
+                torch.cuda.stream(self.stream):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 new_states, outputs = seg.step_fn(seg.states, seg.active, self.inputs)
@@ -206,6 +219,31 @@ class CapturedStep:
         self.stats.capture_ms.append(ms)
         self.stats.pool_bytes += captured.pool_bytes
         return captured
+
+
+_held_lock = threading.Lock()
+_held = [0, False]  # holds open, and whether the collector was on before the first
+
+
+@contextlib.contextmanager
+def collector_held():
+    """Python's cyclic garbage collector off inside the block, so that no
+    CUDA graph it frees is destroyed inside a capture (see the module's
+    notes). Holds nest and may overlap across threads: the collector is
+    turned back on when the last one ends, if it was on when the first
+    began. An explicit ``gc.collect()`` still runs."""
+    with _held_lock:
+        if _held[0] == 0:
+            _held[1] = gc.isenabled()
+            gc.disable()
+        _held[0] += 1
+    try:
+        yield
+    finally:
+        with _held_lock:
+            _held[0] -= 1
+            if _held[0] == 0 and _held[1]:
+                gc.enable()
 
 
 def _fresh_blas_workspaces(stream: torch.cuda.Stream) -> None:

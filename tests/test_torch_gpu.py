@@ -1011,6 +1011,56 @@ def test_a_failed_capture_names_the_segment_and_the_task(cuda):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+def test_a_cuda_graph_collected_inside_a_capture_does_not_fail_it(cuda):
+    # a CUDA graph destroyed inside another graph's capture invalidates it;
+    # here one turns into cyclic garbage inside a segment's capture, with the
+    # collector set to run at every allocation: the capture holds it off
+    import gc
+
+    system = _stream_system(cuda)
+    system.run(1)  # the eager warm-up: the next step captures
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    spare = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        x = torch.ones(64, device=cuda)
+        spare.capture_begin()
+        y = x * 2
+        spare.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    spare.replay()
+    held = [spare, y]
+    del spare, y
+    seg = next(s for s in system.backend.segments.values()
+               if any(system.backend.task_defs[t].type == "kalman" for t in s.spec.task_ids))
+    tid = next(t for t in seg.spec.task_ids if system.backend.task_defs[t].type == "kalman")
+    op = seg.operators[tid]
+    inner = op.apply
+    dropped = []
+
+    def apply(st, x):
+        if held and torch.cuda.is_current_stream_capturing():
+            cycle = [held.pop(), held.pop()]
+            cycle.append(cycle)
+            del cycle
+            dropped.extend([] for _ in range(64))  # allocations: the collector's turns
+        return inner(st, x)
+
+    op.apply = apply
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        system.step()
+    finally:
+        gc.set_threshold(*threshold)
+        op.apply = inner
+    assert not held and dropped  # the cycle was made inside the capture
+    gc.collect()
+    system.run(1)
+    torch.cuda.synchronize()
+
+
 # -- concurrent stepping: segments of a wave on several streams at once ---------------------
 
 
@@ -1719,6 +1769,9 @@ def test_cuda_scan_plans_match_the_sources(cuda):
             assert lib.rt_mlstm_bwd_smem(int(dtype == torch.bfloat16), 0) == pl.walk_smem
             assert lib.rt_mlstm_bwd_smem(int(dtype == torch.bfloat16), 1) == pl.state_smem
             assert lib.rt_mlstm_bwd_smem(int(dtype == torch.bfloat16), 2) == pl.intra_smem
+    for chunk, n, p in ((128, 64, 64), (16, 3, 5), (8, 16, 32), (100, 40, 64), (128, 1, 1)):
+        assert tuple(lib.rt_ssd_bwd_mma_smem(w, chunk, n, p) for w in (0, 1)) == ssd.bwd_smem(chunk, n, p)
+    assert lib.rt_ssd_bwd_blocks_per_sm(128, 64, 64) >= 1
     # xlstm-1.3b's sLSTM: 16-block clusters, all 4 heads of a prefill at once, both ways
     assert slstm.max_active_clusters(512, torch.bfloat16, torch.bfloat16) >= 4
     for dtype in (torch.float32, torch.bfloat16):
@@ -1941,20 +1994,30 @@ def _bitwise(got, again):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,nh,p,n,chunk,with_state", [
-    (1, 512, 8, 64, 64, 128, False),   # zamba2-2.7b's head and state widths, 8 of its 80 heads
-    (1, 333, 4, 64, 64, 128, True),    # a ragged last chunk, from a state, d h_final
-    (2, 37, 3, 32, 16, 8, False),      # zamba2 SMOKE's widths
-    (1, 40, 2, 5, 3, 16, True),
+@pytest.mark.parametrize("b,s,nh,p,n,chunk,with_state,view", [
+    (1, 512, 8, 64, 64, 128, False, False),   # zamba2-2.7b's head and state widths, 8 of its 80 heads
+    (1, 333, 4, 64, 64, 128, True, False),    # a ragged last chunk, from a state, d h_final
+    (2, 37, 3, 32, 16, 8, False, False),      # zamba2 SMOKE's widths
+    (1, 40, 2, 5, 3, 16, True, False),
+    (1, 2048, 80, 64, 64, 128, False, False),  # zamba2-2.7b's training step: 80 heads, groups of 10
+    (1, 300, 81, 64, 64, 128, False, False),   # a head count the group does not divide
+    (2, 333, 8, 64, 64, 128, True, False),     # batch 2
+    (1, 1109, 80, 64, 64, 128, False, True),   # xh, B and C slices of one conv output, as models/ssm.py
 ])
-def test_cuda_ssd_scan_bwd(cuda, dtype, b, s, nh, p, n, chunk, with_state):
+def test_cuda_ssd_scan_bwd(cuda, dtype, b, s, nh, p, n, chunk, with_state, view):
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
 
     g = torch.Generator().manual_seed(s + p)
-    xh = _randn(g, (b, s, nh, p), cuda, dtype)
+    if view:  # the Mamba block's conv output (B, S, nh P + 2 N), split without a copy
+        xbc = _randn(g, (b, s, nh * p + 2 * n), cuda, dtype)
+        xh = xbc[..., : nh * p].unflatten(-1, (nh, p))
+        bm, cm = xbc[..., nh * p: nh * p + n], xbc[..., nh * p + n:]
+    else:
+        xh = _randn(g, (b, s, nh, p), cuda, dtype)
     dt = (0.05 + 0.45 * torch.rand((b, s, nh), generator=g)).to(cuda)
     a = (-0.2 - torch.rand((nh,), generator=g)).to(cuda)
-    bm, cm = _randn(g, (b, s, n), cuda, dtype), _randn(g, (b, s, n), cuda, dtype)
+    if not view:
+        bm, cm = _randn(g, (b, s, n), cuda, dtype), _randn(g, (b, s, n), cuda, dtype)
     dy = _randn(g, (b, s, nh, p), cuda, torch.float32)
     h0 = _randn(g, (b, nh, n, p), cuda, torch.float32) if with_state else None
     dh = _randn(g, (b, nh, n, p), cuda, torch.float32) if with_state else None
@@ -1992,6 +2055,37 @@ def test_cuda_mlstm_scan_bwd(cuda, dtype, b, s, nh, p, chunk, with_state):
     assert launch_counts()["mlstm_scan_bwd"] == 1
     _rel_all(got, ref.mlstm_scan_bwd_ref(q, k, v, ig, fg, dy, dfinal, chunk, state), dtype)
     _bitwise(got, mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dy, dfinal, chunk=chunk, state=state))
+
+
+# The mLSTM's f32 gradients at xlstm-1.3b's training shape (q/k/v (1, 2048, 4,
+# 1024), chunk 64), the forward kernel's y passed in as training passes it:
+# each gradient's error against float64 autograd of the cell's recurrence
+# (ref.mlstm_recurrence_bwd_f64) within MLSTM_F64_FACTOR of the plain
+# version's own (ref.mlstm_scan_bwd_ref), a share of float64's largest
+# |value| (scripts/torch_mlstm_f64_probe.py prints the table).
+MLSTM_F64_FACTOR = 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_cuda_mlstm_scan_bwd_f32_error_against_float64(cuda, seed):
+    from repro_torch.kernels import mlstm
+
+    g = torch.Generator().manual_seed(seed)
+    b, s, nh, p, chunk = 1, 2048, 4, 1024, 64
+    q, k, v = (torch.randn((b, s, nh, p), generator=g).to(cuda) for _ in range(3))
+    ig = torch.randn((b, s, nh), generator=g).to(cuda)
+    fg = torch.randn((b, s, nh), generator=g).to(cuda) + 3.0
+    dy = torch.randn((b, s, nh, p), generator=g).to(cuda)
+    y, _ = mlstm.mlstm_scan(q, k, v, ig, fg, chunk=chunk)
+    got = mlstm.mlstm_scan_bwd(q, k, v, ig, fg, y, dy, chunk=chunk)[:5]
+    plain = ref.mlstm_scan_bwd_ref(q, k, v, ig, fg, dy, None, chunk)[:5]
+    exact = ref.mlstm_recurrence_bwd_f64(q, k, v, ig, fg, dy)
+    for name, kg, pg, eg in zip(("dq", "dk", "dv", "di", "df"), got, plain, exact):
+        top = float(eg.abs().max())
+        err_k = float((kg.double() - eg).abs().max()) / top
+        err_p = float((pg.double() - eg).abs().max()) / top
+        assert err_k <= MLSTM_F64_FACTOR * err_p, f"{name}: kernel {err_k:.3e} against plain {err_p:.3e}"
 
 
 @pytest.mark.gpu

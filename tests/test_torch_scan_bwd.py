@@ -7,11 +7,14 @@ shapes from numpy draws:
 * K7's against the VJP of ``repro/models/ssm.py:_ssd_chunked_impl``, with
   a ragged S (the port pads the last chunk, the reference shrinks the
   chunk to a divisor of S: the same function) and from a carried state;
+  and, there too, the head-summed algebra ``csrc/ssd_bwd.cu``'s bf16 build
+  runs, written here in float64;
 * the sLSTM's against the VJP of the reference's ``lax.scan`` of
   ``_slstm_cell``, from the zero state and from a carried one;
 * the mLSTM's against the VJP of ``mlstm_chunked`` at one chunk (where the
   reference is exact; ROADMAP queue 3) and, over several chunks, against
-  float64 autograd of the cell's recurrence written here.
+  float64 autograd of the cell's recurrence written here, which
+  ``ref.mlstm_recurrence_bwd_f64`` (the card's float64 yardstick) matches.
 
 Each gradient is held at REL = 1e-4 of its largest |value| (``SSD_REL``'s
 precedent: float32 sums in another order). The CUDA kernels are held to
@@ -71,6 +74,99 @@ def test_ssd_scan_bwd_ref_is_jax_grad_of_the_reference(b, s, nh, p, n, chunk, wi
     want = vjp((jnp.asarray(dy), jnp.asarray(dh) if with_state else jnp.zeros_like(jh)))
     got = ref.ssd_scan_bwd_ref(t(xh), t(dt), t(a), t(B), t(C), t(dy),
                                t(dh) if with_state else None, chunk, t(h0) if with_state else None)
+    assert (got[5] is None) != with_state
+    for gv, wv in zip(got, want):
+        assert_rel(gv, wv)
+
+
+def _ssd_bwd_head_summed(xh, dt, a, B, C, dy, dh, chunk, h0):
+    """csrc/ssd_bwd.cu's bf16 algebra in plain float64 torch: per chunk the
+    states' terms, then D = sum_h dS^h, with dC_i = sum_j D_ij B_j +
+    sum_h e^h_i (H^h dy^h_i) and dB_j = sum_i D_ij C_i + sum_h to^h_j
+    (G^h x^h_j); dcum's carried and state-update terms from the same
+    products (C_i . H dy_i, x_j . G^T B_j), its in-chunk terms the row
+    minus the column sums of (dy.x) W; ddt and da from its reverse cumsum.
+    A ragged last chunk is zero-padded. Returns (dxh, ddt, da, dB, dC, dh0)."""
+    b, s, nh, p = xh.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunked(x):
+        x = torch.nn.functional.pad(x.double(), (0, 0) * (x.dim() - 2) + (0, pad))
+        return x.reshape(b, nc, chunk, *x.shape[2:])
+
+    x, dtc, Bc, Cc, dyc = chunked(xh), chunked(dt), chunked(B), chunked(C), chunked(dy)
+    cum = torch.cumsum(dtc * a.double(), dim=2)                       # (b, nc, L, nh)
+    e, last = torch.exp(cum), cum[:, :, -1:]
+    eto = torch.exp(last - cum)
+    to, el = eto * dtc, torch.exp(last[:, :, 0])                      # el: (b, nc, nh)
+    s_c = torch.einsum("bcjh,bcjn,bcjhp->bchnp", to, Bc, x)
+    u_c = torch.einsum("bcih,bcin,bcihp->bchnp", e, Cc, dyc)
+    Hs, Gs = [None] * nc, [None] * nc
+    hv = torch.zeros((b, nh, n, p), dtype=torch.float64) if h0 is None else h0.double()
+    for c in range(nc):
+        Hs[c] = hv
+        hv = el[:, c, :, None, None] * hv + s_c[:, c]
+    gv = torch.zeros((b, nh, n, p), dtype=torch.float64) if dh is None else dh.double()
+    for c in reversed(range(nc)):
+        Gs[c] = gv
+        gv = el[:, c, :, None, None] * gv + u_c[:, c]
+    H, G = torch.stack(Hs, 1), torch.stack(Gs, 1)                     # (b, nc, nh, n, p)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # (b, nc, i, j, nh)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))[None, None, :, :, None]
+    T = torch.exp(torch.where(causal, diff, torch.tensor(float("-inf"), dtype=torch.float64)))
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]
+    dv = torch.einsum("bcihp,bcjhp->bcijh", dyc, x)
+    W = T * CB * dtc[:, :, None, :, :]
+    dS = dv * T * dtc[:, :, None, :, :]
+    D = dS.sum(-1)                                                    # sum over the heads
+    gB = torch.einsum("bcjn,bchnp->bcjhp", Bc, G)
+    gx = torch.einsum("bchnp,bcjhp->bcjhn", G, x)
+    hd = torch.einsum("bchnp,bcihp->bcihn", H, dyc)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", W, dyc) + to[..., None] * gB
+    dCc = torch.einsum("bcij,bcjn->bcin", D, Bc) + (e[..., None] * hd).sum(3)
+    dBc = torch.einsum("bcij,bcin->bcjn", D, Cc) + (to[..., None] * gx).sum(3)
+    w = (x * gB).sum(-1)                                              # x_j . G^T B_j
+    hy = torch.einsum("bcin,bcihn->bcih", Cc, hd)                    # C_i . H dy_i
+    rv = dv * W
+    dcum = e * hy - to * w + rv.sum(3) - rv.sum(2)
+    dcum[:, :, -1] += (to * w).sum(2) + el * (G * H).sum((-1, -2))
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = eto * w + (dv * T * CB).sum(2) + a.double() * dla
+    da = (dtc * dla).sum((0, 1, 2))
+
+    def trim(x):
+        return x.reshape(b, nc * chunk, *x.shape[3:])[:, :s]
+
+    return trim(dx), trim(ddt), da, trim(dBc), trim(dCc), None if h0 is None else gv
+
+
+@pytest.mark.parametrize("b,s,nh,p,n,chunk,with_state", [
+    (1, 16, 2, 8, 4, 8, False),
+    (2, 13, 2, 8, 4, 4, True),
+    (1, 21, 3, 6, 5, 8, False),
+])
+def test_the_head_summed_decomposition_is_jax_grad_of_the_reference(b, s, nh, p, n, chunk, with_state):
+    # the algebra csrc/ssd_bwd.cu's bf16 build runs (dB and dC's in-chunk
+    # terms summed over the heads before their products), at the shapes above
+    g = np.random.default_rng(s + chunk)
+    xh = g.standard_normal((b, s, nh, p)).astype(np.float32)
+    dt = g.uniform(0.05, 0.5, (b, s, nh)).astype(np.float32)
+    a = -g.uniform(0.2, 1.5, (nh,)).astype(np.float32)
+    B, C = (g.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
+    dy = g.standard_normal((b, s, nh, p)).astype(np.float32)
+    h0 = g.standard_normal((b, nh, n, p)).astype(np.float32) if with_state else None
+    dh = g.standard_normal((b, nh, n, p)).astype(np.float32) if with_state else None
+
+    def fn(*args):
+        return j_ssm._ssd_chunked_impl(*args[:5], chunk, args[5] if with_state else None)
+
+    inputs = (xh, dt, a, B, C) + ((h0,) if with_state else ())
+    (_, jh), vjp = jax.vjp(fn, *map(jnp.asarray, inputs))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh) if with_state else jnp.zeros_like(jh)))
+    got = _ssd_bwd_head_summed(t(xh), t(dt), t(a), t(B), t(C), t(dy), t(dh) if with_state else None,
+                               chunk, t(h0) if with_state else None)
     assert (got[5] is None) != with_state
     for gv, wv in zip(got, want):
         assert_rel(gv, wv)
@@ -175,6 +271,24 @@ def test_mlstm_scan_bwd_ref_over_chunks_is_float64_autograd_of_the_recurrence(s,
     assert sum(x is not None for x in got) == len(want)
     for gv, wv in zip([x for x in got if x is not None], want):
         assert_rel(gv, wv)
+
+
+@pytest.mark.parametrize("s,segment", [(23, 5), (16, 64)])
+def test_mlstm_recurrence_bwd_f64_is_autograd_of_the_recurrence(s, segment):
+    # the float64 yardstick the card's mLSTM gradients are held to
+    # (scripts/torch_mlstm_f64_probe.py): its steps run again a segment at a
+    # time under checkpointing, and give autograd's gradients exactly
+    b, nh, p = 2, 2, 8
+    inputs, dy, _ = _mlstm_inputs(b, s, nh, p, seed=s + segment)
+    state = (torch.zeros((b, nh, p, p)), torch.zeros((b, nh, p)), torch.full((b, nh), -1e30))
+    with torch.enable_grad():
+        leaves = [t(x).double().requires_grad_(True) for x in inputs]
+        y = _recurrence64(*leaves, [x.double() for x in state])
+        want = torch.autograd.grad(y, leaves, t(dy).double())
+    got = ref.mlstm_recurrence_bwd_f64(*map(t, inputs), t(dy), segment=segment)
+    for gv, wv in zip(got, want):
+        assert gv.dtype == torch.float64
+        assert_rel(gv, wv, rel=1e-12)
 
 
 # -- the CPU path never takes the card's autograd ----------------------------------------
