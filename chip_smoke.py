@@ -42,10 +42,14 @@ Phases, each fatal on failure:
      rmsnorm_bwd in K1's and K4's forms at (2048, 2560), (65536, 128),
      (2048, 2048), (2048, 4096) and (2048, 5120) (RMSNORM_BWD_ROWS),
      flash_attention_bwd causal at q (1, 2048, 32, 128) over 8 KV heads,
-     under a window of 512 and without a mask against 1024 keys, and
-     causal at zamba2-2.7b's q and kv (1, 2048, 32, 80), each
-     within BWD_REL of its plain version (autograd of the forward's), beside
-     its bound and the backward of F.rms_norm / F.scaled_dot_product_attention;
+     under a window of 512 and without a mask against 1024 keys, causal
+     at zamba2-2.7b's q and kv (1, 2048, 32, 80), at nemotron-4-340b's
+     layer, q (1, 2048, 96, 192) over 8, and at deepseek-v2's MLA layer,
+     q/k (1, 2048, 128, 192) against v of 128 (their own builds; bf16
+     only, f32 there in tests/test_torch_gpu.py), each
+     within BWD_REL of its plain version (autograd of the forward's) and
+     bitwise on a repeat, naming its route and launch plan, beside its
+     bound and the backward of F.rms_norm / F.scaled_dot_product_attention;
      the scans' backward kernels at the hybrid and ssm families' training
      shapes, f32 and bf16, and at a second S: ssd_scan_bwd at zamba2-2.7b's
      xh (1, 2048, 80, 64), N 64, chunk 128 (and S 1109), mlstm_scan_bwd at
@@ -196,21 +200,27 @@ Phases, each fatal on failure:
      (``repro_torch.train``, TRAINING): qwen3-4b at its published widths
      cut from 36 to 18 layers (TRAIN_LAYERS), zamba2-2.7b (54 Mamba2
      layers, the shared block 9 times) and xlstm-1.3b (42 mLSTM and 6
-     sLSTM blocks) at their published widths and full depth, bf16, batch
-     1 x 2048 tokens, AdamW with f32 moments, 4 steps on one repeated
+     sLSTM blocks) at their published widths and full depth, and
+     deepseek-v2-236b at 2 layers (1 dense + 1 MoE, MLA's q/k head dim
+     192 against v's 128), bf16, batch 1 x 2048 tokens, AdamW with f32
+     moments, 4 steps (deepseek 8: TRAIN_STEPS_OF) on one repeated
      TokenStream batch, with launch counts reset just before and read just
-     after (K1, K4, rmsnorm_bwd, and each model's own: qwen3-4b's and
-     zamba2's K5 and flash_attention_bwd, zamba2's ssd_scan and
-     ssd_scan_bwd, xlstm's mlstm_scan, mlstm_scan_bwd, slstm_scan and
+     after (K1, K4, rmsnorm_bwd, and each model's own: the K5 and
+     flash_attention_bwd of qwen3-4b, zamba2 and deepseek, zamba2's ssd_scan
+     and ssd_scan_bwd, xlstm's mlstm_scan, mlstm_scan_bwd, slstm_scan and
      slstm_scan_bwd, > 0); loss finite and falling, ms a step, peak
-     memory, a step's device split; step 1 run twice from the same state
-     bitwise equal; for qwen3-4b alone, the state saved after step 2
-     (build/train_ckpt), restored, and steps 3-4 bitwise equal to the
-     straight run's; each model's cut run, 2 layers at the published
-     widths in f32, batch 1 x 128, on the card against the CPU (zamba2
-     with its shared block after the second layer, xlstm one mLSTM and one
-     sLSTM block): the step-0 gradients, the losses of TRAIN_CUT_STEPS
-     steps and after them, and each parameter leaf's move;
+     memory, a step's device split (the MoE's expert products apart), the
+     tokens deepseek's MoE layer drops by capacity; step 1 run twice from
+     the same state bitwise equal; for qwen3-4b alone, the state saved
+     after step 2 (build/train_ckpt), restored, and steps 3-4 bitwise
+     equal to the straight run's; each model's cut run, 2 layers at the
+     published widths in f32 (deepseek's dense first layer alone), batch 1
+     x 128, on the card against the CPU (zamba2 with its shared block
+     after the second layer, xlstm one mLSTM and one sLSTM block): the
+     step-0 gradients, the losses of TRAIN_CUT_STEPS steps and after them,
+     and each parameter leaf's move (mixtral-8x22b's, llama-3.2-vision-90b's,
+     seamless-m4t-medium's and a nemotron cut's runs: TRAINING_TESTS,
+     held by tests/test_torch_gpu.py::test_cuda_family_training_runs);
   7. a ``{"kernels": [...]}`` line (launches summed over the counted runs
      of phases 3-6b, the session's, the concurrent ones, the workers' of
      phases 3c and 3e and the in-process runs of 3d and 3g included; each
@@ -1366,11 +1376,13 @@ RMSNORM_BWD_ROWS = (
     ((2048, 4096), "mLSTM out_norm"),
     ((2048, 5120), "Mamba2 out_norm"),
 )
-ATTN_BWD_SHAPES = (
-    ("qwen3-4b causal", 2048, 2048, 32, 8, 128, True, 0),
-    ("window 512", 2048, 2048, 32, 8, 128, True, 512),
-    ("no mask, Sq != Sk", 2048, 1024, 32, 8, 128, False, 0),
-    ("zamba2-2.7b shared attention causal", 2048, 2048, 32, 32, 80, True, 0),
+ATTN_BWD_SHAPES = (  # label, Sq, Sk, q heads, KV heads, q/k head dim, v head dim, causal, window
+    ("qwen3-4b causal", 2048, 2048, 32, 8, 128, 128, True, 0),
+    ("window 512", 2048, 2048, 32, 8, 128, 128, True, 512),
+    ("no mask, Sq != Sk", 2048, 1024, 32, 8, 128, 128, False, 0),
+    ("zamba2-2.7b shared attention causal", 2048, 2048, 32, 32, 80, 80, True, 0),
+    ("nemotron-4-340b causal", 2048, 2048, 96, 8, 192, 192, True, 0),
+    ("deepseek-v2 MLA causal", 2048, 2048, 128, 128, 192, 128, True, 0),
 )
 
 
@@ -1449,9 +1461,13 @@ def backward_kernel_phase(dev, gen):
         dtype = getattr(torch, dname)
         el = torch.finfo(dtype).bits // 8
         ops_rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-        for label, sq, sk, h, kv, hd, causal, window in ATTN_BWD_SHAPES:
-            q, do = (torch.randn((1, sq, h, hd), generator=gen).to(dev, dtype) for _ in range(2))
-            k, v = (torch.randn((1, sk, kv, hd), generator=gen).to(dev, dtype) for _ in range(2))
+        for label, sq, sk, h, kv, hd, hd_v, causal, window in ATTN_BWD_SHAPES:
+            if dtype == torch.float32 and hd > flash_attention.BWD_WIDE:
+                continue  # f32 at 192 (35 ms a call), held by tests/test_torch_gpu.py: the smoke's time
+            q = torch.randn((1, sq, h, hd), generator=gen).to(dev, dtype)
+            do = torch.randn((1, sq, h, hd_v), generator=gen).to(dev, dtype)
+            k = torch.randn((1, sk, kv, hd), generator=gen).to(dev, dtype)
+            v = torch.randn((1, sk, kv, hd_v), generator=gen).to(dev, dtype)
             o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
             fn = lambda: flash_attention.flash_attention_bwd(  # noqa: E731
                 q, k, v, o, lse, do, causal=causal, window=window)
@@ -1475,13 +1491,21 @@ def backward_kernel_phase(dev, gen):
             dol = do.transpose(1, 2)
             lib_ms = call_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol, retain_graph=True),
                              iters=5, warmup=1)
-            pairs = h * visible_keys(sq, sk, causal, window)
-            bnd, by = bound_ms((2 * (2 * sq * h + 2 * sk * kv) * hd) * el + sq * h * 4, 10 * hd * pairs, ops_rate)
-            log(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}) {dname}: max|err| "
-                f"{err:.3g} (within {rel} of the largest |value|); kernel {flash_attention.BWD_KERNELS[dtype]}; "
-                f"{ms * 1e3:.1f} us/call on the device, "
-                f"bound {bnd * 1e3:.1f} us ({by}, {10 * hd * pairs / 1e9:.1f} GFLOP), plain "
-                f"{plain_ms * 1e3:.1f} us, library SDPA backward {lib_ms * 1e3:.1f} us")
+            # a visible pair: s, dk, dq over hd; dO.v and dv over hd_v
+            pairs, pair_ops = h * visible_keys(sq, sk, causal, window), 2 * (3 * hd + 2 * hd_v)
+            io = 2 * (sq * h + sk * kv) * (hd + hd_v) * el + sq * h * 4
+            bnd, by = bound_ms(io, pair_ops * pairs, ops_rate)
+            again = fn()
+            bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+            if not bitwise:
+                raise AssertionError(f"flash_attention_bwd {label} {dname}: a repeat differs")
+            log(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) k (1,{sk},{kv},{hd}) v (1,{sk},{kv},{hd_v}) "
+                f"{dname}: max|err| {err:.3g} (within {rel} of the largest |value|), a repeat bitwise; "
+                f"route {flash_attention.bwd_route(dtype, hd, hd_v)}; plan "
+                f"{flash_attention.bwd_launch_plan(1, sq, sk, h, kv, hd, hd_v, dtype)}; "
+                f"{ms * 1e3:.1f} us/call on the device, bound {bnd * 1e3:.1f} us ({by}, "
+                f"{pair_ops * pairs / 1e9:.1f} GFLOP), plain {plain_ms * 1e3:.1f} us, library SDPA "
+                f"backward {lib_ms * 1e3:.1f} us")
             if dname == "bfloat16" and label == "qwen3-4b causal":
                 rows.append(dict(
                     name="flash_attention_bwd", route="cuda",
@@ -1490,7 +1514,7 @@ def backward_kernel_phase(dev, gen):
                              "the reference trains through jnp",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                     library_ms=lib_ms, call_ms=call_ms(fn, iters=3, warmup=1)))
-            del q, k, v, do, o, lse, got, ol, ql, kl, vl
+            del q, k, v, do, o, lse, got, again, ol, ql, kl, vl
             torch.cuda.empty_cache()
     return rows + scan_backward_checks(dev, gen)
 
@@ -1689,28 +1713,69 @@ def scan_backward_checks(dev, gen):
 #
 # TRAINING's models at their published widths, bf16, batch 1 of 2048 tokens,
 # AdamW with f32 moments as launch/train.py sets them (peak lr 1e-4, no
-# warmup), TRAIN_STEPS steps on one repeated TokenStream batch, each with the
-# launches its steps must make. zamba2-2.7b (54 Mamba2 layers with the shared
-# attention block applied 9 times) and xlstm-1.3b (42 mLSTM and 6 sLSTM
-# blocks) train at full depth. qwen3-4b's depth is cut from 36 to
+# warmup), TRAIN_STEPS steps on one repeated TokenStream batch (the vlm and
+# audio families with launch/train.py's drawn stub memory), each with the
+# launches its steps must make. zamba2-2.7b (54 Mamba2 layers with the
+# shared attention block applied 9 times) and xlstm-1.3b (42 mLSTM and 6
+# sLSTM blocks) train at full depth. qwen3-4b's depth is cut from 36 to
 # TRAIN_LAYERS layers, to keep the smoke within its time limit beside them:
 # its state is about 27 GB on the card (bf16 params and grads, f32 mu and
 # nu) and so is the checkpoint its round trip writes and reads (the whole
 # model's: 53 GB). At 8 layers the 4th step's loss stood above the 1st's: the
 # rise at step 3 of AdamW without warmup had not settled. The checkpoint
-# round trip is qwen3-4b's alone. Each model's cut against the CPU: 2 layers
-# at the published widths (zamba2 with its shared block after the second,
-# shared_attn_every 2; xlstm one mLSTM and one sLSTM block, slstm_every 2).
+# round trip is qwen3-4b's alone. deepseek-v2-236b (MLA's q/k head dim 192
+# against v's 128: flash_attention_bwd's (192, 128) build) trains at 2
+# layers, its first dense (d_ff 12288), its second MoE (160 routed experts
+# top-6, 2 shared): 64 GB of state on the card, the most that fits with the
+# activations, and it reports the tokens its MoE layer drops by capacity.
+# Each model's cut against the CPU: 2 layers at the published widths
+# (zamba2 with its shared block after the second, shared_attn_every 2;
+# xlstm one mLSTM and one sLSTM block, slstm_every 2), deepseek's first
+# (dense) layer alone (22 GB in f32 on the card and as much on the host).
+# The runs of mixtral-8x22b (2 layers; its cut 1 layer in f32, 47 GB on the
+# card and on the host), llama-3.2-vision-90b, seamless-m4t-medium and
+# nemotron-4-340b's cut (TRAINING_TESTS) are held by
+# tests/test_torch_gpu.py::test_cuda_family_training_runs, which calls
+# training_run: with them the smoke would pass its time limit (deepseek's
+# run and cut took 110.4 s, mixtral's run about 50 s and its cut 174 s).
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 4, 1e-4
+# Two layers of a wide model take longer to settle: the 4th step's loss
+# stood above the 1st's for llama-3.2-vision-90b (12.06, 30.42, 18.04,
+# 15.26), deepseek-v2-236b (12.00, 15.24, 18.46, 13.76) and mixtral-8x22b
+# (10.71, 19.29, 13.68, 14.51; AdamW's first steps without warmup move
+# every value by about lr), so they take 8
+TRAIN_STEPS_OF = {"llama-3.2-vision-90b": 8, "deepseek-v2-236b": 8, "mixtral-8x22b": 8}
 TRAIN_LAYERS = 18
-TRAINING = (  # arch, depth (None: the published one), launches, the cut's changes, checkpoint
-    ("qwen3-4b", TRAIN_LAYERS, ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd",
-                                "flash_attention_bwd"), {}, True),
-    ("zamba2-2.7b", None, ("rmsnorm", "rmsnorm_residual", "ssd_scan", "ssd_scan_bwd", "flash_attention",
-                           "flash_attention_bwd", "rmsnorm_bwd"), dict(shared_attn_every=2), False),
-    ("xlstm-1.3b", None, ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "mlstm_scan_bwd", "slstm_scan",
-                          "slstm_scan_bwd", "rmsnorm_bwd"), dict(xlstm=dict(slstm_every=2)), False),
+RMS_FAMILY = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
+LAYERNORM_FAMILY = ("flash_attention", "flash_attention_bwd")  # layernorm runs in plain torch
+# arch, the run's changes to the published configuration, launches, the cut's
+# changes, checkpoint
+TRAINING = (
+    ("qwen3-4b", dict(n_layers=TRAIN_LAYERS), RMS_FAMILY, {}, True),
+    ("zamba2-2.7b", {}, ("rmsnorm", "rmsnorm_residual", "ssd_scan", "ssd_scan_bwd", "flash_attention",
+                         "flash_attention_bwd", "rmsnorm_bwd"), dict(shared_attn_every=2), False),
+    ("xlstm-1.3b", {}, ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "mlstm_scan_bwd", "slstm_scan",
+                        "slstm_scan_bwd", "rmsnorm_bwd"), dict(xlstm=dict(slstm_every=2)), False),
+    ("deepseek-v2-236b", dict(n_layers=2), RMS_FAMILY, dict(n_layers=1), False),
 )
+# The runs tests/test_torch_gpu.py::test_cuda_family_training_runs takes, by
+# name: mixtral-8x22b at 2 layers, its cut 1 layer in f32; llama-3.2-vision-90b
+# at 2 layers with cross_attn_every 2 (a self and a gated cross block over
+# 1024 image tokens: K5 and its backward with no mask and Sq != Sk), its cut
+# the same with the vocabulary cut from 128256 to 16384 (at the published
+# one the two f32 states, card and host, need about 76 GB of the host);
+# seamless-m4t-medium whole (12 encoder and 12 decoder layers, hd 64, over
+# 1024 drawn frames), its cut 2 of each; nemotron-4-340b cut in width as
+# NEMOTRON_CUT (its head dim 192 and group of 12 kept; one layer at the
+# published widths is 155 GB of state), in bf16, its cut the same in f32.
+NEMOTRON_TRAIN = dict(n_layers=2, d_model=2304, n_heads=12, n_kv_heads=1, d_ff=9216, vocab_size=4096)
+TRAINING_TESTS = {
+    "mixtral-8x22b": ("mixtral-8x22b", dict(n_layers=2), RMS_FAMILY, dict(n_layers=1), False),
+    "llama-3.2-vision-90b": ("llama-3.2-vision-90b", dict(n_layers=2, cross_attn_every=2), RMS_FAMILY,
+                             dict(cross_attn_every=2, vocab_size=16384), False),
+    "seamless-m4t-medium": ("seamless-m4t-medium", {}, LAYERNORM_FAMILY, dict(n_encoder_layers=2), False),
+    "nemotron-4-340b cut": ("nemotron-4-340b", NEMOTRON_TRAIN, LAYERNORM_FAMILY, {}, False),
+}
 TRAIN_CKPT_AT = 2  # the straight run saves its state after this step
 TRAIN_CKPT_DIR = os.path.join("build", "train_ckpt")  # .gitignore lists build/
 # The card against the CPU: 2 layers at the published widths, f32, batch 1
@@ -1747,9 +1812,14 @@ def state_digest(state):
     return out
 
 
-# Kernel names of the groups a training step's device time is split into
-# (the first that matches); the rest is AdamW's slices where it ran inside
-# adamw_update, else "the rest".
+# The groups a training step's device time is split into, by kernel name (the
+# first that matches); the rest is AdamW's slices where it ran inside
+# adamw_update, else "the rest". For an MoE model the kernels an operator
+# launched then move from their group to the operator's (MOE_OP_GROUPS: the
+# expert products, torch.bmm in models/mlp.py:_expert_ffn and its backward,
+# which cuBLAS names like any other product; the only bmm of an MoE
+# family's training step, where xlstm's sLSTM einsums run as bmm too).
+MOE_OP_GROUPS = (("MoE expert products", "aten::bmm"),)
 STEP_GROUPS = (
     ("ssd_scan_bwd", ("ssd_bwd",)),
     ("mlstm_scan_bwd", ("mlstm_bwd",)),
@@ -1763,11 +1833,12 @@ STEP_GROUPS = (
 )
 
 
-def step_split(step_fn, state, batch):
+def step_split(step_fn, state, batch, op_groups=()):
     """One training step under torch.profiler: its device time in ms by
-    STEP_GROUPS, the AdamW slices and the rest, and the step's wall ms. The
-    card is synchronized around adamw_update, so the kernels that start
-    inside its range on the trace are its own. Returns (state, split, wall)."""
+    ``op_groups`` (group, operator name), STEP_GROUPS, the AdamW slices and
+    the rest, and the step's wall ms. The card is synchronized around
+    adamw_update, so the kernels that start inside its range on the trace
+    are its own. Returns (state, split, wall)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1795,16 +1866,32 @@ def step_split(step_fn, state, batch):
     events = prof.events()
     marks = [e for e in events if e.name == "train.adamw_update" and e.device_type == DeviceType.CPU]
     lo, hi = (marks[0].time_range.start, marks[0].time_range.end) if marks else (math.inf, math.inf)
-    split = {name: 0.0 for name, _ in STEP_GROUPS}
+    split = {name: 0.0 for name, _ in tuple(op_groups) + STEP_GROUPS}
     split.update({"AdamW slices": 0.0, "the rest": 0.0})
+
+    def group_of(name):
+        low = name.lower()
+        return next((g for g, keys in STEP_GROUPS if any(k in low for k in keys)), None)
+
     for e in events:
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
-        low = e.name.lower()
-        group = next((name for name, keys in STEP_GROUPS if any(k in low for k in keys)), None)
+        group = group_of(e.name)
         if group is None:
             group = "AdamW slices" if lo <= e.time_range.start <= hi else "the rest"
         split[group] += e.time_range.elapsed_us() / 1e3
+    # an operator's kernels are the ones the profiler attached to it or to an
+    # operator it called (FunctionEvent.kernels, durations in µs)
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        op, parent = None, e
+        while parent is not None and op is None:
+            op = next((g for g, name in op_groups if parent.name == name), None)
+            parent = parent.cpu_parent
+        for k in e.kernels if op else ():
+            split[group_of(k.name) or "the rest"] -= k.duration / 1e3
+            split[op] += k.duration / 1e3
     if not sum(split.values()) > 0:
         raise AssertionError("training: the profiled step shows no device time")
     return state, split, wall
@@ -1818,7 +1905,6 @@ def training_cut(dev, cut, opt, words):
 
     import torch
 
-    from repro_torch.data import TokenStream
     from repro_torch.models import forward
     from repro_torch.models.transformer import tree_map
     from repro_torch.train import make_train_step, train_state_init
@@ -1830,14 +1916,16 @@ def training_cut(dev, cut, opt, words):
     card = train_state_init(cut, opt, torch.Generator(device=dev).manual_seed(0))
     cpu = tree_map(lambda t: t.cpu(), card)
     start = [t.clone() for t in tree_leaves(cpu["params"])]
-    raw = TokenStream(cut.vocab_size, TRAIN_CUT_SEQ, 1, seed=1).batch(0)
-    batches = {"cpu": {k: torch.from_numpy(v) for k, v in raw.items()}}
+    batches = {"cpu": train_batch(cut, TRAIN_CUT_SEQ, 1, "cpu")}
     batches["card"] = {k: t.to(dev) for k, t in batches["cpu"].items()}
     grads = {}
     for name, st in (("cpu", cpu), ("card", card)):
-        grads[name] = loss_and_grads(st["params"], cut, batches[name]["tokens"], batches[name]["labels"])
+        b = batches[name]
+        grads[name] = loss_and_grads(st["params"], cut, b["tokens"], b["labels"], b.get("memory"))
     worst = 0.0
     for gc_, gg in zip(grads["card"][1], grads["cpu"][1]):
+        if not gg.numel():  # a stack of no layers (deepseek's MoE stack in a dense-only cut)
+            continue
         worst = max(worst, check_rel(f"training cut {cut.name} step-0 gradient", gc_.cpu(), gg,
                                      TRAIN_GRAD_REL))
     del grads
@@ -1848,21 +1936,24 @@ def training_cut(dev, cut, opt, words):
         cpu, mp = cut_step(cpu, batches["cpu"])
         losses.append((float(mc["loss"]), float(mp["loss"])))
     with torch.no_grad():
-        losses.append(tuple(float(cross_entropy_loss(forward(st["params"], cut, batches[name]["tokens"]),
-                                                     batches[name]["labels"], z_loss_coeff=1e-4)[0])
-                            for name, st in (("card", card), ("cpu", cpu))))
+        losses.append(tuple(float(cross_entropy_loss(
+            forward(st["params"], cut, batches[name]["tokens"], memory=batches[name].get("memory")),
+            batches[name]["labels"], z_loss_coeff=1e-4)[0]) for name, st in (("card", card), ("cpu", cpu))))
     for i, (l_card, l_cpu) in enumerate(losses):
         if not abs(l_card - l_cpu) <= TRAIN_LOSS_REL * abs(l_cpu):
             raise AssertionError(f"training cut {cut.name}: the loss after {i} steps {l_card} on the "
                                  f"card, {l_cpu} on the cpu")
     move, elem = 0.0, 0.0
     for a, b, p0 in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"]), start):
-        diff, step = float((a.cpu() - b).norm()), float((b - p0).norm())
+        if not b.numel():
+            continue
+        d = a.cpu() - b
+        diff, step = float(d.norm()), float((b - p0).norm())
         if not diff <= TRAIN_MOVE_REL * step:
             raise AssertionError(f"training cut {cut.name}: a parameter leaf {tuple(b.shape)} moved "
                                  f"{step:.3g} on the cpu and the card differs by {diff:.3g}")
         move = max(move, diff / step if step else 0.0)
-        elem = max(elem, float((a.cpu() - b).abs().max()))
+        elem = max(elem, float(d.abs().max()))
     lr = opt.peak_lr
     log(f"training cut {cut.name} ({words}, f32, batch 1 x {TRAIN_CUT_SEQ}) card vs cpu: losses at "
         f"steps 0-{TRAIN_CUT_STEPS} {losses} (each within {TRAIN_LOSS_REL} relative), step-0 "
@@ -1875,30 +1966,86 @@ def training_cut(dev, cut, opt, words):
     torch.cuda.empty_cache()
 
 
-def training_run(dev, arch, layers, needed, cut, opt, checkpoint):
-    """``arch`` trained on the card at its published widths, at full depth
-    or cut to ``layers``: launches, the loss finite and falling, ms a step,
-    peak memory, one step's device split, step 1 repeated bitwise; with
+def train_batch(cfg, seq, seed, dev):
+    """One TokenStream batch of 1 x ``seq`` tokens on ``dev``, with
+    launch/train.py's drawn stub memory for the vlm and audio families."""
+    import torch
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import stub_memory
+
+    raw = TokenStream(cfg.vocab_size, seq, 1, seed=seed).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    if cfg.family in ("vlm", "audio"):
+        batch["memory"] = stub_memory(cfg, 1, seed, dev)
+    return batch
+
+
+def moe_drops(cfg, params, batch) -> list:
+    """The (token, expert) choices each MoE layer drops by capacity in one
+    forward of ``batch``, without a gradient."""
+    import torch
+
+    from repro_torch.models import forward, mlp
+
+    dropped = []
+    dispatch = mlp.dispatch
+
+    def counted(c, idx):
+        slot, keep = dispatch(c, idx)
+        dropped.append(int((~keep).sum()))
+        return slot, keep
+
+    mlp.dispatch = counted
+    try:
+        with torch.no_grad():
+            forward(params, cfg, batch["tokens"], memory=batch.get("memory"))
+    finally:
+        mlp.dispatch = dispatch
+    return dropped
+
+
+def training_run(dev, arch, changes, needed, cut, opt, checkpoint):
+    """``arch`` trained on the card, its published configuration with
+    ``changes`` (cut in depth, or in width where named): launches, the loss
+    finite and falling, ms a step, peak memory, one step's device split
+    (and an MoE's dropped tokens), step 1 repeated bitwise; with
     ``checkpoint``, the state saved after TRAIN_CKPT_AT steps, restored, and
     the steps after it bitwise equal to the straight run's; then its cut
-    against the CPU. Returns the launch counts of its TRAIN_STEPS steps."""
+    against the CPU, the run's configuration with ``cut``'s changes in f32
+    (TRAIN_CUT_LAYERS layers unless ``cut`` names them). Returns the launch
+    counts of its steps."""
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    full = configs.get_config(arch)
+    cfg = full.replace(**changes)
+    counts = training_steps(dev, full, cfg, needed, opt, checkpoint)
+    cut = dict(dict(n_layers=TRAIN_CUT_LAYERS), **cut)
+    words = [w for w in cut_words(dict(changes, **cut)) if not w.startswith("n_layers")]
+    training_cut(dev, with_cut(cfg, dict(cut, dtype="float32", param_dtype="float32")), opt,
+                 ", ".join([f"{cut['n_layers']} layer{'s' * (cut['n_layers'] != 1)}"]
+                           + (words or ["at the published widths"])))
+    log(f"training {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def training_steps(dev, full, cfg, needed, opt, checkpoint):
+    """training_run's steps of ``cfg`` in bf16 on the card: TRAIN_STEPS, or
+    TRAIN_STEPS_OF's count for its architecture."""
     import gc
     import shutil
 
     import torch
 
-    from repro_torch import configs
-    from repro_torch.data import TokenStream
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import mlp
     from repro_torch.train import abstract_train_state, make_train_step, train_state_init
     from repro_torch.train import checkpoint as ckpt
 
-    t_phase = time.perf_counter()
-    full = configs.get_config(arch)
-    cfg = full.replace(n_layers=layers or full.n_layers)
+    n_steps = TRAIN_STEPS_OF.get(full.name, TRAIN_STEPS)
     step_fn = make_train_step(cfg, opt)
-    raw = TokenStream(cfg.vocab_size, TRAIN_SEQ, 1, seed=0).batch(0)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    batch = train_batch(cfg, TRAIN_SEQ, 0, dev)
 
     def fresh():
         st = train_state_init(cfg, opt, torch.Generator(device=dev).manual_seed(0))
@@ -1931,16 +2078,19 @@ def training_run(dev, arch, layers, needed, cut, opt, checkpoint):
         t0 = time.perf_counter()
         ckpt.save(TRAIN_CKPT_DIR, TRAIN_CKPT_AT, state)
         save_s = time.perf_counter() - t0
-    state, rest = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
+    state, rest = run(state, n_steps - TRAIN_CKPT_AT)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     digest_end = state_digest(state) if checkpoint else None
     steps += more + rest
     losses = [x[0] for x in steps]
     total, _ = cfg.param_count()
-    depth = (f"depth cut from {full.n_layers} to {cfg.n_layers} layers (the smoke's time)"
+    depth = (f"depth cut from {full.n_layers} to {cfg.n_layers} layers"
              if cfg.n_layers != full.n_layers else f"{cfg.n_layers} layers")
-    log(f"training {cfg.name}: {depth}, at the published widths ({total / 1e9:.3f} B params, "
+    widths = cut_words({f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                        if f.name != "n_layers" and getattr(cfg, f.name) != getattr(full, f.name)})
+    widths = ("at the published widths" if not widths else "cut to " + ", ".join(widths))
+    log(f"training {cfg.name}: {depth}, {widths} ({total / 1e9:.3f} B params, "
         f"{cfg.param_dtype}), batch 1 x {TRAIN_SEQ} tokens, AdamW f32 moments, peak lr {TRAIN_LR}: "
         f"{resident / 2**30:.2f} GiB resident")
     log(f"training {cfg.name} steps (loss, ms, grad norm): "
@@ -1952,9 +2102,14 @@ def training_run(dev, arch, layers, needed, cut, opt, checkpoint):
     for name in needed:
         if counts[name] <= 0:
             raise AssertionError(f"training {cfg.name} launched no {name}: {counts}")
-    log(f"training {cfg.name} launches over the {TRAIN_STEPS} steps: {counts}")
-    state, split, wall = step_split(step_fn, state, batch)
-    log(f"training {cfg.name} step {TRAIN_STEPS + 1} under torch.profiler: device ms by kernel group "
+    log(f"training {cfg.name} launches over the {n_steps} steps: {counts}")
+    if cfg.family == "moe":
+        dropped = moe_drops(cfg, state["params"], batch)
+        log(f"training {cfg.name}: tokens dropped by capacity in a forward of the batch after the "
+            f"{n_steps} steps (C = {mlp.capacity(cfg, TRAIN_SEQ)} slots an expert): {sum(dropped)} of "
+            f"{TRAIN_SEQ * cfg.moe.top_k * len(dropped)} (token, expert) choices, per MoE layer {dropped}")
+    state, split, wall = step_split(step_fn, state, batch, MOE_OP_GROUPS if cfg.family == "moe" else ())
+    log(f"training {cfg.name} step {n_steps + 1} under torch.profiler: device ms by kernel group "
         + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f"; {sum(split.values()):.2f} ms on the device in all, {wall:.1f} ms of wall (traced)")
     del state
@@ -1976,23 +2131,18 @@ def training_run(dev, arch, layers, needed, cut, opt, checkpoint):
         restore_s = time.perf_counter() - t0
         if int(state["step"]) != TRAIN_CKPT_AT:
             raise AssertionError(f"training: restored step {int(state['step'])}, saved {TRAIN_CKPT_AT}")
-        state, resumed = run(state, TRAIN_STEPS - TRAIN_CKPT_AT)
+        state, resumed = run(state, n_steps - TRAIN_CKPT_AT)
         if state_digest(state) != digest_end or [x[0] for x in resumed] != losses[TRAIN_CKPT_AT:]:
             raise AssertionError(f"training {cfg.name}: resuming from the checkpoint differs from the "
                                  "straight run")
         ck_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(TRAIN_CKPT_DIR)
                        for f in fs)
         log(f"training {cfg.name}: checkpoint of step {TRAIN_CKPT_AT} ({ck_bytes / 1e9:.2f} GB) saved in "
-            f"{save_s:.1f} s, restored in {restore_s:.1f} s; steps {TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} "
+            f"{save_s:.1f} s, restored in {restore_s:.1f} s; steps {TRAIN_CKPT_AT + 1}-{n_steps} "
             f"from it bitwise equal to the straight run's (state and losses)")
         del state
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
         free()
-
-    training_cut(dev, with_cut(cfg, dict(n_layers=TRAIN_CUT_LAYERS, dtype="float32",
-                                         param_dtype="float32", **cut)),
-                 opt, ", ".join([f"{TRAIN_CUT_LAYERS} layers at the published widths"] + cut_words(cut)))
-    log(f"training {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2005,8 +2155,8 @@ def training_phase(dev):
     opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0, total_steps=100,
                       mu_dtype="float32", nu_dtype="float32")
     counts = {}
-    for arch, layers, needed, cut, checkpoint in TRAINING:
-        run = training_run(dev, arch, layers, needed, cut, opt, checkpoint)
+    for arch, changes, needed, cut, checkpoint in TRAINING:
+        run = training_run(dev, arch, changes, needed, cut, opt, checkpoint)
         counts = {k: counts.get(k, 0) + v for k, v in run.items()}
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
@@ -3963,8 +4113,7 @@ def reuse_serving_phase(dev):
 # one KV head), 2 layers, d_ff 4 x d_model as configured, a 4096-token
 # vocabulary; layernorm and squared ReLU (plain torch in the port, as in
 # the reference) as configured
-NEMOTRON_CUT = dict(n_layers=2, d_model=2304, n_heads=12, n_kv_heads=1, d_ff=9216,
-                    vocab_size=4096, dtype="float32", param_dtype="float32")
+NEMOTRON_CUT = dict(NEMOTRON_TRAIN, dtype="float32", param_dtype="float32")
 
 
 def nemotron_cut_phase(dev):

@@ -131,16 +131,18 @@ def backward_kernels(dev, gen) -> dict:
 
     out = {}
     bf16 = torch.bfloat16
-    for label, sq, sk, h, kv, hd, causal, window in ATTN_BWD_SHAPES:
-        q, do = (torch.randn((1, sq, h, hd), generator=gen).to(dev, bf16) for _ in range(2))
-        k, v = (torch.randn((1, sk, kv, hd), generator=gen).to(dev, bf16) for _ in range(2))
+    for label, sq, sk, h, kv, hd, hd_v, causal, window in ATTN_BWD_SHAPES:
+        q = torch.randn((1, sq, h, hd), generator=gen).to(dev, bf16)
+        do = torch.randn((1, sq, h, hd_v), generator=gen).to(dev, bf16)
+        k = torch.randn((1, sk, kv, hd), generator=gen).to(dev, bf16)
+        v = torch.randn((1, sk, kv, hd_v), generator=gen).to(dev, bf16)
         o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
         fn = lambda: flash_attention.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, do, causal=causal, window=window)
         us = device_ms(fn, per_graph=3, reps=5) * 1e3
         by = kernels_us(fn, calls=5)
         out[f"flash_attention_bwd {label}"] = {"us": us, "kernels_us": by}
-        print(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}) bf16: {us:.2f} us "
+        print(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}/{hd_v}) bf16: {us:.2f} us "
               f"per call; by kernel {({k_: round(v_, 2) for k_, v_ in by.items()})}")
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()

@@ -67,8 +67,9 @@ _SIGNATURES = {
     "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "rt_flash_attention_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P,
     ),
+    "rt_flash_attention_bwd_smem": (_I, _I, _I, _I),
     "rt_rmsnorm_bwd": (
         _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),

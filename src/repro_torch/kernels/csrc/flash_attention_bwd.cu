@@ -21,7 +21,10 @@
 // products of hd MACs (s, dO.v, dv, dk, dq): 10 hd FLOP, 85.9 GFLOP at
 // qwen3-4b's causal 2048-token layer (32 q heads over 8 of 128), 86.9 us at
 // the card's 989 bf16 TFLOP/s, against about 50 MB read and written. The
-// two passes below form s and dO.v twice, 14 hd FLOP a pair.
+// two passes below form s and dO.v twice, 14 hd FLOP a pair. With v's own
+// head dim hd_v (below): 2 (3 hd + 2 hd_v) FLOP a pair needed, 2 (4 hd + 3
+// hd_v) done; 386.7 GFLOP (391 us) at nemotron-4-340b's layer, 446.9 (452
+// us) at deepseek-v2's MLA layer.
 //
 // Three launches, no atomics, every sum in an order fixed by the shape, so
 // a training step repeats bit for bit:
@@ -89,6 +92,46 @@
 //   a 64 x 64 tile of s as rows ty + 16 u and columns tx + 16 w (u, w < 4).
 //   The tensor cores take f32 only as TF32, which the 1e-4 f32 tolerance
 //   does not admit.
+//
+// Two head dims: HD for q and k, HDV for v, o and dO. s = q.k^T, dk and dq
+// run over HD; dP = dO.v^T, D and dv over HDV. The builds: HD = HDV in 16,
+// 32, 64, 80, 128 and 192 (nemotron-4-340b), and HD 192 with HDV 128
+// (deepseek-v2's MLA: q/k nope 128 + rope 64, v 128), which takes v, o and
+// dO at their own width: padding them to 192 would add half again to the
+// dO.v^T and dv products and to the V-side bytes. The C entry refuses any
+// other pair (the wrapper pads up to one of these first).
+//
+// Head dim 192 (bf16): the design above does not fit. Its dk/dv block
+// would need (2 + 4 x 2) tiles of 64 x 200 bf16, 258 KB of shared memory
+// against a block's 227 KB, and each thread would hold dk and dv as 192
+// f32 registers before any S or dP fragment (255 is the most a thread
+// has). So at HD > 128:
+//   - fa_bwd_dkdv_wide: one set of 8 warps a block; warp w owns the 16 keys
+//     of group w % 4 (as before, so S^T and dP^T rows stay a warp's) and the
+//     dk and dv columns of half w / 4 (HD / 2 and HDV / 2 of them: 48 + 48 or
+//     48 + 32 accumulator registers a thread). A step's S^T and dP^T are formed once:
+//     warp (g, h) takes its keys against q rows [32 h, 32 h + 32), rounds P^T
+//     and dS^T to bf16 as before and writes them to shared memory (16 keys x
+//     64 rows a group, rows of 72 values: ldmatrix's 8 rows on distinct
+//     banks); after a barrier of the pair (g, 0), (g, 1), each warp reads
+//     them back as A fragments over all 64 rows for its columns of dv and
+//     dk. K, V, q and dO twice (double-buffered), the exchange, lse and D:
+//     173056 bytes at (192, 192), 148480 at (192, 128), one block an SM.
+//     The two alternating sets of the design above are dropped (16 warps of
+//     such a block would have 128 registers a thread), so the heaviest key
+//     tile takes all its steps in one set.
+//   - fa_bwd_dq_mma forms S and dP over 32 keys at a time (two halves of a
+//     tile, 32 accumulator registers, not 64; the sums into dq keep the key
+//     order, so the result is the same as over 64) and holds one K/V buffer:
+//     102400 bytes at (192, 192), 86016 at (192, 128), two blocks an SM.
+// mma.sync rather than wgmma for the reason above; a warpgroup's 64 rows
+// would also hold a 64 x 192 accumulator of dk and one of dv. Every sum
+// still runs in an order fixed by the shape, with no atomics.
+//
+// The f32 SIMT build holds q, k, v, dO tiles of 64 x (hd + 1) floats, P and
+// dS: 231424 bytes at (192, 192), 198656 at (192, 128), within the block's
+// 232448. rt_flash_attention_bwd_smem gives every build's bytes a block
+// (kernels/flash_attention.py:bwd_smem is its twin).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -123,7 +166,7 @@ struct BwdArgs {
   int64_t dq_sb, dq_ss, dq_sh;  // dq, like q
   int64_t dk_sb, dk_ss, dk_sh;  // dk, like k
   int64_t dv_sb, dv_ss, dv_sh;  // dv, like v
-  int batch, sq, sk, h, kv, hd;
+  int batch, sq, sk, h, kv, hd, hd_v;  // hd: q and k; hd_v: v, o, dO
   float scale;
   int causal, window;
 };
@@ -148,10 +191,26 @@ template <int HD>
 struct Tc {
   static constexpr int kLd = HD + 8;      // a shared row, in bf16 values
   static constexpr int kTile = kB * kLd;  // a shared tile, in bf16 values
-  // bytes: dq's q and dO, K and V twice; dk/dv's K and V, each set's q and
-  // dO twice, and with each q tile its lse and D
-  static constexpr int kSmemDq = 6 * kTile * 2;
-  static constexpr int kSmemDkdv = (2 + 4 * kSets) * kTile * 2 + 4 * kSets * kB * 4;
+};
+
+constexpr int kXLd = kB + 8;  // a row of the wide dk/dv kernel's P^T and dS^T exchange, in bf16 values
+
+// the bf16 build at (HD, HDV): wide (HD > 128) takes fa_bwd_dkdv_wide and one
+// K/V buffer in the dq pass
+template <int HD, int HDV>
+struct Plan {
+  static_assert(HD > 128 || HD == HDV, "below 192 only q/k and v of one head dim are built");
+  static constexpr bool kWide = HD > 128;
+  static constexpr int kTq = Tc<HD>::kTile, kTv = Tc<HDV>::kTile;
+  static constexpr int kDqBufs = kWide ? 1 : 2;
+  static constexpr int kX = 4 * 16 * kXLd;  // P^T or dS^T of the 4 key groups
+  // bytes: dq's q and dO, K and V once or twice; dk/dv's K and V, then
+  // narrow: each set's q and dO twice and with each q tile its lse and D;
+  // wide: q and dO twice, the exchange, lse and D twice
+  static constexpr int kSmemDq = (kTq + kTv + kDqBufs * (kTq + kTv)) * 2;
+  static constexpr int kSmemDkdv = kWide ? (3 * kTq + 3 * kTv + 2 * kX) * 2 + 4 * kB * 4
+                                         : (2 + 4 * kSets) * kTq * 2 + 4 * kSets * kB * 4;
+  static constexpr int kDkdvThreads = kWide ? 2 * kTcThreads : kSets * kTcThreads;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
@@ -194,24 +253,26 @@ __device__ __forceinline__ void copy_rows(float* ls, float* dd, const BwdArgs& a
   }
 }
 
-// launch 1 (bf16): D_i, 16 threads a row, a 16-byte chunk of o and dO a
-// thread, the xor tree over the 16
-template <int HD>
+// launch 1 (bf16): D_i, 16 threads a row, 16-byte chunks l, l + 16, ... of
+// o and dO a thread (one at HDV up to 128), the xor tree over the 16
+template <int HDV>
 __global__ void __launch_bounds__(kThreads) fa_bwd_dot_bf16(BwdArgs a) {
   const int64_t rows = static_cast<int64_t>(a.batch) * a.h * a.sq;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 16) + threadIdx.x / 16;
   const int l = threadIdx.x % 16;
   float sum = 0.0f;
-  if (row < rows && l < HD / 8) {
+  if (row < rows) {
     const int i = static_cast<int>(row % a.sq), head = static_cast<int>(row / a.sq % a.h);
     const int b = static_cast<int>(row / (static_cast<int64_t>(a.sq) * a.h));
-    const bf16* o = static_cast<const bf16*>(a.o) + b * a.o_sb + i * a.o_ss + head * a.o_sh + 8 * l;
-    const bf16* g = static_cast<const bf16*>(a.dout) + b * a.d_sb + i * a.d_ss + head * a.d_sh + 8 * l;
-    float ov[8], gv[8];
-    rt::unpack(__ldg(reinterpret_cast<const uint4*>(o)), ov);
-    rt::unpack(__ldg(reinterpret_cast<const uint4*>(g)), gv);
+    const bf16* o = static_cast<const bf16*>(a.o) + b * a.o_sb + i * a.o_ss + head * a.o_sh;
+    const bf16* g = static_cast<const bf16*>(a.dout) + b * a.d_sb + i * a.d_ss + head * a.d_sh;
+    for (int c = l; c < HDV / 8; c += 16) {
+      float ov[8], gv[8];
+      rt::unpack(__ldg(reinterpret_cast<const uint4*>(o + 8 * c)), ov);
+      rt::unpack(__ldg(reinterpret_cast<const uint4*>(g + 8 * c)), gv);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sum = fmaf(ov[e], gv[e], sum);
+      for (int e = 0; e < 8; ++e) sum = fmaf(ov[e], gv[e], sum);
+    }
   }
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -289,10 +350,10 @@ __device__ __forceinline__ void dkdv_tile(const BwdArgs& a, const bf16* ks, cons
   }
 }
 
-// a warp's 16 rows x HD accumulator, times `mul`, as bf16 pairs at rows
-// r0 + 16 w + g (+ 8) below n (w the warp of a set of 4)
-template <int HD>
-__device__ __forceinline__ void store_acc(bf16* base, int64_t ss, int r0, int n, const float (&acc)[HD / 8][4],
+// a warp's 16 rows x 8 NT columns accumulator, times `mul`, as bf16 pairs
+// at rows r0 + 16 w + g (+ 8) below n (w the warp of a set of 4)
+template <int NT>
+__device__ __forceinline__ void store_acc(bf16* base, int64_t ss, int r0, int n, const float (&acc)[NT][4],
                                           float mul) {
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -300,7 +361,7 @@ __device__ __forceinline__ void store_acc(bf16* base, int64_t ss, int r0, int n,
     const int r = r0 + 16 * warp + g + 8 * u;
     if (r >= n) continue;
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
       *reinterpret_cast<uint32_t*>(base + r * ss + 8 * nt + 2 * t) =
           rt::pack2_bf16(acc[nt][2 * u] * mul, acc[nt][2 * u + 1] * mul);
   }
@@ -386,77 +447,238 @@ __global__ void __launch_bounds__(kSets * kTcThreads, 1) fa_bwd_dkdv_mma(BwdArgs
         dk[nt][r] += red[(nt * 4 + r) * kTcThreads + tid];
         dv[nt][r] += red[(kAcc + nt * 4 + r) * kTcThreads + tid];
       }
-    store_acc<HD>(static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss, j0, a.sk, dk, a.scale);
-    store_acc<HD>(static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, j0, a.sk, dv, 1.0f);
+    store_acc(static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss, j0, a.sk, dk, a.scale);
+    store_acc(static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, j0, a.sk, dv, 1.0f);
   }
+}
+
+__device__ __forceinline__ void pair_barrier(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// launch 2 at HD > 128 (bf16): dk and dv of 64 keys of one KV head by 8
+// warps, warp w the keys of group w % 4 and the columns of half w / 4 (the
+// header says why). The steps are (q head of the group, q tile) pairs in
+// order, q and dO double-buffered; every sum in the order of the steps,
+// within a step in q-row order.
+template <int HD, int HDV>
+__global__ void __launch_bounds__(2 * kTcThreads, 1) fa_bwd_dkdv_wide(BwdArgs a) {
+  using Pl = Plan<HD, HDV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int TQ = Pl::kTq, TV = Pl::kTv, LQ = Tc<HD>::kLd, LV = Tc<HDV>::kLd;
+  constexpr int kThr = 2 * kTcThreads;
+  constexpr int NK = HD / 32, NV = HDV / 32;  // 16-column chunks of dk and dv a warp holds
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* qs = ks + TQ;        // [2][TQ]
+  bf16* vs = qs + 2 * TQ;
+  bf16* dos = vs + TV;       // [2][TV]
+  bf16* pts = dos + 2 * TV;  // P^T [4 key groups][16][kXLd]
+  bf16* dst = pts + Pl::kX;  // dS^T, likewise
+  float* ls = reinterpret_cast<float*>(dst + Pl::kX);  // [2][kB]
+  float* dd = ls + 2 * kB;                              // [2][kB]
+  const int nb = a.kv * a.batch;
+  const int* e = a.kplan + 3 * (blockIdx.x / nb);
+  const int kvh = blockIdx.x % a.kv, b = blockIdx.x % nb / a.kv;
+  const int j0 = e[0] * kB, q_begin = e[1], q_end = e[2];
+  const int group = a.h / a.kv;
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + kB - 1) / kB : 0;
+  const int steps = group * n_qt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int kg = warp % 4, part = warp / 4;
+  copy_tile<HD>(ks, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, j0, a.sk, threadIdx.x,
+                kThr);
+  copy_tile<HDV>(vs, static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, j0, a.sk, threadIdx.x,
+                 kThr);
+  // step s: q head kvh * group + s / n_qt, q rows from q_begin + (s % n_qt) 64
+  auto copy_step = [&](int s, int buf) {
+    const int head = kvh * group + s / n_qt, i0 = q_begin + s % n_qt * kB;
+    copy_tile<HD>(qs + buf * TQ, static_cast<const bf16*>(a.q) + b * a.q_sb + head * a.q_sh, a.q_ss, i0, a.sq,
+                  threadIdx.x, kThr);
+    copy_tile<HDV>(dos + buf * TV, static_cast<const bf16*>(a.dout) + b * a.d_sb + head * a.d_sh, a.d_ss, i0,
+                   a.sq, threadIdx.x, kThr);
+    if (threadIdx.x < 2 * kB)
+      copy_rows(ls + buf * kB, dd + buf * kB, a, (static_cast<int64_t>(b) * a.h + head) * a.sq, i0, threadIdx.x);
+  };
+  if (steps > 0) copy_step(0, 0);
+  cp_commit();
+  const float sl2 = a.scale * kLog2e;
+  bf16* pw = pts + 16 * kg * kXLd;  // the key group's P^T and dS^T rows
+  bf16* sw = dst + 16 * kg * kXLd;
+  float dk[2 * NK][4] = {}, dv[2 * NV][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s % 2, i0 = q_begin + s % n_qt * kB;
+    if (s + 1 < steps) {
+      copy_step(s + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // step s's tiles have landed for every thread
+    const bf16* q = qs + buf * TQ;
+    const bf16* o = dos + buf * TV;
+    const float* l = ls + buf * kB;
+    const float* d = dd + buf * kB;
+    {
+      // S^T = K Q^T and dP^T = V dO^T: the group's 16 keys x the half's 32 q rows
+      const int c0 = 32 * part;
+      const bool edge = crosses_mask(a, i0, j0);
+      float st[4][4] = {}, dpt[4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t ka[4];
+        ldsm4(ka, ks + (16 * kg + row_a(lane)) * LQ + 16 * kk + col_a(lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t qb[4];
+          ldsm4(qb, q + (c0 + 16 * np + row_b(lane)) * LQ + 16 * kk + col_b(lane));
+          mma(st[2 * np], ka, qb[0], qb[1]);
+          mma(st[2 * np + 1], ka, qb[2], qb[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < HDV / 16; ++kk) {
+        uint32_t va[4];
+        ldsm4(va, vs + (16 * kg + row_a(lane)) * LV + 16 * kk + col_a(lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t ob[4];
+          ldsm4(ob, o + (c0 + 16 * np + row_b(lane)) * LV + 16 * kk + col_b(lane));
+          mma(dpt[2 * np], va, ob[0], ob[1]);
+          mma(dpt[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      // P^T and dS^T rounded to bf16 into the group's rows: element (key g
+      // (+ 8), q row c0 + 8 nt + 2 t (+ 1)) of accumulator nt
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int col = c0 + 8 * nt + 2 * t + (r & 1);
+          float pv = exp2f(st[nt][r] * sl2 - l[col] * kLog2e);
+          if (edge && !visible(a, i0 + col, j0 + 16 * kg + g + 8 * (r >> 1))) pv = 0.0f;
+          p[r] = pv;
+          ds[r] = pv * (dpt[nt][r] - d[col]);
+        }
+        const int c = c0 + 8 * nt + 2 * t;
+        *reinterpret_cast<uint32_t*>(pw + g * kXLd + c) = rt::pack2_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(pw + (g + 8) * kXLd + c) = rt::pack2_bf16(p[2], p[3]);
+        *reinterpret_cast<uint32_t*>(sw + g * kXLd + c) = rt::pack2_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(sw + (g + 8) * kXLd + c) = rt::pack2_bf16(ds[2], ds[3]);
+      }
+    }
+    pair_barrier(1 + kg);  // warps kg and kg + 4 have written the group's 64 q rows
+    // dv += P^T dO and dk += dS^T q over the tile's 64 q rows, the half's columns
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4], sa[4];
+      ldsm4(pa, pw + row_a(lane) * kXLd + 16 * kc + col_a(lane));
+      ldsm4(sa, sw + row_a(lane) * kXLd + 16 * kc + col_a(lane));
+#pragma unroll
+      for (int np = 0; np < NV; ++np) {
+        uint32_t ob[4];
+        ldsm4t(ob, o + (16 * kc + row_a(lane)) * LV + HDV / 2 * part + 16 * np + col_a(lane));
+        mma(dv[2 * np], pa, ob[0], ob[1]);
+        mma(dv[2 * np + 1], pa, ob[2], ob[3]);
+      }
+#pragma unroll
+      for (int np = 0; np < NK; ++np) {
+        uint32_t qb[4];
+        ldsm4t(qb, q + (16 * kc + row_a(lane)) * LQ + HD / 2 * part + 16 * np + col_a(lane));
+        mma(dk[2 * np], sa, qb[0], qb[1]);
+        mma(dk[2 * np + 1], sa, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with buf and the exchange before they are written again
+  }
+  cp_wait<0>();
+  store_acc(static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh + HD / 2 * part, a.dk_ss, j0, a.sk, dk,
+            a.scale);
+  store_acc(static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh + HDV / 2 * part, a.dv_ss, j0, a.sk, dv,
+            1.0f);
 }
 
 // One K/V tile against the block's q tile in the dq pass: warp w owns q rows
 // 16 w .. 16 w + 15 of the tile; l2 and dd are the log2-scaled lse and D of
-// the thread's rows g and g + 8.
-template <int HD>
+// the thread's rows g and g + 8. S and dP are formed KS keys at a time (64:
+// the whole tile; 32 at HD > 128, where 64 keys of both would take 64
+// accumulator registers beside dq's 96); dq's sums run in key order either way.
+template <int HD, int HDV>
 __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* qs, const bf16* dos, const bf16* ks,
                                         const bf16* vs, const float (&l2)[2], const float (&dd)[2], int i0,
                                         int j0, float (&dq)[HD / 8][4]) {
-  constexpr int LD = Tc<HD>::kLd, NK = HD / 16;
+  constexpr int LQ = Tc<HD>::kLd, LV = Tc<HDV>::kLd, NQ = HD / 16;
+  constexpr int KS = HD > 128 ? 32 : kB, NT = KS / 8;  // keys a part, their 8-column tiles
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const bool edge = crosses_mask(a, i0, j0);
   const float sl2 = a.scale * kLog2e;
-  float s[8][4] = {}, dp[8][4] = {};
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    uint32_t qa[4], oa[4];
-    const int aoff = (16 * warp + row_a(lane)) * LD + 16 * kk + col_a(lane);
-    ldsm4(qa, qs + aoff);
-    ldsm4(oa, dos + aoff);
+  for (int k0 = 0; k0 < kB; k0 += KS) {
+    float s[NT][4] = {}, dp[NT][4] = {};
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t kb[4], vb[4];
-      const int off = (16 * np + row_b(lane)) * LD + 16 * kk + col_b(lane);
-      ldsm4(kb, ks + off);
-      ldsm4(vb, vs + off);
-      mma(s[2 * np], qa, kb[0], kb[1]);
-      mma(s[2 * np + 1], qa, kb[2], kb[3]);
-      mma(dp[2 * np], oa, vb[0], vb[1]);
-      mma(dp[2 * np + 1], oa, vb[2], vb[3]);
+    for (int kk = 0; kk < NQ; ++kk) {
+      uint32_t qa[4];
+      ldsm4(qa, qs + (16 * warp + row_a(lane)) * LQ + 16 * kk + col_a(lane));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        ldsm4(kb, ks + (k0 + 16 * np + row_b(lane)) * LQ + 16 * kk + col_b(lane));
+        mma(s[2 * np], qa, kb[0], kb[1]);
+        mma(s[2 * np + 1], qa, kb[2], kb[3]);
+      }
     }
-  }
-  uint32_t sa[4][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    float d[4];
+    for (int kk = 0; kk < HDV / 16; ++kk) {
+      uint32_t oa[4];
+      ldsm4(oa, dos + (16 * warp + row_a(lane)) * LV + 16 * kk + col_a(lane));
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int u = r / 2;
-      float pv = exp2f(s[nt][r] * sl2 - l2[u]);
-      if (edge && !visible(a, i0 + 16 * warp + g + 8 * u, j0 + 8 * nt + 2 * t + (r & 1))) pv = 0.0f;
-      d[r] = pv * (dp[nt][r] - dd[u]);
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t vb[4];
+        ldsm4(vb, vs + (k0 + 16 * np + row_b(lane)) * LV + 16 * kk + col_b(lane));
+        mma(dp[2 * np], oa, vb[0], vb[1]);
+        mma(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
     }
-    const int kc = nt / 2, x = (nt % 2) * 2;
-    sa[kc][x] = rt::pack2_bf16(d[0], d[1]);
-    sa[kc][x + 1] = rt::pack2_bf16(d[2], d[3]);
-  }
+    uint32_t sa[NT / 2][4];
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
+    for (int nt = 0; nt < NT; ++nt) {
+      float d[4];
 #pragma unroll
-    for (int np = 0; np < NK; ++np) {
-      uint32_t kb[4];
-      ldsm4t(kb, ks + (16 * kc + row_a(lane)) * LD + 16 * np + col_a(lane));
-      mma(dq[2 * np], sa[kc], kb[0], kb[1]);
-      mma(dq[2 * np + 1], sa[kc], kb[2], kb[3]);
+      for (int r = 0; r < 4; ++r) {
+        const int u = r / 2;
+        float pv = exp2f(s[nt][r] * sl2 - l2[u]);
+        if (edge && !visible(a, i0 + 16 * warp + g + 8 * u, j0 + k0 + 8 * nt + 2 * t + (r & 1))) pv = 0.0f;
+        d[r] = pv * (dp[nt][r] - dd[u]);
+      }
+      const int kc = nt / 2, x = (nt % 2) * 2;
+      sa[kc][x] = rt::pack2_bf16(d[0], d[1]);
+      sa[kc][x + 1] = rt::pack2_bf16(d[2], d[3]);
+    }
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+#pragma unroll
+      for (int np = 0; np < NQ; ++np) {
+        uint32_t kb[4];
+        ldsm4t(kb, ks + (k0 + 16 * kc + row_a(lane)) * LQ + 16 * np + col_a(lane));
+        mma(dq[2 * np], sa[kc], kb[0], kb[1]);
+        mma(dq[2 * np + 1], sa[kc], kb[2], kb[3]);
+      }
     }
   }
 }
 
-// launch 3 (bf16): dq of 64 q rows of one q head
-template <int HD>
+// launch 3 (bf16): dq of 64 q rows of one q head; K and V double-buffered,
+// or at HD > 128 one buffer (two blocks an SM take turns instead)
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
+  using Pl = Plan<HD, HDV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int T = Tc<HD>::kTile;
+  constexpr int TQ = Pl::kTq, TV = Pl::kTv, kBufs = Pl::kDqBufs;
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + T;
-  bf16* ks = dos + T;      // [2][T]
-  bf16* vs = ks + 2 * T;   // [2][T]
+  bf16* dos = qs + TQ;
+  bf16* ks = dos + TV;          // [kBufs][TQ]
+  bf16* vs = ks + kBufs * TQ;   // [kBufs][TV]
   const int nb = a.h * a.batch;
   const int* e = a.qplan + 3 * (blockIdx.x / nb);
   const int head = blockIdx.x % a.h, b = blockIdx.x % nb / a.h;
@@ -465,13 +687,13 @@ __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
   const int steps = k_end > k_begin ? (k_end - k_begin + kB - 1) / kB : 0;
   copy_tile<HD>(qs, static_cast<const bf16*>(a.q) + b * a.q_sb + head * a.q_sh, a.q_ss, i0, a.sq, threadIdx.x,
                 kTcThreads);
-  copy_tile<HD>(dos, static_cast<const bf16*>(a.dout) + b * a.d_sb + head * a.d_sh, a.d_ss, i0, a.sq,
-                threadIdx.x, kTcThreads);
+  copy_tile<HDV>(dos, static_cast<const bf16*>(a.dout) + b * a.d_sb + head * a.d_sh, a.d_ss, i0, a.sq,
+                 threadIdx.x, kTcThreads);
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   auto copy_step = [&](int s, int buf) {
-    copy_tile<HD>(ks + buf * T, kb, a.k_ss, k_begin + s * kB, a.sk, threadIdx.x, kTcThreads);
-    copy_tile<HD>(vs + buf * T, vb, a.v_ss, k_begin + s * kB, a.sk, threadIdx.x, kTcThreads);
+    copy_tile<HD>(ks + buf * TQ, kb, a.k_ss, k_begin + s * kB, a.sk, threadIdx.x, kTcThreads);
+    copy_tile<HDV>(vs + buf * TV, vb, a.v_ss, k_begin + s * kB, a.sk, threadIdx.x, kTcThreads);
   };
   if (steps > 0) copy_step(0, 0);
   cp_commit();
@@ -487,8 +709,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
   }
   float dq[HD / 8][4] = {};
   for (int s = 0; s < steps; ++s) {
-    const int buf = s % 2;
-    if (s + 1 < steps) {
+    const int buf = s % kBufs;
+    if (kBufs == 2 && s + 1 < steps) {
       copy_step(s + 1, buf ^ 1);
       cp_commit();
       cp_wait<1>();
@@ -496,75 +718,95 @@ __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
       cp_wait<0>();
     }
     __syncthreads();
-    dq_tile<HD>(a, qs, dos, ks + buf * T, vs + buf * T, l2, dd, i0, k_begin + s * kB, dq);
+    dq_tile<HD, HDV>(a, qs, dos, ks + buf * TQ, vs + buf * TV, l2, dd, i0, k_begin + s * kB, dq);
     __syncthreads();
+    if (kBufs == 1 && s + 1 < steps) {  // every warp is done with the buffer
+      copy_step(s + 1, 0);
+      cp_commit();
+    }
   }
   cp_wait<0>();
-  store_acc<HD>(static_cast<bf16*>(a.dq) + b * a.dq_sb + head * a.dq_sh, a.dq_ss, i0, a.sq, dq, a.scale);
+  store_acc(static_cast<bf16*>(a.dq) + b * a.dq_sb + head * a.dq_sh, a.dq_ss, i0, a.sq, dq, a.scale);
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_tc(const BwdArgs& a, cudaStream_t st) {
-  constexpr int smem_dkdv = Tc<HD>::kSmemDkdv, smem_dq = Tc<HD>::kSmemDq;
-  cudaError_t e =
-      cudaFuncSetAttribute(fa_bwd_dkdv_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
+  using Pl = Plan<HD, HDV>;
+  constexpr int smem_dkdv = Pl::kSmemDkdv, smem_dq = Pl::kSmemDq;
+  cudaError_t e;
+  if constexpr (Pl::kWide)
+    e = cudaFuncSetAttribute(fa_bwd_dkdv_wide<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
+  else
+    e = cudaFuncSetAttribute(fa_bwd_dkdv_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fa_bwd_dq_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  e = cudaFuncSetAttribute(fa_bwd_dq_mma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (e != cudaSuccess) return e;
   const int64_t rows = static_cast<int64_t>(a.batch) * a.h * a.sq;
-  fa_bwd_dot_bf16<HD><<<static_cast<unsigned>((rows + kThreads / 16 - 1) / (kThreads / 16)), kThreads, 0, st>>>(a);
+  fa_bwd_dot_bf16<HDV><<<static_cast<unsigned>((rows + kThreads / 16 - 1) / (kThreads / 16)), kThreads, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int n_kt = (a.sk + kB - 1) / kB, n_qt = (a.sq + kB - 1) / kB;
   if (n_kt > 0) {
-    fa_bwd_dkdv_mma<HD><<<static_cast<unsigned>(n_kt * a.kv * a.batch), kSets * kTcThreads, smem_dkdv, st>>>(a);
+    const unsigned blocks = static_cast<unsigned>(n_kt * a.kv * a.batch);
+    if constexpr (Pl::kWide)
+      fa_bwd_dkdv_wide<HD, HDV><<<blocks, Pl::kDkdvThreads, smem_dkdv, st>>>(a);
+    else
+      fa_bwd_dkdv_mma<HD><<<blocks, Pl::kDkdvThreads, smem_dkdv, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  fa_bwd_dq_mma<HD><<<static_cast<unsigned>(n_qt * a.h * a.batch), kTcThreads, smem_dq, st>>>(a);
+  fa_bwd_dq_mma<HD, HDV><<<static_cast<unsigned>(n_qt * a.h * a.batch), kTcThreads, smem_dq, st>>>(a);
   return cudaGetLastError();
 }
 
 // ================================================================ float32: SIMT
 
-// rows [r0, r0 + 64) of a (B, S, heads, hd) tensor at (batch b, head) into
-// a shared [64][HD + 1] f32 tile, zero past `n` rows
-template <int HD>
+// rows [r0, r0 + 64) of a (B, S, heads, W) tensor at (batch b, head) into
+// a shared [64][W + 1] f32 tile, zero past `n` rows
+template <int W>
 __device__ __forceinline__ void load_rows(float* dst, const void* src, int64_t sb, int64_t ss, int64_t sh,
                                           int b, int head, int r0, int n) {
   const float* base = static_cast<const float*>(src) + b * sb + head * sh;
-  for (int e = threadIdx.x; e < kB * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    dst[r * (HD + 1) + d] = r0 + r < n ? base[(r0 + r) * ss + d] : 0.0f;
+  for (int e = threadIdx.x; e < kB * W; e += kThreads) {
+    const int r = e / W, d = e % W;
+    dst[r * (W + 1) + d] = r0 + r < n ? base[(r0 + r) * ss + d] : 0.0f;
   }
 }
 
-// the tile's P and dS into shared [64][65] arrays: s from qs and ks, dO.v
-// from dos and vs
-template <int HD>
+// the tile's P and dS into shared [64][65] arrays: s from qs and ks (rows of
+// HD + 1), dO.v from dos and vs (rows of HDV + 1)
+template <int HD, int HDV>
 __device__ __forceinline__ void tile_p_ds(const BwdArgs& a, const float* qs, const float* ks, const float* dos,
                                           const float* vs, const float* lse, const float* dd, float* ps,
                                           float* dss, int i0, int j0) {
-  constexpr int P = HD + 1;
+  constexpr int PQ = HD + 1, PV = HDV + 1;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4] = {}, dp[4][4] = {};
 #pragma unroll 4
   for (int d = 0; d < HD; ++d) {
-    float qv[4], kv[4], ov[4], vv[4];
+    float qv[4], kv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      qv[u] = qs[(ty + 16 * u) * P + d];
-      ov[u] = dos[(ty + 16 * u) * P + d];
-      kv[u] = ks[(tx + 16 * u) * P + d];
-      vv[u] = vs[(tx + 16 * u) * P + d];
+      qv[u] = qs[(ty + 16 * u) * PQ + d];
+      kv[u] = ks[(tx + 16 * u) * PQ + d];
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        s[u][w] = fmaf(qv[u], kv[w], s[u][w]);
-        dp[u][w] = fmaf(ov[u], vv[w], dp[u][w]);
-      }
+      for (int w = 0; w < 4; ++w) s[u][w] = fmaf(qv[u], kv[w], s[u][w]);
+  }
+#pragma unroll 4
+  for (int d = 0; d < HDV; ++d) {
+    float ov[4], vv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ov[u] = dos[(ty + 16 * u) * PV + d];
+      vv[u] = vs[(tx + 16 * u) * PV + d];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) dp[u][w] = fmaf(ov[u], vv[w], dp[u][w]);
   }
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -579,9 +821,9 @@ __device__ __forceinline__ void tile_p_ds(const BwdArgs& a, const float* qs, con
   }
 }
 
-template <int HD>
+template <int W>
 __device__ __forceinline__ void store_rows(void* dst, int64_t sb, int64_t ss, int64_t sh, int b, int head, int r0,
-                                           int n, const float (&acc)[4][HD / 16], float mul) {
+                                           int n, const float (&acc)[4][W / 16], float mul) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float* base = static_cast<float*>(dst) + b * sb + head * sh;
 #pragma unroll
@@ -589,13 +831,14 @@ __device__ __forceinline__ void store_rows(void* dst, int64_t sb, int64_t ss, in
     const int r = r0 + ty + 16 * u;
     if (r >= n) continue;
 #pragma unroll
-    for (int w = 0; w < HD / 16; ++w) base[r * ss + tx + 16 * w] = acc[u][w] * mul;
+    for (int w = 0; w < W / 16; ++w) base[r * ss + tx + 16 * w] = acc[u][w] * mul;
   }
 }
 
-template <int HD>
+// q and k tiles of rows HD + 1, v and dO of HDV + 1, P and dS, lse and D
+template <int HD, int HDV>
 constexpr int simt_smem_floats() {
-  return 4 * kB * (HD + 1) + 2 * kB * (kB + 1) + 2 * kB;
+  return 2 * kB * (HD + 1) + 2 * kB * (HDV + 1) + 2 * kB * (kB + 1) + 2 * kB;
 }
 
 // launch 1 (f32): D_i, a warp a row
@@ -608,22 +851,22 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dot(BwdArgs a) {
   const float* o = static_cast<const float*>(a.o) + b * a.o_sb + i * a.o_ss + head * a.o_sh;
   const float* g = static_cast<const float*>(a.dout) + b * a.d_sb + i * a.d_ss + head * a.d_sh;
   float sum = 0.0f;
-  for (int d = lane; d < a.hd; d += 32) sum = fmaf(o[d], g[d], sum);
+  for (int d = lane; d < a.hd_v; d += 32) sum = fmaf(o[d], g[d], sum);
   sum = rt::warp_sum(sum);
   if (lane == 0) a.dsum[row] = sum;  // row = (b H + head) Sq + i
 }
 
 // launch 2 (f32): K and V's tiles in shared memory; the block walks the
 // group's q heads in order and, for each, the q tiles that can see its keys
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv(BwdArgs a) {
   extern __shared__ float sm[];
-  constexpr int P = HD + 1, NW = HD / 16;
+  constexpr int PQ = HD + 1, PV = HDV + 1, NQ = HD / 16, NV = HDV / 16;
   float* ks = sm;
-  float* vs = ks + kB * P;
-  float* qs = vs + kB * P;
-  float* dos = qs + kB * P;
-  float* ps = dos + kB * P;
+  float* vs = ks + kB * PQ;
+  float* qs = vs + kB * PV;
+  float* dos = qs + kB * PQ;
+  float* ps = dos + kB * PV;
   float* dss = ps + kB * (kB + 1);
   float* lse = dss + kB * (kB + 1);
   float* dd = lse + kB;
@@ -631,11 +874,11 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv(BwdArgs a) {
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int group = a.h / a.kv;
   load_rows<HD>(ks, a.k, a.k_sb, a.k_ss, a.k_sh, b, kvh, j0, a.sk);
-  load_rows<HD>(vs, a.v, a.v_sb, a.v_ss, a.v_sh, b, kvh, j0, a.sk);
+  load_rows<HDV>(vs, a.v, a.v_sb, a.v_ss, a.v_sh, b, kvh, j0, a.sk);
   // the q rows that can see a key of this tile
   const int q_begin = a.causal ? j0 / kB * kB : 0;
   const int q_end = a.window > 0 ? min(a.sq, j0 + kB - 1 + a.window) : a.sq;
-  float dk[4][NW] = {}, dv[4][NW] = {};
+  float dk[4][NQ] = {}, dv[4][NV] = {};
   for (int hh = 0; hh < group; ++hh) {
     const int head = kvh * group + hh;
     const float* lrow = a.lse + (static_cast<int64_t>(b) * a.h + head) * a.sq;
@@ -643,13 +886,13 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv(BwdArgs a) {
     for (int i0 = q_begin; i0 < q_end; i0 += kB) {
       __syncthreads();  // the previous tile's ps, dss, qs and dos are consumed
       load_rows<HD>(qs, a.q, a.q_sb, a.q_ss, a.q_sh, b, head, i0, a.sq);
-      load_rows<HD>(dos, a.dout, a.d_sb, a.d_ss, a.d_sh, b, head, i0, a.sq);
+      load_rows<HDV>(dos, a.dout, a.d_sb, a.d_ss, a.d_sh, b, head, i0, a.sq);
       if (tid < kB) {
         lse[tid] = i0 + tid < a.sq ? lrow[i0 + tid] : 0.0f;
         dd[tid] = i0 + tid < a.sq ? drow[i0 + tid] : 0.0f;
       }
       __syncthreads();
-      tile_p_ds<HD>(a, qs, ks, dos, vs, lse, dd, ps, dss, i0, j0);
+      tile_p_ds<HD, HDV>(a, qs, ks, dos, vs, lse, dd, ps, dss, i0, j0);
       __syncthreads();
       // dv[j] += sum_i P_ij dO_i, dk[j] += sum_i dS_ij q_i over the tile's rows
 #pragma unroll 2
@@ -661,32 +904,35 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv(BwdArgs a) {
           sv[u] = dss[i * (kB + 1) + ty + 16 * u];
         }
 #pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          const float ov = dos[i * P + tx + 16 * w], qv = qs[i * P + tx + 16 * w];
+        for (int w = 0; w < NV; ++w) {
+          const float ov = dos[i * PV + tx + 16 * w];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            dv[u][w] = fmaf(pv[u], ov, dv[u][w]);
-            dk[u][w] = fmaf(sv[u], qv, dk[u][w]);
-          }
+          for (int u = 0; u < 4; ++u) dv[u][w] = fmaf(pv[u], ov, dv[u][w]);
+        }
+#pragma unroll
+        for (int w = 0; w < NQ; ++w) {
+          const float qv = qs[i * PQ + tx + 16 * w];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) dk[u][w] = fmaf(sv[u], qv, dk[u][w]);
         }
       }
     }
   }
   store_rows<HD>(a.dk, a.dk_sb, a.dk_ss, a.dk_sh, b, kvh, j0, a.sk, dk, a.scale);
-  store_rows<HD>(a.dv, a.dv_sb, a.dv_ss, a.dv_sh, b, kvh, j0, a.sk, dv, 1.0f);
+  store_rows<HDV>(a.dv, a.dv_sb, a.dv_ss, a.dv_sh, b, kvh, j0, a.sk, dv, 1.0f);
 }
 
 // launch 3 (f32): q and dO in shared memory; the block walks the K/V tiles
 // the rows can see
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq(BwdArgs a) {
   extern __shared__ float sm[];
-  constexpr int P = HD + 1, NW = HD / 16;
+  constexpr int PQ = HD + 1, PV = HDV + 1, NQ = HD / 16;
   float* qs = sm;
-  float* dos = qs + kB * P;
-  float* ks = dos + kB * P;
-  float* vs = ks + kB * P;
-  float* ps = vs + kB * P;
+  float* dos = qs + kB * PQ;
+  float* ks = dos + kB * PV;
+  float* vs = ks + kB * PQ;
+  float* ps = vs + kB * PV;
   float* dss = ps + kB * (kB + 1);
   float* lse = dss + kB * (kB + 1);
   float* dd = lse + kB;
@@ -694,7 +940,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq(BwdArgs a) {
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int kvh = head / (a.h / a.kv);
   load_rows<HD>(qs, a.q, a.q_sb, a.q_ss, a.q_sh, b, head, i0, a.sq);
-  load_rows<HD>(dos, a.dout, a.d_sb, a.d_ss, a.d_sh, b, head, i0, a.sq);
+  load_rows<HDV>(dos, a.dout, a.d_sb, a.d_ss, a.d_sh, b, head, i0, a.sq);
   if (tid < kB) {
     const int64_t r = (static_cast<int64_t>(b) * a.h + head) * a.sq + i0 + tid;
     lse[tid] = i0 + tid < a.sq ? a.lse[r] : 0.0f;
@@ -703,13 +949,13 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq(BwdArgs a) {
   // the keys these rows can see, as the forward's tile plan
   const int k_end = a.causal ? min(a.sk, i0 + kB) : a.sk;
   const int k_begin = a.window > 0 ? max(0, i0 - a.window + 1) / kB * kB : 0;
-  float dq[4][NW] = {};
+  float dq[4][NQ] = {};
   for (int j0 = k_begin; j0 < k_end; j0 += kB) {
     __syncthreads();  // the previous tile is consumed (and qs, dos, lse, dd are written)
     load_rows<HD>(ks, a.k, a.k_sb, a.k_ss, a.k_sh, b, kvh, j0, a.sk);
-    load_rows<HD>(vs, a.v, a.v_sb, a.v_ss, a.v_sh, b, kvh, j0, a.sk);
+    load_rows<HDV>(vs, a.v, a.v_sb, a.v_ss, a.v_sh, b, kvh, j0, a.sk);
     __syncthreads();
-    tile_p_ds<HD>(a, qs, ks, dos, vs, lse, dd, ps, dss, i0, j0);
+    tile_p_ds<HD, HDV>(a, qs, ks, dos, vs, lse, dd, ps, dss, i0, j0);
     __syncthreads();
 #pragma unroll 2
     for (int j = 0; j < kB; ++j) {
@@ -717,8 +963,8 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq(BwdArgs a) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) sv[u] = dss[(ty + 16 * u) * (kB + 1) + j];
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const float kv = ks[j * P + tx + 16 * w];
+      for (int w = 0; w < NQ; ++w) {
+        const float kv = ks[j * PQ + tx + 16 * w];
 #pragma unroll
         for (int u = 0; u < 4; ++u) dq[u][w] = fmaf(sv[u], kv, dq[u][w]);
       }
@@ -727,29 +973,37 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq(BwdArgs a) {
   store_rows<HD>(a.dq, a.dq_sb, a.dq_ss, a.dq_sh, b, head, i0, a.sq, dq, a.scale);
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_simt(const BwdArgs& a, cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(float)) * simt_smem_floats<HD>();
-  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = static_cast<int>(sizeof(float)) * simt_smem_floats<HD, HDV>();
+  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dkdv<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fa_bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = cudaFuncSetAttribute(fa_bwd_dq<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const int64_t rows = static_cast<int64_t>(a.batch) * a.h * a.sq;
   fa_bwd_dot<<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (a.sk > 0) {
-    fa_bwd_dkdv<HD><<<dim3((a.sk + kB - 1) / kB, a.kv, a.batch), kThreads, smem, st>>>(a);
+    fa_bwd_dkdv<HD, HDV><<<dim3((a.sk + kB - 1) / kB, a.kv, a.batch), kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  fa_bwd_dq<HD><<<dim3((a.sq + kB - 1) / kB, a.h, a.batch), kThreads, smem, st>>>(a);
+  fa_bwd_dq<HD, HDV><<<dim3((a.sq + kB - 1) / kB, a.h, a.batch), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_hd(const BwdArgs& a, bool is_bf16, cudaStream_t st) {
-  return is_bf16 ? launch_tc<HD>(a, st) : launch_simt<HD>(a, st);
+  return is_bf16 ? launch_tc<HD, HDV>(a, st) : launch_simt<HD, HDV>(a, st);
+}
+
+// bytes of shared memory a block of the build (hd, hd_v) takes: pass 0 the
+// dk/dv kernel, 1 the dq kernel; -1 for a pair that is not built
+template <int HD, int HDV>
+int smem_of(int is_bf16, int pass) {
+  if (!is_bf16) return static_cast<int>(sizeof(float)) * simt_smem_floats<HD, HDV>();
+  return pass == 0 ? Plan<HD, HDV>::kSmemDkdv : Plan<HD, HDV>::kSmemDq;
 }
 
 }  // namespace
@@ -758,13 +1012,14 @@ cudaError_t launch_hd(const BwdArgs& a, bool is_bf16, cudaStream_t st) {
 // v, o, dout, dq, dk, dv. lse (batch, h, sq) from the forward; dsum
 // (batch, h, sq) f32 scratch. plan (bf16 only, else null): the dk/dv pass's
 // ceil(sk / 64) entries then the dq pass's ceil(sq / 64), three int32 each,
-// on the card (kernels/flash_attention.py:bwd_plan). hd one of 16, 32, 64,
-// 80, 128 (the wrapper zero-pads any other hd up to 128).
+// on the card (kernels/flash_attention.py:bwd_plan). (hd, hd_v) one of (16,
+// 16), (32, 32), (64, 64), (80, 80), (128, 128), (192, 192), (192, 128)
+// (the wrapper zero-pads any other pair up to one of these).
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const float* lse, float* dsum, const int* plan,
                                       void* dq, void* dk, void* dv, const int64_t* strides, int batch,
-                                      int sq, int sk, int h, int kv, int hd, float scale, int causal,
-                                      int window, int is_bf16, void* stream) {
+                                      int sq, int sk, int h, int kv, int hd, int hd_v, float scale,
+                                      int causal, int window, int is_bf16, void* stream) {
   if (batch == 0 || sq == 0 || h == 0) return cudaSuccess;
   if (kv <= 0 || h % kv != 0 || (is_bf16 && plan == nullptr)) return cudaErrorInvalidValue;
   const int64_t* s = strides;
@@ -772,14 +1027,35 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   const BwdArgs a{q, k, v, o, dout, lse, dsum, plan, qplan, dq, dk, dv,
                   s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
                   s[12], s[13], s[14], s[15], s[16], s[17], s[18], s[19], s[20], s[21], s[22], s[23],
-                  batch, sq, sk, h, kv, hd, scale, causal, window};
+                  batch, sq, sk, h, kv, hd, hd_v, scale, causal, window};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bf = is_bf16 != 0;
+  if (hd == 192 && hd_v == 128) return launch_hd<192, 128>(a, bf, st);
+  if (hd != hd_v) return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch_hd<16>(a, is_bf16, st);
-    case 32: return launch_hd<32>(a, is_bf16, st);
-    case 64: return launch_hd<64>(a, is_bf16, st);
-    case 80: return launch_hd<80>(a, is_bf16, st);
-    case 128: return launch_hd<128>(a, is_bf16, st);
+    case 16: return launch_hd<16, 16>(a, bf, st);
+    case 32: return launch_hd<32, 32>(a, bf, st);
+    case 64: return launch_hd<64, 64>(a, bf, st);
+    case 80: return launch_hd<80, 80>(a, bf, st);
+    case 128: return launch_hd<128, 128>(a, bf, st);
+    case 192: return launch_hd<192, 192>(a, bf, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// bytes of shared memory a block of the build (hd, hd_v) in bf16 or f32
+// takes, pass 0 the dk/dv kernel and 1 the dq kernel; -1 for a pair that is
+// not built (kernels/flash_attention.py:bwd_smem is its twin)
+extern "C" int rt_flash_attention_bwd_smem(int hd, int hd_v, int is_bf16, int pass) {
+  if (hd == 192 && hd_v == 128) return smem_of<192, 128>(is_bf16, pass);
+  if (hd != hd_v) return -1;
+  switch (hd) {
+    case 16: return smem_of<16, 16>(is_bf16, pass);
+    case 32: return smem_of<32, 32>(is_bf16, pass);
+    case 64: return smem_of<64, 64>(is_bf16, pass);
+    case 80: return smem_of<80, 80>(is_bf16, pass);
+    case 128: return smem_of<128, 128>(is_bf16, pass);
+    case 192: return smem_of<192, 192>(is_bf16, pass);
+    default: return -1;
   }
 }

@@ -35,13 +35,17 @@ O bytes written (50% at MLA's shape). A build with its own v head dim is
 work for a later change.
 
 Training: ``flash_attention(..., with_lse=True)`` also returns each row's
-log-sum-exp of its scaled scores, (B, H, Sq) float32, which
+log-sum-exp of its scaled scores, (B, H, Sq) float32, on route (a) too
+(the zero columns of v change neither P nor the log-sum-exp), which
 :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``) reads to
-form the gradients of q, k and v. The backward is built for the head dims
-in :data:`BWD_HEAD_DIMS`, with any head dim up to 128 zero-padded as the
-forward's; above 128, and on route (a), it raises (ROADMAP, queue 1).
-bfloat16 runs on the tensor cores (mma.sync), in the order of
-:func:`bwd_plan`; float32 runs SIMT FMAs (:data:`BWD_KERNELS`). Its plain
+form the gradients of q, k and v. The backward is built for the (q/k, v)
+head dim pairs in :data:`BWD_HEAD_DIM_PAIRS`: one head dim up to 192, and
+MLA's (192, 128), which takes v, o and dO at their own width; any other
+pair up to 192 is zero-padded to the next built one (:func:`bwd_widths`).
+Above 192 (the pieces route) it raises (:data:`BWD_ROADMAP`). bfloat16 runs
+on the tensor cores (mma.sync), in the order of :func:`bwd_plan`, at 192
+by the 8-warp dk/dv kernel (:func:`bwd_route`); float32 runs SIMT FMAs.
+:func:`bwd_smem` gives each build's shared memory a block. Its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
 """
 from __future__ import annotations
@@ -63,14 +67,23 @@ KERNELS = {
     torch.bfloat16: "flash_fwd_wg (wgmma m64n64k16 / m64nHDk16 bf16, cp.async K/V ring, heavy-first)",
     torch.float32: "flash_fwd_simt (f32 FMAs from shared memory)",
 }
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128)  # csrc/flash_attention_bwd.cu
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # csrc/flash_attention_bwd.cu, q/k and v alike
+# the (q/k, v) head dim pairs the C entry takes: one head dim, or MLA's (192, 128)
+BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in BWD_HEAD_DIMS) + ((192, 128),)
 BWD_BLOCK = 64  # q rows and keys a tile of the backward (kB)
+BWD_WIDE = 128  # above this q/k head dim the bf16 build takes the wide dk/dv kernel
 BWD_KERNELS = {
-    torch.bfloat16: "fa_bwd_dkdv_mma + fa_bwd_dq_mma (mma.sync m16n8k16 bf16, cp.async double buffers, "
-                    "heavy-first)",
+    torch.bfloat16: "fa_bwd_dkdv_mma + fa_bwd_dq_mma (mma.sync m16n8k16 bf16, two warp sets a dk/dv block, "
+                    "cp.async double buffers, heavy-first)",
     torch.float32: "fa_bwd_dkdv + fa_bwd_dq (f32 FMAs from shared memory)",
 }
-BWD_ROADMAP = "ROADMAP queue 1: K5's backward above head dim 128 and on route (a)"
+BWD_WIDE_KERNEL = ("fa_bwd_dkdv_wide + fa_bwd_dq_mma (mma.sync m16n8k16 bf16; dk/dv by 8 warps, 4 key groups x "
+                   "2 column halves, P^T and dS^T through shared memory; dq over 32 keys at a time, one K/V "
+                   "buffer; heavy-first)")  # bf16 above BWD_WIDE
+BWD_ROADMAP = ("ROADMAP queue 1: K5's backward above head dim 192 (the pieces route's forward has no "
+               "backward kernel)")
+SMEM_PER_BLOCK = 232448  # the most shared memory a block may opt in to on the H100
+SMEM_PER_SM = 233472  # an SM's shared memory (228 KB), 1 KB of it reserved for each resident block
 PIECES_KERNEL = "attention_pieces (SIMT f32 FMAs, head dim in pieces of 64, O in shared memory)"
 
 
@@ -140,6 +153,72 @@ def bwd_plan(sq: int, sk: int, causal: bool, window: int) -> List[Tuple[int, int
             + tile_plan(sq, sk, causal, window, BWD_BLOCK, BWD_BLOCK))
 
 
+def bwd_widths(hd: int, hd_v: int) -> Tuple[int, int]:
+    """The built (q/k, v) head dim pair of :data:`BWD_HEAD_DIM_PAIRS` that a
+    backward at (``hd``, ``hd_v``) runs at, ``hd_v <= hd``: q and k padded to
+    the next built head dim, v, o and dO to 128 where that is 192 and v's
+    fits in 128 (MLA's own build), else to q's. Raises above 192."""
+    if hd_v > hd or hd > BWD_HEAD_DIMS[-1]:
+        raise NotImplementedError(f"flash_attention_bwd at q head dim {hd} and v head dim {hd_v}: {BWD_ROADMAP}")
+    wq = next(w for w in BWD_HEAD_DIMS if w >= hd)
+    return wq, (BWD_WIDE if wq > BWD_WIDE and hd_v <= BWD_WIDE else wq)
+
+
+def bwd_route(dtype: torch.dtype, hd: int, hd_v: Optional[int] = None) -> str:
+    """The kernels a backward at (``hd``, ``hd_v``) in ``dtype`` runs, and
+    its padding where the pair is not built."""
+    hd_v = hd if hd_v is None else hd_v
+    wq, wv = bwd_widths(hd, hd_v)
+    wide = dtype == torch.bfloat16 and wq > BWD_WIDE
+    name = (BWD_WIDE_KERNEL if wide else BWD_KERNELS[dtype]) + f" at ({wq}, {wv})"
+    if (wq, wv) != (hd, hd_v):
+        name += f", zero-padded from ({hd}, {hd_v})"
+    return name
+
+
+def bwd_smem(hd: int, hd_v: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Bytes of shared memory a block of the backward's build (``hd``,
+    ``hd_v``) takes: (dk/dv kernel, dq kernel). The twin of
+    ``csrc/flash_attention_bwd.cu:rt_flash_attention_bwd_smem``: bf16 tiles
+    of 64 rows of hd + 8 values; below 192 the dk/dv block's two warp sets
+    each double-buffer q and dO (with lse and D), the dq block K and V; at
+    192 the dk/dv block double-buffers q and dO once and exchanges P^T and
+    dS^T (4 x 16 rows of 72), the dq block holds one K/V buffer. f32: q, k,
+    v, dO tiles of 64 x (hd + 1) floats, P and dS 64 x 65, lse and D."""
+    if (hd, hd_v) not in BWD_HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention_bwd: no build at q head dim {hd} and v head dim {hd_v}")
+    b = BWD_BLOCK
+    if dtype == torch.float32:
+        n = 4 * (2 * b * (hd + 1) + 2 * b * (hd_v + 1) + 2 * b * (b + 1) + 2 * b)
+        return n, n
+    tq, tv = b * (hd + 8), b * (hd_v + 8)
+    if hd > BWD_WIDE:
+        exchange = 4 * 16 * (b + 8)
+        return (3 * tq + 3 * tv + 2 * exchange) * 2 + 4 * b * 4, (tq + tv) * 2 * 2
+    return 10 * tq * 2 + 8 * b * 4, 6 * tq * 2
+
+
+def bwd_launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, hd_v: int,
+                    dtype: torch.dtype) -> str:
+    """The backward's launches at this shape in words (the smoke logs it):
+    blocks, warps, shared memory and blocks an SM of each pass."""
+    wq, wv = bwd_widths(hd, hd_v)
+    dkdv, dq = bwd_smem(wq, wv, dtype)
+    n_kt, n_qt = -(-sk // BWD_BLOCK), -(-sq // BWD_BLOCK)
+    if dtype == torch.float32:
+        return (f"3 launches: D a warp a row; dk/dv {n_kt * kv * b} blocks of 8 warps; dq {n_qt * h * b} "
+                f"blocks of 8 warps; {dkdv} B of shared memory a block, 1 an SM; SIMT f32")
+    wide = wq > BWD_WIDE
+    kind = ("4 key groups x 2 column halves, P^T and dS^T through shared memory" if wide
+            else "two sets of 4 taking alternate steps")
+    # blocks an SM: by shared memory, at most what the launch bounds ask (1, 2)
+    dkdv_sm, dq_sm = min(SMEM_PER_SM // (dkdv + 1024), 1), min(SMEM_PER_SM // (dq + 1024), 2)
+    return (f"3 launches at ({wq}, {wv}): D 16 threads a row; dk/dv {n_kt * kv * b} blocks of 8 warps "
+            f"({kind}), {dkdv} B, {dkdv_sm} an SM; dq {n_qt * h * b} blocks of 4 warps "
+            f"({'32 keys at a time, one K/V buffer' if wide else 'K/V double-buffered'}), {dq} B, "
+            f"{dq_sm} an SM; mma.sync bf16")
+
+
 @functools.lru_cache(maxsize=256)
 def _bwd_plan_on(device: torch.device, sq: int, sk: int, causal: bool, window: int) -> torch.Tensor:
     """:func:`bwd_plan` as an (n, 3) int32 tensor on ``device``, made once per
@@ -190,9 +269,11 @@ def pad_head_dim(tensors: Sequence[torch.Tensor], width: int) -> Tuple[torch.Ten
     return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])) for t in tensors)
 
 
-def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
+def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+                value_below: bool = False) -> None:
     """q (B, ·, H, hd) against k/v (B, S, KV, hd): one CUDA device, one
-    float32/bfloat16 dtype, H a multiple of KV, inner stride 1."""
+    float32/bfloat16 dtype, H a multiple of KV, inner stride 1; with
+    ``value_below`` v's head dim may be below q's."""
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_cuda:
             raise ValueError(f"{name}: {n} must be a CUDA tensor, got one on {t.device}")
@@ -205,7 +286,8 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) ->
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {n} must have inner stride 1, got {tuple(t.stride())}")
     b, _, h, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    v_fits = v.shape[3] <= hd if value_below else v.shape[3] == hd
+    if k.shape[:3] != v.shape[:3] or not v_fits or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{name}: {h} q heads are not a multiple of {k.shape[2]} kv heads")
@@ -216,12 +298,16 @@ def attend_padded_value(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     """Route (a): attention whose v head dim is below q's and k's, through
     ``attend``, which takes one head dim for q, k and v: v zero-padded to
     q's head dim, the scale that of q's head dim unless one is given, the
-    first ``hd_v`` columns of the output kept."""
+    first ``hd_v`` columns of the output kept; with ``with_lse`` the pair
+    (output, lse), the lse the padded call's (v's zero columns change
+    neither P nor the log-sum-exp)."""
     hd, hd_v = q.shape[-1], v.shape[-1]
     if hd_v > hd:
         raise ValueError(f"flash_attention: v head dim {hd_v} above q's {hd}")
     (vp,) = pad_head_dim((v,), hd)
     o = attend(q, k, vp, scale=hd ** -0.5 if scale is None else scale, **kw)
+    if kw.get("with_lse"):
+        return o[0][..., :hd_v].contiguous(), o[1]
     return o[..., :hd_v].contiguous()
 
 
@@ -235,14 +321,15 @@ def flash_attention(
     scale: Optional[float] = None,
     with_lse: bool = False,
 ):
-    """The output (B, Sq, H, hd); with ``with_lse`` (training) the pair
-    (output, lse (B, H, Sq) float32), for head dims up to 128 only."""
-    if with_lse and (v.shape[-1] != q.shape[-1] or q.shape[-1] > BWD_HEAD_DIMS[-1]):
-        raise NotImplementedError(f"flash_attention under autograd at q head dim {q.shape[-1]} "
-                                  f"and v head dim {v.shape[-1]}: {BWD_ROADMAP}")
+    """The output (B, Sq, H, hd_v); with ``with_lse`` (training) the pair
+    (output, lse (B, H, Sq) float32), for q head dims up to 192: above, the
+    pieces kernel writes no lse."""
+    if with_lse and q.shape[-1] > HEAD_DIMS[-1]:
+        raise NotImplementedError(f"flash_attention under autograd at q head dim {q.shape[-1]}: the "
+                                  f"route is {PIECES_KERNEL}, which writes no lse; {BWD_ROADMAP}")
     if v.shape[-1] != q.shape[-1]:
         return attend_padded_value(flash_attention, q, k, v, causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale, with_lse=with_lse)
     check_heads(q, k, v, "flash_attention")
     b, sq, h, hd = q.shape
     if hd > HEAD_DIMS[-1]:
@@ -280,29 +367,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of K5 from its inputs, its output ``o``, its ``lse`` and
     the output's gradient ``do``, by ``csrc/flash_attention_bwd.cu``; each
-    in q's dtype and its input's shape. Head dims up to 128 (others
-    zero-padded to the next built one); above, or with v's head dim below
-    q's, it raises."""
-    hd = q.shape[-1]
-    if v.shape[-1] != hd or hd > BWD_HEAD_DIMS[-1]:
-        raise NotImplementedError(f"flash_attention_bwd at q head dim {hd} and v head dim "
-                                  f"{v.shape[-1]}: {BWD_ROADMAP}")
-    check_heads(q, k, v, "flash_attention_bwd")
+    in q's dtype and its input's shape. v, o and dO may have a head dim
+    ``hd_v`` below q's and k's ``hd``; a pair that is not built is
+    zero-padded to the one :func:`bwd_widths` names. Above 192 it raises."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    wq, wv = bwd_widths(hd, hd_v)
+    check_heads(q, k, v, "flash_attention_bwd", value_below=True)
     b, sq, h, _ = q.shape
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or t.stride(3) != 1:
+        if (t.shape[:3] != q.shape[:3] or t.shape[3] != hd_v or t.dtype != q.dtype
+                or t.device != q.device or t.stride(3) != 1):
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype} does not "
-                             f"match q {tuple(q.shape)} {q.dtype} with inner stride 1")
+                             f"match q {tuple(q.shape)} {q.dtype} at v's head dim {hd_v} with inner "
+                             "stride 1")
     if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be packed float32 {(b, h, sq)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     scale = float(scale if scale is not None else hd ** -0.5)
-    width = next(w for w in BWD_HEAD_DIMS if w >= hd)
-    if width != hd:
-        grads = flash_attention_bwd(*pad_head_dim((q, k, v, o), width), lse,
-                                    *pad_head_dim((do,), width), causal=causal, window=window,
-                                    scale=scale)
-        return tuple(t[..., :hd].contiguous() for t in grads)
+    if (wq, wv) != (hd, hd_v):
+        dq, dk, dv = flash_attention_bwd(*pad_head_dim((q, k), wq), *pad_head_dim((v, o), wv), lse,
+                                         *pad_head_dim((do,), wv), causal=causal, window=window,
+                                         scale=scale)
+        return dq[..., :hd].contiguous(), dk[..., :hd].contiguous(), dv[..., :hd_v].contiguous()
     sk, kv = k.shape[1], k.shape[2]
     inputs = (q, k, v, o, do)
     load_route(q.dtype, q.element_size(), [t.data_ptr() for t in inputs],
@@ -315,7 +401,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     err = build.library().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dsum.data_ptr(), plan, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), build.strides_arg(strides),
-        b, sq, sk, h, kv, hd, scale, int(causal), int(window), int(is_bf16), stream_ptr(q),
+        b, sq, sk, h, kv, hd, hd_v, scale, int(causal), int(window), int(is_bf16), stream_ptr(q),
     )
     build.check(err, "flash_attention_bwd")
     build.count_launch("flash_attention_bwd")

@@ -225,7 +225,7 @@ def bwd_plan(p: int, chunk: int, dtype: torch.dtype, nc: int = 1) -> MlstmBwdPla
     per 64 columns and chunk, stepping over P by 32 columns (bf16 inputs)
     or 16 (f32) through a ring of :data:`BWD_STAGES` stages."""
     if not 1 <= chunk <= BWD_TILE:
-        raise ValueError(f"mlstm_scan_bwd: chunk {chunk} outside [1, {BWD_TILE}] (ROADMAP queue 1, item 21)")
+        raise ValueError(f"mlstm_scan_bwd: chunk {chunk} outside [1, {BWD_TILE}] (ROADMAP queue 1)")
     t_in, t_op, _ = terms(dtype)
     kt = 32 if dtype == torch.bfloat16 else 16
     tw = BWD_TILE + 8  # a staged row of a 64-wide tile, bf16

@@ -29,7 +29,7 @@ from . import ref
 from .build import launch_counts, reset_launch_counts  # noqa: F401 — public surface
 
 Stages = Sequence[Tuple[float, float]]
-NO_BACKWARD = "ROADMAP queue 1, item 21: K6 has no training use"
+NO_BACKWARD = "ROADMAP queue 1: K6 has no training use"
 
 
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:

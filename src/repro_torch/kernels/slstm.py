@@ -240,7 +240,7 @@ def slstm_scan_bwd(
             check_input("slstm_scan_bwd", t, name, shape, f32, dev)
     if not 1 <= hd <= BWD_MAX_HEAD_DIM:
         raise ValueError(f"slstm_scan_bwd: head dim {hd} outside [1, {BWD_MAX_HEAD_DIM}] "
-                         f"(ROADMAP queue 1, item 21)")
+                         f"(ROADMAP queue 1)")
     pl = bwd_plan(hd, r_gates.dtype)
     r_bf16 = r_gates.dtype == torch.bfloat16
     if _bwd_active_clusters(dev.index, hd, r_bf16) < 1:

@@ -207,7 +207,7 @@ BWD_KERNEL = {torch.float32: "ssd_bwd_su + ssd_bwd_pass + ssd_bwd_chunk + ssd_bw
 BWD_LAUNCHES = {torch.float32: 5, torch.bfloat16: 4}  # csrc/ssd_bwd.cu: launches of one call, counted as one
 BWD_MAX_CHUNK = 128  # csrc/ssd_bwd.cu: kMaxL
 BWD_MAX_NP = 64  # csrc/ssd_bwd.cu: kMaxNP, the largest N and P
-BWD_ROADMAP = "ROADMAP queue 1, item 21: ssd_scan_bwd above chunk 128 or N, P 64"
+BWD_ROADMAP = "ROADMAP queue 1: ssd_scan_bwd above chunk 128 or N, P 64"
 BWD_VECS = 11  # csrc/ssd_bwd.cu: kVecs, launch C's per-position f32 vectors
 # the bf16 build's scratch, in the order rt_ssd_scan_bwd_mma takes its offsets
 BWD_WORK = ("su", "el", "dyp", "ghp", "dbp", "dcp", "dap")

@@ -6,8 +6,11 @@
 On the card (the default ``--device cuda``) the forward and backward run
 through the port's kernels and their backward kernels: the dense family
 (K1, K4, K5), the hybrid (``--arch zamba2-2.7b``: also K7) and the ssm
-family (``--arch xlstm-1.3b``: the mLSTM and sLSTM scans). A kernel call
-without a backward kernel at its shape raises (ROADMAP queue 1, item 21). Fault tolerance is
+family (``--arch xlstm-1.3b``: the mLSTM and sLSTM scans), and every other
+family: MLA's q/k head dim 192 against v's 128 and nemotron's 192 on their
+own builds of ``flash_attention_bwd``; the vlm and audio families with a
+drawn stub memory. A kernel call without a backward kernel at its shape
+raises (K5 above head dim 192; the scans' limits, ROADMAP queue 1). Fault tolerance is
 the reference's: an async checkpoint every ``--ckpt-every`` steps; on
 restart the driver restores the latest checkpoint and resumes the data
 stream at the exact batch index, so the loop is crash-idempotent. It
@@ -77,10 +80,8 @@ def main(argv=None) -> int:
     def make_batch(i):
         b = stream.batch(i)
         out = {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
-        if cfg.family == "vlm":
-            out["memory"] = _stub_memory(cfg, args.batch, cfg.num_image_tokens, i, device)
-        elif cfg.family == "audio":
-            out["memory"] = _stub_memory(cfg, args.batch, cfg.encoder_seq, i, device)
+        if cfg.family in ("vlm", "audio"):
+            out["memory"] = stub_memory(cfg, args.batch, i, device)
         return out
 
     t0 = time.time()
@@ -105,9 +106,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def _stub_memory(cfg, batch, length, seed, device):
-    """Stub memory (B, length, D) in the activation type: standard normals
-    from ``seed`` (numpy's; the reference draws with ``jax.random``)."""
+def stub_memory(cfg, batch, seed, device):
+    """Stub memory (B, length, D) in the activation type for a vlm (its
+    image tokens) or audio (its encoder frames) configuration: standard
+    normals from ``seed`` (numpy's; the reference draws with ``jax.random``)."""
+    length = cfg.num_image_tokens if cfg.family == "vlm" else cfg.encoder_seq
     x = np.random.default_rng(seed).standard_normal((batch, length, cfg.d_model), dtype=np.float32)
     return torch.from_numpy(x).to(device=device, dtype=getattr(torch, cfg.dtype))
 

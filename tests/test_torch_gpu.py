@@ -1872,22 +1872,72 @@ def test_cuda_rmsnorm_bwd(cuda, dtype, shape, view):
     (1, 200, 200, 48, 8, 128, True, 0),    # a GQA group of 6 (mixtral's 48 q heads over 8)
     (1, 150, 150, 4, 2, 16, True, 0),      # head dim 16
     (2, 200, 200, 4, 2, 64, True, 50),     # a window, Sq not a multiple of 64
+    (1, 2048, 2048, 96, 8, 192, True, 0),  # nemotron-4-340b's training layer, whole (its own build)
+    (1, 300, 300, 12, 1, 192, True, 96),   # head dim 192 in ragged tiles under a window
+    (1, 2048, 2048, 128, 128, (192, 128), True, 0),  # deepseek-v2's MLA layer: q/k 192, v 128
+    (2, 177, 250, 8, 8, (192, 128), False, 0),       # MLA's pair, ragged, Sq != Sk
+    (1, 129, 129, 4, 2, (160, 100), True, 0),        # an unbuilt pair, padded to (192, 128)
 ])
 def test_cuda_flash_attention_bwd(cuda, dtype, b, sq, sk, h, kv, hd, causal, window):
+    hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)  # q/k's head dim and v's
     g = torch.Generator().manual_seed(sq + hd)
     q = _randn(g, (b, sq, h, hd), cuda, dtype)
     k = _randn(g, (b, sk, kv, hd), cuda, dtype)
-    v = _randn(g, (b, sk, kv, hd), cuda, dtype)
-    do = _randn(g, (b, sq, h, hd), cuda, dtype)
-    o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
-    assert torch.equal(o, flash_attention.flash_attention(q, k, v, causal=causal, window=window))
-    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
-    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    v = _randn(g, (b, sk, kv, hd_v), cuda, dtype)
+    do = _randn(g, (b, sq, h, hd_v), cuda, dtype)
+    _hold_flash_attention_bwd(q, k, v, do, causal, window, None)
+
+
+def _hold_flash_attention_bwd(q, k, v, do, causal, window, scale):
+    """K5's output and lse, then its backward: each gradient within BWD_REL
+    of the plain version's, in q's dtype and its input's shape, and bitwise
+    on a repeat."""
+    dtype = q.dtype
+    o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, scale=scale, with_lse=True)
+    assert torch.equal(o, flash_attention.flash_attention(q, k, v, causal=causal, window=window, scale=scale))
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window, scale=scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window, scale=scale)
     for a, w in zip(got, want):
         assert a.dtype == dtype and a.shape == w.shape
         _assert_rel(a.float(), w.float(), BWD_REL[dtype])
-    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window, scale=scale)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2048, 333])
+def test_cuda_flash_attention_bwd_on_mla_projections(cuda, dtype, s):
+    # deepseek-v2's q, k (nope 128 + rope 64, concatenated) and v (128) as
+    # mla_qkv builds them from one layer's weights at the published widths,
+    # at MLA's scale: the (192, 128) build on the tensors the training path
+    # hands it
+    from repro_torch import configs
+    from repro_torch.models import attention
+
+    cfg = configs.get_config("deepseek-v2-236b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: w[0] for k, w in attention.mla_params(gen, cfg, dtype, 1).items()}
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=cuda).to(dtype)
+    positions = torch.arange(s, device=cuda)[None]
+    q, k, v, _, _ = attention.mla_qkv(p, x, positions, cfg)
+    assert (q.shape[-1], k.shape[-1], v.shape[-1]) == (192, 192, 128)
+    do = torch.randn(v.shape, generator=gen, device=cuda).to(dtype)
+    _hold_flash_attention_bwd(q, k, v, do, True, 0, attention.mla_scale(cfg))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_bwd_smem_matches_the_source(cuda):
+    from repro_torch.kernels.build import library
+
+    lib = library()
+    for hd, hd_v in flash_attention.BWD_HEAD_DIM_PAIRS:
+        for dtype in (torch.bfloat16, torch.float32):
+            want = flash_attention.bwd_smem(hd, hd_v, dtype)
+            got = tuple(lib.rt_flash_attention_bwd_smem(hd, hd_v, int(dtype == torch.bfloat16), p)
+                        for p in (0, 1))
+            assert got == want, (hd, hd_v, dtype)
+    assert lib.rt_flash_attention_bwd_smem(160, 128, 1, 0) == -1
 
 
 @pytest.mark.gpu
@@ -1953,9 +2003,11 @@ def test_cuda_inference_path_launches_what_it_did_without_grad(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["decode_attention", "flash_attention_hd192",
-                                    "flash_attention_route_a"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "flash_attention_hd256",
+                                    "flash_attention_route_a_hd256"])
 def test_cuda_kernels_without_a_backward_raise_under_grad(cuda, kernel):
+    # K5 trains up to head dim 192, on route (a) too; above, the pieces
+    # kernel writes no lse
     from repro_torch.kernels import ops
 
     g = torch.Generator().manual_seed(3)
@@ -1966,11 +2018,11 @@ def test_cuda_kernels_without_a_backward_raise_under_grad(cuda, kernel):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if kernel == "decode_attention":
             ops.decode_attention(leaf((1, 1, 2, 64)), leaf((1, 8, 1, 64)), leaf((1, 8, 1, 64)), 4)
-        elif kernel == "flash_attention_hd192":
-            ops.flash_attention(leaf((1, 8, 2, 192), torch.bfloat16), leaf((1, 8, 1, 192), torch.bfloat16),
-                                leaf((1, 8, 1, 192), torch.bfloat16))
+        elif kernel == "flash_attention_hd256":
+            ops.flash_attention(leaf((1, 8, 2, 256), torch.bfloat16), leaf((1, 8, 1, 256), torch.bfloat16),
+                                leaf((1, 8, 1, 256), torch.bfloat16))
         else:
-            ops.flash_attention(leaf((1, 8, 2, 192)), leaf((1, 8, 1, 192)), leaf((1, 8, 1, 128)))
+            ops.flash_attention(leaf((1, 8, 2, 256)), leaf((1, 8, 1, 256)), leaf((1, 8, 1, 192)))
 
 
 # -- training the hybrid and ssm families: the scans' backward kernels -------------------
@@ -2173,40 +2225,127 @@ def test_cuda_scans_under_grad_launch_their_backward_kernels(cuda):
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
 def test_cuda_hybrid_and_ssm_training_steps_match_cpu(cuda, arch):
     # a 2-layer f32 cut (xlstm: one mLSTM and one sLSTM block) on the card
-    # and on the CPU from one state: the step-0 loss and gradients (each leaf
-    # within BWD_REL of its largest |value|), then the parameters after two
-    # steps within rtol 1e-4, atol 1e-4 (a tenth of a step's largest move at
-    # lr 1e-3: AdamW's m / sqrt(v) magnifies a last-bit difference of a
-    # gradient near 0, as tests/test_torch_train.py says)
+    # and on the CPU from one state (_training_matches_cpu)
     from repro_torch import configs
+
+    cfg = configs.get_smoke_config(arch).replace(n_layers=2)
+    scans = ("ssd_scan", "ssd_scan_bwd", "flash_attention", "flash_attention_bwd") if cfg.ssm else (
+        "mlstm_scan", "mlstm_scan_bwd", "slstm_scan", "slstm_scan_bwd")
+    _training_matches_cpu(cuda, cfg, ("rmsnorm", "rmsnorm_bwd") + scans)
+
+
+def _training_matches_cpu(cuda, cfg, kernels, move_rel=None):
+    """``cfg`` trained on the card and on the CPU from one state: the step-0
+    loss and gradients (each leaf within BWD_REL of its largest |value|),
+    then the parameters after two steps within rtol 1e-4, atol 1e-4 (a
+    tenth of a step's largest move at lr 1e-3: AdamW's m / sqrt(v) magnifies
+    a last-bit difference of a gradient near 0, as tests/test_torch_train.py
+    says), or with ``move_rel`` each leaf's move on the card within
+    ``move_rel`` of the CPU's move's norm (chip_smoke.py's TRAIN_MOVE_REL:
+    an element whose gradient lies within the two sides' rounding of zero
+    moves up to a whole step of lr either way); each of ``kernels``
+    launched."""
+    import numpy as np
+
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import tree_map
     from repro_torch.train import AdamWConfig, make_train_step, train_state_init
     from repro_torch.train.step import loss_and_grads
 
-    cfg = configs.get_smoke_config(arch).replace(n_layers=2)
     opt = AdamWConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
     states = {"cpu": train_state_init(cfg, opt, torch.Generator().manual_seed(0))}
     states["cuda"] = tree_map(lambda t: t.to(cuda), states["cpu"])
     toks = torch.randint(0, cfg.vocab_size, (2, 27), generator=torch.Generator().manual_seed(1))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family in ("vlm", "audio"):  # the drawn stub memory (image tokens, encoder frames)
+        length = cfg.num_image_tokens if cfg.family == "vlm" else cfg.encoder_seq
+        mem = np.random.default_rng(2).standard_normal((2, length, cfg.d_model), dtype=np.float32)
+        batch["memory"] = torch.from_numpy(mem)
     step = make_train_step(cfg, opt)
+    start = [t.clone() for t in _leaves(states["cpu"]["params"])]
     reset_launch_counts()
-    grads = {dev: loss_and_grads(st["params"], cfg, batch["tokens"].to(dev), batch["labels"].to(dev))
+    grads = {dev: loss_and_grads(st["params"], cfg, batch["tokens"].to(dev), batch["labels"].to(dev),
+                                 batch["memory"].to(dev) if "memory" in batch else None)
              for dev, st in states.items()}
     assert abs(float(grads["cuda"][0]) - float(grads["cpu"][0])) <= 1e-5 * abs(float(grads["cpu"][0]))
     for a, w in zip(grads["cuda"][1], grads["cpu"][1]):
-        _assert_rel(a.cpu(), w, BWD_REL[torch.float32])
+        if w.numel():
+            _assert_rel(a.cpu(), w, BWD_REL[torch.float32])
     losses = {}
     for dev, st in states.items():
         for _ in range(2):
             st, m = step(st, {k: x.to(dev) for k, x in batch.items()})
         states[dev], losses[dev] = st, float(m["loss"])
     counts = launch_counts()
-    scans = ("ssd_scan", "ssd_scan_bwd", "flash_attention", "flash_attention_bwd") if cfg.ssm else (
-        "mlstm_scan", "mlstm_scan_bwd", "slstm_scan", "slstm_scan_bwd")
-    for name in ("rmsnorm", "rmsnorm_bwd") + scans:
+    for name in kernels:
         assert counts[name] > 0, name
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
-    for a, w in zip(_leaves(states["cuda"]["params"]), _leaves(states["cpu"]["params"])):
-        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+    for a, w, p0 in zip(_leaves(states["cuda"]["params"]), _leaves(states["cpu"]["params"]), start):
+        if move_rel is None:
+            torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+        elif w.numel():
+            assert float((a.cpu() - w).norm()) <= move_rel * float((w - p0).norm()), tuple(w.shape)
+
+
+# the families whose attention trains through flash_attention_bwd beyond the
+# dense one: deepseek-v2's MLA (its smoke head dims q/k 24, v 16, padded to
+# (32, 32); and q/k 192 against v 128 as at its published widths), mixtral
+# (GQA, a window), llama-3.2-vision (a gated cross block over image tokens),
+# seamless (encoder-decoder over frames), nemotron (head dim 192, 4 q heads
+# over 1), each at 2 layers in f32, each leaf's move held as chip_smoke.py's
+# cuts hold it (1e-2 of its norm: at nemotron's smoke widths one element of
+# 294912 moved 0.11 of a step of lr apart, a gradient near 0)
+FAMILY_CUTS = {
+    "deepseek-v2-236b": dict(),
+    "deepseek-v2-236b mla 192/128": dict(mla=dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)),
+    "mixtral-8x22b": dict(),
+    "llama-3.2-vision-90b": dict(),
+    "seamless-m4t-medium": dict(),
+    "nemotron-4-340b": dict(d_model=768, n_heads=4, n_kv_heads=1, d_ff=1536),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FAMILY_CUTS))
+def test_cuda_family_training_steps_match_cpu(cuda, name):
+    import dataclasses
+
+    from repro_torch import configs
+
+    base = configs.get_smoke_config(name.split()[0])
+    changes = {k: dataclasses.replace(getattr(base, k), **v) if isinstance(v, dict) else v
+               for k, v in FAMILY_CUTS[name].items()}
+    cfg = base.replace(n_layers=2, **changes)
+    kernels = ("flash_attention", "flash_attention_bwd")
+    if cfg.norm == "rmsnorm":
+        kernels += ("rmsnorm", "rmsnorm_residual", "rmsnorm_bwd")
+    _training_matches_cpu(cuda, cfg, kernels, move_rel=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "llama-3.2-vision-90b", "seamless-m4t-medium",
+                                  "nemotron-4-340b cut"])
+def test_cuda_family_training_runs(cuda, name):
+    # chip_smoke.training_run for the runs the smoke leaves to this test
+    # (chip_smoke.TRAINING_TESTS): bf16 at the published widths, cut in
+    # depth (or, nemotron's, in width), 4 steps (8 for mixtral and llama:
+    # chip_smoke.TRAIN_STEPS_OF) with the loss finite and falling,
+    # launches, peak memory, a step's device split, step 1 bitwise on a
+    # repeat; and each cut in f32 against the CPU at the smoke's limits
+    import gc
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+
+    from repro_torch.train import AdamWConfig
+
+    opt = AdamWConfig(peak_lr=chip_smoke.TRAIN_LR, warmup_steps=0, total_steps=100,
+                      mu_dtype="float32", nu_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, changes, needed, cut, checkpoint = chip_smoke.TRAINING_TESTS[name]
+    counts = chip_smoke.training_run(cuda, arch, changes, needed, cut, opt, checkpoint)
+    assert all(counts[k] > 0 for k in needed)
