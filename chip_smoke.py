@@ -243,6 +243,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -289,6 +290,12 @@ def sm_clock_hz():
         return float(out.stdout.strip().splitlines()[0]) * 1e6
     except (ValueError, IndexError):
         return None
+
+
+def sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def call_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -1086,7 +1093,9 @@ def head_dim_checks(dev, gen, h, kv, hd):
                                                                enable_gqa=True), per_graph=3, reps=7)
         log(f"K5 flash_attention q (1,{s},{h},{hd}) kv {kv} causal {tag}: max|err| {err:.3g} "
             f"(tol {tol}), {lib_err:.3g} from the library's output (tol {LIB_TOL}); kernel "
-            f"{flash_attention.route(dtype, hd)}; {ms * 1e3:.2f} us/launch on "
+            f"{flash_attention.route(dtype, hd)}; plan "
+            f"{flash_attention.fwd_launch_plan(1, s, h, hd, hd, dtype, sm_count())}; "
+            f"{ms * 1e3:.2f} us/launch on "
             f"the device, bound {bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
             f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
         del q, k, v, qt, kt, vt
@@ -1205,8 +1214,9 @@ def mixtral_attention_checks(dev, gen):
 
 # K5's routes on the MLA, vlm and audio serving paths, each (label, Sq, Sk, q
 # heads, KV heads, q/k head dim, v head dim, causal): (a) deepseek-v2's MLA
-# prefill, q/k head dim nope 128 + rope 64 against v's 128 (v zero-padded to
-# 192, the output sliced); (b) the seamless encoder's self-attention without a
+# prefill, q/k head dim nope 128 + rope 64 against v's 128 (bf16: the wide
+# build at v's own head dim; f32: route (a), v zero-padded to 192, the output
+# sliced); (b) the seamless encoder's self-attention without a
 # mask; (c) llama-3.2-vision's cross-attention at prefill, a prompt against its
 # 1024 image tokens without a mask, at 2048 and at a ragged 159 tokens
 ATTN_FAMILY_K5 = (
@@ -1263,9 +1273,10 @@ def attention_family_checks(dev, gen):
             log(f"K5 flash_attention {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv}) v head dim "
                 f"{hd_v} {'causal' if causal else 'no mask'} {tag}: max|err| {err:.3g} (tol {tol}), "
                 f"{lib_err:.3g} from the library's output (tol {LIB_TOL}); kernel "
-                f"{flash_attention.route(dtype, hd, hd_v)}; {ms * 1e3:.2f} us/launch on the "
-                f"device, bound {bnd * 1e3:.3f} us ({by}), plain {plain * 1e3:.2f} us, library "
-                f"F.scaled_dot_product_attention {lib * 1e3:.2f} us")
+                f"{flash_attention.route(dtype, hd, hd_v)}; plan "
+                f"{flash_attention.fwd_launch_plan(1, sq, h, hd, hd_v, dtype, sm_count())}; "
+                f"{ms * 1e3:.2f} us/launch on the device, bound {bnd * 1e3:.3f} us ({by}), plain "
+                f"{plain * 1e3:.2f} us, library F.scaled_dot_product_attention {lib * 1e3:.2f} us")
             del q, k, v, qt, kt, vt
         h, kv, hd, sm = CROSS_K6
         q1 = torch.randn((1, 1, h, hd), generator=gen).to(dev, dtype)
@@ -1731,7 +1742,10 @@ def scan_backward_checks(dev, gen):
 # Each model's cut against the CPU: 2 layers at the published widths
 # (zamba2 with its shared block after the second, shared_attn_every 2;
 # xlstm one mLSTM and one sLSTM block, slstm_every 2), deepseek's first
-# (dense) layer alone (22 GB in f32 on the card and as much on the host).
+# (dense) layer alone at a vocabulary of DEEPSEEK_CUT_VOCAB (the published
+# 102400's embedding and head were three quarters of its 22 GB of f32 state,
+# on the card and as much on the host, and most of the cut's 53.9 s of host
+# AdamW and products).
 # The runs of mixtral-8x22b (2 layers; its cut 1 layer in f32, 47 GB on the
 # card and on the host), llama-3.2-vision-90b, seamless-m4t-medium and
 # nemotron-4-340b's cut (TRAINING_TESTS) are held by
@@ -1745,6 +1759,7 @@ TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 4, 1e-4
 # (10.71, 19.29, 13.68, 14.51; AdamW's first steps without warmup move
 # every value by about lr), so they take 8
 TRAIN_STEPS_OF = {"llama-3.2-vision-90b": 8, "deepseek-v2-236b": 8, "mixtral-8x22b": 8}
+DEEPSEEK_CUT_VOCAB = 16384  # as llama-3.2-vision-90b's cut
 TRAIN_LAYERS = 18
 RMS_FAMILY = ("rmsnorm", "rmsnorm_residual", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
 LAYERNORM_FAMILY = ("flash_attention", "flash_attention_bwd")  # layernorm runs in plain torch
@@ -1756,7 +1771,7 @@ TRAINING = (
                          "flash_attention_bwd", "rmsnorm_bwd"), dict(shared_attn_every=2), False),
     ("xlstm-1.3b", {}, ("rmsnorm", "rmsnorm_residual", "mlstm_scan", "mlstm_scan_bwd", "slstm_scan",
                         "slstm_scan_bwd", "rmsnorm_bwd"), dict(xlstm=dict(slstm_every=2)), False),
-    ("deepseek-v2-236b", dict(n_layers=2), RMS_FAMILY, dict(n_layers=1), False),
+    ("deepseek-v2-236b", dict(n_layers=2), RMS_FAMILY, dict(n_layers=1, vocab_size=DEEPSEEK_CUT_VOCAB), False),
 )
 # The runs tests/test_torch_gpu.py::test_cuda_family_training_runs takes, by
 # name: mixtral-8x22b at 2 layers, its cut 1 layer in f32; llama-3.2-vision-90b
@@ -3087,12 +3102,29 @@ def run_cli(args, timeout=900):
     return proc
 
 
+def run_main(module, argv):
+    """``python -m <module> <argv>`` in this process: the module's ``main(argv)``
+    with its standard output captured (the same code as the command, without a
+    process's start-up and its own CUDA context); fails on a non-zero exit."""
+    import importlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = importlib.import_module(module).main(list(argv))
+    if rc:
+        raise AssertionError(f"{module} {' '.join(argv)} exited {rc}:\n{out.getvalue()[-4000:]}")
+    return types.SimpleNamespace(stdout=out.getvalue())
+
+
 def trace_cli_phase(dev):
-    """Phase 3f: ``python -m repro_torch.launch.dryrun`` in subprocesses on the
-    card: riot/rw1 interrupted at TRACE_CUT and resumed with --restore gives
-    the uninterrupted series; riot/seq on a supervised, autoscaled pool of 2
+    """Phase 3f: ``python -m repro_torch.launch.dryrun`` on the card:
+    riot/rw1 interrupted at TRACE_CUT and resumed with --restore gives the
+    uninterrupted series; riot/seq on a supervised, autoscaled pool of 2
     workers with one killed at event 6 exits 0 with a respawn and the sink
-    counts of the same events on the in-process backend."""
+    counts of the same events on the in-process backend. The chaos run is a
+    subprocess; the others call the command's main in this process
+    (run_main), which spares three process start-ups."""
     import shutil
     import tempfile
 
@@ -3113,7 +3145,7 @@ def trace_cli_phase(dev):
             path = os.path.join(tmp, f"{name}.json")
             t0 = time.perf_counter()
             backend = [] if name == "rest" else ["--backend", "torch"]
-            run_cli([*cli, "riot/rw1", *backend, "--json", path, *extra])
+            run_main(cli[0], [*cli[1:], "riot/rw1", *backend, "--json", path, *extra])
             rec[name] = json.load(open(path))
             rec[name]["process_s"] = time.perf_counter() - t0
         if rec["rest"]["resumed_at_event"] != TRACE_CUT or rec["rest"]["backend"] != "torch":
@@ -3125,7 +3157,7 @@ def trace_cli_phase(dev):
         log(f"trace CLI riot/rw1 on the card: {rec['full']['events']} events; cut at "
             f"{TRACE_CUT} and resumed with --restore, the stitched series equal the "
             f"uninterrupted run's; replay wall s full {rec['full']['wall_s']}, part "
-            f"{rec['part']['wall_s']}, rest {rec['rest']['wall_s']} (processes "
+            f"{rec['part']['wall_s']}, rest {rec['rest']['wall_s']} (calls "
             + ", ".join(f"{rec[k]['process_s']:.1f}" for k in ("full", "part", "rest")) + " s)")
 
         chaos = os.path.join(tmp, "chaos.json")
@@ -3135,7 +3167,7 @@ def trace_cli_phase(dev):
                  "--autoscale", "1:3", "--kill-worker-at", "6", "--max-events", "12",
                  "--json", chaos])
         chaos_s = time.perf_counter() - t0
-        run_cli([*cli, "riot/seq", "--backend", "torch", "--max-events", "12", "--json", calm])
+        run_main(cli[0], [*cli[1:], "riot/seq", "--backend", "torch", "--max-events", "12", "--json", calm])
         got, want = json.load(open(chaos)), json.load(open(calm))
         health = got["worker_health"]
         if health["respawns"] < 1:
@@ -3275,7 +3307,8 @@ def frontend_phase(dev):
 
 def daemon_check():
     """``python -m repro_torch.launch.serve start --backend torch`` in a
-    subprocess, driven by the submit, status and stop subcommands."""
+    subprocess, driven over its socket by the submit, status and stop
+    subcommands (run in this process)."""
     import socket
 
     with socket.socket() as s:
@@ -3297,12 +3330,12 @@ def daemon_check():
         if not line.startswith("serving on"):
             daemon.wait(timeout=60)
             raise AssertionError(f"daemon: {line!r} {open(errors).read()[-2000:]}")
-        cli = ("repro_torch.launch.serve",)
+        cli = "repro_torch.launch.serve"  # the clients' subcommands in this process (run_main)
         for tenant in ("alice", "bob"):
-            run_cli([*cli, "submit", "--port", str(port), "--tenant", tenant, "--workload",
-                     "riot", "--count", "5"])
-        status = json.loads(run_cli([*cli, "status", "--port", str(port), "--stats"]).stdout)
-        run_cli([*cli, "stop", "--port", str(port), "--no-checkpoint"])
+            run_main(cli, ["submit", "--port", str(port), "--tenant", tenant, "--workload", "riot",
+                           "--count", "5"])
+        status = json.loads(run_main(cli, ["status", "--port", str(port), "--stats"]).stdout)
+        run_main(cli, ["stop", "--port", str(port), "--no-checkpoint"])
         daemon.wait(timeout=60)
     finally:
         if daemon.poll() is None:

@@ -23,11 +23,14 @@ Run from the root of a checkout on a machine with a CUDA card:
   * the training path's two backward kernels in bf16 (``--only bwd``):
     ``flash_attention_bwd`` at ``chip_smoke.ATTN_BWD_SHAPES`` (qwen3-4b's
     causal q (1, 2048, 32, 128) over 8 KV heads, a window of 512, no mask
-    at Sk 1024, zamba2-2.7b's causal q and kv (1, 2048, 32, 80)) and
-    ``rmsnorm_bwd`` at :data:`BWD_ROWS` (K4's form at the seams' (2048,
-    2560), K1's there and at the q- and k-norm's (65536, 128) and (16384,
-    128)): device µs per call and of each of its launches (D,
-    dk/dv and dq; the row pass and the dscale sum).
+    at Sk 1024, zamba2-2.7b's causal q and kv (1, 2048, 32, 80),
+    nemotron-4-340b's (1, 2048, 96, 192) over 8 and deepseek-v2's MLA at
+    q/k 192 and v 128, which take the wide build on wgmma: its launch plan
+    printed too) and ``rmsnorm_bwd`` at :data:`BWD_ROWS` (K4's form at the
+    seams' (2048, 2560), K1's there and at the q- and k-norm's (65536, 128)
+    and (16384, 128)): device µs per call and of each of its launches (D,
+    dk/dv and dq, at 192 ``fa_bwd_rows_wide``, ``fa_bwd_dkdv_wide`` and
+    ``fa_bwd_dq_wide``; the row pass and the dscale sum).
 
   * the scans' backward kernels, bf16 and f32 (``--only scan_bwd``):
     ``ssd_scan_bwd`` at zamba2-2.7b's 2048-token step (xh (1, 2048, 80,
@@ -141,9 +144,10 @@ def backward_kernels(dev, gen) -> dict:
             q, k, v, o, lse, do, causal=causal, window=window)
         us = device_ms(fn, per_graph=3, reps=5) * 1e3
         by = kernels_us(fn, calls=5)
-        out[f"flash_attention_bwd {label}"] = {"us": us, "kernels_us": by}
+        plan = flash_attention.bwd_launch_plan(1, sq, sk, h, kv, hd, hd_v, bf16)
+        out[f"flash_attention_bwd {label}"] = {"us": us, "kernels_us": by, "plan": plan}
         print(f"flash_attention_bwd {label} q (1,{sq},{h},{hd}) kv (1,{sk},{kv},{hd}/{hd_v}) bf16: {us:.2f} us "
-              f"per call; by kernel {({k_: round(v_, 2) for k_, v_ in by.items()})}")
+              f"per call; by kernel {({k_: round(v_, 2) for k_, v_ in by.items()})}; {plan}")
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     for form, n, d in BWD_ROWS:

@@ -65,7 +65,8 @@ _SIGNATURES = {
     "rt_affine_rmsnorm": (_P, _I64, _P, _P, _I64, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_kalman_scan": (_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _F, _F, _P),
     "rt_rmsnorm_residual": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "rt_flash_attention_smem": (_I, _I, _I),
     "rt_flash_attention_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P,
     ),

@@ -20,9 +20,9 @@
 //     memory; O += P·V is wgmma m64nHDk16 with P from registers and V in
 //     shared memory as the transposed (MN-major) B operand, so V stays
 //     key-major as stored. Both accumulate in f32. Head dims 16, 32, 64,
-//     80, 128 and 192; at 192 (nemotron-4-340b) O takes 96 accumulator
-//     registers a thread and P·V is m64n192k16, and Q (48 KB) with the
-//     three-stage K/V ring (144 KB) fills 192 KB of shared memory.
+//     80 and 128; head dim 192 takes flash_fwd_wide (flash_attention_wide.cu:
+//     a producer warp's TMA ring, two consumer warpgroups in turns, v at its
+//     own head dim).
 //   - Q is loaded once. K and V tiles of 64 keys go through a three-stage
 //     ring in shared memory, filled with 16-byte cp.async copies in wgmma's
 //     32-byte-swizzle layout (any head dim that is a multiple of 16 fits
@@ -67,28 +67,9 @@
 // inference path passes no lse buffer and the store is skipped.
 #include "attention_pieces.cuh"
 #include "common.cuh"
+#include "flash_wg.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  const int* plan;  // bf16: (q tile, first key, end key) per block order; f32: unused
-  float* lse;       // (B, H, Sq) log-sum-exp of each row's scaled scores, or null
-  int64_t q_sb, q_ss, q_sh;  // element strides of q (B, Sq, H, hd); inner stride 1
-  int64_t k_sb, k_ss, k_sh;  // k (B, Sk, KV, hd)
-  int64_t v_sb, v_ss, v_sh;  // v (B, Sk, KV, hd)
-  int64_t o_sb, o_ss, o_sh;  // o (B, Sq, H, hd)
-  int batch, sq, sk, h, kv;
-  float scale;
-  int causal;
-  int window;  // 0 = full
-};
 
 // ---------------------------------------------------------------- float32: SIMT
 
@@ -237,38 +218,11 @@ cudaError_t launch_simt(const FlashArgs& a, cudaStream_t stream) {
 
 // ---------------------------------------------------------- bfloat16: tensor cores
 
-constexpr int kTcBQ = 128;       // query rows per block
-constexpr int kTcBK = 64;        // keys per K/V tile
 constexpr int kWgThreads = 256;  // two warpgroups of 64 query rows each
 constexpr int kWgStages = 3;     // K/V tiles in the ring
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// 2^x on the special-function unit (flushes subnormal results to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bits(__floats2bfloat162_rn(lo, hi));
-}
-
-// (x0, x1) as hi + lo bf16 pairs: hi = x truncated to bf16 (exact in f32),
-// lo = the remainder (|lo| < 2^-7 |x|) rounded to bf16, so hi + lo holds x to
-// 2^-16 relative with one conversion per pair
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
-  hi = __byte_perm(b0, b1, 0x7632);
-  lo = pack_bf16(x0 - __uint_as_float(b0 & 0xffff0000u), x1 - __uint_as_float(b1 & 0xffff0000u));
-}
 
 // Shared tiles in wgmma's 32-byte-swizzle canonical layouts, filled by
 // 16-byte cp.async copies. A "slab" is 16 columns (32 bytes) of every row of
@@ -314,192 +268,6 @@ __device__ __forceinline__ void load_swz(uint32_t dst, const __nv_bfloat16* src,
   }
 }
 
-// wgmma matrix descriptor: 32-byte swizzle, byte offsets lbo/sbo
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(3) << 62;
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
-// Keep registers that an in-flight wgmma reads or writes out of the
-// compiler's hands: an empty asm that "writes" them, placed after the wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(r[i][k])::"memory");
-}
-
-// d (m64n64, f32) (+)= A·B, A and B bf16 in shared memory (both K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (m64n16, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64n32, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64n64, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64n80, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64n128, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64n192, f32) += A·B, A bf16 in registers, B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 16) wgmma_rs_n16(o, a, db);
-  else if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (HD == 80) wgmma_rs_n80(o, a, db);
-  else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n192(o, a, db);
-}
-
-// The softmax of one 64-key tile of S for this thread's two rows (row0, row0
-// + 8): masks the tile if it crosses a frontier (-inf, so a wholly masked
-// row adds exactly nothing), takes the running max m in the base-2 domain
-// (m = max(s) * scale * log2 e; scale > 0), turns s into p = 2^(s * scale *
-// log2 e - m), adds the row sums into l and returns the correction factors
-// 2^(m_old - m_new) of the two rows.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float& m0, float& m1, float& l0,
-                                             float& l1, float& c0, float& c1, float sl2, bool edge,
-                                             int k0, int row0, int t4, const FlashArgs& a) {
-  const float kInf = __int_as_float(0x7f800000);
-  float mx0 = -kInf, mx1 = -kInf;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    if (edge) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-        const int row = e < 2 ? row0 : row0 + 8;
-        bool ok = key < a.sk;
-        if (a.causal) ok = ok && key <= row;
-        if (a.window > 0) ok = ok && key > row - a.window;
-        s[4 * n + e] = ok ? s[4 * n + e] : -kInf;
-      }
-    }
-    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
-  }
-  // a row's 64 scores sit in the four lanes of a quad
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  mx0 = fmaxf(m0, mx0 * sl2);
-  mx1 = fmaxf(m1, mx1 * sl2);
-  c0 = ex2(m0 - mx0);
-  c1 = ex2(m1 - mx1);
-  m0 = mx0;
-  m1 = mx1;
-  float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    s[4 * n] = ex2(fmaf(s[4 * n], sl2, -m0));
-    s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], sl2, -m0));
-    s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], sl2, -m1));
-    s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], sl2, -m1));
-    ps0 += s[4 * n] + s[4 * n + 1];
-    ps1 += s[4 * n + 2] + s[4 * n + 3];
-  }
-  l0 = l0 * c0 + ps0;
-  l1 = l1 * c1 + ps1;
-}
-
-// P (the softmaxed S, in S's accumulator layout, which is the A operand's:
-// two key n-tiles per k-step) as hi + lo bf16 fragments
-__device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&ph)[4][4], uint32_t (&pl)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    split_bf16(s[8 * kk], s[8 * kk + 1], ph[kk][0], pl[kk][0]);
-    split_bf16(s[8 * kk + 2], s[8 * kk + 3], ph[kk][1], pl[kk][1]);
-    split_bf16(s[8 * kk + 4], s[8 * kk + 5], ph[kk][2], pl[kk][2]);
-    split_bf16(s[8 * kk + 6], s[8 * kk + 7], ph[kk][3], pl[kk][3]);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void issue_s(float (&s)[32], uint32_t qs, uint32_t kt, int wg) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss_n64(s, wg_desc(qs + kk * kTcBQ * 32 + wg * 64 * 32, kTcBQ * 32, 256),
-                 wg_desc(kt + kk * kTcBK * 32, kTcBK * 32, 256), kk > 0);
-}
-
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&ph)[4][4],
-                                         const uint32_t (&pl)[4][4], uint32_t vt) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t dv = wg_desc(vt + kk * 16 * 32, kTcBK * 32, 256);
-    wgmma_pv<HD>(o, ph[kk], dv);
-    wgmma_pv<HD>(o, pl[kk], dv);
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wg(FlashArgs a) {
@@ -659,30 +427,53 @@ cudaError_t launch_wg(const FlashArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // strides: 12 int64 values, (batch, seq, head) element strides of q, k, v, o.
-// bf16 takes the tensor-core kernel (base pointers and seq/head strides
+// bf16 takes a tensor-core kernel (base pointers and seq/head strides
 // 16-byte aligned, checked by the wrapper) and its tile plan on the device,
-// ceil(sq / 128) x 3 ints (kernels/flash_attention.py:tile_plan); f32 the
-// SIMT kernel, which takes no plan. lse: (batch, h, sq) f32 for each row's
+// ceil(sq / 128) x 3 ints (kernels/flash_attention.py:tile_plan): up to hd
+// 128 flash_fwd_wg, at 192 flash_fwd_wide (flash_attention_wide.cu), at v's
+// own head dim hd_v of 192 or 128. f32 the SIMT kernel, which takes no plan
+// and one head dim for q, k and v. lse: (batch, h, sq) f32 for each row's
 // log-sum-exp (autograd's forward), or null.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const int* plan, float* lse, const int64_t* strides, int batch, int sq,
-                                  int sk, int h, int kv, int hd, float scale, int causal,
+                                  int sk, int h, int kv, int hd, int hd_v, float scale, int causal,
                                   int window, int is_bf16, void* stream) {
   if (batch == 0 || sq == 0 || h == 0) return cudaSuccess;
   if (kv <= 0 || h % kv != 0 || (is_bf16 && plan == nullptr)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && hd == 192)
+    return flash_fwd_wide_launch(q, k, v, o, plan, lse, strides, batch, sq, sk, h, kv, hd, hd_v, scale, causal,
+                                 window, s);
+  if (hd_v != hd) return cudaErrorInvalidValue;
   FlashArgs a{q, k, v, o, plan, lse,
               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
               strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
               batch, sq, sk, h, kv, scale, causal, window};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return is_bf16 ? launch_wg<16>(a, s) : launch_simt<16>(a, s);
     case 32: return is_bf16 ? launch_wg<32>(a, s) : launch_simt<32>(a, s);
     case 64: return is_bf16 ? launch_wg<64>(a, s) : launch_simt<64>(a, s);
     case 80: return is_bf16 ? launch_wg<80>(a, s) : launch_simt<80>(a, s);
     case 128: return is_bf16 ? launch_wg<128>(a, s) : launch_simt<128>(a, s);
-    case 192: return is_bf16 ? launch_wg<192>(a, s) : launch_simt<192>(a, s);
+    case 192: return launch_simt<192>(a, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Bytes of shared memory a block of the forward's build at (hd, hd_v) in
+// bf16 or f32 takes; -1 for a pair that is not built
+// (kernels/flash_attention.py:fwd_smem is its twin).
+extern "C" int rt_flash_attention_smem(int hd, int hd_v, int is_bf16) {
+  if (is_bf16 && hd == 192) return flash_fwd_wide_smem(hd, hd_v);
+  if (hd != hd_v) return -1;
+  switch (hd) {
+    case 16: return is_bf16 ? WgLayout<16>::kBytes : static_cast<int>(sizeof(float)) * simt_smem_floats<16>();
+    case 32: return is_bf16 ? WgLayout<32>::kBytes : static_cast<int>(sizeof(float)) * simt_smem_floats<32>();
+    case 64: return is_bf16 ? WgLayout<64>::kBytes : static_cast<int>(sizeof(float)) * simt_smem_floats<64>();
+    case 80: return is_bf16 ? WgLayout<80>::kBytes : static_cast<int>(sizeof(float)) * simt_smem_floats<80>();
+    case 128: return is_bf16 ? WgLayout<128>::kBytes : static_cast<int>(sizeof(float)) * simt_smem_floats<128>();
+    case 192: return static_cast<int>(sizeof(float)) * simt_smem_floats<192>();
+    default: return -1;
   }
 }
 

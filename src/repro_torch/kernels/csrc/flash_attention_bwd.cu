@@ -101,32 +101,11 @@
 // dO.v^T and dv products and to the V-side bytes. The C entry refuses any
 // other pair (the wrapper pads up to one of these first).
 //
-// Head dim 192 (bf16): the design above does not fit. Its dk/dv block
-// would need (2 + 4 x 2) tiles of 64 x 200 bf16, 258 KB of shared memory
-// against a block's 227 KB, and each thread would hold dk and dv as 192
-// f32 registers before any S or dP fragment (255 is the most a thread
-// has). So at HD > 128:
-//   - fa_bwd_dkdv_wide: one set of 8 warps a block; warp w owns the 16 keys
-//     of group w % 4 (as before, so S^T and dP^T rows stay a warp's) and the
-//     dk and dv columns of half w / 4 (HD / 2 and HDV / 2 of them: 48 + 48 or
-//     48 + 32 accumulator registers a thread). A step's S^T and dP^T are formed once:
-//     warp (g, h) takes its keys against q rows [32 h, 32 h + 32), rounds P^T
-//     and dS^T to bf16 as before and writes them to shared memory (16 keys x
-//     64 rows a group, rows of 72 values: ldmatrix's 8 rows on distinct
-//     banks); after a barrier of the pair (g, 0), (g, 1), each warp reads
-//     them back as A fragments over all 64 rows for its columns of dv and
-//     dk. K, V, q and dO twice (double-buffered), the exchange, lse and D:
-//     173056 bytes at (192, 192), 148480 at (192, 128), one block an SM.
-//     The two alternating sets of the design above are dropped (16 warps of
-//     such a block would have 128 registers a thread), so the heaviest key
-//     tile takes all its steps in one set.
-//   - fa_bwd_dq_mma forms S and dP over 32 keys at a time (two halves of a
-//     tile, 32 accumulator registers, not 64; the sums into dq keep the key
-//     order, so the result is the same as over 64) and holds one K/V buffer:
-//     102400 bytes at (192, 192), 86016 at (192, 128), two blocks an SM.
-// mma.sync rather than wgmma for the reason above; a warpgroup's 64 rows
-// would also hold a 64 x 192 accumulator of dk and one of dv. Every sum
-// still runs in an order fixed by the shape, with no atomics.
+// Head dim 192 (bf16): the design above does not fit (its dk/dv block would
+// need 258 KB of shared memory, and dk and dv 192 f32 registers a thread
+// before any S or dP fragment). Those builds run the wide build on wgmma,
+// fa_bwd_rows_wide + fa_bwd_dkdv_wide + fa_bwd_dq_wide
+// (flash_attention_bwd_wide.cu), reached from the C entry below.
 //
 // The f32 SIMT build holds q, k, v, dO tiles of 64 x (hd + 1) floats, P and
 // dS: 231424 bytes at (192, 192), 198656 at (192, 128), within the block's
@@ -134,6 +113,15 @@
 // (kernels/flash_attention.py:bwd_smem is its twin).
 #include "common.cuh"
 #include "mma.cuh"
+
+// the wide build at q/k head dim 192 (flash_attention_bwd_wide.cu): rows is
+// scratch of 2 x (batch, h, sq rounded up to 64) f32; the rest as
+// rt_flash_attention_bwd's
+int flash_bwd_wide_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                          const float* lse, float* rows, const int* plan, void* dq, void* dk, void* dv,
+                          const int64_t* strides, int batch, int sq, int sk, int h, int kv, int hd, int hd_v,
+                          float scale, int causal, int window, cudaStream_t stream);
+int flash_bwd_wide_smem(int hd, int hd_v, int pass);
 
 namespace {
 
@@ -193,24 +181,16 @@ struct Tc {
   static constexpr int kTile = kB * kLd;  // a shared tile, in bf16 values
 };
 
-constexpr int kXLd = kB + 8;  // a row of the wide dk/dv kernel's P^T and dS^T exchange, in bf16 values
-
-// the bf16 build at (HD, HDV): wide (HD > 128) takes fa_bwd_dkdv_wide and one
-// K/V buffer in the dq pass
+// the bf16 build at (HD, HDV) below 192: one head dim for q/k and v
 template <int HD, int HDV>
 struct Plan {
-  static_assert(HD > 128 || HD == HDV, "below 192 only q/k and v of one head dim are built");
-  static constexpr bool kWide = HD > 128;
+  static_assert(HD == HDV && HD <= 128, "the mma.sync build takes one head dim up to 128");
   static constexpr int kTq = Tc<HD>::kTile, kTv = Tc<HDV>::kTile;
-  static constexpr int kDqBufs = kWide ? 1 : 2;
-  static constexpr int kX = 4 * 16 * kXLd;  // P^T or dS^T of the 4 key groups
-  // bytes: dq's q and dO, K and V once or twice; dk/dv's K and V, then
-  // narrow: each set's q and dO twice and with each q tile its lse and D;
-  // wide: q and dO twice, the exchange, lse and D twice
-  static constexpr int kSmemDq = (kTq + kTv + kDqBufs * (kTq + kTv)) * 2;
-  static constexpr int kSmemDkdv = kWide ? (3 * kTq + 3 * kTv + 2 * kX) * 2 + 4 * kB * 4
-                                         : (2 + 4 * kSets) * kTq * 2 + 4 * kSets * kB * 4;
-  static constexpr int kDkdvThreads = kWide ? 2 * kTcThreads : kSets * kTcThreads;
+  // bytes: dq's q and dO, K and V twice; dk/dv's K and V, each set's q and
+  // dO twice and with each q tile its lse and D
+  static constexpr int kSmemDq = (kTq + kTv + 2 * (kTq + kTv)) * 2;
+  static constexpr int kSmemDkdv = (2 + 4 * kSets) * kTq * 2 + 4 * kSets * kB * 4;
+  static constexpr int kDkdvThreads = kSets * kTcThreads;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
@@ -452,233 +432,80 @@ __global__ void __launch_bounds__(kSets * kTcThreads, 1) fa_bwd_dkdv_mma(BwdArgs
   }
 }
 
-__device__ __forceinline__ void pair_barrier(int id) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
-}
-
-// launch 2 at HD > 128 (bf16): dk and dv of 64 keys of one KV head by 8
-// warps, warp w the keys of group w % 4 and the columns of half w / 4 (the
-// header says why). The steps are (q head of the group, q tile) pairs in
-// order, q and dO double-buffered; every sum in the order of the steps,
-// within a step in q-row order.
-template <int HD, int HDV>
-__global__ void __launch_bounds__(2 * kTcThreads, 1) fa_bwd_dkdv_wide(BwdArgs a) {
-  using Pl = Plan<HD, HDV>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int TQ = Pl::kTq, TV = Pl::kTv, LQ = Tc<HD>::kLd, LV = Tc<HDV>::kLd;
-  constexpr int kThr = 2 * kTcThreads;
-  constexpr int NK = HD / 32, NV = HDV / 32;  // 16-column chunks of dk and dv a warp holds
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* qs = ks + TQ;        // [2][TQ]
-  bf16* vs = qs + 2 * TQ;
-  bf16* dos = vs + TV;       // [2][TV]
-  bf16* pts = dos + 2 * TV;  // P^T [4 key groups][16][kXLd]
-  bf16* dst = pts + Pl::kX;  // dS^T, likewise
-  float* ls = reinterpret_cast<float*>(dst + Pl::kX);  // [2][kB]
-  float* dd = ls + 2 * kB;                              // [2][kB]
-  const int nb = a.kv * a.batch;
-  const int* e = a.kplan + 3 * (blockIdx.x / nb);
-  const int kvh = blockIdx.x % a.kv, b = blockIdx.x % nb / a.kv;
-  const int j0 = e[0] * kB, q_begin = e[1], q_end = e[2];
-  const int group = a.h / a.kv;
-  const int n_qt = q_end > q_begin ? (q_end - q_begin + kB - 1) / kB : 0;
-  const int steps = group * n_qt;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int kg = warp % 4, part = warp / 4;
-  copy_tile<HD>(ks, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, j0, a.sk, threadIdx.x,
-                kThr);
-  copy_tile<HDV>(vs, static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, j0, a.sk, threadIdx.x,
-                 kThr);
-  // step s: q head kvh * group + s / n_qt, q rows from q_begin + (s % n_qt) 64
-  auto copy_step = [&](int s, int buf) {
-    const int head = kvh * group + s / n_qt, i0 = q_begin + s % n_qt * kB;
-    copy_tile<HD>(qs + buf * TQ, static_cast<const bf16*>(a.q) + b * a.q_sb + head * a.q_sh, a.q_ss, i0, a.sq,
-                  threadIdx.x, kThr);
-    copy_tile<HDV>(dos + buf * TV, static_cast<const bf16*>(a.dout) + b * a.d_sb + head * a.d_sh, a.d_ss, i0,
-                   a.sq, threadIdx.x, kThr);
-    if (threadIdx.x < 2 * kB)
-      copy_rows(ls + buf * kB, dd + buf * kB, a, (static_cast<int64_t>(b) * a.h + head) * a.sq, i0, threadIdx.x);
-  };
-  if (steps > 0) copy_step(0, 0);
-  cp_commit();
-  const float sl2 = a.scale * kLog2e;
-  bf16* pw = pts + 16 * kg * kXLd;  // the key group's P^T and dS^T rows
-  bf16* sw = dst + 16 * kg * kXLd;
-  float dk[2 * NK][4] = {}, dv[2 * NV][4] = {};
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s % 2, i0 = q_begin + s % n_qt * kB;
-    if (s + 1 < steps) {
-      copy_step(s + 1, buf ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();  // step s's tiles have landed for every thread
-    const bf16* q = qs + buf * TQ;
-    const bf16* o = dos + buf * TV;
-    const float* l = ls + buf * kB;
-    const float* d = dd + buf * kB;
-    {
-      // S^T = K Q^T and dP^T = V dO^T: the group's 16 keys x the half's 32 q rows
-      const int c0 = 32 * part;
-      const bool edge = crosses_mask(a, i0, j0);
-      float st[4][4] = {}, dpt[4][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ka[4];
-        ldsm4(ka, ks + (16 * kg + row_a(lane)) * LQ + 16 * kk + col_a(lane));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t qb[4];
-          ldsm4(qb, q + (c0 + 16 * np + row_b(lane)) * LQ + 16 * kk + col_b(lane));
-          mma(st[2 * np], ka, qb[0], qb[1]);
-          mma(st[2 * np + 1], ka, qb[2], qb[3]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < HDV / 16; ++kk) {
-        uint32_t va[4];
-        ldsm4(va, vs + (16 * kg + row_a(lane)) * LV + 16 * kk + col_a(lane));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t ob[4];
-          ldsm4(ob, o + (c0 + 16 * np + row_b(lane)) * LV + 16 * kk + col_b(lane));
-          mma(dpt[2 * np], va, ob[0], ob[1]);
-          mma(dpt[2 * np + 1], va, ob[2], ob[3]);
-        }
-      }
-      // P^T and dS^T rounded to bf16 into the group's rows: element (key g
-      // (+ 8), q row c0 + 8 nt + 2 t (+ 1)) of accumulator nt
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int col = c0 + 8 * nt + 2 * t + (r & 1);
-          float pv = exp2f(st[nt][r] * sl2 - l[col] * kLog2e);
-          if (edge && !visible(a, i0 + col, j0 + 16 * kg + g + 8 * (r >> 1))) pv = 0.0f;
-          p[r] = pv;
-          ds[r] = pv * (dpt[nt][r] - d[col]);
-        }
-        const int c = c0 + 8 * nt + 2 * t;
-        *reinterpret_cast<uint32_t*>(pw + g * kXLd + c) = rt::pack2_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(pw + (g + 8) * kXLd + c) = rt::pack2_bf16(p[2], p[3]);
-        *reinterpret_cast<uint32_t*>(sw + g * kXLd + c) = rt::pack2_bf16(ds[0], ds[1]);
-        *reinterpret_cast<uint32_t*>(sw + (g + 8) * kXLd + c) = rt::pack2_bf16(ds[2], ds[3]);
-      }
-    }
-    pair_barrier(1 + kg);  // warps kg and kg + 4 have written the group's 64 q rows
-    // dv += P^T dO and dk += dS^T q over the tile's 64 q rows, the half's columns
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t pa[4], sa[4];
-      ldsm4(pa, pw + row_a(lane) * kXLd + 16 * kc + col_a(lane));
-      ldsm4(sa, sw + row_a(lane) * kXLd + 16 * kc + col_a(lane));
-#pragma unroll
-      for (int np = 0; np < NV; ++np) {
-        uint32_t ob[4];
-        ldsm4t(ob, o + (16 * kc + row_a(lane)) * LV + HDV / 2 * part + 16 * np + col_a(lane));
-        mma(dv[2 * np], pa, ob[0], ob[1]);
-        mma(dv[2 * np + 1], pa, ob[2], ob[3]);
-      }
-#pragma unroll
-      for (int np = 0; np < NK; ++np) {
-        uint32_t qb[4];
-        ldsm4t(qb, q + (16 * kc + row_a(lane)) * LQ + HD / 2 * part + 16 * np + col_a(lane));
-        mma(dk[2 * np], sa, qb[0], qb[1]);
-        mma(dk[2 * np + 1], sa, qb[2], qb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buf and the exchange before they are written again
-  }
-  cp_wait<0>();
-  store_acc(static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh + HD / 2 * part, a.dk_ss, j0, a.sk, dk,
-            a.scale);
-  store_acc(static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh + HDV / 2 * part, a.dv_ss, j0, a.sk, dv,
-            1.0f);
-}
-
 // One K/V tile against the block's q tile in the dq pass: warp w owns q rows
 // 16 w .. 16 w + 15 of the tile; l2 and dd are the log2-scaled lse and D of
-// the thread's rows g and g + 8. S and dP are formed KS keys at a time (64:
-// the whole tile; 32 at HD > 128, where 64 keys of both would take 64
-// accumulator registers beside dq's 96); dq's sums run in key order either way.
+// the thread's rows g and g + 8.
 template <int HD, int HDV>
 __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* qs, const bf16* dos, const bf16* ks,
                                         const bf16* vs, const float (&l2)[2], const float (&dd)[2], int i0,
                                         int j0, float (&dq)[HD / 8][4]) {
   constexpr int LQ = Tc<HD>::kLd, LV = Tc<HDV>::kLd, NQ = HD / 16;
-  constexpr int KS = HD > 128 ? 32 : kB, NT = KS / 8;  // keys a part, their 8-column tiles
+  constexpr int NT = kB / 8;  // the tile's 8-column tiles of keys
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const bool edge = crosses_mask(a, i0, j0);
   const float sl2 = a.scale * kLog2e;
+  float s[NT][4] = {}, dp[NT][4] = {};
 #pragma unroll
-  for (int k0 = 0; k0 < kB; k0 += KS) {
-    float s[NT][4] = {}, dp[NT][4] = {};
+  for (int kk = 0; kk < NQ; ++kk) {
+    uint32_t qa[4];
+    ldsm4(qa, qs + (16 * warp + row_a(lane)) * LQ + 16 * kk + col_a(lane));
 #pragma unroll
-    for (int kk = 0; kk < NQ; ++kk) {
-      uint32_t qa[4];
-      ldsm4(qa, qs + (16 * warp + row_a(lane)) * LQ + 16 * kk + col_a(lane));
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t kb[4];
-        ldsm4(kb, ks + (k0 + 16 * np + row_b(lane)) * LQ + 16 * kk + col_b(lane));
-        mma(s[2 * np], qa, kb[0], kb[1]);
-        mma(s[2 * np + 1], qa, kb[2], kb[3]);
-      }
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t kb[4];
+      ldsm4(kb, ks + (16 * np + row_b(lane)) * LQ + 16 * kk + col_b(lane));
+      mma(s[2 * np], qa, kb[0], kb[1]);
+      mma(s[2 * np + 1], qa, kb[2], kb[3]);
     }
+  }
 #pragma unroll
-    for (int kk = 0; kk < HDV / 16; ++kk) {
-      uint32_t oa[4];
-      ldsm4(oa, dos + (16 * warp + row_a(lane)) * LV + 16 * kk + col_a(lane));
+  for (int kk = 0; kk < HDV / 16; ++kk) {
+    uint32_t oa[4];
+    ldsm4(oa, dos + (16 * warp + row_a(lane)) * LV + 16 * kk + col_a(lane));
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t vb[4];
-        ldsm4(vb, vs + (k0 + 16 * np + row_b(lane)) * LV + 16 * kk + col_b(lane));
-        mma(dp[2 * np], oa, vb[0], vb[1]);
-        mma(dp[2 * np + 1], oa, vb[2], vb[3]);
-      }
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t vb[4];
+      ldsm4(vb, vs + (16 * np + row_b(lane)) * LV + 16 * kk + col_b(lane));
+      mma(dp[2 * np], oa, vb[0], vb[1]);
+      mma(dp[2 * np + 1], oa, vb[2], vb[3]);
     }
-    uint32_t sa[NT / 2][4];
+  }
+  uint32_t sa[NT / 2][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float d[4];
+  for (int nt = 0; nt < NT; ++nt) {
+    float d[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int u = r / 2;
-        float pv = exp2f(s[nt][r] * sl2 - l2[u]);
-        if (edge && !visible(a, i0 + 16 * warp + g + 8 * u, j0 + k0 + 8 * nt + 2 * t + (r & 1))) pv = 0.0f;
-        d[r] = pv * (dp[nt][r] - dd[u]);
-      }
-      const int kc = nt / 2, x = (nt % 2) * 2;
-      sa[kc][x] = rt::pack2_bf16(d[0], d[1]);
-      sa[kc][x + 1] = rt::pack2_bf16(d[2], d[3]);
+    for (int r = 0; r < 4; ++r) {
+      const int u = r / 2;
+      float pv = exp2f(s[nt][r] * sl2 - l2[u]);
+      if (edge && !visible(a, i0 + 16 * warp + g + 8 * u, j0 + 8 * nt + 2 * t + (r & 1))) pv = 0.0f;
+      d[r] = pv * (dp[nt][r] - dd[u]);
     }
+    const int kc = nt / 2, x = (nt % 2) * 2;
+    sa[kc][x] = rt::pack2_bf16(d[0], d[1]);
+    sa[kc][x + 1] = rt::pack2_bf16(d[2], d[3]);
+  }
 #pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
+  for (int kc = 0; kc < NT / 2; ++kc) {
 #pragma unroll
-      for (int np = 0; np < NQ; ++np) {
-        uint32_t kb[4];
-        ldsm4t(kb, ks + (k0 + 16 * kc + row_a(lane)) * LQ + 16 * np + col_a(lane));
-        mma(dq[2 * np], sa[kc], kb[0], kb[1]);
-        mma(dq[2 * np + 1], sa[kc], kb[2], kb[3]);
-      }
+    for (int np = 0; np < NQ; ++np) {
+      uint32_t kb[4];
+      ldsm4t(kb, ks + (16 * kc + row_a(lane)) * LQ + 16 * np + col_a(lane));
+      mma(dq[2 * np], sa[kc], kb[0], kb[1]);
+      mma(dq[2 * np + 1], sa[kc], kb[2], kb[3]);
     }
   }
 }
 
-// launch 3 (bf16): dq of 64 q rows of one q head; K and V double-buffered,
-// or at HD > 128 one buffer (two blocks an SM take turns instead)
+// launch 3 (bf16): dq of 64 q rows of one q head; K and V double-buffered
 template <int HD, int HDV>
 __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
   using Pl = Plan<HD, HDV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int TQ = Pl::kTq, TV = Pl::kTv, kBufs = Pl::kDqBufs;
+  constexpr int TQ = Pl::kTq, TV = Pl::kTv;
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + TQ;
-  bf16* ks = dos + TV;          // [kBufs][TQ]
-  bf16* vs = ks + kBufs * TQ;   // [kBufs][TV]
+  bf16* ks = dos + TV;      // [2][TQ]
+  bf16* vs = ks + 2 * TQ;   // [2][TV]
   const int nb = a.h * a.batch;
   const int* e = a.qplan + 3 * (blockIdx.x / nb);
   const int head = blockIdx.x % a.h, b = blockIdx.x % nb / a.h;
@@ -709,8 +536,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
   }
   float dq[HD / 8][4] = {};
   for (int s = 0; s < steps; ++s) {
-    const int buf = s % kBufs;
-    if (kBufs == 2 && s + 1 < steps) {
+    const int buf = s % 2;
+    if (s + 1 < steps) {
       copy_step(s + 1, buf ^ 1);
       cp_commit();
       cp_wait<1>();
@@ -720,10 +547,6 @@ __global__ void __launch_bounds__(kTcThreads, 2) fa_bwd_dq_mma(BwdArgs a) {
     __syncthreads();
     dq_tile<HD, HDV>(a, qs, dos, ks + buf * TQ, vs + buf * TV, l2, dd, i0, k_begin + s * kB, dq);
     __syncthreads();
-    if (kBufs == 1 && s + 1 < steps) {  // every warp is done with the buffer
-      copy_step(s + 1, 0);
-      cp_commit();
-    }
   }
   cp_wait<0>();
   store_acc(static_cast<bf16*>(a.dq) + b * a.dq_sb + head * a.dq_sh, a.dq_ss, i0, a.sq, dq, a.scale);
@@ -733,11 +556,7 @@ template <int HD, int HDV>
 cudaError_t launch_tc(const BwdArgs& a, cudaStream_t st) {
   using Pl = Plan<HD, HDV>;
   constexpr int smem_dkdv = Pl::kSmemDkdv, smem_dq = Pl::kSmemDq;
-  cudaError_t e;
-  if constexpr (Pl::kWide)
-    e = cudaFuncSetAttribute(fa_bwd_dkdv_wide<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
-  else
-    e = cudaFuncSetAttribute(fa_bwd_dkdv_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
+  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dkdv_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(fa_bwd_dq_mma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (e != cudaSuccess) return e;
@@ -748,10 +567,7 @@ cudaError_t launch_tc(const BwdArgs& a, cudaStream_t st) {
   const int n_kt = (a.sk + kB - 1) / kB, n_qt = (a.sq + kB - 1) / kB;
   if (n_kt > 0) {
     const unsigned blocks = static_cast<unsigned>(n_kt * a.kv * a.batch);
-    if constexpr (Pl::kWide)
-      fa_bwd_dkdv_wide<HD, HDV><<<blocks, Pl::kDkdvThreads, smem_dkdv, st>>>(a);
-    else
-      fa_bwd_dkdv_mma<HD><<<blocks, Pl::kDkdvThreads, smem_dkdv, st>>>(a);
+    fa_bwd_dkdv_mma<HD><<<blocks, Pl::kDkdvThreads, smem_dkdv, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -1014,7 +830,9 @@ int smem_of(int is_bf16, int pass) {
 // ceil(sk / 64) entries then the dq pass's ceil(sq / 64), three int32 each,
 // on the card (kernels/flash_attention.py:bwd_plan). (hd, hd_v) one of (16,
 // 16), (32, 32), (64, 64), (80, 80), (128, 128), (192, 192), (192, 128)
-// (the wrapper zero-pads any other pair up to one of these).
+// (the wrapper zero-pads any other pair up to one of these). bf16 at 192
+// takes the wide build, whose dsum is scratch of 2 x (batch, h, sq rounded
+// up to 64) f32 (the wrapper allocates it).
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const float* lse, float* dsum, const int* plan,
                                       void* dq, void* dk, void* dv, const int64_t* strides, int batch,
@@ -1030,7 +848,12 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                   batch, sq, sk, h, kv, hd, hd_v, scale, causal, window};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
-  if (hd == 192 && hd_v == 128) return launch_hd<192, 128>(a, bf, st);
+  if (hd == 192 && (hd_v == 192 || hd_v == 128)) {
+    if (bf)
+      return flash_bwd_wide_launch(q, k, v, o, dout, lse, dsum, plan, dq, dk, dv, strides, batch, sq, sk, h, kv,
+                                   hd, hd_v, scale, causal, window, st);
+    return hd_v == 128 ? launch_simt<192, 128>(a, st) : launch_simt<192, 192>(a, st);
+  }
   if (hd != hd_v) return cudaErrorInvalidValue;
   switch (hd) {
     case 16: return launch_hd<16, 16>(a, bf, st);
@@ -1038,16 +861,20 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
     case 64: return launch_hd<64, 64>(a, bf, st);
     case 80: return launch_hd<80, 80>(a, bf, st);
     case 128: return launch_hd<128, 128>(a, bf, st);
-    case 192: return launch_hd<192, 192>(a, bf, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // bytes of shared memory a block of the build (hd, hd_v) in bf16 or f32
-// takes, pass 0 the dk/dv kernel and 1 the dq kernel; -1 for a pair that is
+// takes, pass 0 the dk/dv kernel and 1 the dq kernel (bf16 at 192: pass 0
+// the dk/dv kernel of one consumer, 2 that of two); -1 for a pair that is
 // not built (kernels/flash_attention.py:bwd_smem is its twin)
 extern "C" int rt_flash_attention_bwd_smem(int hd, int hd_v, int is_bf16, int pass) {
-  if (hd == 192 && hd_v == 128) return smem_of<192, 128>(is_bf16, pass);
+  if (hd == 192 && (hd_v == 192 || hd_v == 128)) {
+    if (is_bf16) return flash_bwd_wide_smem(hd, hd_v, pass);
+    return static_cast<int>(sizeof(float)) *
+           (hd_v == 128 ? simt_smem_floats<192, 128>() : simt_smem_floats<192, 192>());
+  }
   if (hd != hd_v) return -1;
   switch (hd) {
     case 16: return smem_of<16, 16>(is_bf16, pass);
@@ -1055,7 +882,6 @@ extern "C" int rt_flash_attention_bwd_smem(int hd, int hd_v, int is_bf16, int pa
     case 64: return smem_of<64, 64>(is_bf16, pass);
     case 80: return smem_of<80, 80>(is_bf16, pass);
     case 128: return smem_of<128, 128>(is_bf16, pass);
-    case 192: return smem_of<192, 192>(is_bf16, pass);
     default: return -1;
   }
 }

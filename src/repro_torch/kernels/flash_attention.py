@@ -9,12 +9,16 @@ either frontier skipped. Port of the Pallas kernel
 ``repro/kernels/flash_attention.py:flash_attention``. The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
-bfloat16 runs on the tensor cores (``flash_fwd_wg``: wgmma bf16 products,
-K/V tiles through a three-stage cp.async ring, heaviest q tiles first);
-float32, which only the checks use, runs the SIMT kernel (``flash_fwd_simt``).
-The host plans the tensor-core kernel's work in plain functions that the
-CPU tests check: :func:`tile_plan` (the q-tile order and each tile's K/V
-range, which the kernel reads from the card) and :func:`load_route`.
+bfloat16 runs on the tensor cores: up to head dim 128 ``flash_fwd_wg``
+(wgmma bf16 products, K/V tiles through a three-stage cp.async ring,
+heaviest q tiles first), at 192 ``flash_fwd_wide`` (a producer warpgroup
+keeps K/V tiles in flight by TMA, two consumer warpgroups take turns at the
+tensor cores), built at v's own head dim for the pairs in
+:data:`WIDE_PAIRS`. float32, which only the checks use, runs the SIMT kernel
+(``flash_fwd_simt``). The host plans the tensor-core kernels' work in plain
+functions that the CPU tests check: :func:`tile_plan` (the q-tile order and
+each tile's K/V range, which the kernels read from the card),
+:func:`load_route` and :func:`fwd_smem`.
 
 The kernels are built for the head dims in ``HEAD_DIMS``. Any other head
 dim up to the largest runs at the next built one (:func:`padded_head_dim`):
@@ -26,13 +30,13 @@ kernel (``csrc/attention_pieces.cuh``, :data:`PIECES_KERNEL`), which walks
 the head dim in pieces of 64 columns and takes any head dim: :func:`route`
 names the kernel a call takes.
 
-A v head dim below q's and k's (MLA's 128 against 192) takes route (a),
-:func:`attend_padded_value`: v is zero-padded to q's head dim, the built
-kernel of that head dim runs with the scale of q's head dim (or the one
-given), and the output keeps its first ``hd_v`` columns. The zero columns
-of v add nothing to P·V; they cost (hd - hd_v) / hd_v more V bytes read and
-O bytes written (50% at MLA's shape). A build with its own v head dim is
-work for a later change.
+A v head dim below q's and k's runs at its own width where the pair is
+built, in bfloat16: MLA's (192, 128) by ``flash_fwd_wide``. Any other such
+pair, and float32, takes route (a), :func:`attend_padded_value`: v is
+zero-padded to q's head dim, the built kernel of that head dim runs with the
+scale of q's head dim (or the one given), and the output keeps its first
+``hd_v`` columns. The zero columns of v add nothing to P·V; they cost (hd -
+hd_v) / hd_v more V bytes read and O bytes written.
 
 Training: ``flash_attention(..., with_lse=True)`` also returns each row's
 log-sum-exp of its scaled scores, (B, H, Sq) float32, on route (a) too
@@ -43,8 +47,9 @@ head dim pairs in :data:`BWD_HEAD_DIM_PAIRS`: one head dim up to 192, and
 MLA's (192, 128), which takes v, o and dO at their own width; any other
 pair up to 192 is zero-padded to the next built one (:func:`bwd_widths`).
 Above 192 (the pieces route) it raises (:data:`BWD_ROADMAP`). bfloat16 runs
-on the tensor cores (mma.sync), in the order of :func:`bwd_plan`, at 192
-by the 8-warp dk/dv kernel (:func:`bwd_route`); float32 runs SIMT FMAs.
+on the tensor cores in the order of :func:`bwd_plan`: up to 128 on
+mma.sync, at 192 the wide build on wgmma (``csrc/flash_attention_bwd_wide.cu``,
+:func:`bwd_route`); float32 runs SIMT FMAs.
 :func:`bwd_smem` gives each build's shared memory a block. Its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
 """
@@ -67,6 +72,10 @@ KERNELS = {
     torch.bfloat16: "flash_fwd_wg (wgmma m64n64k16 / m64nHDk16 bf16, cp.async K/V ring, heavy-first)",
     torch.float32: "flash_fwd_simt (f32 FMAs from shared memory)",
 }
+# the bf16 build at q/k head dim 192 and the (q/k, v) head dim pairs it is built for
+WIDE_PAIRS = ((192, 192), (192, 128))
+WIDE_KERNEL = ("flash_fwd_wide (wgmma m64n64k16 / m64nHDVk16 bf16 at v's own head dim; a producer warpgroup's "
+               "TMA K/V ring with full/empty mbarriers, two consumer warpgroups in turns; heavy-first)")
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # csrc/flash_attention_bwd.cu, q/k and v alike
 # the (q/k, v) head dim pairs the C entry takes: one head dim, or MLA's (192, 128)
 BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in BWD_HEAD_DIMS) + ((192, 128),)
@@ -77,9 +86,12 @@ BWD_KERNELS = {
                     "cp.async double buffers, heavy-first)",
     torch.float32: "fa_bwd_dkdv + fa_bwd_dq (f32 FMAs from shared memory)",
 }
-BWD_WIDE_KERNEL = ("fa_bwd_dkdv_wide + fa_bwd_dq_mma (mma.sync m16n8k16 bf16; dk/dv by 8 warps, 4 key groups x "
-                   "2 column halves, P^T and dS^T through shared memory; dq over 32 keys at a time, one K/V "
-                   "buffer; heavy-first)")  # bf16 above BWD_WIDE
+# bf16 above BWD_WIDE
+BWD_WIDE_KERNEL = ("fa_bwd_dkdv_wide + fa_bwd_dq_wide (wgmma bf16: keys as M for S^T and dP^T, P^T and dS^T "
+                   "as register A operands of dv and dk; a producer warpgroup's TMA ring; heavy-first)")
+BWD_STEP = 32  # q rows a dk/dv step of the wide build (kStep)
+BWD_DQ_STEP = 64  # keys a dq step of the wide build (kStepDq)
+SMEM_TWO_AN_SM = 115712  # the shared memory a block may take so that two fit an SM (kBudget)
 BWD_ROADMAP = ("ROADMAP queue 1: K5's backward above head dim 192 (the pieces route's forward has no "
                "backward kernel)")
 SMEM_PER_BLOCK = 232448  # the most shared memory a block may opt in to on the H100
@@ -87,14 +99,72 @@ SMEM_PER_SM = 233472  # an SM's shared memory (228 KB), 1 KB of it reserved for 
 PIECES_KERNEL = "attention_pieces (SIMT f32 FMAs, head dim in pieces of 64, O in shared memory)"
 
 
+def wide(dtype: torch.dtype, hd: int, hd_v: int) -> bool:
+    """Whether K5 at (``hd``, ``hd_v``) runs ``flash_fwd_wide`` at v's own
+    head dim: bfloat16 at a pair of :data:`WIDE_PAIRS`."""
+    return dtype == torch.bfloat16 and (hd, hd_v) in WIDE_PAIRS
+
+
 def route(dtype: torch.dtype, hd: int, hd_v: Optional[int] = None) -> str:
     """The kernel K5 runs for ``dtype`` at head dim ``hd``: the pieces kernel
-    above the largest built head dim, else the build of the dtype; with a
-    smaller v head dim ``hd_v``, through route (a)."""
-    name = PIECES_KERNEL if hd > HEAD_DIMS[-1] else KERNELS[dtype]
-    if hd_v is not None and hd_v != hd:
+    above the largest built head dim, the wide build for bfloat16 at 192,
+    else the build of the dtype; with a smaller v head dim ``hd_v`` at its
+    own width where the pair is built, else through route (a)."""
+    hd_v = hd if hd_v is None else hd_v
+    if hd_v != hd and wide(dtype, hd, hd_v):
+        return WIDE_KERNEL + f" at ({hd}, {hd_v})"
+    if hd > HEAD_DIMS[-1]:
+        name = PIECES_KERNEL
+    else:
+        width = padded_head_dim(hd)
+        name = WIDE_KERNEL + f" at ({width}, {width})" if wide(dtype, width, width) else KERNELS[dtype]
+    if hd_v != hd:
         name += f", route (a): v zero-padded from {hd_v} to {hd}, output sliced"
     return name
+
+
+def fwd_smem(hd: int, hd_v: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory a block of the forward's build at (``hd``,
+    ``hd_v``) takes, the twin of ``csrc/flash_attention.cu:
+    rt_flash_attention_smem``: ``flash_fwd_wg`` Q (128 rows) and a
+    three-stage K/V ring of 64 keys with 1 KB to align the base;
+    ``flash_fwd_wide`` Q, as many stages of K and V as fit a block beside it
+    (:func:`fwd_stages`) and 128 bytes of mbarriers; f32 the SIMT kernel's
+    q, K, V and P tiles."""
+    if wide(dtype, hd, hd_v):
+        return 1024 + BLOCK_Q * hd * 2 + fwd_stages(hd, hd_v) * BLOCK_K * (hd + hd_v) * 2 + 128
+    if hd != hd_v or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no build at q head dim {hd} and v head dim {hd_v}")
+    if dtype == torch.bfloat16:
+        return BLOCK_Q * hd * 2 + 2 * 3 * BLOCK_K * hd * 2 + 1024
+    return 4 * (2 * 64 * (hd + 1) + 64 * hd + 64 * 65)
+
+
+def fwd_stages(hd: int, hd_v: int) -> int:
+    """The K/V stages of ``flash_fwd_wide``'s TMA ring: what a block's
+    shared memory holds beside Q, 1 KB of alignment slack and the barriers."""
+    return (SMEM_PER_BLOCK - 1024 - BLOCK_Q * hd * 2 - 128) // (BLOCK_K * (hd + hd_v) * 2)
+
+
+def fwd_launch_plan(b: int, sq: int, h: int, hd: int, hd_v: int, dtype: torch.dtype, sms: int = 132) -> str:
+    """The forward's launch at this shape in words (the smoke logs it), at
+    the build the call runs: (``hd``, ``hd_v``) where the wide build takes
+    the pair (a block an SM of the card's ``sms``, walking the work items),
+    else q, k and v padded to the built head dim (route (a) for a smaller
+    v)."""
+    if hd > HEAD_DIMS[-1]:
+        return f"1 launch of {PIECES_KERNEL}"
+    if not wide(dtype, hd, hd_v):
+        hd = hd_v = padded_head_dim(hd)
+    smem = fwd_smem(hd, hd_v, dtype)
+    if wide(dtype, hd, hd_v):
+        items = -(-sq // BLOCK_Q) * h * b
+        return (f"1 launch at ({hd}, {hd_v}): {min(items, sms)} blocks of 3 warpgroups (a TMA producer at 24 "
+                f"registers a thread, 2 consumers of 64 q rows at 240) over {items} items of {BLOCK_Q} q rows "
+                f"in snake order, a {fwd_stages(hd, hd_v)}-stage K/V ring of {BLOCK_K} keys, {smem} B of shared "
+                f"memory, 1 an SM")
+    rows = BLOCK_Q if dtype == torch.bfloat16 else 64
+    return f"1 launch at {hd}: {-(-sq // rows) * h * b} blocks of 8 warps, {smem} B of shared memory"
 
 
 def tile_plan(sq: int, sk: int, causal: bool, window: int,
@@ -145,12 +215,14 @@ def key_tile_plan(sq: int, sk: int, causal: bool, window: int,
     return sorted(plan, key=lambda e: (-((e[2] - e[1] + block - 1) // block), e[0]))
 
 
-def bwd_plan(sq: int, sk: int, causal: bool, window: int) -> List[Tuple[int, int, int]]:
+def bwd_plan(sq: int, sk: int, causal: bool, window: int,
+             wide_build: bool = False) -> List[Tuple[int, int, int]]:
     """The bfloat16 backward's plan, as the kernels read it: the dk/dv pass's
     :func:`key_tile_plan` entries, then the dq pass's :func:`tile_plan`
-    entries at tiles of :data:`BWD_BLOCK` q rows and keys."""
+    entries at tiles of :data:`BWD_BLOCK` q rows and keys; for the wide
+    build at the forward's q tiles of :data:`BLOCK_Q` rows."""
     return (key_tile_plan(sq, sk, causal, window)
-            + tile_plan(sq, sk, causal, window, BWD_BLOCK, BWD_BLOCK))
+            + tile_plan(sq, sk, causal, window, BLOCK_Q if wide_build else BWD_BLOCK, BWD_BLOCK))
 
 
 def bwd_widths(hd: int, hd_v: int) -> Tuple[int, int]:
@@ -176,26 +248,52 @@ def bwd_route(dtype: torch.dtype, hd: int, hd_v: Optional[int] = None) -> str:
     return name
 
 
-def bwd_smem(hd: int, hd_v: int, dtype: torch.dtype) -> Tuple[int, int]:
+def bwd_smem(hd: int, hd_v: int, dtype: torch.dtype, group: int = 1) -> Tuple[int, int]:
     """Bytes of shared memory a block of the backward's build (``hd``,
-    ``hd_v``) takes: (dk/dv kernel, dq kernel). The twin of
-    ``csrc/flash_attention_bwd.cu:rt_flash_attention_bwd_smem``: bf16 tiles
-    of 64 rows of hd + 8 values; below 192 the dk/dv block's two warp sets
-    each double-buffer q and dO (with lse and D), the dq block K and V; at
-    192 the dk/dv block double-buffers q and dO once and exchanges P^T and
-    dS^T (4 x 16 rows of 72), the dq block holds one K/V buffer. f32: q, k,
-    v, dO tiles of 64 x (hd + 1) floats, P and dS 64 x 65, lse and D."""
+    ``hd_v``) takes at a GQA group of ``group`` q heads a KV head: (dk/dv
+    kernel, dq kernel). The twin of ``csrc/flash_attention_bwd.cu:
+    rt_flash_attention_bwd_smem``: below 192 bf16 tiles of 64 rows of hd + 8
+    values, the dk/dv block's two warp sets each double-buffering q and dO
+    (with lse and D), the dq block K and V; at 192 the wide build's
+    slab-major tiles: the fixed rows of both head dims (the dk/dv block's 64
+    keys of K and V, the dq block's 128 q rows of q and dO), a ring of
+    :func:`bwd_stages` steps (dk/dv: 32 q rows with their lse and D; dq: 64
+    keys, its 128 rows' lse and D once), 1 KB to align the base and 128
+    bytes of mbarriers. f32: q, k, v, dO tiles of 64 x (hd + 1) floats,
+    P and dS 64 x 65, lse and D."""
     if (hd, hd_v) not in BWD_HEAD_DIM_PAIRS:
         raise ValueError(f"flash_attention_bwd: no build at q head dim {hd} and v head dim {hd_v}")
     b = BWD_BLOCK
     if dtype == torch.float32:
         n = 4 * (2 * b * (hd + 1) + 2 * b * (hd_v + 1) + 2 * b * (b + 1) + 2 * b)
         return n, n
-    tq, tv = b * (hd + 8), b * (hd_v + 8)
     if hd > BWD_WIDE:
-        exchange = 4 * 16 * (b + 8)
-        return (3 * tq + 3 * tv + 2 * exchange) * 2 + 4 * b * 4, (tq + tv) * 2 * 2
+        part = BWD_STEP * (hd + hd_v) * 2
+        st_dkdv, st_dq = bwd_stages(hd, hd_v, group)
+        return (1024 + b * (hd + hd_v) * 2 + st_dkdv * (part + 2 * BWD_STEP * 4) + 128,
+                1024 + BLOCK_Q * (hd + hd_v) * 2 + 2 * BLOCK_Q * 4 + st_dq * BWD_DQ_STEP * (hd + hd_v) * 2 + 128)
+    tq = b * (hd + 8)
     return 10 * tq * 2 + 8 * b * 4, 6 * tq * 2
+
+
+def bwd_consumers(group: int) -> int:
+    """The consumer warpgroups of the wide build's dk/dv block: two, taking
+    the steps in turn, where a KV head has a group of q heads (its key tiles
+    walk group x their q steps; the block has the SM), else one (two blocks
+    an SM, one's first loads and last stores under the other's products)."""
+    return 2 if group > 1 else 1
+
+
+def bwd_stages(hd: int, hd_v: int, group: int = 1) -> Tuple[int, int]:
+    """The ring stages of the wide backward's (dk/dv, dq) blocks: what a
+    block's shared memory (:data:`SMEM_PER_BLOCK`; a dk/dv block of one
+    consumer, two an SM, :data:`SMEM_TWO_AN_SM`) holds beside the fixed
+    tiles, the alignment slack and the barriers."""
+    part = BWD_STEP * (hd + hd_v) * 2
+    budget = SMEM_PER_BLOCK if bwd_consumers(group) == 2 else SMEM_TWO_AN_SM
+    return ((budget - 1024 - BWD_BLOCK * (hd + hd_v) * 2 - 128) // (part + 2 * BWD_STEP * 4),
+            (SMEM_PER_BLOCK - 1024 - BLOCK_Q * (hd + hd_v) * 2 - 2 * BLOCK_Q * 4 - 128)
+            // (BWD_DQ_STEP * (hd + hd_v) * 2))
 
 
 def bwd_launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, hd_v: int,
@@ -203,27 +301,36 @@ def bwd_launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, hd_v: in
     """The backward's launches at this shape in words (the smoke logs it):
     blocks, warps, shared memory and blocks an SM of each pass."""
     wq, wv = bwd_widths(hd, hd_v)
-    dkdv, dq = bwd_smem(wq, wv, dtype)
+    dkdv, dq = bwd_smem(wq, wv, dtype, h // kv)
     n_kt, n_qt = -(-sk // BWD_BLOCK), -(-sq // BWD_BLOCK)
     if dtype == torch.float32:
         return (f"3 launches: D a warp a row; dk/dv {n_kt * kv * b} blocks of 8 warps; dq {n_qt * h * b} "
                 f"blocks of 8 warps; {dkdv} B of shared memory a block, 1 an SM; SIMT f32")
-    wide = wq > BWD_WIDE
-    kind = ("4 key groups x 2 column halves, P^T and dS^T through shared memory" if wide
-            else "two sets of 4 taking alternate steps")
+    if wq > BWD_WIDE:
+        st_dkdv, st_dq = bwd_stages(wq, wv, h // kv)
+        two = bwd_consumers(h // kv) == 2
+        # blocks an SM: by shared memory, at most what the launch bounds ask
+        dkdv_sm = min(SMEM_PER_SM // (dkdv + 1024), 1 if two else 2)
+        consumers = "two consumers of 64 keys taking alternate steps" if two else "a consumer of 64 keys"
+        return (f"3 launches at ({wq}, {wv}): D and lse 16 threads a row; dk/dv {n_kt * kv * b} blocks of a "
+                f"TMA producer warpgroup and {consumers} ({BWD_STEP} q rows a step, a {st_dkdv}-stage ring), "
+                f"{dkdv} B, {dkdv_sm} an SM; dq {-(-sq // BLOCK_Q) * h * b} blocks of a producer and two "
+                f"consumers of 64 q rows sharing the K/V ring ({BWD_DQ_STEP} keys a step, a {st_dq}-stage ring), "
+                f"{dq} B, 1 an SM; wgmma bf16")
     # blocks an SM: by shared memory, at most what the launch bounds ask (1, 2)
     dkdv_sm, dq_sm = min(SMEM_PER_SM // (dkdv + 1024), 1), min(SMEM_PER_SM // (dq + 1024), 2)
     return (f"3 launches at ({wq}, {wv}): D 16 threads a row; dk/dv {n_kt * kv * b} blocks of 8 warps "
-            f"({kind}), {dkdv} B, {dkdv_sm} an SM; dq {n_qt * h * b} blocks of 4 warps "
-            f"({'32 keys at a time, one K/V buffer' if wide else 'K/V double-buffered'}), {dq} B, "
-            f"{dq_sm} an SM; mma.sync bf16")
+            f"(two sets of 4 taking alternate steps), {dkdv} B, {dkdv_sm} an SM; dq {n_qt * h * b} blocks of "
+            f"4 warps (K/V double-buffered), {dq} B, {dq_sm} an SM; mma.sync bf16")
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_plan_on(device: torch.device, sq: int, sk: int, causal: bool, window: int) -> torch.Tensor:
+def _bwd_plan_on(device: torch.device, sq: int, sk: int, causal: bool, window: int,
+                 wide_build: bool = False) -> torch.Tensor:
     """:func:`bwd_plan` as an (n, 3) int32 tensor on ``device``, made once per
     shape (the copy is blocking, so every stream sees it)."""
-    return torch.tensor(bwd_plan(sq, sk, causal, window), dtype=torch.int32).reshape(-1, 3).to(device)
+    plan = bwd_plan(sq, sk, causal, window, wide_build)
+    return torch.tensor(plan, dtype=torch.int32).reshape(-1, 3).to(device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -327,10 +434,11 @@ def flash_attention(
     if with_lse and q.shape[-1] > HEAD_DIMS[-1]:
         raise NotImplementedError(f"flash_attention under autograd at q head dim {q.shape[-1]}: the "
                                   f"route is {PIECES_KERNEL}, which writes no lse; {BWD_ROADMAP}")
-    if v.shape[-1] != q.shape[-1]:
+    hd_v = v.shape[-1]
+    if hd_v != q.shape[-1] and not wide(q.dtype, q.shape[-1], hd_v):
         return attend_padded_value(flash_attention, q, k, v, causal=causal, window=window,
                                    scale=scale, with_lse=with_lse)
-    check_heads(q, k, v, "flash_attention")
+    check_heads(q, k, v, "flash_attention", value_below=True)
     b, sq, h, hd = q.shape
     if hd > HEAD_DIMS[-1]:
         return _flash_pieces(q, k, v, causal, window, scale)
@@ -347,13 +455,13 @@ def flash_attention(
     load_route(q.dtype, q.element_size(), [t.data_ptr() for t in (q, k, v)], strides)
     scale = float(scale if scale is not None else hd ** -0.5)
     plan = _plan_on(q.device, sq, sk, bool(causal), int(window)).data_ptr() if q.dtype == torch.bfloat16 else 0
-    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     err = build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), plan,
         lse.data_ptr() if with_lse else None,
         build.strides_arg(strides + list(o.stride()[:3])),
-        b, sq, sk, h, kv, hd, scale, int(causal), int(window),
+        b, sq, sk, h, kv, hd, hd_v, scale, int(causal), int(window),
         int(q.dtype == torch.bfloat16), stream_ptr(q),
     )
     build.check(err, "flash_attention")
@@ -394,9 +502,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     load_route(q.dtype, q.element_size(), [t.data_ptr() for t in inputs],
                [s for t in inputs for s in t.stride()[:3]])
     is_bf16 = q.dtype == torch.bfloat16
-    plan = _bwd_plan_on(q.device, sq, sk, bool(causal), int(window)).data_ptr() if is_bf16 else None
+    wide_build = is_bf16 and hd > BWD_WIDE
+    plan = _bwd_plan_on(q.device, sq, sk, bool(causal), int(window), wide_build).data_ptr() if is_bf16 else None
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # D (the wide build: lse log2 e and D, rows padded to a whole q tile)
+    rows = (2, b, h, -(-sq // BLOCK_Q) * BLOCK_Q) if wide_build else (b, h, sq)
+    dsum = torch.empty(rows, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
     err = build.library().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),

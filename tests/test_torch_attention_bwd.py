@@ -74,11 +74,26 @@ def test_every_build_fits_a_blocks_shared_memory(dtype, pair):
 
 def test_shared_memory_of_the_builds_at_128_and_192():
     # 128: two sets double-buffering q and dO (10 tiles of 64 x 136 and lse/D),
-    # dq 6 tiles; 192: K, V, q and dO twice, the P^T/dS^T exchange, lse/D;
-    # dq q, dO, K, V once; f32 at 192 1 KB under the limit
+    # dq 6 tiles; 192 (the wide build on wgmma): 1 KB of alignment slack, the
+    # fixed 64 rows of both head dims, the ring's steps of 32 rows (dk/dv with
+    # each step's lse and D; dq with its 64 once) and 128 B of barriers: at two
+    # blocks an SM 3 steps at MLA's pair and 2 at 192's, and a dk/dv block of
+    # two consumers (a GQA group) 9 and 7 with the SM to itself; f32 at 192 1
+    # KB under the limit
     assert fa.bwd_smem(128, 128, torch.bfloat16) == (176128, 104448)
-    assert fa.bwd_smem(192, 192, torch.bfloat16) == (173056, 102400)
-    assert fa.bwd_smem(192, 128, torch.bfloat16) == (148480, 86016)
+    # the dq block: q and dO of 128 rows, their lse and D, steps of 64 keys (3
+    # at MLA's pair, 2 at 192's)
+    assert fa.bwd_smem(192, 192, torch.bfloat16) == (1024 + 49152 + 2 * (24576 + 256) + 128,
+                                                     1024 + 98304 + 1024 + 2 * 49152 + 128)
+    assert fa.bwd_smem(192, 192, torch.bfloat16) == (99968, 198784)
+    assert fa.bwd_smem(192, 192, torch.bfloat16, group=12) == (1024 + 49152 + 7 * (24576 + 256) + 128, 198784)
+    assert fa.bwd_smem(192, 192, torch.bfloat16, group=12) == (224128, 198784)
+    assert fa.bwd_smem(192, 128, torch.bfloat16) == (1024 + 40960 + 3 * (20480 + 256) + 128,
+                                                     1024 + 81920 + 1024 + 3 * 40960 + 128)
+    assert fa.bwd_smem(192, 128, torch.bfloat16) == (104320, 206976)
+    assert fa.bwd_smem(192, 128, torch.bfloat16, group=2) == (228736, 206976)
+    assert fa.bwd_stages(192, 128) == (3, 3) and fa.bwd_stages(192, 192) == (2, 2)
+    assert fa.bwd_stages(192, 128, 2) == (9, 3) and fa.bwd_stages(192, 192, 12) == (7, 2)
     assert fa.bwd_smem(192, 192, torch.float32) == (231424, 231424)
     assert fa.bwd_smem(192, 128, torch.float32) == (198656, 198656)
     with pytest.raises(ValueError, match="no build"):
@@ -88,14 +103,16 @@ def test_shared_memory_of_the_builds_at_128_and_192():
 def test_launch_plans_at_the_two_full_shapes():
     nemotron = fa.bwd_launch_plan(1, 2048, 2048, 96, 8, 192, 192, torch.bfloat16)
     assert nemotron == (
-        "3 launches at (192, 192): D 16 threads a row; dk/dv 256 blocks of 8 warps (4 key groups x 2 "
-        "column halves, P^T and dS^T through shared memory), 173056 B, 1 an SM; dq 3072 blocks of 4 "
-        "warps (32 keys at a time, one K/V buffer), 102400 B, 2 an SM; mma.sync bf16")
+        "3 launches at (192, 192): D and lse 16 threads a row; dk/dv 256 blocks of a TMA producer warpgroup "
+        "and two consumers of 64 keys taking alternate steps (32 q rows a step, a 7-stage ring), 224128 B, "
+        "1 an SM; dq 1536 blocks of a producer and two consumers of 64 q rows sharing the K/V ring (64 keys "
+        "a step, a 2-stage ring), 198784 B, 1 an SM; wgmma bf16")
     mla = fa.bwd_launch_plan(1, 2048, 2048, 128, 128, 192, 128, torch.bfloat16)
     assert mla == (
-        "3 launches at (192, 128): D 16 threads a row; dk/dv 4096 blocks of 8 warps (4 key groups x 2 "
-        "column halves, P^T and dS^T through shared memory), 148480 B, 1 an SM; dq 4096 blocks of 4 "
-        "warps (32 keys at a time, one K/V buffer), 86016 B, 2 an SM; mma.sync bf16")
+        "3 launches at (192, 128): D and lse 16 threads a row; dk/dv 4096 blocks of a TMA producer warpgroup "
+        "and a consumer of 64 keys (32 q rows a step, a 3-stage ring), 104320 B, 2 an SM; dq 2048 blocks of "
+        "a producer and two consumers of 64 q rows sharing the K/V ring (64 keys a step, a 3-stage ring), "
+        "206976 B, 1 an SM; wgmma bf16")
     qwen3 = fa.bwd_launch_plan(1, 2048, 2048, 32, 8, 128, 128, torch.bfloat16)
     assert "dk/dv 256 blocks of 8 warps (two sets of 4 taking alternate steps), 176128 B, 1 an SM" in qwen3
     assert "dq 1024 blocks of 4 warps (K/V double-buffered), 104448 B, 2 an SM" in qwen3
@@ -130,7 +147,9 @@ class _FakeLibrary:
         return 0
 
     def rt_flash_attention(self, *args):
-        self.fwd.append(dict(hd=args[12], lse=args[5]))
+        strides = [args[6][i] for i in range(12)]
+        self.fwd.append(dict(hd=args[12], hd_v=args[13], lse=args[5], is_bf16=args[17],
+                             v_strides=strides[6:9], o_strides=strides[9:12]))
         return 0
 
 
@@ -199,3 +218,23 @@ def test_with_lse_above_192_raises_naming_the_pieces_route(fake_library):
         fa.flash_attention(q, k, v, with_lse=True)
     assert not fake_library.fwd
 
+
+
+@pytest.mark.parametrize("dtype,hd,hd_v,called", [
+    (torch.bfloat16, 192, 128, (192, 128)),  # deepseek-v2's MLA: flash_fwd_wide at v's own head dim
+    (torch.bfloat16, 192, 192, (192, 192)),  # nemotron-4-340b
+    (torch.float32, 192, 128, (192, 192)),   # f32: route (a), v zero-padded to 192
+    (torch.bfloat16, 192, 96, (192, 192)),   # an unbuilt v head dim: route (a)
+    (torch.bfloat16, 128, 64, (128, 128)),   # below 192: route (a) into flash_fwd_wg
+])
+def test_the_forward_reaches_the_build_of_its_pair(fake_library, dtype, hd, hd_v, called):
+    q, k, v, _, _, _ = _bwd_args(4, 2, hd, hd_v, s=70, dtype=dtype)
+    o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
+    (call,) = fake_library.fwd
+    assert (call["hd"], call["hd_v"]) == called and call["is_bf16"] == int(dtype == torch.bfloat16)
+    assert call["v_strides"] == [70 * 2 * called[1], 2 * called[1], called[1]]  # v as the build takes it
+    assert call["o_strides"] == [70 * 4 * called[1], 4 * called[1], called[1]]
+    assert call["lse"] == lse.data_ptr() and lse.shape == (1, 4, 70)
+    assert o.shape == (1, 70, 4, hd_v)
+    assert fa.route(dtype, hd, hd_v).startswith("flash_fwd_wide") == (dtype == torch.bfloat16 and hd == 192)
+    assert ("route (a)" in fa.route(dtype, hd, hd_v)) == (called[1] != hd_v)

@@ -189,3 +189,56 @@ def test_decode_split_plan_streams_tiles_and_fills_the_card(lo, hi, blocks, sms)
     tiles = -(-(hi - lo // da.TILE * da.TILE) // da.TILE) if hi > lo else 0
     # as many blocks as the card has SMs, where the range has tiles enough
     assert blocks * splits >= min(sms, blocks * -(-tiles // da.MIN_TILES), blocks * da.MAX_SPLITS)
+
+
+# -- K5's wide forward at head dim 192 (flash_fwd_wide) -------------------------------------
+
+
+@pytest.mark.parametrize("pair", fa.WIDE_PAIRS)
+def test_the_wide_forward_fits_a_block_beside_its_ring(pair):
+    # 1 KB of alignment slack, Q of 128 rows, the ring's stages of 64 keys of K
+    # and V, 128 B of barriers: as many stages as fit the block's 232448 bytes
+    hd, hd_v = pair
+    smem, stages = fa.fwd_smem(hd, hd_v, torch.bfloat16), fa.fwd_stages(hd, hd_v)
+    assert smem == 1024 + 128 * hd * 2 + stages * 64 * (hd + hd_v) * 2 + 128 <= fa.SMEM_PER_BLOCK
+    assert smem + 64 * (hd + hd_v) * 2 > fa.SMEM_PER_BLOCK  # one stage more does not fit
+    assert stages >= 3
+
+
+def test_the_wide_forward_at_mla_and_nemotron():
+    # MLA: Q 48 KB and four stages of 24 KB of K and 16 KB of V; 192: three of 48 KB
+    assert (fa.fwd_stages(192, 128), fa.fwd_smem(192, 128, torch.bfloat16)) == (4, 214144)
+    assert (fa.fwd_stages(192, 192), fa.fwd_smem(192, 192, torch.bfloat16)) == (3, 197760)
+    assert fa.fwd_smem(128, 128, torch.bfloat16) == 132096  # flash_fwd_wg, unchanged
+    assert fa.fwd_launch_plan(1, 2048, 128, 192, 128, torch.bfloat16) == (
+        "1 launch at (192, 128): 132 blocks of 3 warpgroups (a TMA producer at 24 registers a thread, 2 "
+        "consumers of 64 q rows at 240) over 2048 items of 128 q rows in snake order, a 4-stage K/V ring of "
+        "64 keys, 214144 B of shared memory, 1 an SM")
+    assert "1 launch at (192, 192): 12 blocks" in fa.fwd_launch_plan(1, 129, 6, 192, 192, torch.bfloat16)
+    with pytest.raises(ValueError, match="no build"):
+        fa.fwd_smem(192, 128, torch.float32)
+
+
+@pytest.mark.parametrize("dtype,hd,hd_v,wide,route_a", [
+    (torch.bfloat16, 192, 128, True, False),
+    (torch.bfloat16, 192, 192, True, False),
+    (torch.bfloat16, 160, 160, True, False),   # padded to 192, the wide build at (192, 192)
+    (torch.float32, 192, 128, False, True),
+    (torch.float32, 192, 192, False, False),
+    (torch.bfloat16, 192, 96, True, True),     # an unbuilt pair: v padded to 192, then the wide build
+    (torch.bfloat16, 128, 128, False, False),
+])
+def test_route_names_the_build_that_runs(dtype, hd, hd_v, wide, route_a):
+    name = fa.route(dtype, hd, hd_v)
+    assert name.startswith("flash_fwd_wide") == wide and ("route (a)" in name) == route_a
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [(2048, 2048, True, 0), (300, 300, True, 64), (77, 203, False, 0)])
+def test_the_wide_backward_plan_takes_the_forwards_q_tiles(sq, sk, causal, window):
+    # the dq pass of the wide build: a block of 128 q rows (two consumers of 64)
+    # on the forward's tile plan, after the dk/dv pass's key tiles of 64
+    wide = fa.bwd_plan(sq, sk, causal, window, wide_build=True)
+    keys = fa.key_tile_plan(sq, sk, causal, window)
+    assert wide[:len(keys)] == keys == fa.bwd_plan(sq, sk, causal, window)[:len(keys)]
+    assert wide[len(keys):] == fa.tile_plan(sq, sk, causal, window, fa.BLOCK_Q, fa.BWD_BLOCK)
+    assert len(wide) - len(keys) == -(-sq // fa.BLOCK_Q)

@@ -21,7 +21,7 @@ differ only in the order of their sums: held at 1e-4 of the largest |value|.
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention, fused, kalman, ref, rmsnorm, ssd
+from repro_torch.kernels import build, decode_attention, flash_attention, fused, kalman, ref, rmsnorm, ssd
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -614,6 +614,90 @@ def test_cuda_flash_attention_head_dim_192(cuda, dtype, b, sq, sk, h, kv, causal
     got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, ATTN_BF16_TOL))
+
+
+# -- K5's wide bf16 build at head dim 192 (flash_fwd_wide), at v's own head dim ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd_v", [192, 128])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", [
+    (1, 2048, 2048, 16, 2, True, 0),   # causal, whole tiles
+    (2, 129, 129, 12, 1, True, 0),     # ragged q and K/V tiles, a GQA group of 12
+    (1, 300, 300, 4, 4, True, 64),     # a window inside a tile
+    (1, 127, 200, 8, 2, False, 0),     # no mask, Sq != Sk
+    (1, 333, 70, 6, 3, True, 0),       # Sq > Sk, causal
+])
+def test_cuda_flash_attention_wide(cuda, hd_v, b, sq, sk, h, kv, causal, window):
+    # the wide build at (192, hd_v) against the plain version, and its lse
+    # against the padded route's (v zero-padded to 192, the same scores)
+    g = torch.Generator().manual_seed(sq + hd_v)
+    q = _randn(g, (b, sq, h, 192), cuda, torch.bfloat16)
+    k = _randn(g, (b, sk, kv, 192), cuda, torch.bfloat16)
+    v = _randn(g, (b, sk, kv, hd_v), cuda, torch.bfloat16)
+    scale = 192 ** -0.5 * 0.9
+    before = build.launch_counts()["flash_attention"]
+    got, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window, scale=scale, with_lse=True)
+    assert build.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == (b, sq, h, hd_v) and lse.shape == (b, h, sq)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_BF16_TOL)
+    padded, lse_padded = flash_attention.attend_padded_value(
+        flash_attention.flash_attention, q, k, v, causal=causal, window=window, scale=scale, with_lse=True)
+    torch.testing.assert_close(lse, lse_padded, **F32_TOL)
+    torch.testing.assert_close(got.float(), padded.float(), **ATTN_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd_v", [192, 128])
+def test_cuda_flash_attention_wide_reads_strided_views_and_blind_rows(cuda, hd_v):
+    # q, k, v as slices of one fused projection; causal with a window of 50
+    # over 100 keys, so rows 149 and up see no key: zeros and lse +inf
+    g = torch.Generator().manual_seed(hd_v)
+    b, sq, sk, h, kv, window = 2, 300, 100, 4, 2, 50
+    qx = _randn(g, (b, sq, h * 192 + 64), cuda, torch.bfloat16)
+    kvx = _randn(g, (b, sk, kv * (192 + hd_v)), cuda, torch.bfloat16)
+    q = qx[..., : h * 192].view(b, sq, h, 192)
+    k = kvx[..., : kv * 192].view(b, sk, kv, 192)
+    v = kvx[..., kv * 192:].view(b, sk, kv, hd_v)
+    got, lse = flash_attention.flash_attention(q, k, v, causal=True, window=window, with_lse=True)
+    packed = flash_attention.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                                             window=window)
+    assert torch.equal(got, packed)
+    blind = sk + window - 1
+    assert torch.equal(got[:, blind:], torch.zeros_like(got[:, blind:]))
+    assert bool(torch.isinf(lse[:, :, blind:]).all()) and bool(torch.isfinite(lse[:, :, :blind]).all())
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got[:, :blind].float(), want[:, :blind].float(), **ATTN_BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_at_mla_takes_the_wide_build_not_route_a(cuda, monkeypatch):
+    # bf16 at (192, 128) launches flash_fwd_wide once; route (a) is not reached
+    def refuse(*args, **kwargs):
+        raise AssertionError("route (a) reached")
+
+    g = torch.Generator().manual_seed(1)
+    q = _randn(g, (1, 200, 8, 192), cuda, torch.bfloat16)
+    k, v = _randn(g, (1, 200, 8, 192), cuda, torch.bfloat16), _randn(g, (1, 200, 8, 128), cuda, torch.bfloat16)
+    monkeypatch.setattr(flash_attention, "attend_padded_value", refuse)
+    before = build.launch_counts()["flash_attention"]
+    out = flash_attention.flash_attention(q, k, v, causal=True)
+    assert build.launch_counts()["flash_attention"] == before + 1 and out.shape == (1, 200, 8, 128)
+    assert flash_attention.route(torch.bfloat16, 192, 128).startswith("flash_fwd_wide")
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_smem_matches_the_source(cuda):
+    lib = build.library()
+    pairs = [(hd, hd) for hd in flash_attention.HEAD_DIMS] + list(flash_attention.WIDE_PAIRS)
+    for hd, hd_v in pairs:
+        for dtype in (torch.bfloat16, torch.float32):
+            if hd != hd_v and dtype == torch.float32:
+                assert lib.rt_flash_attention_smem(hd, hd_v, 0) == -1
+                continue
+            want = flash_attention.fwd_smem(hd, hd_v, dtype)
+            assert lib.rt_flash_attention_smem(hd, hd_v, int(dtype == torch.bfloat16)) == want, (hd, hd_v, dtype)
+    assert lib.rt_flash_attention_smem(192, 96, 1) == -1
 
 
 @pytest.mark.gpu
@@ -1937,6 +2021,10 @@ def test_cuda_flash_attention_bwd_smem_matches_the_source(cuda):
             got = tuple(lib.rt_flash_attention_bwd_smem(hd, hd_v, int(dtype == torch.bfloat16), p)
                         for p in (0, 1))
             assert got == want, (hd, hd_v, dtype)
+    for hd, hd_v in flash_attention.BWD_HEAD_DIM_PAIRS:  # the wide dk/dv block of two consumers: pass 2
+        if hd > flash_attention.BWD_WIDE:
+            want = flash_attention.bwd_smem(hd, hd_v, torch.bfloat16, group=2)[0]
+            assert lib.rt_flash_attention_bwd_smem(hd, hd_v, 1, 2) == want, (hd, hd_v)
     assert lib.rt_flash_attention_bwd_smem(160, 128, 1, 0) == -1
 
 

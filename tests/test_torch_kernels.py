@@ -188,7 +188,8 @@ def test_build_is_lazy_and_keyed_by_source():
     assert build._lib is None
     names = [p.rsplit("/", 1)[-1] for p in build.sources()]
     assert names == [
-        "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fused.cu",
+        "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_wide.cu",
+        "flash_attention_wide.cu", "fused.cu",
         "kalman.cu", "mlstm.cu", "mlstm_bwd.cu", "mlstm_general.cu", "rmsnorm.cu", "rmsnorm_bwd.cu",
         "slstm.cu", "slstm_bwd.cu", "ssd.cu", "ssd_bwd.cu",
     ]

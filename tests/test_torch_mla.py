@@ -114,7 +114,12 @@ def test_route_a_padded_value_is_exactly_the_unpadded_result(causal, sq, sk, hd,
                                               scale=0.1)
     assert got.shape == (1, sq, 4, hd_v) and got.is_contiguous()
     assert torch.equal(got, want)
-    assert "route (a)" in flash_attention.route(torch.bfloat16, hd, hd_v)
+    # the card's bf16 runs MLA's (192, 128) at v's own head dim (flash_fwd_wide);
+    # f32 and unbuilt pairs keep route (a)
+    wide = (hd, hd_v) in flash_attention.WIDE_PAIRS
+    assert ("route (a)" in flash_attention.route(torch.bfloat16, hd, hd_v)) == (not wide)
+    assert flash_attention.route(torch.bfloat16, hd, hd_v).startswith("flash_fwd_wide") == wide
+    assert "route (a)" in flash_attention.route(torch.float32, hd, hd_v)
     with pytest.raises(ValueError, match="above"):
         flash_attention.attend_padded_value(ref.flash_attention_ref, q[..., :8], k[..., :8], v)
 
